@@ -1,0 +1,126 @@
+"""Serving launcher of the port:
+``python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8``
+builds the continuous-batching engine (paged KV cache + chunked prefill)
+on one device, submits synthetic requests and reports the serving metrics
+(TTFT / TPOT p50/p95, tok/s).  Same flags as ``repro.launch.serve`` for the
+serving path this slice ports, plus ``--device {cuda,cpu}`` (default cuda:
+raises when no GPU is present unless ``--device cpu``).  Weights are drawn
+from ``--seed`` at the config's published shapes.  Exits nonzero when no
+tokens were produced.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--strategy", default="3d", choices=["3d", "2d", "1d"])
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the k most likely tokens (0 = off)")
+    ap.add_argument("--top-p", type=float, default=0.0,
+                    help="nucleus sampling mass (0 = off)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the sampler")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="submit every Nth request on the priority queue "
+                         "(0 = all FIFO)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged KV cache block size (tokens per block)")
+    ap.add_argument("--prefill-chunk", type=int, default=4096,
+                    help="max padded tokens per chunked-prefill step")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="sequential prefill (one prompt token per engine "
+                         "step)")
+    ap.add_argument("--inference-opt", action="store_true",
+                    help="x-replicated decode weights (zero per-token gathers)")
+    ap.add_argument("--no-fused-decode", action="store_true",
+                    help="gather-view decode (not in this slice: raises)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many common tokens to every "
+                         "synthetic request")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace of the run here (plus a "
+                         "<path>.jsonl event log)")
+    args = ap.parse_args(argv)
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.config import reduced
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    from repro_torch.obs import make_tracer
+    from repro_torch.serve import Engine, Request
+    from repro_torch.serve.metrics import format_summary
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        sys.exit("--device cuda: no CUDA device is available (pass "
+                 "--device cpu to run the plain versions on the CPU)")
+    device = torch.device(args.device)
+    cfg = get(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
+                        strategy=args.strategy)
+    plan.validate(n_layers=cfg.n_layers, model=cfg, mode="serve")
+    layout = plan.build()
+    if args.inference_opt:
+        layout = dataclasses.replace(layout, inference_opt=True)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"serving {cfg.arch}{' (reduced)' if args.reduced else ''} on "
+          f"{layout.n_devices} device ({name}), cube={layout.cube}, "
+          f"cache={transformer.serve_cache_mode(cfg)}")
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(cfg, gen, device, getattr(torch, cfg.dtype))
+    tracer = make_tracer(bool(args.trace))
+    eng = Engine(cfg, layout, params, batch_size=args.batch_size,
+                 max_len=args.max_len, temperature=args.temperature,
+                 top_k=args.top_k, top_p=args.top_p, seed=args.seed,
+                 block_size=args.block_size,
+                 prefill_chunk=args.prefill_chunk,
+                 chunked_prefill=not args.no_chunked_prefill,
+                 fused_decode=not args.no_fused_decode, tracer=tracer)
+    common = [3 + j % 13 for j in range(args.shared_prefix)]
+    reqs = [Request(uid=i,
+                    prompt=common + [2 + (i + j) % 17
+                                     for j in range(3 + i % 5)],
+                    max_new=args.max_new,
+                    priority=(1 if args.priority and i % args.priority == 0
+                              else 0))
+            for i in range(args.requests)]
+    stats = eng.run(reqs)
+    for r in reqs[:4]:
+        tag = f" [rejected: {r.error}]" if r.error else ""
+        print(f"  req {r.uid}: {len(r.prompt)} prompt -> {r.out}{tag}")
+    print(format_summary(stats))
+    if stats["nonfinite_rows"]:
+        print(f"  WARNING: {stats['nonfinite_rows']} emitted tokens came "
+              "from non-finite logits")
+    if args.trace:
+        tracer.write_chrome(args.trace)
+        tracer.write_jsonl(args.trace + ".jsonl")
+        print(f"trace: wrote {args.trace} (+ {args.trace}.jsonl)")
+    if stats["tokens"] <= 0:
+        sys.exit("no tokens generated")
+    return stats
+
+
+if __name__ == "__main__":
+    main()
