@@ -4,18 +4,32 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 
 Phases, in order (any failure raises and exits nonzero):
 
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+     (one process per source, all at once);
   2. K1 matmul against its plain version at every GEMM shape of
      tinyllama-1.1b's decode and prefill, bf16 and f32, every activation,
      with and without bias; time the path's case (bf16, no bias, no act);
   3. K4 paged decode against its plain version at the tinyllama shape
      (B = 8, 32 q heads, 4 kv heads, d = 64, block 16): ragged contexts of
      64-1024 tokens, a windowed case, null and recycled blocks, residuals;
-  4. full-width two-layer tinyllama in f32: CPU (plain versions) against
-     the card (kernels), prefill and the first fused decode step's logits;
-  5. the serving run: ``repro_torch.launch.serve`` serves 8 requests of
+  4. K3 RMSNorm forward and backward against their plain versions at the
+     training shape (8192 rows x 2048), bf16 and f32, with and without a
+     zero-centred gain; times beside ``F.rms_norm``;
+  5. K2 flash attention forward and backward against their plain versions
+     at the training shape (4 x 2048, 32/4 heads, d = 64, causal), bf16 and
+     f32; times beside ``F.scaled_dot_product_attention``;
+  6. full-width two-layer tinyllama in f32: CPU (plain versions) against
+     the card (kernels), serving prefill and the first fused decode step's
+     logits, then one training step's loss and gradients (batch 2 x 512);
+  7. the serving run: ``repro_torch.launch.serve`` serves 8 requests of
      tinyllama-1.1b at full depth and width in bf16 (weights from a seed),
-     with both kernels' launch counters reset just before and read after.
+     with the kernels' launch counters reset just before and read after;
+  8. the training run: ``repro_torch.launch.train`` trains tinyllama-1.1b at
+     full depth and width in bf16 (batch 4 x 2048, remat, AdamW, synthetic
+     tokens from seed 0) for a few steps, counters reset before and read
+     after; every loss must be finite and the launches as expected;
+  9. where the time of one such training step goes: torch.profiler's
+     device time by kernel group, and the device's idle share.
 
 The lines before the last carry one JSON object of per-kernel numbers and
 the card's name and power limit from nvidia-smi; the last line is
@@ -46,6 +60,14 @@ LAYER_GEMMS = [("wq,wo", D, NQ * DH, 2), ("wk,wv", D, NKV * DH, 2),
                ("w_up,w_gate", D, FF, 2), ("w_down", FF, D, 1)]
 HEAD_GEMM = ("head", D, VOCAB, 1)
 DECODE_M, PREFILL_M = 8, 8 * 512     # batch 8; prefill pads 259-263 -> 512
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5    # the training run (phase 8)
+# launches per training step: K1 runs the 7 linears of each layer twice
+# (forward and its recompute under remat) and the head's 2 loss chunks
+# twice; K2 runs each layer's attention forward twice and backward once;
+# K3 the 2 norms of each layer twice and ln_f once, backward once each
+TRAIN_LAUNCHES = {"K1": 2 * 7 * LAYERS + 2 * 2, "K2": 2 * LAYERS,
+                  "K2 bwd": LAYERS, "K3": 2 * 2 * LAYERS + 1,
+                  "K3 bwd": 2 * LAYERS + 1}
 
 
 class SmokeFailure(RuntimeError):
@@ -83,6 +105,17 @@ def rel_err(got, want):
     """max |got - want| / (1 + |want|), elementwise, in f32."""
     g, w = got.float(), want.float()
     return ((g - w).abs() / (1 + w.abs())).max().item()
+
+
+def scaled_err(got, want):
+    """max |got - want| / (1 + max |want|), in f32: for gradients, whose
+    entries span many magnitudes."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().max() / (1 + w.abs().max())).item()
+
+
+def abs_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
 
 
 def phase_build():
@@ -265,6 +298,157 @@ def phase_k4(dev):
     return timing
 
 
+def phase_k3(dev):
+    """K3 at the training shape: every norm of a step sees 8192 rows of
+    2048.  Returns the path case's numbers (bf16, no zero-centring), the
+    kernel's time as forward + backward of one norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as k3
+    m, h = TRAIN_B * TRAIN_S, D
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    worst_path_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(m, h, generator=gen, device=dev).to(dtype)
+        g = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).to(dtype)
+        dy = torch.randn(m, h, generator=gen, device=dev).to(dtype)
+        for zc in (False, True):
+            y, rstd = k3.rmsnorm_fwd(x, g, zero_centered=zc)
+            dx, dg = k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)
+            y2, rstd2 = k3.rmsnorm_plain(x, g, zero_centered=zc)
+            dx2, dg2 = k3.rmsnorm_bwd_plain(dy, x, g, rstd2, zero_centered=zc)
+            errs = {"y": scaled_err(y, y2), "rstd": scaled_err(rstd, rstd2),
+                    "dx": scaled_err(dx, dx2), "dg": scaled_err(dg, dg2)}
+            worst = max(errs.values())
+            print(f"[4] K3 ({m},{h}) {str(dtype)[6:]:8s} zc={zc!s:5s} errors "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (tol {tol[dtype]:.0e}, relative to 1 + max)")
+            check(worst <= tol[dtype], f"K3 {dtype} zc={zc}: {errs}")
+            if dtype == torch.bfloat16 and not zc:
+                worst_path_err = max(abs_err(a, b) for a, b in
+                                     ((y, y2), (dx, dx2), (dg, dg2)))
+    xr = x.detach().requires_grad_()
+    gr = g.detach().requires_grad_()
+
+    def lib_fwd_bwd():
+        out = F.rms_norm(xr, (h,), gr, 1e-6)
+        torch.autograd.grad(out, (xr, gr), dy)
+    t = {"fwd_ms": time_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
+         "bwd_ms": time_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 50),
+         "plain_fwd_ms": time_ms(lambda: k3.rmsnorm_plain(x, g), 20),
+         "plain_bwd_ms": time_ms(lambda: k3.rmsnorm_bwd_plain(dy, x, g, rstd),
+                                 20),
+         "library_fwd_ms": time_ms(lambda: F.rms_norm(x, (h,), g, 1e-6), 50),
+         "library_ms": time_ms(lib_fwd_bwd, 50)}
+    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+    fb, fo = bound_ms(2 * m * h * 2 + h * 2 + m * 4, 4 * m * h,
+                      H100_F32_FLOPS)
+    bb, bo = bound_ms(3 * m * h * 2 + 2 * h * 2 + m * 4, 10 * m * h,
+                      H100_F32_FLOPS)
+    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+             bound_by=fo if fo == bo else "bytes and operations",
+             max_abs_err=worst_path_err)
+    print(f"[4] K3 bf16 ({m},{h}): forward {t['fwd_ms']:.4f} ms (plain "
+          f"{t['plain_fwd_ms']:.4f}, F.rms_norm {t['library_fwd_ms']:.4f}, "
+          f"bound {fb:.4f} {fo}); backward {t['bwd_ms']:.4f} ms (plain "
+          f"{t['plain_bwd_ms']:.4f}, bound {bb:.4f} {bo}); F.rms_norm fwd+bwd"
+          f" {t['library_ms']:.4f} ms")
+    return t
+
+
+def k2_work(q_pos, k_pos, b, nq, d, elt):
+    """(fwd bytes, fwd flops, bwd bytes, bwd flops) of one attention call,
+    causal, the flops counted over the allowed (query, key) pairs of these
+    positions: 2 products of 2*d flops a pair forward, 5 backward."""
+    qp, kp = q_pos[:, :, None], k_pos[None, None, :]
+    allowed = (kp >= 0) & (qp >= kp)
+    pairs = int(allowed.sum().item()) * nq
+    sq, sk = q_pos.shape[1], k_pos.shape[0]
+    nkv = NKV
+    q_bytes = b * sq * nq * d * elt
+    kv_bytes = 2 * b * sk * nkv * d * elt
+    lse = b * nq * sq * 4
+    pos = (b * sq + sk) * 4
+    fwd = (2 * q_bytes + kv_bytes + lse + pos, 4 * d * pairs)
+    bwd = (4 * q_bytes + 2 * kv_bytes + lse + pos, 10 * d * pairs)
+    return (*fwd, *bwd)
+
+
+def phase_k2(dev):
+    """K2 at the training shape of one layer (also the serving prefill's
+    kernel).  Returns the path case's numbers (bf16, causal), the kernel's
+    time as one forward + one backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    b, s = TRAIN_B, TRAIN_S
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q_pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
+        .contiguous()
+    k_pos = torch.arange(s, dtype=torch.int32, device=dev)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    worst_path_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, s, NQ, DH, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, NKV, DH, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, NKV, DH, generator=gen, device=dev).to(dtype)
+        dout = torch.randn(b, s, NQ, DH, generator=gen, device=dev).to(dtype)
+        out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos)
+        grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos)
+        out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos)
+        grads2 = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
+                                              k_pos)
+        pairs = [("out", out, out2), ("lse", lse, lse2)] + list(
+            zip(("dq", "dk", "dv"), grads, grads2))
+        errs = {n: scaled_err(a, c) for n, a, c in pairs}
+        print(f"[5] K2 ({b},{s},{NQ}/{NKV},{DH}) causal {str(dtype)[6:]:8s} "
+              "errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {tol[dtype]:.0e}, relative to 1 + max)")
+        check(max(errs.values()) <= tol[dtype], f"K2 {dtype}: {errs}")
+        if dtype == torch.bfloat16:
+            worst_path_err = max(abs_err(a, c) for n, a, c in pairs
+                                 if n != "lse")
+        del grads2, out2
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
+    t = {"fwd_ms": time_ms(lambda: k2.flash_attention_fwd(q, k, v, q_pos,
+                                                          k_pos), 5),
+         "bwd_ms": time_ms(lambda: k2.flash_attention_bwd(
+             q, k, v, out, dout, lse, q_pos, k_pos), 3),
+         "plain_fwd_ms": time_ms(lambda: k2.flash_attention_fwd_plain(
+             q, k, v, q_pos, k_pos), 2),
+         "plain_bwd_ms": time_ms(lambda: k2.flash_attention_bwd_plain(
+             q, k, v, out, dout, lse, q_pos, k_pos), 2),
+         "library_fwd_ms": time_ms(sdpa, 20),
+         "library_ms": time_ms(sdpa_fwd_bwd, 20)}
+    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+    fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, NQ, DH, 2)
+    fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
+    bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
+    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+             bound_by=fo if fo == bo else "bytes and operations",
+             max_abs_err=worst_path_err)
+    print(f"[5] K2 bf16 ({b},{s},{NQ}/{NKV},{DH}) causal: forward "
+          f"{t['fwd_ms']:.3f} ms ({ffl / t['fwd_ms'] / 1e9:.2f} TFLOP/s; "
+          f"plain {t['plain_fwd_ms']:.3f}, sdpa {t['library_fwd_ms']:.3f}, "
+          f"bound {fb:.4f} {fo}); backward {t['bwd_ms']:.3f} ms "
+          f"({bfl / t['bwd_ms'] / 1e9:.2f} TFLOP/s; plain "
+          f"{t['plain_bwd_ms']:.3f}, bound {bb:.4f} {bo}); sdpa fwd+bwd "
+          f"{t['library_ms']:.3f} ms")
+    return t
+
+
 def phase_two_layer(dev):
     """Full-width tinyllama cut to two layers, f32, the same seeded
     weights on the CPU (plain versions) and on the card (kernels)."""
@@ -320,40 +504,229 @@ def phase_two_layer(dev):
     for i, name in enumerate(("prefill last-position", "first decode step")):
         err = (out["cpu"][i] - out["cuda"][i]).abs().max().item()
         scale = out["cpu"][i].abs().max().item()
-        print(f"[4] two-layer full width f32 {name} logits: max abs err "
+        print(f"[6] two-layer full width f32 {name} logits: max abs err "
               f"{err:.2e} (tol {tol:.0e}; |logits| up to {scale:.2f})")
         check(err <= tol and math.isfinite(err), f"two-layer {name}: {err}")
 
 
-def phase_serve(card):
+def phase_two_layer_train(dev):
+    """One training step's loss and gradients of full-width tinyllama cut
+    to two layers, f32, batch 2 x 512: CPU (plain versions) against the
+    card (kernels), the same seeded weights and tokens."""
+    import numpy as np
     import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=2,
+                              dtype="float32")
+    layout = ParallelPlan().validate(mode="train").build()
+    cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu",
+                      torch.float32)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 513)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][1, -7:] = -1
+    res = {}
+    for d in ("cpu", dev):
+        live = tree_map(lambda t: t.detach().to(d).requires_grad_(), cpu)
+        loss, _ = transformer.forward(
+            cfg, layout, live, {k: v.to(d) for k, v in batch.items()},
+            mode="train")
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads])
+    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+    names = [".".join(p) for p in _paths(cpu)]
+    worst = max(scaled_err(a, b) for a, b in zip(g_dev, g_cpu))
+    shown = {n: scaled_err(a, b) for n, a, b in zip(names, g_dev, g_cpu)
+             if n in ("embed", "head", "ln_f.g", "stack.dense.ln1.g",
+                      "stack.dense.attn.wq", "stack.dense.mlp.w_down")}
+    tol = 1e-3      # f32 on both; the order of the sums differs
+    print(f"[6] two-layer full width f32 train step (2x512): loss cpu "
+          f"{l_cpu:.6f} card {l_dev:.6f}; gradient errors relative to "
+          f"1 + max: " + ", ".join(f"{k} {v:.1e}" for k, v in shown.items())
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e})")
+    check(abs(l_cpu - l_dev) <= 1e-4 and math.isfinite(l_dev),
+          f"two-layer train loss: {l_cpu} vs {l_dev}")
+    check(worst <= tol, f"two-layer train gradients: {worst}")
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield prefix
+
+
+def reset_launches():
+    from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import matmul as k1
     from repro_torch.kernels import paged_decode as k4
+    from repro_torch.kernels import rmsnorm as k3
+    k1.launches = k2.launches = k2.launches_bwd = k3.launches = 0
+    k3.launches_bwd = k4.launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import matmul as k1
+    from repro_torch.kernels import paged_decode as k4
+    from repro_torch.kernels import rmsnorm as k3
+    return {"K1": k1.launches, "K2": k2.launches, "K2 bwd": k2.launches_bwd,
+            "K3": k3.launches, "K3 bwd": k3.launches_bwd, "K4": k4.launches}
+
+
+def phase_serve(card):
+    import torch
     from repro_torch.launch import serve
-    k1.launches = 0
-    k4.launches = 0
+    reset_launches()
     stats = serve.main(["--arch", "tinyllama-1.1b", "--device", "cuda",
                         "--requests", "8", "--batch-size", "8",
                         "--shared-prefix", "256", "--max-new", "32",
                         "--max-len", "512", "--block-size", "16"])
     torch.cuda.synchronize()
-    launches = {"K1": k1.launches, "K4": k4.launches}
+    launches = read_launches()
     steps = stats["prefill_steps"] + stats["decode_steps"]
-    print(f"[5] launches in the serving run: {launches} over "
+    want = {"K1": 155 * steps, "K2": LAYERS * stats["prefill_steps"],
+            "K2 bwd": 0, "K3": (2 * LAYERS + 1) * steps, "K3 bwd": 0,
+            "K4": LAYERS * stats["decode_steps"]}
+    print(f"[7] launches in the serving run: {launches} over "
           f"{stats['prefill_steps']} prefill + {stats['decode_steps']} decode "
-          f"steps (expected K1 {155 * steps}, K4 {LAYERS * stats['decode_steps']})")
+          f"steps (expected {want})")
     check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
           f"serving run: {stats['tokens']} tokens, {stats['completed']} done")
     check(stats["nonfinite_rows"] == 0,
           f"serving run: {stats['nonfinite_rows']} non-finite logit rows")
-    check(launches["K1"] > 0 and launches["K4"] > 0,
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")),
           f"serving run skipped a kernel: {launches}")
-    print(f"[5] serving tinyllama-1.1b bf16, 8 requests x 32 new tokens on "
+    check(launches == want, f"serving run launches {launches} != {want}")
+    print(f"[7] serving tinyllama-1.1b bf16, 8 requests x 32 new tokens on "
           f"{card}: TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
           f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
           f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} tok/s")
     return launches
+
+
+def phase_train(card):
+    import torch
+    from repro_torch.launch import train
+    tel_path = ROOT / "build" / "chip_smoke_train_telemetry.json"
+    tel_path.parent.mkdir(parents=True, exist_ok=True)
+    reset_launches()
+    out = train.main(["--arch", "tinyllama-1.1b", "--device", "cuda",
+                      "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                      "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
+                      "--log-every", "1", "--telemetry", str(tel_path)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    want["K4"] = 0
+    tel = out["telemetry"]
+    print(f"[8] launches in the training run: {launches} over {TRAIN_STEPS} "
+          f"steps (expected {want})")
+    losses = tel["series"]["loss"]
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"training run: losses {losses}")
+    check(tel["nonfinite"] is None, f"training run: {tel['nonfinite']}")
+    check(launches == want, f"training run launches {launches} != {want}")
+    mfu = (f"MFU {tel['mfu'] * 100:.3f}% of {tel['peak_flops']:.3g} FLOP/s"
+           if tel["mfu"] is not None else "MFU not reported")
+    print(f"[8] training tinyllama-1.1b bf16, batch {TRAIN_B} x {TRAIN_S}, "
+          f"remat, AdamW on {card}: losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; step times " + " ".join(f"{x:.3f}" for x in
+                                        tel["series"]["t_step"])
+          + f" s (first = warm-up); steady {tel['t_step_s']:.3f} s/step, "
+          f"{tel['tokens_per_s']:.0f} tok/s, {mfu}; peak memory "
+          f"{tel['mem_peak_bytes'] / 2 ** 30:.2f} GiB")
+    return launches, tel
+
+
+def kernel_group(name: str) -> str:
+    """The part of a training step a device kernel belongs to."""
+    low = name.lower()
+    if "matmul_kernel" in name:
+        return "K1 matmul (forward linears and their recompute)"
+    if "fa_fwd" in name:
+        return "K2 forward (and its recompute)"
+    if "fa_bwd" in name:
+        return "K2 backward"
+    if "rms_" in name:
+        return "K3 forward and backward"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
+        return "torch.matmul (dx, dw)"
+    return "other (elementwise, reductions, AdamW, copies)"
+
+
+def phase_breakdown(dev, card):
+    """Where the time of one training step goes: torch.profiler over the
+    second step of the phase 8 configuration, device time summed by
+    kernel group against the step's wall time (host clock, synchronised).
+    A profiler that sees no device kernel leaves the breakdown
+    unmeasured; it does not fail the run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import OptimConfig, ShapeConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = get("tinyllama-1.1b")
+    layout = ParallelPlan().validate(mode="train").build()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    state = adamw_init(params)
+    step = make_train_step(cfg, layout, OptimConfig(
+        lr=3e-4, warmup=20, total_steps=TRAIN_STEPS))
+    data = TokenStream(cfg, ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train"),
+                       DataConfig(seed=0), dev)
+    sync = (torch.cuda.synchronize if torch.device(dev).type == "cuda"
+            else lambda: None)
+    params, state, _ = step(params, state, next(data))     # warm-up
+    batch = next(data)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(met["loss"].item()), "breakdown step: loss")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"[9] torch.profiler saw no device kernels on {card}: the "
+              "step's breakdown is not measured")
+        return None
+    groups, spans, names = {}, [], {}
+    for e in kernels:
+        g = kernel_group(e.name)
+        n, ms = groups.get(g, (0, 0.0))
+        groups[g] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        spans.append((e.time_range.start, e.time_range.end))
+        if g.startswith("other"):
+            names[e.name] = names.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, -math.inf                  # union of kernel intervals
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    print(f"[9] one training step (batch {TRAIN_B} x {TRAIN_S}) under "
+          f"torch.profiler on {card}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {g}: {ms:.1f} ms in {n} kernels "
+              f"({ms / wall_ms * 100:.1f}% of the step)")
+    for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:4]:
+        print(f"    largest in other: {name[:90]}: {ms:.1f} ms")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": groups}
 
 
 def main():
@@ -380,23 +753,44 @@ def main():
     phase_build()
     k1_numbers = phase_k1(dev)
     k4_numbers = phase_k4(dev)
+    k3_numbers = phase_k3(dev)
+    k2_numbers = phase_k2(dev)
     phase_two_layer(dev)
-    launches = phase_serve(card)
+    phase_two_layer_train(dev)
+    serve_launches = phase_serve(card)
+    train_launches, _ = phase_train(card)
+    phase_breakdown(dev, card)
+
+    def launched(*names):
+        by = {"serve": sum(serve_launches[n] for n in names),
+              "train": sum(train_launches[n] for n in names)}
+        return dict(launches=by["serve"] + by["train"], launches_by_path=by)
     kernels = [
         dict(name="K1 matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/matmul.cu",
              replaces="src/repro/kernels/matmul.py:30",
-             launches=launches["K1"], **k1_numbers),
+             **launched("K1"), **k1_numbers),
+        dict(name="K2 flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:24",
+             **launched("K2", "K2 bwd"), **k2_numbers),
+        dict(name="K3 rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:19",
+             **launched("K3", "K3 bwd"), **k3_numbers),
         dict(name="K4 paged_flash_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_decode.py:72",
-             launches=launches["K4"], **k4_numbers),
+             **launched("K4"), **k4_numbers),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("launches_by_path", "fwd_ms", "bwd_ms", "plain_fwd_ms",
+             "plain_bwd_ms", "library_fwd_ms", "fwd_bound_ms",
+             "bwd_bound_ms")
     print(f"total {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [{k: kn[k] for k in keys}
-                                  for kn in kernels]}))
+    print(json.dumps({"kernels": [
+        {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

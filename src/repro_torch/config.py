@@ -1,10 +1,12 @@
-"""Model configuration, copied from ``repro/config.py``.
+"""Model, shape and optimizer configuration, copied from
+``repro/config.py``.
 
 ``ModelConfig`` covers all six architecture families (dense, moe, ssm,
 hybrid, vlm, audio); each ``repro_torch/configs/<arch>.py`` instantiates
 one.  The port keeps its own copy so that it imports nothing of the JAX
 package; ``tests/test_torch_serve.py`` holds every config equal to the
-reference's.
+reference's, ``tests/test_torch_train.py`` the parameter counts,
+``ShapeConfig`` and ``OptimConfig``.
 """
 from __future__ import annotations
 
@@ -97,6 +99,65 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
+
+    def n_params(self) -> int:
+        """Total parameter count (dense accounting; embeddings included)."""
+        d, nh, nkv, dh = self.d_model, self.n_heads, self.n_kv, self.head_dim
+        attn = d * nh * dh + 2 * d * nkv * dh + nh * dh * d
+        if self.mla is not None:
+            m = self.mla
+            attn = (d * m.q_lora_rank + m.q_lora_rank * nh * (m.qk_nope_dim + m.qk_rope_dim)
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * nh * (m.qk_nope_dim + m.v_head_dim)
+                    + nh * m.v_head_dim * d)
+        n_mats = 3 if self.act in ("silu", "gelu") else 2
+        per_layer = attn + n_mats * d * self.d_ff
+        total = 0
+        for i in range(self.n_layers):
+            if self.moe and i >= self.moe.first_k_dense:
+                ff = (self.moe.n_experts + self.moe.n_shared) * n_mats * d * self.moe.expert_ff
+                ff += d * self.moe.n_experts  # router
+                total += attn + ff
+            elif self.moe and self.moe.first_k_dense:
+                total += attn + n_mats * d * self.moe.dense_ff
+            else:
+                total += per_layer
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        return total
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed-in experts)."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        n_mats = 3 if self.act in ("silu", "gelu") else 2
+        total = self.n_params()
+        inactive = (self.moe.n_experts - self.moe.top_k)
+        n_moe_layers = self.n_layers - self.moe.first_k_dense
+        total -= n_moe_layers * inactive * n_mats * d * self.moe.expert_ff
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10000
+    schedule: str = "cosine"
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 256,

@@ -7,6 +7,7 @@ from typing import Tuple
 
 import torch
 
+from ..kernels import rmsnorm as k3
 from . import ops3d
 from .topology import Dirs, Layout
 
@@ -33,13 +34,9 @@ def plinear(layout: Layout, dirs: Dirs, x, w, b=None, *, kind: str = "first",
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6, zero_centered: bool = False):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    g = gamma.float()
-    if zero_centered:
-        g = g + 1.0
-    return (y * g).to(x.dtype)
+    """RMSNorm over the last dim through K3 (``kernels/rmsnorm.py``),
+    forward and backward."""
+    return k3.rmsnorm(x.contiguous(), gamma.contiguous(), eps, zero_centered)
 
 
 def layernorm(x, gamma, beta, eps: float = 1e-5):

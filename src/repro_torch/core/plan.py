@@ -1,14 +1,14 @@
 """ParallelPlan: data x 3-D tensor x pipeline parallelism in one object
 (port of ``repro/core/plan.py``).
 
-``ParallelPlan(...).validate(mode="serve").build()`` yields the ``Layout``
-everything downstream reads.  The serving slice validates and builds plans
-exactly as the reference does for ``mode="serve"``, but ``build`` accepts
-one device only, the cube (1, 1, 1): the islands' collectives above axis
-size 1 arrive with the multi-rank slice (ROADMAP.md, "Multi-rank islands").
-Optimizer-state partitioning (``zero_stage``), async-TP overlap and the
-other training fields of the reference plan arrive with the training
-slice.
+``ParallelPlan(...).validate(mode=...).build()`` yields the ``Layout``
+everything downstream reads.  Plans validate as the reference's do, for
+``mode="train"`` and ``mode="serve"``, but ``build`` accepts one device
+only, the cube (1, 1, 1): the islands' collectives above axis size 1
+arrive with the multi-rank slice (ROADMAP.md, "Multi-rank islands").
+Optimizer-state partitioning (``zero_stage``) and async-TP overlap need a
+data or model axis above size 1, so the plan does not carry them yet; the
+train launcher refuses their flags.
 """
 from __future__ import annotations
 
@@ -62,15 +62,10 @@ class ParallelPlan:
 
     def validate(self, n_layers: Optional[int] = None,
                  global_batch: Optional[int] = None, model=None,
-                 mode: str = "serve", draft=None) -> "ParallelPlan":
+                 mode: str = "train", draft=None) -> "ParallelPlan":
         """Raise ValueError on illegal compositions, naming the offending
-        fields, as the reference does.  ``mode='train'`` raises
-        NotImplementedError until the training slice lands; a ``draft``
-        raises ValueError until speculative decoding is ported."""
-        if mode == "train":
-            raise NotImplementedError(
-                "mode='train': the training slice of the port is not "
-                "written yet (ROADMAP.md, Queue 1)")
+        fields, as the reference does; a ``draft`` raises ValueError until
+        speculative decoding is ported."""
         if self.n_stages < 1 or self.microbatches < 1:
             raise ValueError("n_stages and microbatches must be >= 1")
         err = pipeline_mode_error(self.n_stages, mode)
@@ -80,6 +75,17 @@ class ParallelPlan:
             raise ValueError(
                 "draft model given: speculative decoding arrives with a "
                 "later serving slice of the port")
+        if self.n_stages > 1 and self.microbatches < self.n_stages:
+            import warnings
+            warnings.warn(
+                f"microbatches={self.microbatches} < pp={self.n_stages}: "
+                f"bubble fraction {self.bubble_fraction():.2f} >= 1; "
+                "raise --microbatch for pipeline efficiency")
+        if n_layers is not None and self.n_stages > 1:
+            if n_layers < self.n_stages:
+                raise ValueError(
+                    f"n_layers={n_layers} < n_stages={self.n_stages}: every "
+                    "pipeline stage needs at least one layer")
         if global_batch is not None and global_batch % self.microbatches:
             raise ValueError(
                 f"global_batch={global_batch} not divisible by "
@@ -96,7 +102,8 @@ class ParallelPlan:
                 f"plan with {self.n_devices} devices: {MULTI_RANK_TODO}")
         px, py, pz = self.cube_dims
         shape = (self.n_pod, self.n_dp, self.n_stages, px, py, pz)
-        return Layout(sizes=dict(zip(AXES, shape)), strategy=self.strategy)
+        return Layout(sizes=dict(zip(AXES, shape)), strategy=self.strategy,
+                      microbatches=self.microbatches)
 
     def describe(self) -> dict:
         px, py, pz = self.cube_dims

@@ -43,11 +43,13 @@ class Layout:
 
     ``sizes`` maps every name in ``AXES`` to its size.  ``inference_opt``
     selects the x-replicated decode weight layout (no per-token weight
-    all-gather), as in the reference.
+    all-gather), as in the reference.  ``microbatches`` is the plan's
+    gradient-accumulation count, read by the train step.
     """
     sizes: Dict[str, int]
     strategy: str = "3d"
     inference_opt: bool = False
+    microbatches: int = 1
 
     def size(self, ax) -> int:
         if ax is None:

@@ -25,10 +25,10 @@ from ..config import ModelConfig
 from ..core import comm
 from ..core.linear3d import layernorm, plinear, rmsnorm
 from ..core.topology import Dirs, Layout
+from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_decode import paged_flash_decode
 
 F32 = torch.float32
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -49,70 +49,26 @@ def apply_rope(x, positions, base: float):
 
 
 # ---------------------------------------------------------------------------
-# Chunked online-softmax attention
-# ---------------------------------------------------------------------------
-def flash_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
-                    chunk=512, logit_scale=None):
-    """Plain-torch port of ``flash_attention_jnp`` (reference
-    ``blocks.py:56-110``), the function the JAX model runs for prefill
-    attention outside Pallas.  q: (b, sq, nq, d), k/v: (b, sk, nkv, d);
-    positions (b, sq) / (sk,).  The probabilities enter the PV product in
-    v's dtype with f32 accumulation, as in the reference.
-
-    Returns (out, (m, l, o))."""
-    b, sq, nq, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    group = nq // nkv
-    dv = v.shape[-1]
-    scale = logit_scale if logit_scale is not None else 1.0 / math.sqrt(d)
-    qf = (q.to(F32) * scale).reshape(b, sq, nkv, group, d)
-
-    chunk = min(chunk, sk)
-    while sk % chunk:           # largest divisor of sk not above the target
-        chunk -= 1
-    m = torch.full((b, sq, nkv, group), NEG_INF, dtype=F32, device=q.device)
-    l = torch.zeros((b, sq, nkv, group), dtype=F32, device=q.device)
-    o = torch.zeros((b, sq, nkv, group, dv), dtype=F32, device=q.device)
-    qp = q_pos[0][:, None]
-    for c0 in range(0, sk, chunk):
-        kci, vci = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        kpi = k_pos[c0:c0 + chunk][None, :]
-        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kci.to(F32))
-        mask = kpi >= 0
-        if causal:
-            mask = mask & (qp >= kpi)
-            if window:
-                mask = mask & (qp - kpi < window)
-        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        o = o * corr[..., None] + torch.einsum(
-            "bqhgk,bkhd->bqhgd", p.to(v.dtype).to(F32), vci.to(F32))
-        m = m_new
-    out = (o / l.clamp_min(1e-30)[..., None]).reshape(b, sq, nq, dv)
-    return out.to(q.dtype), (m, l, o)
-
-
-# ---------------------------------------------------------------------------
 # Attention islands
 # ---------------------------------------------------------------------------
 def attention(layout: Layout, cfg: ModelConfig, dirs: Dirs, q, k, v,
               *, causal=True, window=0):
-    """Prefill attention island (reference ``blocks.py:131-195``).  q/k/v:
-    (B, S, n, d) in the post-qkv layout, sequence split over out_ax.  The
-    island all-gathers k/v along the sequence split and runs the chunked
-    online softmax locally."""
+    """Prefill and training attention island (reference
+    ``blocks.py:131-195``).  q/k/v: (B, S, n, d) in the post-qkv layout,
+    sequence split over out_ax.  The island all-gathers k/v along the
+    sequence split and runs K2 (``kernels/flash_attention.py``), whose
+    backward is a kernel too."""
     seq_ax = dirs.out_ax
     k = comm.all_gather(layout, k, seq_ax, dim=1)
     v = comm.all_gather(layout, v, seq_ax, dim=1)
     b, sq = q.shape[0], q.shape[1]
     off = comm.axis_index(layout, seq_ax)
-    q_pos = (off * sq + torch.arange(sq, device=q.device)).expand(b, sq)
-    k_pos = torch.arange(k.shape[1], device=q.device)
-    out, _ = flash_attention(q, k, v, q_pos, k_pos, causal=causal,
-                             window=window)
+    i32 = torch.int32
+    q_pos = (off * sq + torch.arange(sq, device=q.device, dtype=i32)) \
+        .expand(b, sq).contiguous()
+    k_pos = torch.arange(k.shape[1], device=q.device, dtype=i32)
+    out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             q_pos, k_pos, causal=causal, window=window)
     return out
 
 

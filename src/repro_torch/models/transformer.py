@@ -1,24 +1,31 @@
-"""Model assembly for serving (port of the serving entries of
-``repro/models/transformer.py`` and the dense part of
-``repro/models/registry.py``).
+"""Model assembly (port of ``repro/models/transformer.py`` and the dense
+part of ``repro/models/registry.py``).
 
-``prefill`` runs whole right-padded prompts and hands their rope'd (k, v)
-to the paged pool; ``forward(mode="decode", page=...)`` advances every slot
-by one token against that pool.  The reference scans stacked layer
-parameters (``registry.run_stack``); PyTorch runs eagerly, so here the
-layer plan is a Python loop over the same stacked tensors.
+``forward(mode="train")`` returns the loss of a batch of token sequences,
+differentiable in every parameter: embedding, the layer plan (each layer
+recomputed in the backward when ``cfg.remat``), ``ln_f`` and the chunked
+vocab-parallel head and cross-entropy.  ``prefill`` runs whole
+right-padded prompts and hands their rope'd (k, v) to the paged pool;
+``forward(mode="decode", page=...)`` advances every slot by one token
+against that pool.  The reference scans stacked layer parameters
+(``registry.run_stack``); PyTorch runs eagerly, so here the layer plan is a
+Python loop over one ``torch.unbind`` of each stacked leaf, whose backward
+is a single stack (indexing a layer out of a stack would build a full-size
+zero gradient per layer).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Family, ModelConfig
 from ..core.linear3d import embed_lookup, plinear
 from ..core.params import tree_map
 from ..core.topology import Dirs, Layout
 from . import blocks as B
+from .registry import text_labels
 
 
 def entry_dirs() -> Dirs:
@@ -44,23 +51,38 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _layers(tree, n: int):
+    """The n per-layer trees of a stacked tree, one unbind per leaf."""
+    parts = tree_map(torch.unbind, tree)
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
 def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
               positions, *, mode: str, cache=None, page=None,
-              collect_kv: bool = False):
+              collect_kv: bool = False, remat: bool = False):
     """The dense layer plan, one layer after another (the reference's
-    ``run_stack`` scan, ``registry.py:660-716``).  Returns (x, new_cache):
-    decode -> {"dense": {"k", "v", "pos"}} stacked per layer; prefill with
-    ``collect_kv`` -> {"dense": (k, v)} stacked (n_layers, B, S, nkv, d)."""
+    ``run_stack`` scan, ``registry.py:643-716``); with ``remat`` each layer
+    is recomputed in the backward (``jax.checkpoint`` of the scan body
+    there).  Returns (x, new_cache): decode -> {"dense": {"k", "v", "pos"}}
+    stacked per layer; prefill with ``collect_kv`` -> {"dense": (k, v)}
+    stacked (n_layers, B, S, nkv, d)."""
     if cfg.family != Family.DENSE:
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family.value!r} is not ported yet")
     decode = mode == "decode"
-    stacked = params["stack"]["dense"]
+    layers = _layers(params["stack"]["dense"], cfg.n_layers)
+
+    def block(xx, p):
+        return B.dense_block_apply(layout, cfg, dirs, xx, p, positions)[0]
+
     outs = []
-    for i in range(cfg.n_layers):
+    for i, p in enumerate(layers):
+        if remat:
+            x = checkpoint(block, x, p, use_reentrant=False)
+            continue
         c = _layer(cache["dense"], i) if decode else None
-        x, nc = B.dense_block_apply(layout, cfg, dirs, x, _layer(stacked, i),
-                                    positions, decode=decode, cache=c,
+        x, nc = B.dense_block_apply(layout, cfg, dirs, x, p, positions,
+                                    decode=decode, cache=c,
                                     return_kv=collect_kv, page=page)
         if nc is not None:
             outs.append(nc)
@@ -73,17 +95,63 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
                          torch.stack([o[1] for o in outs]))}
 
 
+def head_loss_chunks(cfg: ModelConfig, layout: Layout, S: int) -> int:
+    """Sequence-chunking factor of the LM head and loss (reference
+    ``transformer.py:245-254``): bounds the live (tokens, V) logits to
+    about a 32k vocabulary's worth.  The port has no sequence axes."""
+    k = min(8, max(1, cfg.vocab // 32000, S // 1024))
+    div = layout.size("y") * layout.size("z")
+    while k > 1 and (S % k or (S // k) % div):
+        k -= 1
+    return k
+
+
+def chunked_head_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, x,
+                      labels, mask, w_head):
+    """LM head + vocab-parallel cross entropy, chunked over the sequence
+    and recomputed per chunk in the backward (reference
+    ``transformer.py:257-291``): tokens go to chunk ``position % K``; the
+    running max is detached, as ``stop_gradient`` is there."""
+    B_, S = labels.shape
+    K = head_loss_chunks(cfg, layout, S)
+
+    def chunk(x_c, lab_c, mask_c, w):
+        logits, _ = plinear(layout, dirs, x_c, w, kind="first")
+        lf = logits.float()
+        m = lf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+        picked = torch.gather(lf, -1, lab_c[..., None])[..., 0]
+        nll = (lse - picked) * mask_c
+        return nll.sum(), mask_c.sum()
+
+    c = S // K
+    xs = x.reshape(B_, c, K, x.shape[-1])
+    labs = labels.reshape(B_, c, K)
+    masks = mask.reshape(B_, c, K)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(K):
+        t, n = checkpoint(chunk, xs[:, :, i], labs[:, :, i], masks[:, :, i],
+                          w_head, use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
 def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
             cache=None, page=None):
-    """mode='decode' -> (logits (B, V), new entries) against the paged pool
+    """mode='train' -> (loss, {"xent", "aux"}) for ``batch`` {"tokens":
+    (B, S), "labels": (B, S)}, labels < 0 masked out (reference
+    ``transformer.py:177-242``).
+
+    mode='decode' -> (logits (B, V), new entries) against the paged pool
     (reference ``transformer.py:177-230`` with ``page=...``): ``batch`` is
     {"token": (B, 1), "pos": (B,) int32}, ``cache`` the pool tree (leaves
     (n_layers, phys, ...)), read-only here; the returned entries are
     written back by ``kvcache.scatter_step``."""
+    if mode == "train":
+        return _forward_train(cfg, layout, params, batch)
     if mode != "decode":
         raise NotImplementedError(
-            f"forward(mode={mode!r}): prompts go through prefill(); the "
-            "train forward arrives with the training slice")
+            f"forward(mode={mode!r}): prompts go through prefill()")
     if page is None:
         raise ValueError("decode runs against the paged pool only: pass "
                          "page=PageInfo(...)")
@@ -96,6 +164,26 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
     logits, _ = plinear(layout, dirs, x, params["head"], kind="first",
                         decode=True)
     return logits[:, 0], new_cache
+
+
+def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
+    if cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.arch}: the multi-token-prediction head is not ported yet "
+            "(ROADMAP.md, Queue 1 item 10)")
+    dirs = entry_dirs()
+    tokens = batch["tokens"]
+    x = embed(layout, cfg, dirs, params, tokens)
+    b, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(b, S)
+    x, _ = run_stack(layout, cfg, dirs, x, params, positions, mode="train",
+                     remat=cfg.remat)
+    x = B.apply_norm(cfg, x, params["ln_f"])
+    labels, mask = text_labels(batch)
+    xent = chunked_head_loss(cfg, layout, dirs, x, labels.clamp_min(0).long(),
+                             mask, params["head"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, layout: Layout, params, batch):

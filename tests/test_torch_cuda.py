@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+K1 matmul, K2 flash attention and K3 RMSNorm (forward and backward), K4
+paged decode.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -15,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels import matmul as k1
 from repro_torch.kernels import paged_decode as k4
+from repro_torch.kernels import rmsnorm as k3
 
 
 @pytest.fixture
@@ -24,6 +28,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -123,3 +128,125 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     args[4] = args[4].long()                      # tables must be int32
     with pytest.raises(TypeError):
         k4.paged_flash_decode(*args, block=8)
+
+
+# f32 kernels against their f32 plain versions differ by summation order
+# only; bf16 outputs may round to either neighbour, and the bf16 P of the
+# attention backward is rounded at other points than the plain version's.
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / (1 + want.float().abs().max())).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zc", [False, True])
+@pytest.mark.parametrize("shape", [(3, 37, 2048), (1000, 64), (5, 300)])
+def test_k3_kernel_matches_plain_on_card(cuda, dtype, zc, shape):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal(shape[-1]) * 0.1 + 1)
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, g, dy = (t.to(cuda, dtype) for t in (x, g, dy))
+    before = (k3.launches, k3.launches_bwd)
+    y, rstd = k3.rmsnorm_fwd(x, g, zero_centered=zc)
+    dx, dg = k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)
+    assert (k3.launches, k3.launches_bwd) == (before[0] + 1, before[1] + 1)
+    y2, rstd2 = k3.rmsnorm_plain(x, g, zero_centered=zc)
+    dx2, dg2 = k3.rmsnorm_bwd_plain(dy, x, g, rstd2, zero_centered=zc)
+    torch.cuda.synchronize()
+    assert _rel(rstd, rstd2) <= 1e-5
+    for got, want in ((y, y2), (dx, dx2), (dg, dg2)):
+        assert got.dtype == want.dtype
+        assert _rel(got, want) <= TOL[dtype]
+    # the same inputs give the same bits: no atomics
+    assert torch.equal(k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)[1],
+                       dg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, nq, nkv, d, causal, window, q offset)
+    (2, 100, 100, 8, 2, 64, True, 0, 0),
+    (1, 64, 200, 4, 4, 32, True, 0, 136),
+    (2, 70, 70, 4, 1, 16, True, 24, 0),
+    (1, 50, 90, 6, 3, 128, False, 0, 0)])
+def test_k2_kernel_matches_plain_on_card(cuda, dtype, case):
+    b, sq, sk, nq, nkv, d, causal, window, off = case
+    rng = np.random.default_rng(8)
+
+    def rand(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)) \
+            .to(cuda, dtype)
+    q, k, v, dout = rand(b, sq, nq, d), rand(b, sk, nkv, d), \
+        rand(b, sk, nkv, d), rand(b, sq, nq, d)
+    q_pos = (off + torch.arange(sq, dtype=torch.int32, device=cuda)) \
+        .expand(b, sq).contiguous()
+    k_pos = torch.arange(sk, dtype=torch.int32, device=cuda)
+    kw = dict(causal=causal, window=window)
+    before = (k2.launches, k2.launches_bwd)
+    out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw)
+    grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert (k2.launches, k2.launches_bwd) == (before[0] + 1, before[1] + 1)
+    out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
+    grads2 = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
+                                          k_pos, **kw)
+    torch.cuda.synchronize()
+    assert _rel(lse, lse2) <= 1e-5
+    assert _rel(out, out2) <= TOL[dtype]
+    for got, want in zip(grads, grads2):
+        assert got.dtype == dtype and _rel(got, want) <= TOL[dtype]
+    again = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+def test_k2_k3_autograd_launch_the_kernels(cuda):
+    q = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)
+    g = torch.ones(64, device=cuda, requires_grad=True)
+    before = (k2.launches, k2.launches_bwd, k3.launches, k3.launches_bwd)
+    out, _ = k2.flash_attention(q, q, q, pos[None].contiguous(), pos)
+    k3.rmsnorm(out, g).sum().backward()
+    assert (k2.launches, k2.launches_bwd, k3.launches, k3.launches_bwd) == \
+        tuple(n + 1 for n in before)
+    assert torch.isfinite(q.grad).all() and torch.isfinite(g.grad).all()
+
+
+@pytest.mark.cuda
+def test_k2_k3_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    g = torch.ones(64, device=cuda)
+    before = (k3.launches, k2.launches)
+    with pytest.raises(TypeError):
+        k3.rmsnorm(x.half(), g.half())
+    with pytest.raises(TypeError):
+        k3.rmsnorm(x, g.bfloat16())                  # mixed dtypes
+    with pytest.raises(ValueError):
+        k3.rmsnorm(x, torch.ones(32, device=cuda))   # gamma shape
+    with pytest.raises(ValueError):
+        k3.rmsnorm(x, g.cpu())                       # two devices
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    kv = torch.zeros(1, 8, 2, 64, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        k2.flash_attention(q.half(), kv.half(), kv.half(), pos[None], pos)
+    with pytest.raises(TypeError):                   # positions must be int32
+        k2.flash_attention(q, kv, kv, pos[None].long(), pos.long())
+    with pytest.raises(ValueError):                  # head dim 48
+        k2.flash_attention(q[..., :48].contiguous(), kv[..., :48].contiguous(),
+                           kv[..., :48].contiguous(), pos[None], pos)
+    with pytest.raises(ValueError):                  # 4 q heads on 3 kv heads
+        k2.flash_attention(q, torch.zeros(1, 8, 3, 64, device=cuda),
+                           torch.zeros(1, 8, 3, 64, device=cuda), pos[None],
+                           pos)
+    with pytest.raises(ValueError):
+        k2.flash_attention(q, kv, kv.cpu(), pos[None], pos)
+    assert (k3.launches, k2.launches) == before

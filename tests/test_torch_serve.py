@@ -479,6 +479,10 @@ def test_port_imports_no_jax_and_no_reference():
         "stats = main(['--arch', 'tinyllama-1.1b', '--reduced', '--device',",
         "              'cpu', '--requests', '3', '--max-new', '4'])",
         "assert stats['tokens'] == 12, stats['tokens']",
+        "from repro_torch.launch.train import main as train",
+        "out = train(['--arch', 'tinyllama-1.1b', '--reduced', '--device',",
+        "             'cpu', '--steps', '2', '--batch', '2', '--seq', '32'])",
+        "assert len(out['losses']) == 1, out",
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
         "       or m == 'repro' or m.startswith('repro.')]",
         "assert not bad, bad",
