@@ -29,7 +29,20 @@ Phases, in order (any failure raises and exits nonzero):
      tokens from seed 0) for a few steps, counters reset before and read
      after; every loss must be finite and the launches as expected;
   9. where the time of one such training step goes: torch.profiler's
-     device time by kernel group, and the device's idle share.
+     device time by kernel group, and the device's idle share;
+ 10. K1 at training shapes: kernel, plain version and ``torch.matmul``
+     summed over the GEMMs of one tinyllama and one zamba2 training step;
+ 11. K5 SSD scan forward and backward against their plain versions at
+     zamba2's training shape (4 x 2048, 64 heads of 64, 2 groups, d_state
+     64, chunk 256), bf16 and f32 B/C, a ragged T, a strongly negative
+     log-decay, and two backward runs that must give the same bits;
+ 12. full-width zamba2 cut to [mamba, mamba, attn] in f32: one training
+     step's loss and gradients, CPU (plain versions) against the card;
+ 13. the zamba2 training run: ``repro_torch.launch.train`` trains
+     zamba2-1.2b at full depth and width in bf16 (batch 4 x 2048, remat,
+     AdamW, synthetic tokens from seed 0), counters reset before and read
+     after; every loss finite and the launches exact;
+ 14. where the time of one zamba2 training step goes (as phase 9).
 
 The lines before the last carry one JSON object of per-kernel numbers and
 the card's name and power limit from nvidia-smi; the last line is
@@ -67,7 +80,37 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5    # the training run (phase 8)
 # K3 the 2 norms of each layer twice and ln_f once, backward once each
 TRAIN_LAUNCHES = {"K1": 2 * 7 * LAYERS + 2 * 2, "K2": 2 * LAYERS,
                   "K2 bwd": LAYERS, "K3": 2 * 2 * LAYERS + 1,
-                  "K3 bwd": 2 * LAYERS + 1}
+                  "K3 bwd": 2 * LAYERS + 1, "K5": 0, "K5 bwd": 0}
+# training GEMMs of tinyllama: (name, K, N, launches per step), forward and
+# its recompute; the head runs in 2 chunks of 4 x 1024 rows
+TRAIN_GEMMS = [("wq,wo", D, NQ * DH, 2 * 2 * LAYERS),
+               ("wk,wv", D, NKV * DH, 2 * 2 * LAYERS),
+               ("w_up,w_gate", D, FF, 2 * 2 * LAYERS),
+               ("w_down", FF, D, 2 * LAYERS)]
+
+# zamba2-1.2b (configs/zamba2_1_2b.py): 38 Mamba2 layers (d_inner 4096,
+# 64 SSM heads of 64, 2 groups, d_state 64, chunk 256) and one shared
+# attention block (32/32 heads, gated-GELU MLP of 8192) after every 6
+Z_LAYERS, Z_SHARED, Z_FF = 38, 6, 8192
+Z_DIN, Z_NH, Z_G, Z_N, Z_CHUNK = 4096, 64, 2, 64, 256
+Z_STEPS = 4
+# launches per zamba2 training step: K1 runs the 5 linears of each Mamba
+# layer, the 7 of each shared-block use and the 2 head chunks twice
+# (forward and remat recompute); K3 the 2 norms of each Mamba layer and of
+# each shared-block use twice and ln_f once, backward once each; K2 the 6
+# shared attentions and K5 the 38 scans twice forward, once backward
+Z_LAUNCHES = {"K1": 2 * (5 * Z_LAYERS + 7 * Z_SHARED + 2),
+              "K2": 2 * Z_SHARED, "K2 bwd": Z_SHARED,
+              "K3": 2 * (2 * Z_LAYERS + 2 * Z_SHARED) + 1,
+              "K3 bwd": 2 * Z_LAYERS + 2 * Z_SHARED + 1,
+              "K5": 2 * Z_LAYERS, "K5 bwd": Z_LAYERS}
+Z_GEMMS = [("w_x,w_z", D, Z_DIN, 2 * 2 * Z_LAYERS),
+           ("w_bc", D, 2 * Z_G * Z_N, 2 * Z_LAYERS),
+           ("w_dt", D, Z_NH, 2 * Z_LAYERS),
+           ("w_out", Z_DIN, D, 2 * Z_LAYERS),
+           ("wq,wk,wv,wo", D, D, 2 * 4 * Z_SHARED),
+           ("w_up,w_gate", D, Z_FF, 2 * 2 * Z_SHARED),
+           ("w_down", Z_FF, D, 2 * Z_SHARED)]
 
 
 class SmokeFailure(RuntimeError):
@@ -112,6 +155,13 @@ def scaled_err(got, want):
     entries span many magnitudes."""
     g, w = got.float(), want.float()
     return ((g - w).abs().max() / (1 + w.abs().max())).item()
+
+
+def leaf_err(got, want):
+    """max |got - want| / max |want|, in f32: one gradient leaf against
+    its own scale."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
 
 
 def abs_err(got, want):
@@ -462,7 +512,8 @@ def phase_two_layer(dev):
     cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=2,
                               dtype="float32")
     layout = ParallelPlan().validate(mode="serve").build()
-    params = {"cpu": init_params(cfg, torch.Generator().manual_seed(0),
+    params = {"cpu": init_params(transformer.abstract_params(cfg),
+                                 torch.Generator().manual_seed(0),
                                  "cpu", torch.float32)}
     params["cuda"] = tree_map(lambda t: t.to(dev), params["cpu"])
     lens, S, L, blk = [48, 33], 64, 128, 16
@@ -522,7 +573,8 @@ def phase_two_layer_train(dev):
     cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=2,
                               dtype="float32")
     layout = ParallelPlan().validate(mode="train").build()
-    cpu = init_params(cfg, torch.Generator().manual_seed(1), "cpu",
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(1), "cpu",
                       torch.float32)
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 513)))
@@ -552,6 +604,218 @@ def phase_two_layer_train(dev):
     check(worst <= tol, f"two-layer train gradients: {worst}")
 
 
+def phase_k1_train(dev):
+    """K1 at the training shapes: every GEMM of one training step of
+    tinyllama and of zamba2 (M = 4 x 2048 rows; the head's 2 chunks 4 x
+    1024), timed as the kernel, its plain version and ``torch.matmul``,
+    each times its launches a step (forward and remat recompute)."""
+    import torch
+    from repro_torch.kernels import matmul as k1
+    gen = torch.Generator(device=dev).manual_seed(10)
+    m = TRAIN_B * TRAIN_S
+    head = [("head", D, VOCAB, 2 * 2)]
+    seen, out = {}, {}
+    for arch, gemms in (("tinyllama", TRAIN_GEMMS), ("zamba2", Z_GEMMS)):
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        launches = 0
+        for name, k, n, per_step in gemms + head:
+            rows = m // 2 if name == "head" else m
+            key = (rows, k, n)
+            if key not in seen:
+                x = torch.randn(rows, k, generator=gen, device=dev) \
+                    .to(torch.bfloat16)
+                w = (torch.randn(k, n, generator=gen, device=dev)
+                     / math.sqrt(k)).to(torch.bfloat16)
+                t = {"ms": time_ms(lambda: k1.matmul(x, w), 2),
+                     "plain_ms": time_ms(lambda: k1.matmul_plain(x, w), 3),
+                     "library_ms": time_ms(lambda: torch.matmul(x, w), 10)}
+                t["bound_ms"] = bound_ms(2 * (rows * k + k * n + rows * n),
+                                         2 * rows * k * n, H100_BF16_FLOPS)[0]
+                seen[key] = t
+                print(f"[10] K1 train GEMM ({rows},{k})@({k},{n}) bf16: "
+                      f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, "
+                      f"torch.matmul {t['library_ms']:.3f}, bound "
+                      f"{t['bound_ms']:.4f} (operations)")
+            for key2 in tot:
+                tot[key2] += per_step * seen[key][key2]
+            launches += per_step
+        print(f"[10] K1 per {arch} training step ({launches} GEMMs, bf16): "
+              f"kernel {tot['ms']:.1f} ms, plain {tot['plain_ms']:.1f} ms, "
+              f"torch.matmul {tot['library_ms']:.1f} ms, bound "
+              f"{tot['bound_ms']:.1f} ms")
+        out[arch] = tot
+    return out
+
+
+def k5_work(b, T, Q, bc_elt):
+    """(fwd bytes, fwd flops, bwd bytes, bwd flops) of one SSD scan at
+    zamba2's heads: each input read once and each output written once;
+    the flops over the allowed (i >= j) pairs of each chunk (forward C.B
+    and S.xbar; backward dy.xbar, S^T dy, dS B and dS^T C, not the kernel's
+    recompute of C.B) plus the carried-state products of every row (2
+    forward, 4 backward)."""
+    nc = T // Q
+    pairs = b * Z_NH * nc * Q * (Q + 1) // 2
+    rows = b * T * Z_NH
+    io = b * T * Z_NH * DH * 4                 # xbar, y, dy, dxbar: f32
+    small = b * T * Z_NH * 4 + 2 * b * T * Z_G * Z_N * bc_elt
+    fwd = (2 * io + small, pairs * (2 * Z_N + 2 * DH) + rows * 4 * Z_N * DH)
+    bwd = (3 * io + 2 * small,
+           pairs * (4 * Z_N + 4 * DH) + rows * 8 * Z_N * DH)
+    return (*fwd, *bwd)
+
+
+def phase_k5(dev):
+    """K5 at zamba2's training shape of one layer.  The model's B and C are
+    f32 (the SiLU of the conv runs in f32), so the path case is f32; bf16
+    B/C is checked too.  Returns the path case's numbers, the kernel's
+    time as one forward + one backward."""
+    import torch
+    from repro_torch.kernels import ssd_scan as k5
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(b, T, dtype, la_scale):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        xbar = 0.5 * rnd(b, T, Z_NH, DH)
+        la = -la_scale * rnd(b, T, Z_NH).abs()
+        B = (0.3 * rnd(b, T, Z_G, Z_N)).to(dtype)
+        C = (0.3 * rnd(b, T, Z_G, Z_N)).to(dtype)
+        return xbar, la, B, C, rnd(b, T, Z_NH, DH)
+    # (label, b, T, B/C dtype, log-decay scale): T 2000 gives Q = 250, a
+    # chunk of 3 whole and one 58-row sub-block; la near -200 a step
+    # would overflow any exponent formed above the diagonal
+    cases = [("train shape", TRAIN_B, TRAIN_S, torch.float32, 0.1),
+             ("train shape", TRAIN_B, TRAIN_S, torch.bfloat16, 0.1),
+             ("ragged T=2000", 1, 2000, torch.float32, 0.1),
+             ("la << 0", 1, TRAIN_S, torch.float32, 200.0)]
+    worst_path_err, path = 0.0, None
+    for label, b, T, dtype, scale in cases:
+        xbar, la, B, C, dy = inputs(b, T, dtype, scale)
+        y, st = k5.ssd_scan_fwd(xbar, la, B, C, Z_CHUNK)
+        grads = k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)
+        y2, st2 = k5.ssd_scan_plain(xbar, la, B, C, Z_CHUNK)
+        grads2 = k5.ssd_scan_bwd_plain(dy, xbar, la, B, C, st2, Z_CHUNK)
+        pairs = [("y", y, y2), ("states", st, st2)] + list(
+            zip(("dxbar", "dla", "dB", "dC"), grads, grads2))
+        errs = {n: scaled_err(a, c) for n, a, c in pairs}
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, *grads))
+        again = k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)
+        same = all(torch.equal(a, g) for a, g in zip(again, grads))
+        # f32 everywhere but dB and dC in bf16, which round once.  With la
+        # near -160 a step, cum reaches -4e4 in a chunk, where one f32 ulp
+        # is 4e-3: a decay exp(cum_i - cum_j) between neighbours is the
+        # difference of two such sums, and the kernel's and torch.cumsum's
+        # orders may differ by an ulp or two, so those decays may differ by
+        # ~1%: 1e-2 there (the case is for the masked exponent, NaN-free)
+        tol = 1e-4 if dtype == torch.float32 and scale < 1 else 1e-2
+        print(f"[11] K5 {label:13s} ({b},{T},{Z_NH},{DH}) B/C "
+              f"{str(dtype)[6:]:8s} errors " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {tol:.0e}, relative to 1 + max); finite {finite}; "
+              f"backward repeats bit for bit {same}")
+        check(finite, f"K5 {label} {dtype}: a non-finite output")
+        check(same, f"K5 {label} {dtype}: backward not deterministic")
+        check(max(errs.values()) <= tol, f"K5 {label} {dtype}: {errs}")
+        if label == "train shape" and dtype == torch.float32:
+            worst_path_err = max(abs_err(a, c) for n, a, c in pairs)
+            path = (xbar, la, B, C, dy, st)
+        del grads2, y2, st2, again
+    xbar, la, B, C, dy, st = path
+    t = {"fwd_ms": time_ms(lambda: k5.ssd_scan_fwd(xbar, la, B, C, Z_CHUNK),
+                           10),
+         "bwd_ms": time_ms(lambda: k5.ssd_scan_bwd(dy, xbar, la, B, C, st,
+                                                   Z_CHUNK), 5),
+         "plain_fwd_ms": time_ms(lambda: k5.ssd_scan_plain(xbar, la, B, C,
+                                                           Z_CHUNK), 3),
+         "plain_bwd_ms": time_ms(lambda: k5.ssd_scan_bwd_plain(
+             dy, xbar, la, B, C, st, Z_CHUNK), 3),
+         "library_ms": None}
+    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+    fby, ffl, bby, bfl = k5_work(TRAIN_B, TRAIN_S, Z_CHUNK, 4)
+    # the operations at the dense bf16 peak, as K2's: the least time the
+    # card could take; the f32 rate outside the tensor cores is printed
+    fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
+    bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
+    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+             bound_by=fo if fo == bo else "bytes and operations",
+             max_abs_err=worst_path_err)
+    fw, bw = t["fwd_ms"], t["bwd_ms"]
+    print(f"[11] K5 f32 B/C ({TRAIN_B},{TRAIN_S}, {Z_NH} heads of {DH}, "
+          f"{Z_G} groups, N {Z_N}, Q {Z_CHUNK}): forward {fw:.3f} ms "
+          f"({ffl / fw / 1e9:.2f} TFLOP/s, {fby / fw / 1e6:.1f} GB/s; plain "
+          f"{t['plain_fwd_ms']:.3f}; bound {fb:.4f} {fo}: {fby / 1e9:.3f} GB "
+          f"and {ffl / 1e9:.2f} GFLOP, {ffl / H100_F32_FLOPS * 1e3:.4f} ms "
+          f"at the f32 rate); backward {bw:.3f} ms ({bfl / bw / 1e9:.2f} "
+          f"TFLOP/s; plain {t['plain_bwd_ms']:.3f}; bound {bb:.4f} {bo}: "
+          f"{bby / 1e9:.3f} GB and {bfl / 1e9:.2f} GFLOP, "
+          f"{bfl / H100_F32_FLOPS * 1e3:.4f} ms at the f32 rate); no PyTorch "
+          "call computes this scan")
+    return t
+
+
+def phase_two_layer_zamba2(dev):
+    """One training step's loss and gradients of full-width zamba2 cut to
+    the plan [mamba, mamba, attn] (n_layers 2, attn_every 2), f32, batch 1
+    x 512: CPU (plain versions) against the card (kernels), the same
+    seeded weights and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import ssd_scan as k5
+    from repro_torch.models import transformer
+    base = get("zamba2-1.2b")
+    cfg = dataclasses.replace(base, n_layers=2, dtype="float32",
+                              ssm=dataclasses.replace(base.ssm, attn_every=2))
+    layout = ParallelPlan().validate(mode="train").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(2), "cpu",
+                      torch.float32)
+    rng = np.random.default_rng(2)
+    m = cpu["stack"]["mamba"]        # the init leaves these 0 and 1
+    for k in ("dt_bias", "A_log", "D"):
+        m[k] += torch.from_numpy(0.3 * rng.standard_normal(m[k].shape)
+                                 .astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 513)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][0, -9:] = -1
+    res = {}
+    for d in ("cpu", dev):
+        before = k5.launches_bwd
+        live = tree_map(lambda t: t.detach().to(d).requires_grad_(), cpu)
+        loss, _ = transformer.forward(
+            cfg, layout, live, {k: v.to(d) for k, v in batch.items()},
+            mode="train")
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads],
+                       k5.launches_bwd - before)
+    (l_cpu, g_cpu, n_cpu), (l_dev, g_dev, n_dev) = res["cpu"], res[str(dev)]
+    names = [".".join(p) for p in _paths(cpu)]
+    # each leaf against its own largest entry, so that a fault in a leaf
+    # of small gradients (w_bc through dB and dC) shows as plainly as one
+    # in a large leaf
+    errs = {n: (leaf_err(a, b), b.abs().max().item())
+            for n, a, b in zip(names, g_dev, g_cpu)}
+    worst = max(e for e, _ in errs.values())
+    tol = 1e-4      # f32 on both; the order of the sums differs
+    print(f"[12] zamba2 [mamba, mamba, attn] full width f32 train step "
+          f"(1x512): loss cpu {l_cpu:.6f} card {l_dev:.6f}; gradient "
+          f"max |card - cpu| / max |cpu| per leaf, worst first (max |cpu| "
+          f"in brackets): " + ", ".join(
+              f"{k} {e:.1e} [{g:.1e}]" for k, (e, g) in sorted(
+                  errs.items(), key=lambda kv: -kv[1][0])[:8])
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e}); "
+          f"K5 backward launches cpu {n_cpu}, card {n_dev}")
+    check(n_cpu == 0 and n_dev == 2, f"two-layer zamba2: K5 backward "
+          f"launches cpu {n_cpu}, card {n_dev}")
+    check(abs(l_cpu - l_dev) <= 1e-4 and math.isfinite(l_dev),
+          f"two-layer zamba2 train loss: {l_cpu} vs {l_dev}")
+    check(worst <= tol, f"two-layer zamba2 train gradients: {worst}")
+
+
 def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -565,8 +829,9 @@ def reset_launches():
     from repro_torch.kernels import matmul as k1
     from repro_torch.kernels import paged_decode as k4
     from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.kernels import ssd_scan as k5
     k1.launches = k2.launches = k2.launches_bwd = k3.launches = 0
-    k3.launches_bwd = k4.launches = 0
+    k3.launches_bwd = k4.launches = k5.launches = k5.launches_bwd = 0
 
 
 def read_launches():
@@ -574,8 +839,10 @@ def read_launches():
     from repro_torch.kernels import matmul as k1
     from repro_torch.kernels import paged_decode as k4
     from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.kernels import ssd_scan as k5
     return {"K1": k1.launches, "K2": k2.launches, "K2 bwd": k2.launches_bwd,
-            "K3": k3.launches, "K3 bwd": k3.launches_bwd, "K4": k4.launches}
+            "K3": k3.launches, "K3 bwd": k3.launches_bwd, "K4": k4.launches,
+            "K5": k5.launches, "K5 bwd": k5.launches_bwd}
 
 
 def phase_serve(card):
@@ -591,7 +858,7 @@ def phase_serve(card):
     steps = stats["prefill_steps"] + stats["decode_steps"]
     want = {"K1": 155 * steps, "K2": LAYERS * stats["prefill_steps"],
             "K2 bwd": 0, "K3": (2 * LAYERS + 1) * steps, "K3 bwd": 0,
-            "K4": LAYERS * stats["decode_steps"]}
+            "K4": LAYERS * stats["decode_steps"], "K5": 0, "K5 bwd": 0}
     print(f"[7] launches in the serving run: {launches} over "
           f"{stats['prefill_steps']} prefill + {stats['decode_steps']} decode "
           f"steps (expected {want})")
@@ -610,31 +877,36 @@ def phase_serve(card):
     return launches
 
 
-def phase_train(card):
+def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
+                per_step=TRAIN_LAUNCHES, tag="8"):
+    """``repro_torch.launch.train`` at full depth and width in bf16, batch
+    4 x 2048, remat, AdamW, synthetic tokens from seed 0; the launch
+    counters reset just before and read just after."""
     import torch
     from repro_torch.launch import train
-    tel_path = ROOT / "build" / "chip_smoke_train_telemetry.json"
+    tel_path = ROOT / "build" / f"chip_smoke_train_{arch}_telemetry.json"
     tel_path.parent.mkdir(parents=True, exist_ok=True)
     reset_launches()
-    out = train.main(["--arch", "tinyllama-1.1b", "--device", "cuda",
-                      "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+    out = train.main(["--arch", arch, "--device", "cuda",
+                      "--steps", str(steps), "--batch", str(TRAIN_B),
                       "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
                       "--log-every", "1", "--telemetry", str(tel_path)])
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES.items()}
+    want = {k: steps * n for k, n in per_step.items()}
     want["K4"] = 0
     tel = out["telemetry"]
-    print(f"[8] launches in the training run: {launches} over {TRAIN_STEPS} "
-          f"steps (expected {want})")
+    print(f"[{tag}] launches in the {arch} training run: {launches} over "
+          f"{steps} steps (expected {want})")
     losses = tel["series"]["loss"]
-    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
-          f"training run: losses {losses}")
-    check(tel["nonfinite"] is None, f"training run: {tel['nonfinite']}")
-    check(launches == want, f"training run launches {launches} != {want}")
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"{arch} training run: losses {losses}")
+    check(tel["nonfinite"] is None, f"{arch} training run: {tel['nonfinite']}")
+    check(launches == want, f"{arch} training run launches {launches} != "
+          f"{want}")
     mfu = (f"MFU {tel['mfu'] * 100:.3f}% of {tel['peak_flops']:.3g} FLOP/s"
            if tel["mfu"] is not None else "MFU not reported")
-    print(f"[8] training tinyllama-1.1b bf16, batch {TRAIN_B} x {TRAIN_S}, "
+    print(f"[{tag}] training {arch} bf16, batch {TRAIN_B} x {TRAIN_S}, "
           f"remat, AdamW on {card}: losses "
           + " ".join(f"{x:.4f}" for x in losses)
           + f"; step times " + " ".join(f"{x:.3f}" for x in
@@ -648,6 +920,10 @@ def phase_train(card):
 def kernel_group(name: str) -> str:
     """The part of a training step a device kernel belongs to."""
     low = name.lower()
+    if "ssd_fwd" in name:
+        return "K5 forward (and its recompute)"
+    if "ssd_bwd" in name or "group_sum" in name:
+        return "K5 backward"
     if "matmul_kernel" in name:
         return "K1 matmul (forward linears and their recompute)"
     if "fa_fwd" in name:
@@ -661,12 +937,12 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, AdamW, copies)"
 
 
-def phase_breakdown(dev, card):
+def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
     """Where the time of one training step goes: torch.profiler over the
-    second step of the phase 8 configuration, device time summed by
-    kernel group against the step's wall time (host clock, synchronised).
-    A profiler that sees no device kernel leaves the breakdown
-    unmeasured; it does not fail the run."""
+    second step of the phase 8 (or 13) configuration, device time summed
+    by kernel group against the step's wall time (host clock,
+    synchronised).  A profiler that sees no device kernel leaves the
+    breakdown unmeasured; it does not fail the run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -675,11 +951,13 @@ def phase_breakdown(dev, card):
     from repro_torch.core.params import init_params
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import transformer
     from repro_torch.optim import adamw_init
     from repro_torch.train.step import make_train_step
-    cfg = get("tinyllama-1.1b")
+    cfg = get(arch)
     layout = ParallelPlan().validate(mode="train").build()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+    params = init_params(transformer.abstract_params(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
                          dev, torch.bfloat16)
     state = adamw_init(params)
     step = make_train_step(cfg, layout, OptimConfig(
@@ -700,8 +978,8 @@ def phase_breakdown(dev, card):
     check(math.isfinite(met["loss"].item()), "breakdown step: loss")
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print(f"[9] torch.profiler saw no device kernels on {card}: the "
-              "step's breakdown is not measured")
+        print(f"[{tag}] torch.profiler saw no device kernels on {card}: the"
+              f" {arch} step's breakdown is not measured")
         return None
     groups, spans, names = {}, [], {}
     for e in kernels:
@@ -718,8 +996,8 @@ def phase_breakdown(dev, card):
             busy += b - max(a, end)
             end = b
     busy_ms = busy / 1e3
-    print(f"[9] one training step (batch {TRAIN_B} x {TRAIN_S}) under "
-          f"torch.profiler on {card}: wall {wall_ms:.1f} ms, device busy "
+    print(f"[{tag}] one {arch} training step (batch {TRAIN_B} x {TRAIN_S}) "
+          f"under torch.profiler on {card}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {g}: {ms:.1f} ms in {n} kernels "
@@ -760,11 +1038,20 @@ def main():
     serve_launches = phase_serve(card)
     train_launches, _ = phase_train(card)
     phase_breakdown(dev, card)
+    k1_train = phase_k1_train(dev)
+    k5_numbers = phase_k5(dev)
+    phase_two_layer_zamba2(dev)
+    zamba_launches, _ = phase_train(card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES,
+                                    tag="13")
+    phase_breakdown(dev, card, "zamba2-1.2b", tag="14")
 
     def launched(*names):
-        by = {"serve": sum(serve_launches[n] for n in names),
-              "train": sum(train_launches[n] for n in names)}
-        return dict(launches=by["serve"] + by["train"], launches_by_path=by)
+        by = {path: sum(counts[n] for n in names) for path, counts in
+              (("serve", serve_launches), ("train", train_launches),
+               ("train_zamba2", zamba_launches))}
+        return dict(launches=sum(by.values()), launches_by_path=by)
+    for arch, agg in k1_train.items():
+        k1_numbers.update({f"train_{arch}_{k}": v for k, v in agg.items()})
     kernels = [
         dict(name="K1 matmul", route="cuda",
              source="src/repro_torch/kernels/csrc/matmul.cu",
@@ -782,12 +1069,18 @@ def main():
              source="src/repro_torch/kernels/csrc/paged_decode.cu",
              replaces="src/repro/kernels/paged_decode.py:72",
              **launched("K4"), **k4_numbers),
+        dict(name="K5 ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:23",
+             **launched("K5", "K5 bwd"), **k5_numbers),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_by_path", "fwd_ms", "bwd_ms", "plain_fwd_ms",
              "plain_bwd_ms", "library_fwd_ms", "fwd_bound_ms",
-             "bwd_bound_ms")
+             "bwd_bound_ms") + tuple(
+                 f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms"))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

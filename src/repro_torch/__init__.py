@@ -8,8 +8,10 @@ counterpart under ``kernels/csrc/``, built with ``nvcc`` at first use.
 
 Ported so far, at one device: the serving path of the dense family
 (``launch/serve.py`` -> ``serve.engine.Engine`` -> ``models.transformer``
-prefill and fused paged decode) and its training path
-(``launch/train.py`` -> ``train.step`` -> ``models.transformer.forward``
-with the Algorithm-2 backward -> ``optim`` AdamW), through the K1 matmul,
-K2 flash-attention, K3 RMSNorm and K4 paged flash-decode kernels.
+prefill and fused paged decode) and the training path of the dense and
+hybrid families (``launch/train.py`` -> ``train.step`` ->
+``models.transformer.forward``, zamba2's Mamba2 blocks in
+``models.mamba2``, with the Algorithm-2 backward -> ``optim`` AdamW),
+through the K1 matmul, K2 flash-attention, K3 RMSNorm, K4 paged
+flash-decode and K5 SSD-scan kernels.
 """

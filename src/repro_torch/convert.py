@@ -2,7 +2,10 @@
 
 ``params_from_jax`` takes the reference's parameter tree as numpy arrays
 (the caller runs ``jax.device_get``; this module imports no jax) and
-returns the port's tree of tensors with the same names and shapes.
+returns the port's tree of tensors with the same names and shapes.  A cast
+to the model's dtype leaves float32 the leaves the reference keeps in
+float32 (the Mamba2 ``dt_bias``, ``A_log`` and ``D``), as the port's own
+``init_params`` does.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.params import tree_map
+from .models.transformer import abstract_params
 
 
 def _tensor(a) -> torch.Tensor:
@@ -23,12 +27,28 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None):
-    """Nested dict of numpy arrays -> the same tree of tensors on ``device``;
-    floating leaves are cast to ``dtype`` when it is given."""
-    def one(a):
-        t = _tensor(a)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(device)
-    return tree_map(one, tree)
+def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None,
+                    cfg=None):
+    """Nested dict of numpy arrays -> the same tree of tensors on ``device``.
+    With ``dtype``, floating leaves are cast to it, except those whose
+    Param in ``abstract_params(cfg)`` pins its own dtype: ``cfg`` (the
+    port's ModelConfig) is then required."""
+    if dtype is None:
+        return tree_map(lambda a: _tensor(a).to(device), tree)
+    if cfg is None:
+        raise ValueError("params_from_jax: a cast to a dtype needs the "
+                         "model's cfg, to keep the leaves it pins in f32")
+    out = {}
+
+    def walk(src, spec, dst):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                dst[k] = {}
+                walk(v, spec[k], dst[k])
+                continue
+            t = _tensor(v)
+            if t.is_floating_point():
+                t = t.to(spec[k].dtype or dtype)
+            dst[k] = t.to(device)
+    walk(tree, abstract_params(cfg), out)
+    return out

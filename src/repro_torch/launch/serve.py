@@ -88,7 +88,8 @@ def main(argv=None) -> dict:
           f"cache={transformer.serve_cache_mode(cfg)}")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen, device, getattr(torch, cfg.dtype))
+    params = init_params(transformer.abstract_params(cfg),
+                         gen, device, getattr(torch, cfg.dtype))
     tracer = make_tracer(bool(args.trace))
     eng = Engine(cfg, layout, params, batch_size=args.batch_size,
                  max_len=args.max_len, temperature=args.temperature,

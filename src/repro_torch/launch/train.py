@@ -3,11 +3,11 @@
 
 The flags of ``repro.launch.train`` plus ``--device {cuda,cpu}`` (default
 cuda; with no card it exits with a message and never falls back to the
-CPU).  It trains the dense family on one device, the cube (1, 1, 1) at
-pp = 1 and dp = 1, with AdamW; the flags of what this slice does not carry
-(more than one device, the 1-D/2-D baselines, overlap, ZeRO, Adafactor,
-checkpoints, other families) raise with a pointer to ROADMAP.md.  Weights
-are drawn from seed 0 at the config's published shapes.  It prints the
+CPU).  It trains the dense and hybrid (zamba2) families on one device,
+the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW; the flags of what
+the port does not carry (more than one device, the 1-D/2-D baselines,
+overlap, ZeRO, Adafactor, checkpoints, the moe/ssm/vlm/audio families)
+raise with a pointer to ROADMAP.md.  Weights are drawn from seed 0 at the config's published shapes.  It prints the
 reference launcher's lines (``arch=... plan=...``, ``params: ...M``,
 ``step N loss=... xent=... lr=... gnorm=... s/step``, ``done: first loss
 ...``) and returns {"losses", "telemetry"}.
@@ -40,7 +40,7 @@ def _refuse(args, cfg):
         bad.append(f"--optimizer {args.optimizer} (Adafactor, item 6)")
     if args.ckpt_dir:
         bad.append("--ckpt-dir (checkpoints, item 9)")
-    if cfg.family != Family.DENSE:
+    if cfg.family not in (Family.DENSE, Family.HYBRID):
         bad.append(f"family {cfg.family.value!r} (item 10)")
     if bad:
         raise NotImplementedError(f"{'; '.join(bad)}: {TODO}")
@@ -97,6 +97,7 @@ def main(argv=None) -> dict:
     from repro_torch.core.params import init_params, tree_leaves
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import transformer
     from repro_torch.obs import make_tracer
     from repro_torch.obs.telemetry import TrainTelemetry, peak_flops_for
     from repro_torch.optim import adamw_init
@@ -138,7 +139,8 @@ def main(argv=None) -> dict:
     print(f"arch={cfg.arch} layers={cfg.n_layers} d={cfg.d_model} "
           f"mesh={layout.sizes} plan={plan.describe()} device={device}")
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, gen, device, getattr(torch, cfg.dtype))
+    params = init_params(transformer.abstract_params(cfg),
+                         gen, device, getattr(torch, cfg.dtype))
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"params: {n_params / 1e6:.1f}M")
     opt_state = adamw_init(params)

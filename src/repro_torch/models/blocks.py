@@ -24,11 +24,35 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..core import comm
 from ..core.linear3d import layernorm, plinear, rmsnorm
+from ..core.params import Param
 from ..core.topology import Dirs, Layout
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_decode import paged_flash_decode
 
 F32 = torch.float32
+
+
+def norm_params(cfg: ModelConfig, d: int):
+    p = {"g": Param((d,), init="ones")}
+    if cfg.norm == "layernorm":
+        p["b"] = Param((d,), init="zeros")
+    return p
+
+
+def dense_block_params(cfg: ModelConfig):
+    """One dense attention + MLP block (reference
+    ``blocks.py:dense_block_params``)."""
+    d, nh, nkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    attn = {"wq": Param((d, nh * dh)), "wk": Param((d, nkv * dh)),
+            "wv": Param((d, nkv * dh)), "wo": Param((nh * dh, d))}
+    if cfg.qk_norm:
+        attn["q_norm"] = Param((dh,), init="ones")
+        attn["k_norm"] = Param((dh,), init="ones")
+    mlp = {"w_up": Param((d, cfg.d_ff)), "w_down": Param((cfg.d_ff, d))}
+    if cfg.act in ("silu", "gelu"):
+        mlp["w_gate"] = Param((d, cfg.d_ff))
+    return {"ln1": norm_params(cfg, d), "attn": attn,
+            "ln2": norm_params(cfg, d), "mlp": mlp}
 
 
 # ---------------------------------------------------------------------------

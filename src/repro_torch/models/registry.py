@@ -1,14 +1,58 @@
-"""The dense family's hooks of ``repro/models/registry.py`` that the port's
-training path needs: the loss labels and mask, the microbatch weight, and
-the train-FLOPs estimate that is the MFU numerator (``obs/telemetry.py``).
-The reference module imports jax, so the port keeps its own copies;
-``tests/test_torch_train.py`` holds them equal to the originals.
+"""The hooks of ``repro/models/registry.py`` that the port's paths need,
+for the dense and hybrid families: the layer plan and its segments, the
+loss labels and mask, the microbatch weight, and the train-FLOPs estimate
+that is the MFU numerator (``obs/telemetry.py``).  The reference module
+imports jax, so the port keeps its own copies; ``tests/test_torch_train.py``
+and ``tests/test_torch_ssm.py`` hold them equal to the originals.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from ..config import Family, ModelConfig
+
+
+def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The block kind of each layer in order (reference ``_plan_dense`` and
+    ``_plan_hybrid``, ``registry.py:374-396``): zamba2 runs the one shared
+    attention block ("attn") after every full ``attn_every`` Mamba
+    layers."""
+    if cfg.family == Family.DENSE:
+        return ("dense",) * cfg.n_layers
+    if cfg.family != Family.HYBRID:
+        raise NotImplementedError(
+            f"{cfg.arch}: family {cfg.family.value!r} is not ported yet; "
+            "the port runs the dense and hybrid families (ROADMAP.md, "
+            "Queue 1 item 10)")
+    every = cfg.ssm.attn_every or (cfg.n_layers + 1)
+    plan, done = [], 0
+    while done < cfg.n_layers:
+        n = min(every, cfg.n_layers - done)
+        done += n
+        plan += ["mamba"] * n
+        if cfg.ssm.attn_every and n == every:
+            plan.append("attn")
+    return tuple(plan)
+
+
+# The kind whose parameters are shared rather than stacked per layer: it
+# reads params["shared"]["attn"] (reference registry.py:323-329, a
+# BlockKind with params=None).
+SHARED_KINDS = ("attn",)
+
+
+def segments(plan) -> Tuple[Tuple[str, int], ...]:
+    """Runs of one kind in plan order, ``(kind, count)`` (reference
+    ``_segments``, ``registry.py:599-606``)."""
+    segs = []
+    for k in plan:
+        if segs and segs[-1][0] == k:
+            segs[-1][1] += 1
+        else:
+            segs.append([k, 1])
+    return tuple((k, n) for k, n in segs)
 
 
 def text_labels(batch):
@@ -35,8 +79,12 @@ def attn_step_flops(cfg: ModelConfig, s: int) -> float:
 
 def train_flops_per_token(cfg: ModelConfig, s: int) -> float:
     """Model FLOPs spent per trained token (reference
-    ``registry.py:492-494``); the port trains the dense family only."""
-    if cfg.family != Family.DENSE:
+    ``registry.py:492-494``).  The reference gives the hybrid family no
+    estimate of its own, so zamba2 takes ``attn_step_flops`` too, which
+    counts its 38 layers as dense attention + MLP layers (``n_params``):
+    2.68B parameters against the 1.18B of its real tree, so its MFU reads
+    about 2.3x high.  Copied as it is."""
+    if cfg.family not in (Family.DENSE, Family.HYBRID):
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family.value!r} is not ported yet "
             "(ROADMAP.md, Queue 1 item 10)")

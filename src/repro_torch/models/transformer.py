@@ -1,10 +1,29 @@
 """Model assembly (port of ``repro/models/transformer.py`` and the dense
-part of ``repro/models/registry.py``).
+and hybrid parts of ``repro/models/registry.py``).
+
+``abstract_params(cfg)`` is the parameter tree, with the same nested names,
+shapes and dtypes as the reference's ``transformer.abstract_params`` at
+one device and pp = 1.  The dense family's:
+
+    embed                                                   (vocab, d)
+    stack.dense.{ln1.g, attn.{wq, wk, wv, wo}, ln2.g,
+                 mlp.{w_up, w_gate, w_down}}                (L, ...) stacked
+    ln_f.g                                                  (d,)
+    head                                                    (d, vocab)
+
+(plus ``ln*.b`` for LayerNorm configs, ``attn.{q,k}_norm`` with qk-norm, and
+no ``w_gate`` for a plain GELU MLP).  The hybrid family (zamba2) has
+``shared.attn``, one unstacked dense block, and ``stack.mamba.{ln, w_x,
+w_z, w_bc, w_dt, dt_bias, A_log, D, conv_x, conv_x_b, conv_bc, conv_bc_b,
+gate_ln, w_out}`` (L, ...) instead of ``stack.dense``.  Weights keep JAX's
+(in, out) layout, so a tree converted by ``convert.params_from_jax`` needs
+no transposes.
 
 ``forward(mode="train")`` returns the loss of a batch of token sequences,
-differentiable in every parameter: embedding, the layer plan (each layer
-recomputed in the backward when ``cfg.remat``), ``ln_f`` and the chunked
-vocab-parallel head and cross-entropy.  ``prefill`` runs whole
+differentiable in every parameter: embedding, the layer plan (dense
+blocks, or zamba2's Mamba2 blocks and its shared attention block; each
+block recomputed in the backward when ``cfg.remat``), ``ln_f`` and the
+chunked vocab-parallel head and cross-entropy.  ``prefill`` runs whole
 right-padded prompts and hands their rope'd (k, v) to the paged pool;
 ``forward(mode="decode", page=...)`` advances every slot by one token
 against that pool.  The reference scans stacked layer parameters
@@ -15,6 +34,7 @@ zero gradient per layer).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -22,10 +42,37 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Family, ModelConfig
 from ..core.linear3d import embed_lookup, plinear
-from ..core.params import tree_map
+from ..core.params import Param, tree_map
 from ..core.topology import Dirs, Layout
 from . import blocks as B
-from .registry import text_labels
+from . import mamba2
+from .registry import SHARED_KINDS, layer_plan, segments, text_labels
+
+
+# block kinds with per-layer (stacked) parameters; "attn" reads the one
+# shared block (reference registry.py:323-329, BlockKind(params=None))
+STACKED_KINDS = {"dense": B.dense_block_params,
+                 "mamba": mamba2.mamba_block_params}
+
+
+def _stacked(block, n: int):
+    return tree_map(lambda p: dataclasses.replace(p, shape=(n, *p.shape)),
+                    block)
+
+
+def abstract_params(cfg: ModelConfig):
+    """Param tree of a dense- or hybrid-family model (see the module
+    docstring; reference ``transformer.py:47-73``)."""
+    plan = layer_plan(cfg)
+    d = cfg.d_model
+    tree = {"embed": Param((cfg.vocab, d), init="embed")}
+    if "attn" in plan:
+        tree["shared"] = {"attn": B.dense_block_params(cfg)}
+    tree["stack"] = {kind: _stacked(fn(cfg), plan.count(kind))
+                     for kind, fn in STACKED_KINDS.items() if kind in plan}
+    tree["ln_f"] = B.norm_params(cfg, d)
+    tree["head"] = Param((d, cfg.vocab))
+    return tree
 
 
 def entry_dirs() -> Dirs:
@@ -60,32 +107,49 @@ def _layers(tree, n: int):
 def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
               positions, *, mode: str, cache=None, page=None,
               collect_kv: bool = False, remat: bool = False):
-    """The dense layer plan, one layer after another (the reference's
-    ``run_stack`` scan, ``registry.py:643-716``); with ``remat`` each layer
-    is recomputed in the backward (``jax.checkpoint`` of the scan body
-    there).  Returns (x, new_cache): decode -> {"dense": {"k", "v", "pos"}}
-    stacked per layer; prefill with ``collect_kv`` -> {"dense": (k, v)}
-    stacked (n_layers, B, S, nkv, d)."""
-    if cfg.family != Family.DENSE:
+    """The layer plan, one segment of one block kind after another (the
+    reference's ``run_stack``, ``registry.py:643-716``): a per-kind offset
+    into each stacked slab, the shared kind ("attn", zamba2's one attention
+    block) applied unrolled with ``params["shared"]["attn"]``.  With
+    ``remat`` each block is recomputed in the backward (``jax.checkpoint``
+    of the scan body and of the shared block there).  Returns (x,
+    new_cache): decode -> {"dense": {"k", "v", "pos"}} stacked per layer;
+    prefill with ``collect_kv`` -> {"dense": (k, v)} stacked (n_layers, B,
+    S, nkv, d).  The hybrid family trains only: its serving path waits for
+    the state-family serving slice."""
+    plan = layer_plan(cfg)
+    if mode != "train" and cfg.family != Family.DENSE:
         raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family.value!r} is not ported yet")
+            f"{cfg.arch}: serving the {cfg.family.value!r} family (ssd_step,"
+            " the Mamba state cache, sequential prefill) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 10)")
     decode = mode == "decode"
-    layers = _layers(params["stack"]["dense"], cfg.n_layers)
+    stacks = {k: _layers(t, plan.count(k))
+              for k, t in params["stack"].items()}
 
-    def block(xx, p):
+    def block(kind, xx, p):
+        if kind == "mamba":
+            return mamba2.mamba_apply(layout, cfg, dirs, xx, p)
         return B.dense_block_apply(layout, cfg, dirs, xx, p, positions)[0]
 
-    outs = []
-    for i, p in enumerate(layers):
-        if remat:
-            x = checkpoint(block, x, p, use_reentrant=False)
-            continue
-        c = _layer(cache["dense"], i) if decode else None
-        x, nc = B.dense_block_apply(layout, cfg, dirs, x, p, positions,
-                                    decode=decode, cache=c,
-                                    return_kv=collect_kv, page=page)
-        if nc is not None:
-            outs.append(nc)
+    outs, offs = [], {}
+    for kind, n in segments(plan):
+        off = offs.get(kind, 0)
+        offs[kind] = off + n
+        for i in range(off, off + n):
+            p = params["shared"][kind] if kind in SHARED_KINDS \
+                else stacks[kind][i]
+            if remat:
+                x = checkpoint(block, kind, x, p, use_reentrant=False)
+            elif kind != "dense":
+                x = block(kind, x, p)
+            else:
+                c = _layer(cache["dense"], i) if decode else None
+                x, nc = B.dense_block_apply(layout, cfg, dirs, x, p,
+                                            positions, decode=decode, cache=c,
+                                            return_kv=collect_kv, page=page)
+                if nc is not None:
+                    outs.append(nc)
     if not outs:
         return x, {}
     if decode:

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
 K1 matmul, K2 flash attention and K3 RMSNorm (forward and backward), K4
-paged decode.
+paged decode, K5 SSD scan (forward and backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels import matmul as k1
 from repro_torch.kernels import paged_decode as k4
 from repro_torch.kernels import rmsnorm as k3
+from repro_torch.kernels import ssd_scan as k5
 
 
 @pytest.fixture
@@ -250,3 +251,86 @@ def test_k2_k3_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         k2.flash_attention(q, kv, kv.cpu(), pos[None], pos)
     assert (k3.launches, k2.launches) == before
+
+
+def ssd_inputs(b, T, nh, P, G, N, *, seed=0, la_scale=0.1):
+    """numpy (xbar, la, B, C) of the SSD scan: la <= 0 as the model makes
+    it (softplus(dt) * -exp(A_log)); ``tests/test_torch_ssm.py`` feeds the
+    same cases to the JAX package."""
+    rng = np.random.default_rng(seed)
+    xbar = (rng.standard_normal((b, T, nh, P)) * 0.5).astype(np.float32)
+    la = (-np.abs(rng.standard_normal((b, T, nh))) * la_scale) \
+        .astype(np.float32)
+    B = (rng.standard_normal((b, T, G, N)) * 0.3).astype(np.float32)
+    C = (rng.standard_normal((b, T, G, N)) * 0.3).astype(np.float32)
+    return xbar, la, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (b, T, nh, P, G, N, chunk, la scale)
+    (2, 512, 8, 64, 2, 64, 256, 0.1),       # rep 4, two whole chunks
+    (1, 300, 4, 64, 1, 16, 256, 0.1),       # ragged: Q = 150, not 64k
+    (2, 200, 6, 32, 3, 48, 64, 0.1),        # Q = 50, P and N below 64
+    (1, 256, 4, 64, 2, 64, 256, 200.0)])    # la << 0: exp(gap) overflows
+def test_k5_kernel_matches_plain_on_card(cuda, dtype, case):
+    b, T, nh, P, G, N, chunk, scale = case
+    xbar, la, B, C = (torch.from_numpy(a).to(cuda) for a in
+                      ssd_inputs(b, T, nh, P, G, N, la_scale=scale))
+    B, C = B.to(dtype), C.to(dtype)
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b, T, nh, P)).astype(np.float32)).to(cuda)
+    before = (k5.launches, k5.launches_bwd)
+    y, states = k5.ssd_scan_fwd(xbar, la, B, C, chunk)
+    grads = k5.ssd_scan_bwd(dy, xbar, la, B, C, states, chunk)
+    assert (k5.launches, k5.launches_bwd) == (before[0] + 1, before[1] + 1)
+    y2, states2 = k5.ssd_scan_plain(xbar, la, B, C, chunk)
+    grads2 = k5.ssd_scan_bwd_plain(dy, xbar, la, B, C, states2, chunk)
+    torch.cuda.synchronize()
+    # f32 sums in another order; dB, dC in bf16 round once.  With la near
+    # -160 a step, cum reaches -4e4 within a chunk, where one f32 ulp is
+    # 4e-3: a decay exp(cum_i - cum_j) between neighbours is the difference
+    # of two such sums, and the kernel's and torch.cumsum's orders may
+    # differ by an ulp or two, so those decays differ by up to ~1%
+    tol = 1e-4 if scale < 1 else 1e-2
+    assert _rel(y, y2) <= tol and _rel(states, states2) <= tol
+    for got, want in zip(grads, grads2):
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        assert _rel(got, want) <= (tol if got.dtype == torch.float32
+                                   else 1e-2)
+    again = k5.ssd_scan_bwd(dy, xbar, la, B, C, states, chunk)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+def test_k5_autograd_launches_the_kernels(cuda):
+    xbar, la, B, C = (torch.from_numpy(a).to(cuda).requires_grad_() for a in
+                      ssd_inputs(1, 128, 4, 64, 2, 64))
+    before = (k5.launches, k5.launches_bwd)
+    k5.ssd_scan(xbar, la, B, C, 64).square().sum().backward()
+    assert (k5.launches, k5.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (xbar, la, B, C))
+
+
+@pytest.mark.cuda
+def test_k5_refuses_what_it_does_not_take(cuda):
+    xbar, la, B, C = (torch.from_numpy(a).to(cuda) for a in
+                      ssd_inputs(1, 64, 4, 64, 2, 64))
+    before = k5.launches
+    with pytest.raises(TypeError):
+        k5.ssd_scan(xbar.bfloat16(), la, B, C)      # xbar must be f32
+    with pytest.raises(TypeError):
+        k5.ssd_scan(xbar, la, B, C.bfloat16())      # mixed B and C
+    with pytest.raises(ValueError):                 # 4 heads on 3 groups
+        k5.ssd_scan(xbar, la, torch.zeros(1, 64, 3, 64, device=cuda),
+                    torch.zeros(1, 64, 3, 64, device=cuda))
+    with pytest.raises(ValueError):                 # N above 64
+        k5.ssd_scan(xbar, la, torch.zeros(1, 64, 2, 80, device=cuda),
+                    torch.zeros(1, 64, 2, 80, device=cuda))
+    with pytest.raises(ValueError):                 # not contiguous
+        k5.ssd_scan(xbar.transpose(1, 2).contiguous().transpose(1, 2), la,
+                    B, C)
+    with pytest.raises(ValueError):                 # two devices
+        k5.ssd_scan(xbar, la.cpu(), B, C)
+    assert k5.launches == before

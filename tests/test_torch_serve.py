@@ -33,7 +33,7 @@ from repro_torch.config import reduced
 from repro_torch.configs.registry import get
 from repro_torch.convert import params_from_jax
 from repro_torch.core import comm
-from repro_torch.core.params import abstract_params, init_params, tree_leaves
+from repro_torch.core.params import init_params, tree_leaves
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.core.topology import AXES, Layout, factor_model_axis
 from repro_torch.models import blocks
@@ -82,7 +82,7 @@ def test_param_tree_matches_reference():
     full published width of tinyllama-1.1b."""
     jtree = jtransformer.abstract_params(jget("tinyllama-1.1b"),
                                          single_device_layout())
-    ttree = abstract_params(get("tinyllama-1.1b"))
+    ttree = transformer.abstract_params(get("tinyllama-1.1b"))
     jflat = jax.tree_util.tree_flatten_with_path(
         jtree, is_leaf=lambda p: hasattr(p, "spec"))[0]
     tflat = {}
@@ -197,7 +197,8 @@ def test_engine_chunked_matches_sequential(tlayout):
     """Chunked prefill hands the pool the same kv that token-by-token
     prefill writes: identical greedy trajectories (f32)."""
     cfg = reduced(get("tinyllama-1.1b"))
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+    params = init_params(transformer.abstract_params(cfg),
+                         torch.Generator().manual_seed(0), "cpu",
                          torch.float32)
     outs = []
     for chunked in (True, False):
@@ -461,7 +462,8 @@ def test_native_init_distribution():
     """init_params follows the reference's rules in distribution: fan_in
     weights have std 1/sqrt(fan_in), embeddings std 1, norms ones."""
     cfg = reduced(get("tinyllama-1.1b"))
-    p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = init_params(transformer.abstract_params(cfg),
+                    torch.Generator().manual_seed(0), "cpu")
     assert all(t.dtype == torch.bfloat16 for t in tree_leaves(p))
     wq = p["stack"]["dense"]["attn"]["wq"].float()
     assert abs(wq.std().item() * math.sqrt(cfg.d_model) - 1) < 0.05
@@ -483,6 +485,10 @@ def test_port_imports_no_jax_and_no_reference():
         "out = train(['--arch', 'tinyllama-1.1b', '--reduced', '--device',",
         "             'cpu', '--steps', '2', '--batch', '2', '--seq', '32'])",
         "assert len(out['losses']) == 1, out",
+        "out = train(['--arch', 'zamba2-1.2b', '--reduced', '--device',",
+        "             'cpu', '--steps', '1', '--batch', '1', '--seq', '96'])",
+        "assert len(out['losses']) == 1, out",
+        "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan",
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
         "       or m == 'repro' or m.startswith('repro.')]",
         "assert not bad, bad",

@@ -6,7 +6,9 @@ against the jnp function the JAX model runs, forward and backward.  Then
 the 3-D linear's and the embedding's autograd against the reference's
 ``custom_vjp``; the train loss and its whole gradient tree on reduced
 tinyllama-1.1b (2 layers, d_model 256) within 1e-4 in f32; three AdamW
-steps at microbatch 1 and 2 within 1e-2; and the copies (token stream,
+steps at microbatch 1 and 2 within 1e-2, and the same for reduced
+zamba2-1.2b (2 Mamba2 layers and the shared attention block, remat on,
+sequences long enough that the SSD state crosses chunks); and the copies (token stream,
 configs, FLOPs formula, schedule, plan), the launcher and its refusals.
 Inputs come from numpy with a seed; weights cross by
 ``convert.params_from_jax``.
@@ -50,7 +52,14 @@ from repro_torch.optim import adamw_init, make_schedule
 from repro_torch.train.step import make_train_step
 
 F32 = jnp.float32
-VARIANTS = {"mha": {}, "gqa_remat": {"n_kv": 2, "remat": True}}
+# variant -> (arch, config change); the reduced zamba2 has the plan
+# [mamba, mamba, attn], SSD chunk 64 and attention window 64
+VARIANTS = {"mha": ("tinyllama-1.1b", {}),
+            "gqa_remat": ("tinyllama-1.1b", {"n_kv": 2, "remat": True}),
+            "zamba2": ("zamba2-1.2b", {"remat": True})}
+# arch -> sequence length of (the loss test, the AdamW test): zamba2's
+# cross the SSD chunk ends at Q = 40 (4 chunks) and Q = 48 (2 chunks)
+SEQ = {"tinyllama-1.1b": (32, 16), "zamba2-1.2b": (160, 96)}
 
 
 def _np(a):
@@ -241,11 +250,9 @@ def test_embedding3d_grad_matches_custom_vjp():
 @pytest.fixture(scope="module", params=sorted(VARIANTS))
 def model(request):
     """(jax cfg, port cfg, jax layout, jax f32 params, port params)."""
-    change = VARIANTS[request.param]
-    jcfg = dataclasses.replace(jconfig.reduced(jget("tinyllama-1.1b")),
-                               **change)
-    tcfg = dataclasses.replace(config.reduced(get("tinyllama-1.1b")),
-                               **change)
+    arch, change = VARIANTS[request.param]
+    jcfg = dataclasses.replace(jconfig.reduced(jget(arch)), **change)
+    tcfg = dataclasses.replace(config.reduced(get(arch)), **change)
     jlay = single_device_layout("3d")
     jp = jinit_params(jtransformer.abstract_params(jcfg, jlay),
                       jax.random.key(0), dtype=F32)
@@ -276,7 +283,7 @@ def _at(tree, path):
 
 def test_train_loss_and_grads_match_reference(model):
     jcfg, tcfg, jlay, jp, tp = model
-    batch = _batch(tcfg.vocab)
+    batch = _batch(tcfg.vocab, s=SEQ[tcfg.arch][0])
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: jtransformer.forward(jcfg, jlay, p, b, mode="train"),
         has_aux=True))(jp, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -316,7 +323,7 @@ def test_three_adamw_steps_match_reference(model, mb):
     tstate = adamw_init(tparams)
     jparams = jp
     for s in range(3):
-        batch = _batch(tcfg.vocab, b=4, s=16, seed=10 + s)
+        batch = _batch(tcfg.vocab, b=4, s=SEQ[tcfg.arch][1], seed=10 + s)
         jparams, jstate, jmet = jstep(
             jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         tparams, tstate, met = step(
@@ -332,12 +339,22 @@ def test_three_adamw_steps_match_reference(model, mb):
 
 
 def test_train_launcher_on_cpu(capsys):
-    out = train_launch.main(["--arch", "tinyllama-1.1b", "--reduced",
+    _launch_on_cpu(capsys, "tinyllama-1.1b")
+
+
+def test_train_launcher_trains_hybrid_on_cpu(capsys):
+    """zamba2 is no longer refused: reduced, 128 steps of sequence, so the
+    SSD state crosses two chunks of 64."""
+    _launch_on_cpu(capsys, "zamba2-1.2b", seq=128)
+
+
+def _launch_on_cpu(capsys, arch, seq=64):
+    out = train_launch.main(["--arch", arch, "--reduced",
                              "--device", "cpu", "--steps", "3", "--batch",
-                             "4", "--seq", "64", "--log-every", "1",
+                             "4", "--seq", str(seq), "--log-every", "1",
                              "--telemetry", ""])
     text = capsys.readouterr().out
-    assert "arch=tinyllama-1.1b" in text and "plan={" in text
+    assert f"arch={arch}" in text and "plan={" in text
     assert "params: " in text and "done: first loss" in text
     assert text.count(" loss=") == 3 and "gnorm=" in text
     assert len(out["losses"]) == 3
@@ -347,7 +364,8 @@ def test_train_launcher_on_cpu(capsys):
 @pytest.mark.parametrize("flags", [
     ["--dp", "2"], ["--model", "8"], ["--pp", "2"], ["--strategy", "1d"],
     ["--overlap"], ["--zero", "1"], ["--optimizer", "adafactor"],
-    ["--ckpt-dir", "ck"], ["--arch", "mixtral-8x7b"]])
+    ["--ckpt-dir", "ck"], ["--arch", "mixtral-8x7b"], ["--arch", "xlstm-350m"],
+    ["--arch", "internvl2-2b"], ["--arch", "whisper-medium"]])
 def test_train_launcher_refusals(flags):
     argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
             "--steps", "1"] + flags
@@ -401,7 +419,7 @@ def test_config_copies_match_reference():
                 c, jc = config.reduced(c), jconfig.reduced(jc)
             assert c.n_params() == jc.n_params(), arch
             assert c.n_active_params() == jc.n_active_params(), arch
-            if c.family == config.Family.DENSE:
+            if c.family in (config.Family.DENSE, config.Family.HYBRID):
                 for s in (1, 1024, 4096):
                     assert registry.train_flops_per_token(c, s) == \
                         jregistry.train_flops_per_token(jc, s), arch
