@@ -7,8 +7,14 @@ Phases, in order (any failure raises and exits nonzero):
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
      (one process per source, all at once);
   2. K1 matmul against its plain version at every GEMM shape of
-     tinyllama-1.1b's decode and prefill, bf16 and f32, every activation,
-     with and without bias; time the path's case (bf16, no bias, no act);
+     tinyllama-1.1b's decode and prefill: f32 through the simt route,
+     bf16 through both the tc (wgmma + TMA) and the decode (split-K)
+     route, every activation, with and without bias; then the times of
+     the route the path takes, the other bf16 route, the simt kernel,
+     the plain version and ``torch.matmul`` beside the bound;
+ 2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
+     64, 128} over a decode step's GEMMs, and the crossover printed
+     beside ``kernels/matmul.py:DECODE_MAX_M``;
   3. K4 paged decode against its plain version at the tinyllama shape
      (B = 8, 32 q heads, 4 kv heads, d = 64, block 16): ragged contexts of
      64-1024 tokens, a windowed case, null and recycled blocks, residuals;
@@ -18,20 +24,24 @@ Phases, in order (any failure raises and exits nonzero):
   5. K2 flash attention forward and backward against their plain versions
      at the training shape (4 x 2048, 32/4 heads, d = 64, causal), bf16 and
      f32; times beside ``F.scaled_dot_product_attention``;
-  6. full-width two-layer tinyllama in f32: CPU (plain versions) against
-     the card (kernels), serving prefill and the first fused decode step's
-     logits, then one training step's loss and gradients (batch 2 x 512);
+  6. full-width two-layer tinyllama in f32 (K1's simt route) and in bf16
+     (its tc and decode routes): CPU (plain versions) against the card
+     (kernels), serving prefill and the first fused decode step's logits,
+     then one f32 training step's loss and gradients (batch 2 x 512);
   7. the serving run: ``repro_torch.launch.serve`` serves 8 requests of
      tinyllama-1.1b at full depth and width in bf16 (weights from a seed),
      with the kernels' launch counters reset just before and read after;
+     no bf16 K1 GEMM may take the simt route (also in phases 8 and 13);
   8. the training run: ``repro_torch.launch.train`` trains tinyllama-1.1b at
      full depth and width in bf16 (batch 4 x 2048, remat, AdamW, synthetic
      tokens from seed 0) for a few steps, counters reset before and read
      after; every loss must be finite and the launches as expected;
   9. where the time of one such training step goes: torch.profiler's
      device time by kernel group, and the device's idle share;
- 10. K1 at training shapes: kernel, plain version and ``torch.matmul``
-     summed over the GEMMs of one tinyllama and one zamba2 training step;
+ 10. K1 at training shapes: the tc route against the plain version at
+     every GEMM shape of a tinyllama and a zamba2 training step, then the
+     route, the simt kernel, the plain version and ``torch.matmul``
+     summed over the GEMMs of one step of each;
  11. K5 SSD scan forward and backward against their plain versions at
      zamba2's training shape (4 x 2048, 64 heads of 64, 2 groups, d_state
      64, chunk 256), bf16 and f32 B/C, a ragged T, a strongly negative
@@ -42,7 +52,8 @@ Phases, in order (any failure raises and exits nonzero):
      zamba2-1.2b at full depth and width in bf16 (batch 4 x 2048, remat,
      AdamW, synthetic tokens from seed 0), counters reset before and read
      after; every loss finite and the launches exact;
- 14. where the time of one zamba2 training step goes (as phase 9).
+ 14. where the time of one zamba2 training step goes (as phase 9);
+ 15. K1 against ``torch.matmul`` summed over each path's GEMMs.
 
 The lines before the last carry one JSON object of per-kernel numbers and
 the card's name and power limit from nvidia-smi; the last line is
@@ -51,8 +62,10 @@ repository's ``src/repro_torch`` beside this file, it exits nonzero and
 prints no result.
 """
 import dataclasses
+import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -138,6 +151,40 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def capture_stream():
+    """The one side stream every graph is captured on: cuBLAS keeps a
+    workspace for each stream it has run on, so a stream per capture
+    would hold 32 MiB each for the rest of the run."""
+    import torch
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, reps):
+    """Mean device time of ``fn`` with the host taken out: ``reps`` calls
+    captured in one CUDA graph, replayed between CUDA events (after one
+    warm-up call and one warm-up replay)."""
+    import torch
+    side = capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound_ms(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -180,7 +227,74 @@ def phase_build():
                 print(f"    {name}: {line.strip()}")
 
 
+def k1_inputs(gen, dev, m, k, n, dtype=None):
+    import torch
+    x = torch.randn(m, k, generator=gen, device=dev)
+    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+    b = torch.randn(n, generator=gen, device=dev)
+    if dtype is not None:
+        x, w, b = (t.to(dtype) for t in (x, w, b))
+    return x, w, b
+
+
+def k1_check(k1, x, w, b, force=None):
+    """Worst (relative, absolute) error of K1 against its plain version over
+    every activation, with and without bias."""
+    worst, worst_abs = 0.0, 0.0
+    for act in k1.ACTS:
+        for bias in (None, b):
+            got = k1.matmul(x, w, bias, act=act, force=force)
+            want = k1.matmul_plain(x, w, bias, act=act)
+            worst = max(worst, rel_err(got, want))
+            worst_abs = max(worst_abs, abs_err(got, want))
+    return worst, worst_abs
+
+
+def k1_time(k1, dev, gen, m, k, n, reps, routes, with_plain=True,
+            device=False):
+    """Times of the bf16 product at the path's case (no bias, no
+    activation): each named route forced, the plain version and
+    ``torch.matmul``, as calls from the host (CUDA events around a loop of
+    calls); with ``device``, also each route's and ``torch.matmul``'s
+    device time (``graph_ms``: the same calls replayed from a CUDA graph),
+    under keys ending in ``device_ms``.  The weights rotate over enough
+    copies to exceed the 50 MB L2 cache, as a step finds them."""
+    import torch
+    copies = max(1, min(64, math.ceil(120e6 / (k * n * 2))))
+    ws = [(torch.randn(k, n, generator=gen, device=dev)
+           / math.sqrt(k)).to(torch.bfloat16) for _ in range(copies)]
+    x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    it = iter(range(1 << 30))
+
+    def pick():
+        return ws[next(it) % copies]
+    t = {}
+    for name, r in routes.items():
+        t[name] = time_ms(lambda: k1.matmul(x, pick(), force=r),
+                          reps if r != "simt" else max(1, reps // 20))
+    if with_plain:
+        t["plain_ms"] = time_ms(lambda: k1.matmul_plain(x, pick()),
+                                max(1, reps // 4))
+    t["library_ms"] = time_ms(lambda: torch.matmul(x, pick()), reps)
+    if device:
+        for name, r in routes.items():
+            if r != "simt":
+                t[name[:-2] + "device_ms"] = graph_ms(
+                    lambda: k1.matmul(x, pick(), force=r), reps)
+        t["library_device_ms"] = graph_ms(lambda: torch.matmul(x, pick()),
+                                          reps)
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        2 * (m * k + k * n + m * n), 2 * m * n * k, H100_BF16_FLOPS)
+    return t
+
+
 def phase_k1(dev):
+    """K1 at every GEMM shape of tinyllama-1.1b's decode step (M = 8) and
+    prefill (M = 4096): f32 through the simt route, bf16 through both the
+    tc and the decode route, each against the plain version; then the
+    times of the route the path takes, of the other bf16 route, of the
+    simt kernel (the first K1 design), the plain version and
+    ``torch.matmul``."""
     import torch
     from repro_torch.kernels import matmul as k1
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -188,56 +302,45 @@ def phase_k1(dev):
               LAYER_GEMMS + [HEAD_GEMM]]
     shapes += [(PREFILL_M, k, n, name) for name, k, n, _ in LAYER_GEMMS]
     tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    times, worst_path_err = {}, 0.0
+    times, path_err = {}, {"tc": 0.0, "decode": 0.0}
     for m, k, n, name in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-            w = (torch.randn(k, n, generator=gen, device=dev)
-                 / math.sqrt(k)).to(dtype)
-            b = torch.randn(n, generator=gen, device=dev).to(dtype)
-            worst, worst_abs = 0.0, 0.0
-            for act in k1.ACTS:
-                for bias in (None, b):
-                    got = k1.matmul(x, w, bias, act=act)
-                    want = k1.matmul_plain(x, w, bias, act=act)
-                    worst = max(worst, rel_err(got, want))
-                    worst_abs = max(worst_abs,
-                                    (got.float() - want.float()).abs()
-                                    .max().item())
+        path = k1.route(m, n, k, torch.bfloat16, True)
+        check(path != "simt", f"K1 {name} ({m},{k},{n}) would take simt")
+        cases = [(torch.float32, "simt"), (torch.bfloat16, "tc"),
+                 (torch.bfloat16, "decode")]
+        for dtype, force in cases:
+            x, w, b = k1_inputs(gen, dev, m, k, n, dtype)
+            worst, worst_abs = k1_check(k1, x, w, b, force)
             print(f"[2] K1 {name:12s} ({m},{k})@({k},{n}) {str(dtype)[6:]:8s}"
-                  f" max rel err {worst:.2e} (tol {tol[dtype]:.0e}), "
-                  f"max abs err {worst_abs:.2e}")
-            check(worst <= tol[dtype], f"K1 {name} {dtype}: {worst}")
-            if dtype == torch.bfloat16 and m == DECODE_M:
-                worst_path_err = max(worst_path_err, worst_abs)
-        # timing at the path's case: bf16, no bias, no activation; weights
-        # rotate over enough copies to exceed the 50 MB L2 cache
-        copies = max(1, min(64, math.ceil(120e6 / (k * n * 2))))
-        ws = [(torch.randn(k, n, generator=gen, device=dev)
-               / math.sqrt(k)).to(torch.bfloat16) for _ in range(copies)]
-        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-        it = iter(range(1 << 30))
-        reps = 60 if m == DECODE_M else 5
-
-        def pick():
-            return ws[next(it) % copies]
-        t = {"ms": time_ms(lambda: k1.matmul(x, pick()), reps),
-             "plain_ms": time_ms(lambda: k1.matmul_plain(x, pick()), reps),
-             "library_ms": time_ms(lambda: torch.matmul(x, pick()), reps)}
-        t["bound_ms"], t["bound_by"] = bound_ms(
-            2 * (m * k + k * n + m * n), 2 * m * n * k, H100_BF16_FLOPS)
+                  f" {force:6s} max rel err {worst:.2e} (tol "
+                  f"{tol[dtype]:.0e}), max abs err {worst_abs:.2e}")
+            check(worst <= tol[dtype], f"K1 {name} {dtype} {force}: {worst}")
+            if dtype == torch.bfloat16 and force == path:
+                path_err[path] = max(path_err[path], worst_abs)
+        other = "tc" if path == "decode" else "decode"
+        t = k1_time(k1, dev, gen, m, k, n, 60 if m == DECODE_M else 5,
+                    {"ms": path, f"{other}_ms": other, "simt_ms": "simt"},
+                    device=True)
         times[(m, name)] = t
-        print(f"    time bf16 ({m},{k})@({k},{n}): kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, torch.matmul "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        dm = t["device_ms"]
+        print(f"    time bf16 ({m},{k})@({k},{n}), called from the host: "
+              f"{path} {t['ms']:.4f} ms, {other} {t[other + '_ms']:.4f}, "
+              f"simt {t['simt_ms']:.4f}, plain {t['plain_ms']:.4f}, "
+              f"torch.matmul {t['library_ms']:.4f}; device (CUDA graph): "
+              f"{path} {dm:.4f} ms ({2 * m * n * k / dm / 1e9:.1f} TFLOP/s, "
+              f"{2 * k * n / dm / 1e6:.0f} GB/s of weight), {other} "
+              f"{t[other + '_device_ms']:.4f}, torch.matmul "
+              f"{t['library_device_ms']:.4f}; bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']})")
-    step = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "device_ms", "simt_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms")
+    step = dict.fromkeys(keys, 0.0)
     prefill = dict(step)
     for name, k, n, per_layer in LAYER_GEMMS:
-        for key in step:
+        for key in keys:
             step[key] += LAYERS * per_layer * times[(DECODE_M, name)][key]
             prefill[key] += LAYERS * per_layer * times[(PREFILL_M, name)][key]
-    for key in step:
+    for key in keys:
         step[key] += times[(DECODE_M, "head")][key]
         prefill[key] += times[(DECODE_M, "head")][key]
     for label, agg, m in (("decode step", step, DECODE_M),
@@ -245,15 +348,61 @@ def phase_k1(dev):
         flops = 2 * DECODE_M * D * VOCAB + sum(
             2 * m * k * n * LAYERS * per_layer
             for _, k, n, per_layer in LAYER_GEMMS)
-        print(f"[2] K1 per {label} (155 launches, bf16): kernel "
-              f"{agg['ms']:.3f} ms ({flops / agg['ms'] / 1e9:.2f} TFLOP/s), "
-              f"plain {agg['plain_ms']:.3f} ms, torch.matmul "
-              f"{agg['library_ms']:.3f} ms, bound {agg['bound_ms']:.3f} ms")
+        print(f"[2] K1 per {label} (155 launches, bf16): called from the "
+              f"host {agg['ms']:.3f} ms, {agg['ms'] / agg['library_ms']:.2f}x "
+              f"torch.matmul {agg['library_ms']:.3f} ms (target 1.5x, limit "
+              f"3x); device {agg['device_ms']:.3f} ms ("
+              f"{flops / agg['device_ms'] / 1e9:.2f} TFLOP/s), "
+              f"{agg['device_ms'] / agg['library_device_ms']:.2f}x "
+              f"torch.matmul {agg['library_device_ms']:.3f} ms; simt "
+              f"{agg['simt_ms']:.3f} ms, plain {agg['plain_ms']:.3f} ms, "
+              f"bound {agg['bound_ms']:.3f} ms")
     by = {times[(DECODE_M, name)]["bound_by"]
           for name, *_ in LAYER_GEMMS + [HEAD_GEMM]}
     step["bound_by"] = by.pop() if len(by) == 1 else "bytes and operations"
-    step["max_abs_err"] = worst_path_err
-    return step
+    by = {times[(PREFILL_M, name)]["bound_by"] for name, *_ in LAYER_GEMMS}
+    prefill["bound_by"] = by.pop() if len(by) == 1 else \
+        "bytes and operations"
+    step["max_abs_err"] = path_err["decode"]
+    prefill["max_abs_err"] = path_err["tc"]
+    return {"decode": step, "tc": prefill}
+
+
+def phase_k1_threshold(dev):
+    """The decode threshold: both bf16 routes timed at M in {8, 16, 32, 64,
+    128}, summed over the GEMMs of one tinyllama decode step (155
+    launches), as device time (``graph_ms``) and as calls from the host.
+    The crossover is the largest M up to which the decode route's device
+    time is not above the tc route's; ``kernels/matmul.py:DECODE_MAX_M``
+    holds the measured value.  Device time decides: the host's cost of a
+    call is the same for every M and belongs to the caller's loop."""
+    import torch
+    from repro_torch.kernels import matmul as k1
+    gen = torch.Generator(device=dev).manual_seed(12)
+    gemms = [(k, n, LAYERS * per) for _, k, n, per in LAYER_GEMMS] + \
+        [(D, VOCAB, 1)]
+    crossover = 4
+    for m in (8, 16, 32, 64, 128):
+        tot = dict.fromkeys(("tc_ms", "decode_ms", "tc_device_ms",
+                             "decode_device_ms"), 0.0)
+        for k, n, count in gemms:
+            t = k1_time(k1, dev, gen, m, k, n, 20,
+                        {"tc_ms": "tc", "decode_ms": "decode"},
+                        with_plain=False, device=True)
+            for key in tot:
+                tot[key] += count * t[key]
+        if tot["decode_device_ms"] <= tot["tc_device_ms"] and \
+                crossover == m // 2:
+            crossover = m      # decode not slower at every M up to here
+        print(f"[2t] K1 routes at M = {m:3d}, summed over a decode step's "
+              f"GEMMs: device decode {tot['decode_device_ms']:.3f} ms, tc "
+              f"{tot['tc_device_ms']:.3f} ms; called from the host decode "
+              f"{tot['decode_ms']:.3f} ms, tc {tot['tc_ms']:.3f} ms")
+    crossover = crossover if crossover > 4 else None
+    print(f"[2t] K1 threshold: the decode route's device time is not above "
+          f"the tc route's up to M = {crossover or 'none'}; "
+          f"kernels/matmul.py:DECODE_MAX_M = {k1.DECODE_MAX_M}")
+    return crossover
 
 
 def k4_case(dev, lens, nb, dtype, seed):
@@ -499,22 +648,27 @@ def phase_k2(dev):
     return t
 
 
-def phase_two_layer(dev):
-    """Full-width tinyllama cut to two layers, f32, the same seeded
-    weights on the CPU (plain versions) and on the card (kernels)."""
+def phase_two_layer(dev, dtype_name="float32"):
+    """Full-width tinyllama cut to two layers, the same seeded weights on
+    the CPU (plain versions) and on the card (kernels): serving prefill's
+    and the first fused decode step's logits.  In f32 every K1 call takes
+    the simt route; in bf16 the tc and decode routes, and the limit is set
+    by bf16 rounding."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.core.params import init_params, tree_map
     from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import matmul as k1
     from repro_torch.models import blocks, transformer
     from repro_torch.serve import kvcache
+    dtype = getattr(torch, dtype_name)
     cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=2,
-                              dtype="float32")
+                              dtype=dtype_name)
     layout = ParallelPlan().validate(mode="serve").build()
     params = {"cpu": init_params(transformer.abstract_params(cfg),
                                  torch.Generator().manual_seed(0),
-                                 "cpu", torch.float32)}
+                                 "cpu", dtype)}
     params["cuda"] = tree_map(lambda t: t.to(dev), params["cpu"])
     lens, S, L, blk = [48, 33], 64, 128, 16
     rng = np.random.default_rng(0)
@@ -527,8 +681,9 @@ def phase_two_layer(dev):
     out, nxt = {}, None
     for where in ("cpu", "cuda"):
         d = "cpu" if where == "cpu" else dev
+        routes_before = dict(k1.launches_by_route)
         kv = kvcache.PagedKVCache(cfg, len(lens), L, block=blk,
-                                  dtype=torch.float32)
+                                  dtype=dtype)
         for i, n in enumerate(lens):
             check(kv.admit(i, n + 8), "two-layer: admission failed")
         pool = kv.init_pool(d)
@@ -550,14 +705,33 @@ def phase_two_layer(dev):
             cfg, layout, params[where],
             {"token": nxt.to(d), "pos": torch.from_numpy(length).to(d)},
             mode="decode", cache=pool, page=page)
-        out[where] = (pl.cpu(), dl.cpu())
-    tol = 1e-3      # f32 on both; only the order of the sums differs
+        out[where] = (pl.float().cpu(), dl.float().cpu())
+        routes = {r: k1.launches_by_route[r] - routes_before[r]
+                  for r in k1.ROUTES}
+    if dtype == torch.float32:
+        # f32 on both; only the order of the sums differs
+        tol, limit = 1e-3, "1e-03"
+    else:
+        # bf16 on both: each side rounds every activation to 8 bits of
+        # mantissa, and a sum taken in another order may round a value to
+        # its other neighbour; over two layers a handful of such flips
+        # move a logit by a few bf16 ulps, so the limit is 16 ulps
+        # (16 * 2**-8) of the largest logit
+        tol, limit = None, "16 bf16 ulps of max |logit|"
+    print(f"[6] two-layer full width {dtype_name}: K1 launches on the card "
+          f"by route {routes}")
+    want_routes = ({"simt"} if dtype == torch.float32 else {"tc", "decode"})
+    check({r for r, c in routes.items() if c} <= want_routes
+          and routes["simt" if dtype == torch.float32 else "decode"] > 0,
+          f"two-layer {dtype_name}: K1 routes {routes}")
     for i, name in enumerate(("prefill last-position", "first decode step")):
         err = (out["cpu"][i] - out["cuda"][i]).abs().max().item()
         scale = out["cpu"][i].abs().max().item()
-        print(f"[6] two-layer full width f32 {name} logits: max abs err "
-              f"{err:.2e} (tol {tol:.0e}; |logits| up to {scale:.2f})")
-        check(err <= tol and math.isfinite(err), f"two-layer {name}: {err}")
+        lim = tol if tol is not None else 16 * 2 ** -8 * scale
+        print(f"[6] two-layer full width {dtype_name} {name} logits: max abs "
+              f"err {err:.2e} (tol {lim:.2e}: {limit}; |logits| up to "
+              f"{scale:.2f})")
+        check(err <= lim and math.isfinite(err), f"two-layer {name}: {err}")
 
 
 def phase_two_layer_train(dev):
@@ -607,44 +781,54 @@ def phase_two_layer_train(dev):
 def phase_k1_train(dev):
     """K1 at the training shapes: every GEMM of one training step of
     tinyllama and of zamba2 (M = 4 x 2048 rows; the head's 2 chunks 4 x
-    1024), timed as the kernel, its plain version and ``torch.matmul``,
-    each times its launches a step (forward and remat recompute)."""
+    1024) through the route the step takes (tc), held against the plain
+    version in bf16 with every activation, with and without bias; then
+    timed as that route, the simt kernel (the first K1 design), the plain
+    version and ``torch.matmul``, each times its launches a step (forward
+    and remat recompute)."""
     import torch
     from repro_torch.kernels import matmul as k1
     gen = torch.Generator(device=dev).manual_seed(10)
     m = TRAIN_B * TRAIN_S
     head = [("head", D, VOCAB, 2 * 2)]
-    seen, out = {}, {}
+    seen, out, worst_err = {}, {}, 0.0
+    keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms")
     for arch, gemms in (("tinyllama", TRAIN_GEMMS), ("zamba2", Z_GEMMS)):
-        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-        launches = 0
+        tot = dict.fromkeys(keys, 0.0)
+        launches = flops = 0
         for name, k, n, per_step in gemms + head:
             rows = m // 2 if name == "head" else m
             key = (rows, k, n)
             if key not in seen:
-                x = torch.randn(rows, k, generator=gen, device=dev) \
-                    .to(torch.bfloat16)
-                w = (torch.randn(k, n, generator=gen, device=dev)
-                     / math.sqrt(k)).to(torch.bfloat16)
-                t = {"ms": time_ms(lambda: k1.matmul(x, w), 2),
-                     "plain_ms": time_ms(lambda: k1.matmul_plain(x, w), 3),
-                     "library_ms": time_ms(lambda: torch.matmul(x, w), 10)}
-                t["bound_ms"] = bound_ms(2 * (rows * k + k * n + rows * n),
-                                         2 * rows * k * n, H100_BF16_FLOPS)[0]
+                path = k1.route(rows, n, k, torch.bfloat16, True)
+                check(path == "tc", f"K1 train {name}: route {path}")
+                x, w, b = k1_inputs(gen, dev, rows, k, n, torch.bfloat16)
+                worst, worst_abs = k1_check(k1, x, w, b)
+                worst_err = max(worst_err, worst_abs)
+                check(worst <= 1e-2, f"K1 train {name} tc: {worst}")
+                del x, w, b
+                t = k1_time(k1, dev, gen, rows, k, n, 10,
+                            {"ms": path, "simt_ms": "simt"})
                 seen[key] = t
-                print(f"[10] K1 train GEMM ({rows},{k})@({k},{n}) bf16: "
-                      f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, "
+                print(f"[10] K1 train GEMM ({rows},{k})@({k},{n}) bf16 tc "
+                      f"(tile 128x{k1.tile_n(rows, n)}): max rel err "
+                      f"{worst:.2e} (tol 1e-02); {t['ms']:.3f} ms "
+                      f"({2 * rows * k * n / t['ms'] / 1e9:.1f} TFLOP/s), "
+                      f"simt {t['simt_ms']:.3f}, plain {t['plain_ms']:.3f}, "
                       f"torch.matmul {t['library_ms']:.3f}, bound "
-                      f"{t['bound_ms']:.4f} (operations)")
+                      f"{t['bound_ms']:.4f} ({t['bound_by']})")
             for key2 in tot:
                 tot[key2] += per_step * seen[key][key2]
             launches += per_step
+            flops += per_step * 2 * rows * k * n
         print(f"[10] K1 per {arch} training step ({launches} GEMMs, bf16): "
-              f"kernel {tot['ms']:.1f} ms, plain {tot['plain_ms']:.1f} ms, "
-              f"torch.matmul {tot['library_ms']:.1f} ms, bound "
-              f"{tot['bound_ms']:.1f} ms")
+              f"kernel {tot['ms']:.1f} ms ({flops / tot['ms'] / 1e9:.1f} "
+              f"TFLOP/s), {tot['ms'] / tot['library_ms']:.2f}x torch.matmul "
+              f"{tot['library_ms']:.1f} ms (target 1.5x, limit 3x); simt "
+              f"{tot['simt_ms']:.1f} ms, plain {tot['plain_ms']:.1f} ms, "
+              f"bound {tot['bound_ms']:.1f} ms")
         out[arch] = tot
-    return out
+    return out, worst_err
 
 
 def k5_work(b, T, Q, bc_elt):
@@ -832,6 +1016,20 @@ def reset_launches():
     from repro_torch.kernels import ssd_scan as k5
     k1.launches = k2.launches = k2.launches_bwd = k3.launches = 0
     k3.launches_bwd = k4.launches = k5.launches = k5.launches_bwd = 0
+    k1.launches_by_route = dict.fromkeys(k1.ROUTES, 0)
+
+
+def check_k1_routes(launches, tag, label):
+    """The K1 launches of a main-path run by route: every bf16 GEMM takes
+    tc or decode, none simt, and the routes add up to the total."""
+    from repro_torch.kernels import matmul as k1
+    routes = dict(k1.launches_by_route)
+    print(f"[{tag}] K1 launches by route in the {label}: {routes}")
+    check(routes["simt"] == 0, f"{label}: {routes['simt']} bf16 K1 GEMMs "
+          "took the simt route")
+    check(sum(routes.values()) == launches["K1"],
+          f"{label}: K1 routes {routes} != total {launches['K1']}")
+    return routes
 
 
 def read_launches():
@@ -869,12 +1067,15 @@ def phase_serve(card):
     check(all(launches[k] > 0 for k in ("K1", "K2", "K3", "K4")),
           f"serving run skipped a kernel: {launches}")
     check(launches == want, f"serving run launches {launches} != {want}")
+    routes = check_k1_routes(launches, "7", "serving run")
+    check(routes["tc"] > 0 and routes["decode"] > 0,
+          f"serving run: K1 routes {routes}")
     print(f"[7] serving tinyllama-1.1b bf16, 8 requests x 32 new tokens on "
           f"{card}: TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
           f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
           f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} tok/s")
-    return launches
+    return launches, routes
 
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
@@ -904,6 +1105,9 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     check(tel["nonfinite"] is None, f"{arch} training run: {tel['nonfinite']}")
     check(launches == want, f"{arch} training run launches {launches} != "
           f"{want}")
+    routes = check_k1_routes(launches, tag, f"{arch} training run")
+    check(routes["tc"] == launches["K1"],
+          f"{arch} training run: K1 routes {routes}")
     mfu = (f"MFU {tel['mfu'] * 100:.3f}% of {tel['peak_flops']:.3g} FLOP/s"
            if tel["mfu"] is not None else "MFU not reported")
     print(f"[{tag}] training {arch} bf16, batch {TRAIN_B} x {TRAIN_S}, "
@@ -914,7 +1118,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
           + f" s (first = warm-up); steady {tel['t_step_s']:.3f} s/step, "
           f"{tel['tokens_per_s']:.0f} tok/s, {mfu}; peak memory "
           f"{tel['mem_peak_bytes'] / 2 ** 30:.2f} GiB")
-    return launches, tel
+    return launches, routes
 
 
 def kernel_group(name: str) -> str:
@@ -924,7 +1128,9 @@ def kernel_group(name: str) -> str:
         return "K5 forward (and its recompute)"
     if "ssd_bwd" in name or "group_sum" in name:
         return "K5 backward"
-    if "matmul_kernel" in name:
+    # every K1 kernel's name starts with k1_ (matmul_kernel is the simt
+    # route's kernel); matched before the library's gemm names
+    if re.search(r"(^|[^A-Za-z0-9_])k1_", name) or "matmul_kernel" in name:
         return "K1 matmul (forward linears and their recompute)"
     if "fa_fwd" in name:
         return "K2 forward (and its recompute)"
@@ -1030,19 +1236,21 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     k1_numbers = phase_k1(dev)
+    k1_numbers["decode"]["decode_max_m_measured"] = phase_k1_threshold(dev)
     k4_numbers = phase_k4(dev)
     k3_numbers = phase_k3(dev)
     k2_numbers = phase_k2(dev)
     phase_two_layer(dev)
+    phase_two_layer(dev, "bfloat16")
     phase_two_layer_train(dev)
-    serve_launches = phase_serve(card)
-    train_launches, _ = phase_train(card)
+    serve_launches, serve_routes = phase_serve(card)
+    train_launches, train_routes = phase_train(card)
     phase_breakdown(dev, card)
-    k1_train = phase_k1_train(dev)
+    k1_train, k1_train_err = phase_k1_train(dev)
     k5_numbers = phase_k5(dev)
     phase_two_layer_zamba2(dev)
-    zamba_launches, _ = phase_train(card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES,
-                                    tag="13")
+    zamba_launches, zamba_routes = phase_train(
+        card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES, tag="13")
     phase_breakdown(dev, card, "zamba2-1.2b", tag="14")
 
     def launched(*names):
@@ -1050,13 +1258,38 @@ def main():
               (("serve", serve_launches), ("train", train_launches),
                ("train_zamba2", zamba_launches))}
         return dict(launches=sum(by.values()), launches_by_path=by)
+    k1_tc, k1_dec = k1_numbers["tc"], k1_numbers["decode"]
     for arch, agg in k1_train.items():
-        k1_numbers.update({f"train_{arch}_{k}": v for k, v in agg.items()})
+        k1_tc.update({f"train_{arch}_{k}": v for k, v in agg.items()})
+    k1_tc["max_abs_err"] = max(k1_tc["max_abs_err"], k1_train_err)
+    by_route = {r: serve_routes[r] + train_routes[r] + zamba_routes[r]
+                for r in serve_routes}
+
+    def k1_launched(route):
+        by = {path: routes[route] for path, routes in
+              (("serve", serve_routes), ("train", train_routes),
+               ("train_zamba2", zamba_routes))}
+        return dict(launches=sum(by.values()), launches_by_path=by,
+                    launches_by_route=by_route)
+    ratios = {"decode step": k1_dec["ms"] / k1_dec["library_ms"],
+              "prefill": k1_tc["ms"] / k1_tc["library_ms"]}
+    ratios.update({f"{a} train step": v["ms"] / v["library_ms"]
+                   for a, v in k1_train.items()})
+    print("[15] K1 / torch.matmul summed over each path's GEMMs, called "
+          "from the host (target 1.5x, limit 3x): " + ", ".join(
+              f"{k} {v:.2f}x" for k, v in ratios.items())
+          + "; device time (CUDA graph): decode step "
+          f"{k1_dec['device_ms'] / k1_dec['library_device_ms']:.2f}x, "
+          f"prefill {k1_tc['device_ms'] / k1_tc['library_device_ms']:.2f}x")
     kernels = [
-        dict(name="K1 matmul", route="cuda",
-             source="src/repro_torch/kernels/csrc/matmul.cu",
+        dict(name="K1 matmul, tc route (prefill, training)", route="cuda",
+             source="src/repro_torch/kernels/csrc/matmul_hopper.cu",
              replaces="src/repro/kernels/matmul.py:30",
-             **launched("K1"), **k1_numbers),
+             **k1_launched("tc"), **k1_tc),
+        dict(name="K1 matmul, decode route", route="cuda",
+             source="src/repro_torch/kernels/csrc/matmul_hopper.cu",
+             replaces="src/repro/kernels/matmul.py:30",
+             **k1_launched("decode"), **k1_dec),
         dict(name="K2 flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:24",
@@ -1076,11 +1309,14 @@ def main():
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("launches_by_path", "fwd_ms", "bwd_ms", "plain_fwd_ms",
-             "plain_bwd_ms", "library_fwd_ms", "fwd_bound_ms",
+    extra = ("launches_by_path", "launches_by_route",
+             "decode_max_m_measured", "device_ms", "library_device_ms",
+             "simt_ms", "fwd_ms", "bwd_ms",
+             "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "fwd_bound_ms",
              "bwd_bound_ms") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms"))
+                 for k in ("ms", "simt_ms", "plain_ms", "library_ms",
+                           "bound_ms"))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

@@ -89,6 +89,82 @@ def test_k1_kernel_matches_plain_on_card(cuda, dtype, m, k, n):
             assert err <= tol, (act, bias is not None, err)
 
 
+def _bf16_case(cuda, m, k, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device=cuda)
+         / math.sqrt(k)).to(torch.bfloat16)
+    b = torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2048, 5632])
+@pytest.mark.parametrize("n", [64, 256, 32000])
+@pytest.mark.parametrize("m", [8, 70, 4095, 8192])
+def test_k1_routes_match_plain_on_card(cuda, m, k, n):
+    """Each bf16 route against the plain version, every activation, with
+    and without bias: the route the shape takes, and at M <= 128 the other
+    bf16 route too (the decode route re-reads the weight for every 8 rows,
+    so it is not run at thousands of rows)."""
+    x, w, b = _bf16_case(cuda, m, k, n, seed=m + n + k)
+    path = k1.route_for(x, w)
+    assert path == ("decode" if m <= k1.DECODE_MAX_M else "tc")
+    routes = ["tc", "decode"] if m <= 128 else [path]
+    for route in routes:
+        for act in k1.ACTS:
+            for bias in (None, b):
+                got = k1.matmul(x, w, bias, act=act, force=route)
+                want = k1.matmul_plain(x, w, bias, act=act)
+                torch.cuda.synchronize()
+                # bf16: one rounding of the output may land on either side
+                err = ((got.float() - want.float()).abs()
+                       / (1 + want.float().abs())).max().item()
+                assert err <= 1e-2, (route, act, bias is not None, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,m", [("tc", 4095), ("tc", 70),
+                                     ("decode", 8), ("decode", 70),
+                                     ("simt", 70)])
+def test_k1_routes_repeat_bit_for_bit_and_count(cuda, route, m):
+    x, w, b = _bf16_case(cuda, m, 2048, 256, seed=7)
+    before = dict(k1.launches_by_route)
+    total = k1.launches
+    first = k1.matmul(x, w, b, act="silu", force=route)
+    again = k1.matmul(x, w, b, act="silu", force=route)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert k1.launches == total + 2
+    for r in k1.ROUTES:
+        assert k1.launches_by_route[r] == before[r] + (2 if r == route
+                                                       else 0)
+
+
+@pytest.mark.cuda
+def test_k1_routes_refuse_what_they_cannot_take(cuda):
+    x, w, _ = _bf16_case(cuda, 8, 96, 130, seed=3)
+    assert k1.route_for(x, w) == "simt"
+    before = k1.launches
+    for route in ("tc", "decode"):
+        with pytest.raises(ValueError):
+            k1.matmul(x, w, force=route)          # N = 130
+        with pytest.raises(ValueError):
+            k1.matmul(x.float(), w[:, :128].float().contiguous(),
+                      force=route)                # f32
+    with pytest.raises(ValueError):
+        k1.matmul(x, w, force="cublas")
+    assert k1.launches == before
+    # an unaligned contiguous view takes simt, and matches the plain version
+    buf = torch.randn(8 * 96 + 1, device=cuda).to(torch.bfloat16)
+    xv = buf[1:].view(8, 96)
+    wv = torch.randn(96, 64, device=cuda).to(torch.bfloat16)
+    assert k1.route_for(xv, wv) == "simt"
+    got = k1.matmul(xv, wv)
+    assert (got.float() - k1.matmul_plain(xv, wv).float()).abs().max() \
+        <= 2e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [0, 10])
 @pytest.mark.parametrize("residuals", [False, True])

@@ -61,6 +61,103 @@ def test_kernels_refuse_other_devices():
                               block=2)
 
 
+# (M, K, N) of every GEMM on the port's main paths: tinyllama-1.1b's decode
+# step (M = 8), prefill (M = 4096; its head at M = 8) and training step
+# (M = 8192; head chunks of 4096), and zamba2-1.2b's training step
+_TINY_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+_ZAMBA_KN = [(2048, 4096), (2048, 256), (2048, 64), (4096, 2048),
+             (2048, 2048), (2048, 8192), (8192, 2048)]
+_MAIN_PATH_GEMMS = sorted(
+    {(m, k, n) for m in (8, 4096, 8192) for k, n in _TINY_KN}
+    | {(8, 2048, 32000), (4096, 2048, 32000)}
+    | {(8192, k, n) for k, n in _ZAMBA_KN})
+
+
+@pytest.mark.parametrize("m,k,n", _MAIN_PATH_GEMMS)
+def test_k1_routes_main_path_gemms_to_tensor_cores_or_decode(m, k, n):
+    x = torch.empty(m, k, dtype=torch.bfloat16)
+    w = torch.empty(k, n, dtype=torch.bfloat16)
+    got = k1.route_for(x, w)
+    assert got == ("decode" if m <= k1.DECODE_MAX_M else "tc")
+    assert got == ("decode" if m == 8 else "tc")
+    assert k1.route_for(x.float(), w.float()) == "simt"
+    assert k1.tile_n(m, n) in (64, 128, 256)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 130), (4096, 97, 256),
+                                   (8, 96 + 1, 64), (70, 96, 130)])
+def test_k1_routes_shapes_tma_cannot_describe_to_simt(m, k, n):
+    x = torch.empty(m, k, dtype=torch.bfloat16)
+    w = torch.empty(k, n, dtype=torch.bfloat16)
+    assert k1.route_for(x, w) == "simt"
+    assert k1.route(m, n, k, torch.bfloat16, True) == "simt"
+
+
+@pytest.mark.parametrize("m", [8, 4096])
+def test_k1_routes_unaligned_views_to_simt(m):
+    """A contiguous view may start off 16 bytes: TMA and the decode
+    kernel's 16-byte loads cannot take it."""
+    k, n = 256, 256
+    xs = torch.empty(m * k + 8, dtype=torch.bfloat16)
+    ws = torch.empty(k * n + 8, dtype=torch.bfloat16)
+    x, w = xs[:m * k].view(m, k), ws[:k * n].view(k, n)
+    assert x.data_ptr() % 16 == 0 and k1.route_for(x, w) != "simt"
+    x_off = xs[1:1 + m * k].view(m, k)
+    w_off = ws[3:3 + k * n].view(k, n)
+    assert x_off.is_contiguous() and w_off.is_contiguous()
+    assert k1.route_for(x_off, w) == "simt"
+    assert k1.route_for(x, w_off) == "simt"
+    assert k1.route(m, n, k, torch.bfloat16, False) == "simt"
+
+
+def test_k1_route_f32_and_other_dtypes_take_simt():
+    for m, k, n in _MAIN_PATH_GEMMS:
+        assert k1.route(m, n, k, torch.float32, True) == "simt"
+
+
+@pytest.mark.parametrize("n,k", sorted({(n, k) for _, k, n in
+                                        _MAIN_PATH_GEMMS}
+                                       | {(8, 8), (256, 5632), (64, 96)}))
+def test_k1_decode_plan_covers_k_once_on_tile_boundaries(n, k):
+    kt, length, splits = k1.decode_plan(n, k)
+    assert kt in k1.DECODE_TILES
+    assert length > 0 and length % kt == 0
+    # the ranges [s*len, min((s+1)*len, K)) tile [0, K) exactly once,
+    # none empty, each a whole number of kt-row stages but the last
+    assert splits == -(-k // length)
+    assert (splits - 1) * length < k <= splits * length
+    covered = np.zeros(k, np.int64)
+    for s_ in range(splits):
+        covered[s_ * length:min((s_ + 1) * length, k)] += 1
+    assert (covered == 1).all()
+    ctas = -(-n // k1.DECODE_COLS) * splits
+    if n == 256:
+        assert ctas >= 2 * k1.NUM_SMS
+    if -(-k // k1.DECODE_TILES[-1]) * -(-n // k1.DECODE_COLS) \
+            >= k1.DECODE_MIN_CTAS:
+        assert ctas >= k1.DECODE_MIN_CTAS
+
+
+@pytest.mark.parametrize("m,rows", [(1, 8), (8, 8), (9, 16), (32, 32),
+                                    (33, 64), (64, 64), (200, 64)])
+def test_k1_decode_rows(m, rows):
+    assert k1.decode_rows(m) == rows
+
+
+def test_k1_tile_n_fills_the_card():
+    assert k1.tile_n(8192, 64) == 64
+    assert k1.tile_n(8192, 256) == 128       # 64 tiles of 128 x 256: too few
+    assert k1.tile_n(8192, 2048) == 256
+    assert k1.tile_n(4096, 32000) == 256
+    assert k1.tile_n(128, 2048) == 128
+
+
+def test_k1_force_names_a_route():
+    x, w = torch.zeros(4, 8), torch.zeros(8, 8)
+    # CPU tensors run the plain version whatever route is named
+    assert torch.equal(k1.matmul(x, w, force="tc"), k1.matmul_plain(x, w))
+
+
 # ---------------------------------------------------------------------------
 # K4 paged decode
 # ---------------------------------------------------------------------------
