@@ -5,7 +5,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 Phases, in order (any failure raises and exits nonzero):
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-     (one process per source, all at once);
+     (one process per source, all at once) and print each kernel's
+     registers, spills and shared memory from ``-Xptxas -v``;
   2. K1 matmul against its plain version at every GEMM shape of
      tinyllama-1.1b's decode and prefill: f32 through the simt route,
      bf16 through both the tc (wgmma + TMA) and the decode (split-K)
@@ -22,8 +23,17 @@ Phases, in order (any failure raises and exits nonzero):
      training shape (8192 rows x 2048), bf16 and f32, with and without a
      zero-centred gain; times beside ``F.rms_norm``;
   5. K2 flash attention forward and backward against their plain versions
-     at the training shape (4 x 2048, 32/4 heads, d = 64, causal), bf16 and
-     f32; times beside ``F.scaled_dot_product_attention``;
+     at the main paths' attention shapes, all causal at d = 64: the
+     tinyllama training layer (4 x 2048, 32/4 heads), zamba2's shared
+     attention (4 x 2048, 32/32 heads, window 4096) and the serving
+     prefill (8 x 512, 32/4): bf16 through the tc route (wgmma + TMA) at
+     all three and through the simt route at the training shape, out, lse,
+     dq, dk and dv within 3e-2 of 1 + max (lse 1e-5) and out, dq, dk and
+     dv within ``K2_NORM_TOL`` of the plain version's norm, two backward
+     runs giving the same bits, and the cost of the tc kernels' bf16 dS
+     measured by the plain backward with dS rounded; f32 through the simt
+     route at 1e-4.  Then the times of both routes, the plain version and
+     ``F.scaled_dot_product_attention`` at each shape, beside the bound;
   6. full-width two-layer tinyllama in f32 (K1's simt route) and in bf16
      (its tc and decode routes): CPU (plain versions) against the card
      (kernels), serving prefill and the first fused decode step's logits,
@@ -31,7 +41,9 @@ Phases, in order (any failure raises and exits nonzero):
   7. the serving run: ``repro_torch.launch.serve`` serves 8 requests of
      tinyllama-1.1b at full depth and width in bf16 (weights from a seed),
      with the kernels' launch counters reset just before and read after;
-     no bf16 K1 GEMM may take the simt route (also in phases 8 and 13);
+     no bf16 K1 GEMM and no bf16 K2 attention, forward or backward, may
+     take the simt route, and the routes add up to the totals (also in
+     phases 8 and 13);
   8. the training run: ``repro_torch.launch.train`` trains tinyllama-1.1b at
      full depth and width in bf16 (batch 4 x 2048, remat, AdamW, synthetic
      tokens from seed 0) for a few steps, counters reset before and read
@@ -105,6 +117,7 @@ TRAIN_GEMMS = [("wq,wo", D, NQ * DH, 2 * 2 * LAYERS),
 # 64 SSM heads of 64, 2 groups, d_state 64, chunk 256) and one shared
 # attention block (32/32 heads, gated-GELU MLP of 8192) after every 6
 Z_LAYERS, Z_SHARED, Z_FF = 38, 6, 8192
+Z_HEADS, Z_WINDOW = 32, 4096      # the shared block's attention: 32/32 heads
 Z_DIN, Z_NH, Z_G, Z_N, Z_CHUNK = 4096, 64, 2, 64, 256
 Z_STEPS = 4
 # launches per zamba2 training step: K1 runs the 5 linears of each Mamba
@@ -222,9 +235,28 @@ def phase_build():
     print(f"[1] built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f}s")
     for name, text in sorted(logs.items()):
+        kernel = "?"
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                kernel = demangle(entry.group(1))
+            elif "Used" in line or "spill" in line:
+                print(f"    {name}: {kernel}: {line.strip()}")
+
+
+def demangle(symbol: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol, by
+    c++filt where the toolkit's host compiler brought it, else the
+    symbol."""
+    try:
+        out = subprocess.run(["c++filt", symbol], capture_output=True,
+                             text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+    if not out or out == symbol:
+        return symbol
+    out = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return out.removeprefix("void ").strip()
 
 
 def k1_inputs(gen, dev, m, k, n, dtype=None):
@@ -557,15 +589,23 @@ def phase_k3(dev):
     return t
 
 
-def k2_work(q_pos, k_pos, b, nq, d, elt):
+# the attention shapes of the main paths (phase 5): (label, batch, seq, q
+# heads, kv heads, window), all causal at d = 64
+K2_SHAPES = [("train", TRAIN_B, TRAIN_S, NQ, NKV, 0),
+             ("zamba2", TRAIN_B, TRAIN_S, Z_HEADS, Z_HEADS, Z_WINDOW),
+             ("prefill", 8, 512, NQ, NKV, 0)]
+
+
+def k2_work(q_pos, k_pos, b, nq, nkv, d, elt, window=0):
     """(fwd bytes, fwd flops, bwd bytes, bwd flops) of one attention call,
     causal, the flops counted over the allowed (query, key) pairs of these
     positions: 2 products of 2*d flops a pair forward, 5 backward."""
     qp, kp = q_pos[:, :, None], k_pos[None, None, :]
     allowed = (kp >= 0) & (qp >= kp)
+    if window:
+        allowed &= qp - kp < window
     pairs = int(allowed.sum().item()) * nq
     sq, sk = q_pos.shape[1], k_pos.shape[0]
-    nkv = NKV
     q_bytes = b * sq * nq * d * elt
     kv_bytes = 2 * b * sk * nkv * d * elt
     lse = b * nq * sq * 4
@@ -575,77 +615,214 @@ def k2_work(q_pos, k_pos, b, nq, d, elt):
     return (*fwd, *bwd)
 
 
-def phase_k2(dev):
-    """K2 at the training shape of one layer (also the serving prefill's
-    kernel).  Returns the path case's numbers (bf16, causal), the kernel's
-    time as one forward + one backward."""
+# K2 in bf16: the limits on ||got - want|| / ||want|| (the whole tensor's
+# L2 norm) against the plain version.  The tc route reads out 1.1-1.4e-3,
+# dq and dk 2.5-2.7e-3 (as much as rounding dS to bf16 alone gives) and
+# dv 1.7-3.4e-4 at the main paths' shapes; a dropped key tile or GQA head,
+# or a wrong k16 slice of a product, even on one q tile or one key tile of
+# the 32, reads 1.6e-2 or more (tools/k2_planted_faults.py)
+K2_NORM_TOL = {"out": 5e-3, "dq": 1e-2, "dk": 1e-2, "dv": 1.5e-3}
+
+
+def norm_err(got, want):
+    """||got - want|| / ||want|| over the whole tensor, in f64."""
+    g, w = got.double(), want.double()
+    return ((g - w).norm() / w.norm().clamp_min(1e-300)).item()
+
+
+def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
+    """``(dq, dk)`` of the plain backward (causal, the default scale) with
+    dS rounded to q's dtype before its two products, as the tc kernels
+    round it: held against the plain version, it measures what that
+    rounding alone costs."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as k2
-    b, s = TRAIN_B, TRAIN_S
-    gen = torch.Generator(device=dev).manual_seed(4)
+    f32 = torch.float32
+    b, sq, nq, d = q.shape
+    nkv = k.shape[2]
+    g, scale = nq // nkv, d ** -0.5
+    qf = (q.to(f32) * scale).reshape(b, sq, nkv, g, d)
+    dof = dout.to(f32).reshape(b, sq, nkv, g, d)
+    qp = q_pos[:, None, None, :, None]
+    allowed = (k_pos >= 0) & (qp >= k_pos)
+    if window:
+        allowed &= qp - k_pos < window
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32))
+    p = torch.where(allowed, torch.exp(s - lse.reshape(b, nkv, g, sq, 1)),
+                    0.0)
+    delta = (dof * out.to(f32).reshape(b, sq, nkv, g, d)).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.to(f32))
+    ds = (p * (dp - delta.permute(0, 2, 3, 1)[..., None])).to(q.dtype)
+    del s, p, dp
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(f32), k.to(f32)) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(f32), qf)
+    return dq.reshape(b, sq, nq, d).to(q.dtype), dk.to(k.dtype)
+
+
+def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label):
+    """K2's routes against the plain version at one shape: out, lse, dq,
+    dk and dv, and two backward runs of each route that must give the same
+    bits.  In bf16 each of out, dq, dk and dv is also held to
+    ``K2_NORM_TOL``, and the plain backward with dS rounded to bf16 shows
+    what the tc kernels' rounding of dS costs by itself.  Returns the
+    inputs, the path route's (out, lse), its worst absolute error (lse
+    apart) and each route's norm errors (with ``"dS in bf16"``: the
+    rounded plain backward's)."""
+    import torch
     q_pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
         .contiguous()
     k_pos = torch.arange(s, dtype=torch.int32, device=dev)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-    worst_path_err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, s, NQ, DH, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, NKV, DH, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, NKV, DH, generator=gen, device=dev).to(dtype)
-        dout = torch.randn(b, s, NQ, DH, generator=gen, device=dev).to(dtype)
-        out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos)
-        grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos)
-        out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos)
+    q = torch.randn(b, s, nq, DH, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, nkv, DH, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, nkv, DH, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(b, s, nq, DH, generator=gen, device=dev).to(dtype)
+    kw = dict(window=window)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    lse_tol = 1e-4 if dtype == torch.float32 else 1e-5
+    bf16 = dtype == torch.bfloat16
+    out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
+    path = k2.route_for(q, k, v, out2)
+    worst, kept, norms = 0.0, None, {}
+    tag = (f"[5] K2 {label} ({b},{s},{nq}/{nkv},{DH}) causal"
+           f"{f' window {window}' if window else ''} {str(dtype)[6:]:8s}")
+    for r in routes:
+        out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force=r,
+                                          **kw)
+        grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                       force=r, **kw)
+        again = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                       force=r, **kw)
         grads2 = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
-                                              k_pos)
+                                              k_pos, **kw)
         pairs = [("out", out, out2), ("lse", lse, lse2)] + list(
             zip(("dq", "dk", "dv"), grads, grads2))
-        errs = {n: scaled_err(a, c) for n, a, c in pairs}
-        print(f"[5] K2 ({b},{s},{NQ}/{NKV},{DH}) causal {str(dtype)[6:]:8s} "
-              "errors " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-              + f" (tol {tol[dtype]:.0e}, relative to 1 + max)")
-        check(max(errs.values()) <= tol[dtype], f"K2 {dtype}: {errs}")
-        if dtype == torch.bfloat16:
-            worst_path_err = max(abs_err(a, c) for n, a, c in pairs
-                                 if n != "lse")
-        del grads2, out2
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    dt = dout.transpose(1, 2)
+        errs = {n: scaled_err(x, y) for n, x, y in pairs}
+        norms[r] = {n: norm_err(x, y) for n, x, y in pairs if n != "lse"}
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        print(f"{tag} {r:4s} errors "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (tol {tol:.0e}, lse {lse_tol:.0e}, relative to 1 + max); "
+              "||error|| / ||plain|| "
+              + ", ".join(f"{n} {e:.2e}" for n, e in norms[r].items())
+              + (" (tol " + ", ".join(f"{n} {e:.1e}" for n, e in
+                                      K2_NORM_TOL.items()) + ")"
+                 if bf16 else "")
+              + f"; backward repeats bit for bit: {same}")
+        check(errs["lse"] <= lse_tol and max(errs.values()) <= tol,
+              f"K2 {label} {dtype} {r}: {errs}")
+        check(not bf16 or all(norms[r][n] <= K2_NORM_TOL[n]
+                              for n in K2_NORM_TOL),
+              f"K2 {label} {dtype} {r}: ||error|| / ||plain|| {norms[r]}")
+        check(same, f"K2 {label} {dtype} {r}: the backward does not repeat")
+        if r == path:
+            worst = max(abs_err(x, y) for n, x, y in pairs if n != "lse")
+            kept = (out, lse, grads, grads2)
+        del again
+    if bf16:
+        out, lse, grads, grads2 = kept
+        rounded = k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos,
+                                    window)
+        norms["dS in bf16"] = {n: norm_err(x, y) for n, x, y in
+                               zip(("dq", "dk"), rounded, grads2)}
+        near = {n: norm_err(x, y) for n, x, y in
+                zip(("dq", "dk"), grads, rounded)}
+        print(f"{tag} dS in bf16: the plain backward with dS rounded to bf16"
+              " against the plain version, ||error|| / ||plain|| "
+              + ", ".join(f"{n} {e:.2e}" for n, e in
+                          norms["dS in bf16"].items())
+              + f"; the {path} route against the rounded one "
+              + ", ".join(f"{n} {e:.2e}" for n, e in near.items()))
+        del rounded, grads2
+    return (q, k, v, dout, q_pos, k_pos), kept[:2], worst, norms
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
-    t = {"fwd_ms": time_ms(lambda: k2.flash_attention_fwd(q, k, v, q_pos,
-                                                          k_pos), 5),
-         "bwd_ms": time_ms(lambda: k2.flash_attention_bwd(
-             q, k, v, out, dout, lse, q_pos, k_pos), 3),
-         "plain_fwd_ms": time_ms(lambda: k2.flash_attention_fwd_plain(
-             q, k, v, q_pos, k_pos), 2),
-         "plain_bwd_ms": time_ms(lambda: k2.flash_attention_bwd_plain(
-             q, k, v, out, dout, lse, q_pos, k_pos), 2),
-         "library_fwd_ms": time_ms(sdpa, 20),
-         "library_ms": time_ms(sdpa_fwd_bwd, 20)}
-    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
-    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
-    fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, NQ, DH, 2)
-    fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
-    bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
-    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
-             bound_by=fo if fo == bo else "bytes and operations",
-             max_abs_err=worst_path_err)
-    print(f"[5] K2 bf16 ({b},{s},{NQ}/{NKV},{DH}) causal: forward "
-          f"{t['fwd_ms']:.3f} ms ({ffl / t['fwd_ms'] / 1e9:.2f} TFLOP/s; "
-          f"plain {t['plain_fwd_ms']:.3f}, sdpa {t['library_fwd_ms']:.3f}, "
-          f"bound {fb:.4f} {fo}); backward {t['bwd_ms']:.3f} ms "
-          f"({bfl / t['bwd_ms'] / 1e9:.2f} TFLOP/s; plain "
-          f"{t['plain_bwd_ms']:.3f}, bound {bb:.4f} {bo}); sdpa fwd+bwd "
-          f"{t['library_ms']:.3f} ms")
-    return t
+def phase_k2(dev):
+    """K2 at the main paths' attention shapes (K2_SHAPES): tinyllama's
+    training layer, which is also the serving prefill's kernel at another
+    batch, zamba2's shared attention and the serving prefill.  In bf16 the
+    tc route (and at the training shape the simt route too) against the
+    plain version; in f32 the simt route at the training shape.  Then the
+    times of each route, the plain version and SDPA at each shape.  Returns
+    the training shape's numbers (bf16, causal) at the top, the kernel's
+    time as one tc forward + one tc backward, and every shape's under
+    ``shapes``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    gen = torch.Generator(device=dev).manual_seed(4)
+    label, b, s, nq, nkv, _ = K2_SHAPES[0]
+    k2_case(k2, dev, gen, b, s, nq, nkv, 0, torch.float32, ["simt"], label)
+    t_all, worst_path_err = {}, 0.0
+    for label, b, s, nq, nkv, window in K2_SHAPES:
+        routes = ["tc", "simt"] if label == "train" else ["tc"]
+        (q, k, v, dout, q_pos, k_pos), (out, lse), worst, norms = k2_case(
+            k2, dev, gen, b, s, nq, nkv, window, torch.bfloat16, routes,
+            label)
+        check(k2.route_for(q, k, v, out, dout) == "tc",
+              f"K2 {label}: the bf16 path does not take the tc route")
+        worst_path_err = max(worst_path_err, worst)
+        kw = dict(window=window)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dt)
+
+        def fwd(r):
+            return lambda: k2.flash_attention_fwd(q, k, v, q_pos, k_pos,
+                                                  force=r, **kw)
+
+        def bwd(r):
+            return lambda: k2.flash_attention_bwd(q, k, v, out, dout, lse,
+                                                  q_pos, k_pos, force=r, **kw)
+        t = {"fwd_ms": time_ms(fwd("tc"), 20),
+             "bwd_ms": time_ms(bwd("tc"), 10),
+             "simt_fwd_ms": time_ms(fwd("simt"), 3),
+             "simt_bwd_ms": time_ms(bwd("simt"), 2),
+             "plain_fwd_ms": time_ms(lambda: k2.flash_attention_fwd_plain(
+                 q, k, v, q_pos, k_pos, **kw), 2),
+             "plain_bwd_ms": time_ms(lambda: k2.flash_attention_bwd_plain(
+                 q, k, v, out, dout, lse, q_pos, k_pos, **kw), 2),
+             "library_fwd_ms": time_ms(sdpa, 20),
+             "library_ms": time_ms(sdpa_fwd_bwd, 20),
+             # device time (CUDA graph): at the prefill's shape a call's
+             # host cost is of the order of its kernels' time
+             "fwd_device_ms": graph_ms(fwd("tc"), 20),
+             "bwd_device_ms": graph_ms(bwd("tc"), 10),
+             "library_fwd_device_ms": graph_ms(
+                 lambda: F.scaled_dot_product_attention(
+                     qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                     enable_gqa=True), 20)}
+        t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+        t["norm_err"] = norms
+        t["simt_ms"] = t["simt_fwd_ms"] + t["simt_bwd_ms"]
+        t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+        fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, DH, 2, window)
+        fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
+        bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
+        t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+                 bound_by=fo if fo == bo else "bytes and operations")
+        print(f"[5] K2 bf16 {label} ({b},{s},{nq}/{nkv},{DH}) causal: tc "
+              f"forward {t['fwd_ms']:.4f} ms ({ffl / t['fwd_ms'] / 1e9:.1f} "
+              f"TFLOP/s), backward {t['bwd_ms']:.4f} ms "
+              f"({bfl / t['bwd_ms'] / 1e9:.1f} TFLOP/s); simt "
+              f"{t['simt_fwd_ms']:.3f} + {t['simt_bwd_ms']:.3f}; plain "
+              f"{t['plain_fwd_ms']:.3f} + {t['plain_bwd_ms']:.3f}; sdpa fwd "
+              f"{t['library_fwd_ms']:.4f}, fwd+bwd {t['library_ms']:.4f}; "
+              f"bound {fb:.4f} + {bb:.4f} ({fo}); tc / sdpa: forward "
+              f"{t['fwd_ms'] / t['library_fwd_ms']:.2f}x (target 1.5x), "
+              f"forward + backward {t['ms'] / t['library_ms']:.2f}x "
+              f"(target 2x); device time (CUDA graph): tc "
+              f"{t['fwd_device_ms']:.4f} + {t['bwd_device_ms']:.4f} ms, sdpa "
+              f"forward {t['library_fwd_device_ms']:.4f} "
+              f"({t['fwd_device_ms'] / t['library_fwd_device_ms']:.2f}x)")
+        t_all[label] = t
+        del q, k, v, dout, out, lse, qt, kt, vt
+    return dict(t_all["train"], shapes=t_all, max_abs_err=worst_path_err)
 
 
 def phase_two_layer(dev, dtype_name="float32"):
@@ -1017,6 +1194,24 @@ def reset_launches():
     k1.launches = k2.launches = k2.launches_bwd = k3.launches = 0
     k3.launches_bwd = k4.launches = k5.launches = k5.launches_bwd = 0
     k1.launches_by_route = dict.fromkeys(k1.ROUTES, 0)
+    k2.launches_by_route = dict.fromkeys(k2.ROUTES, 0)
+    k2.launches_bwd_by_route = dict.fromkeys(k2.ROUTES, 0)
+
+
+def check_k2_routes(launches, tag, label):
+    """The K2 launches of a main-path run by route, forward and backward:
+    every bf16 attention takes tc, none simt, and the routes add up to the
+    totals."""
+    from repro_torch.kernels import flash_attention as k2
+    routes = {"K2": dict(k2.launches_by_route),
+              "K2 bwd": dict(k2.launches_bwd_by_route)}
+    print(f"[{tag}] K2 launches by route in the {label}: {routes}")
+    for key, by in routes.items():
+        check(by["simt"] == 0, f"{label}: {by['simt']} bf16 {key} launches "
+              "took the simt route")
+        check(sum(by.values()) == launches[key],
+              f"{label}: {key} routes {by} != total {launches[key]}")
+    return routes
 
 
 def check_k1_routes(launches, tag, label):
@@ -1070,12 +1265,13 @@ def phase_serve(card):
     routes = check_k1_routes(launches, "7", "serving run")
     check(routes["tc"] > 0 and routes["decode"] > 0,
           f"serving run: K1 routes {routes}")
+    k2_routes = check_k2_routes(launches, "7", "serving run")
     print(f"[7] serving tinyllama-1.1b bf16, 8 requests x 32 new tokens on "
           f"{card}: TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
           f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
           f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} tok/s")
-    return launches, routes
+    return launches, routes, k2_routes
 
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
@@ -1108,6 +1304,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     routes = check_k1_routes(launches, tag, f"{arch} training run")
     check(routes["tc"] == launches["K1"],
           f"{arch} training run: K1 routes {routes}")
+    k2_routes = check_k2_routes(launches, tag, f"{arch} training run")
     mfu = (f"MFU {tel['mfu'] * 100:.3f}% of {tel['peak_flops']:.3g} FLOP/s"
            if tel["mfu"] is not None else "MFU not reported")
     print(f"[{tag}] training {arch} bf16, batch {TRAIN_B} x {TRAIN_S}, "
@@ -1118,7 +1315,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
           + f" s (first = warm-up); steady {tel['t_step_s']:.3f} s/step, "
           f"{tel['tokens_per_s']:.0f} tok/s, {mfu}; peak memory "
           f"{tel['mem_peak_bytes'] / 2 ** 30:.2f} GiB")
-    return launches, routes
+    return launches, routes, k2_routes
 
 
 def kernel_group(name: str) -> str:
@@ -1132,9 +1329,10 @@ def kernel_group(name: str) -> str:
     # route's kernel); matched before the library's gemm names
     if re.search(r"(^|[^A-Za-z0-9_])k1_", name) or "matmul_kernel" in name:
         return "K1 matmul (forward linears and their recompute)"
-    if "fa_fwd" in name:
+    # the tc route's kernels (k2_tc_*) and the simt route's (fa_*)
+    if "k2_tc_fwd" in name or "fa_fwd" in name:
         return "K2 forward (and its recompute)"
-    if "fa_bwd" in name:
+    if "k2_tc_bwd" in name or "fa_bwd" in name:
         return "K2 backward"
     if "rms_" in name:
         return "K3 forward and backward"
@@ -1243,13 +1441,13 @@ def main():
     phase_two_layer(dev)
     phase_two_layer(dev, "bfloat16")
     phase_two_layer_train(dev)
-    serve_launches, serve_routes = phase_serve(card)
-    train_launches, train_routes = phase_train(card)
+    serve_launches, serve_routes, serve_k2 = phase_serve(card)
+    train_launches, train_routes, train_k2 = phase_train(card)
     phase_breakdown(dev, card)
     k1_train, k1_train_err = phase_k1_train(dev)
     k5_numbers = phase_k5(dev)
     phase_two_layer_zamba2(dev)
-    zamba_launches, zamba_routes = phase_train(
+    zamba_launches, zamba_routes, zamba_k2 = phase_train(
         card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES, tag="13")
     phase_breakdown(dev, card, "zamba2-1.2b", tag="14")
 
@@ -1264,6 +1462,9 @@ def main():
     k1_tc["max_abs_err"] = max(k1_tc["max_abs_err"], k1_train_err)
     by_route = {r: serve_routes[r] + train_routes[r] + zamba_routes[r]
                 for r in serve_routes}
+    k2_by_route = {key: {r: sum(p[key][r] for p in (serve_k2, train_k2,
+                                                    zamba_k2))
+                         for r in serve_k2[key]} for key in serve_k2}
 
     def k1_launched(route):
         by = {path: routes[route] for path, routes in
@@ -1291,9 +1492,12 @@ def main():
              replaces="src/repro/kernels/matmul.py:30",
              **k1_launched("decode"), **k1_dec),
         dict(name="K2 flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             source="src/repro_torch/kernels/csrc/flash_attention_hopper.cu "
+                    "(tc), src/repro_torch/kernels/csrc/flash_attention.cu "
+                    "(simt)",
              replaces="src/repro/kernels/flash_attention.py:24",
-             **launched("K2", "K2 bwd"), **k2_numbers),
+             **launched("K2", "K2 bwd"), launches_by_route=k2_by_route,
+             **k2_numbers),
         dict(name="K3 rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:19",
@@ -1311,9 +1515,10 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("launches_by_path", "launches_by_route",
              "decode_max_m_measured", "device_ms", "library_device_ms",
-             "simt_ms", "fwd_ms", "bwd_ms",
+             "simt_ms", "fwd_ms", "bwd_ms", "simt_fwd_ms", "simt_bwd_ms",
              "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "fwd_bound_ms",
-             "bwd_bound_ms") + tuple(
+             "bwd_bound_ms", "fwd_device_ms", "bwd_device_ms",
+             "library_fwd_device_ms", "shapes") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))

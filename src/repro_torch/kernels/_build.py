@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` into ``build/repro_torch_kernels/<name>-<hash>.so`` at the
 root of the checkout (a directory ``.gitignore`` lists), then loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited source
-is rebuilt and an unchanged one is reused.  ``build()`` starts one ``nvcc``
+``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  ``build()`` starts one ``nvcc``
 per stale source, all at once, and waits for all of them.  A missing
 ``nvcc`` or a failed compile raises with the compiler's output.
 """
@@ -28,7 +29,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    """The library of ``src``, named by a hash of the source, every shared
+    header of ``csrc/`` (a source may include any of them) and the
+    flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

@@ -1,35 +1,52 @@
-"""K2: flash attention, forward and backward (CUDA C++,
-``csrc/flash_attention.cu``).
+"""K2: flash attention, forward and backward, two hand-written CUDA C++
+routes chosen by dtype and shape (``route``).
 
 Replaces ``src/repro/kernels/flash_attention.py:flash_attention`` (Pallas
-kernel ``_flash_kernel``, wrapper ``kernels/ops.py:pallas_flash``) with the
-contract of the function the JAX model runs,
-``models/blocks.py:flash_attention_jnp``, of which the Pallas kernel's is
-a subset: per-row ``q_pos``, validity where ``k_pos >= 0``, GQA with query
-head ``h = kv_head * group + g`` (the Pallas kernel's group-major fold),
-the causal and window masks, the logit scale, and probabilities entering
-the PV product in v's dtype with f32 accumulation.  Every attention over a
-whole sequence goes through it (``models/blocks.py:attention``): training
-and the serving prefill.  The TPU kernel has no backward (JAX
-differentiates the jnp function); here the backward is a kernel too.
+kernel ``_flash_kernel`` at ``:24``, ``pallas_call`` at ``:93``, wrapper
+``kernels/ops.py:pallas_flash``) with the contract of the function the JAX
+model runs, ``models/blocks.py:flash_attention_jnp``, of which the Pallas
+kernel's is a subset: per-row ``q_pos``, validity where ``k_pos >= 0``, GQA
+with query head ``h = kv_head * group + g`` (the Pallas kernel's
+group-major fold), the causal and window masks, the logit scale, and
+probabilities entering the PV product in v's dtype with f32 accumulation.
+Every attention over a whole sequence goes through it
+(``models/blocks.py:attention``): training and the serving prefill.  The
+TPU kernel has no backward (JAX differentiates the jnp function); here the
+backward is a kernel too.
 
     q (b, sq, nq, d), k and v (b, sk, nkv, d), q_pos (b, sq), k_pos (sk,)
     forward   -> out (b, sq, nq, d) in q's dtype, lse (b, nq, sq) f32 saved
     backward  (q, k, v, out, dout, lse) -> dq, dk, dv, with P recomputed
               and delta = rowsum(dout * out)
 
-Bound on an H100: operations.  Design (see the source): 64 x 64 f32 tiles
-in shared memory, f32 FMA on CUDA cores; the forward and the dq pass loop
-over k tiles inside one block per (q tile, q head, batch); the dk/dv pass
-loops over the group's q heads and q tiles inside one block per (k tile, kv
-head, batch), so dk and dv need no atomics, and dq has its own pass rather
-than per-block partials.  A tile pair with no allowed entry is skipped
-before its operands are read.
+Bound on an H100: operations (a causal tinyllama layer at 4 x 2048 is 68.7
+GFLOP forward, 0.07 ms at the dense bf16 peak of 989 TFLOP/s).  ``route``
+picks one of two designs:
+
+- ``tc`` (``csrc/flash_attention_hopper.cu``): bf16 with d in (64, 128)
+  and q, k, v, out, dout starting on 16 bytes, as TMA requires.  wgmma on
+  the tensor cores fed by a producer warp's TMA + mbarrier ring; each CTA
+  lists the tiles with an allowed entry first, loads only those and masks
+  only the partial ones; at d = 64 two CTAs share an SM, so that one's
+  fixed cost overlaps the other's products.  Forward: one CTA per (128-row
+  q tile, q head, batch), the online softmax on the accumulator fragments
+  and P fed back from registers (wgmma's RS form).  Backward: delta, then
+  a dq pass (one CTA per q tile) and a dk/dv pass (one CTA per 64-key
+  tile, summing the GQA group), no atomics; dS enters its two products in
+  bf16, where the plain version keeps it in f32.
+- ``simt`` (``csrc/flash_attention.cu``): f32, where tensor cores would
+  round to TF32, bf16 at d in (16, 32), and bf16 that TMA cannot describe.
+  64 x 64 f32 tiles in shared memory, f32 FMA on CUDA cores, the same
+  tile skipping and the same two backward passes.
+
+This is a choice between kernels by dtype and shape, not a fallback: a
+failed build or launch raises, and no bf16 attention of the model's main
+paths takes ``simt`` (``chip_smoke.py`` checks it).
 
 A row with no allowed key at all (possible only when every k_pos is -1 or
 lies in its future) gets the mean of the values it saw in the reference's
-chunked loop and zero here: the kernel skips masked tiles.  The model never
-builds such a row (k_pos = arange, key 0 is always allowed).
+chunked loop and something else here: the kernels skip empty tiles.  The
+model never builds such a row (k_pos = arange, key 0 is always allowed).
 """
 from __future__ import annotations
 
@@ -44,11 +61,16 @@ from . import _build
 F32 = torch.float32
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("tc", "simt")
 
-# kernel launches since the last reset (chip_smoke.py reads and resets them)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): the totals and each route's share
 launches = 0           # forward
 launches_bwd = 0       # backward
+launches_by_route = dict.fromkeys(ROUTES, 0)
+launches_bwd_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _allowed(q_pos, k_pos, causal: bool, window: int):
@@ -138,16 +160,60 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos, k_pos, *,
             dv.to(v.dtype))
 
 
+def route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The kernels that compute an attention of head dim ``d``: ``"tc"`` or
+    ``"simt"`` (module docstring).  ``aligned``: q, k, v (and out, dout for
+    the backward) start on 16 bytes, as TMA needs; their row strides,
+    heads x d x 2 bytes, are then multiples of 16 too."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS and aligned:
+        return "tc"
+    return "simt"
+
+
+def route_for(q: torch.Tensor, *tensors: torch.Tensor) -> str:
+    """``route`` for these operands, the alignment read off the pointers (a
+    contiguous view may start anywhere)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, *tensors))
+    return route(q.dtype, q.shape[-1], aligned)
+
+
+def _way(force, q, *tensors) -> str:
+    """The route a CUDA call takes: ``route_for``'s, or ``force``'s where it
+    can take the operands (tests and timings compare the routes)."""
+    way = route_for(q, *tensors)
+    if force is None or force == way:
+        return way
+    if force == "tc":
+        raise ValueError(
+            f"K2 flash attention: the tc route takes bfloat16 with d in "
+            f"{TC_HEAD_DIMS} and tensors starting on 16 bytes, got {q.dtype} "
+            f"d={q.shape[-1]}")
+    return force
+
+
+def _check_force(force):
+    if force is not None and force not in ROUTES:
+        raise ValueError(f"K2 flash attention: route {force!r} not in "
+                         f"{ROUTES}")
+
+
 @functools.cache
-def _lib():
-    lib = _build.library("flash_attention")
-    fwd, bwd = lib.k2_flash_fwd, lib.k2_flash_bwd
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+def _lib(way: str, backward: bool):
+    """The C entry point of route ``way``: its pointers, then B, Sq, Sk,
+    Hq, Hkv, D, causal, window, the scale, (simt: the dtype,) the
+    stream."""
+    if way == "tc":
+        lib = _build.library("flash_attention_hopper")
+        fn = lib.k2_tc_backward if backward else lib.k2_tc_forward
+        tail = [ctypes.c_float]
+    else:
+        lib = _build.library("flash_attention")
+        fn = lib.k2_flash_bwd if backward else lib.k2_flash_fwd
+        tail = [ctypes.c_float, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * (12 if backward else 7)
+                   + [ctypes.c_int] * 8 + tail + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(q, k, v, q_pos, k_pos, *grads):
@@ -179,9 +245,11 @@ def _check(q, k, v, q_pos, k_pos, *grads):
 
 
 def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=0,
-                        logit_scale=None):
-    """``(out, lse)``: the forward kernel for CUDA tensors,
-    ``flash_attention_fwd_plain`` for CPU tensors."""
+                        logit_scale=None, force=None):
+    """``(out, lse)``: the forward kernel of ``route`` (or of the route
+    named by ``force``) for CUDA tensors, ``flash_attention_fwd_plain``
+    for CPU tensors."""
+    _check_force(force)
     if not _build.on_cuda("K2 flash attention", q, k, v, q_pos, k_pos):
         return flash_attention_fwd_plain(q, k, v, q_pos, k_pos, causal=causal,
                                          window=window,
@@ -191,24 +259,29 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     sk, nkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, nq, sq), dtype=F32, device=q.device)
+    way = _way(force, q, k, v, out)
     if q.numel() and sk:
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                k_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk,
+                nq, nkv, d, int(causal), int(window), _scale(d, logit_scale)]
+        if way == "simt":
+            args.append(_DTYPES[q.dtype])
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = _lib()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            q_pos.data_ptr(), k_pos.data_ptr(),
-                            out.data_ptr(), lse.data_ptr(), b, sq, sk, nq,
-                            nkv, d, int(causal), int(window),
-                            _scale(d, logit_scale), _DTYPES[q.dtype], stream)
-        _build.check_launch("K2 flash attention forward", err)
+            err = _lib(way, False)(*args, stream)
+        _build.check_launch(f"K2 flash attention forward ({way})", err)
         global launches
         launches += 1
+        launches_by_route[way] += 1
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos, *,
-                        causal=True, window=0, logit_scale=None):
-    """``(dq, dk, dv)``: the backward kernels for CUDA tensors,
-    ``flash_attention_bwd_plain`` for CPU tensors."""
+                        causal=True, window=0, logit_scale=None, force=None):
+    """``(dq, dk, dv)``: the backward kernels of ``route`` (or of the route
+    named by ``force``) for CUDA tensors, ``flash_attention_bwd_plain``
+    for CPU tensors."""
+    _check_force(force)
     if not _build.on_cuda("K2 flash attention backward", q, k, v, out, dout,
                           lse, q_pos, k_pos):
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
@@ -221,21 +294,25 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos, *,
             or tuple(lse.shape) != (b, nq, sq) or not lse.is_contiguous():
         raise ValueError("K2 flash attention backward: out and dout must be "
                          "shaped as q, lse float32 (b, nq, sq)")
+    way = _way(force, q, k, v, out, dout)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, nq, sq), dtype=F32, device=q.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, sk, nq, nkv, d, int(causal), int(window),
+            _scale(d, logit_scale)]
+    if way == "simt":
+        args.append(_DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                        q_pos.data_ptr(), k_pos.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
-                        sk, nq, nkv, d, int(causal), int(window),
-                        _scale(d, logit_scale), _DTYPES[q.dtype], stream)
-    _build.check_launch("K2 flash attention backward", err)
+        err = _lib(way, True)(*args, stream)
+    _build.check_launch(f"K2 flash attention backward ({way})", err)
     global launches_bwd
     launches_bwd += 1
+    launches_bwd_by_route[way] += 1
     return dq, dk, dv
 
 
@@ -262,6 +339,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal=True, window=0,
     """Attention over a whole sequence, differentiable in q, k and v; see the
     module docstring.  Returns ``(out, lse)``; the chunk-wise ``(m, l, o)``
     of the reference come from ``flash_attention_plain``.  CUDA tensors
-    launch the kernels; CPU tensors run the plain versions."""
+    launch the kernels of ``route``, forward and backward; CPU tensors run
+    the plain versions."""
     return _FlashAttention.apply(q, k, v, q_pos, k_pos, causal, int(window),
                                  logit_scale)

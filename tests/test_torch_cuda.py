@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1 matmul, K2 flash attention and K3 RMSNorm (forward and backward), K4
-paged decode, K5 SSD scan (forward and backward).
+K1 matmul (each route), K2 flash attention (each route) and K3 RMSNorm
+(forward and backward), K4 paged decode, K5 SSD scan (forward and
+backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -211,11 +212,19 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 # only; bf16 outputs may round to either neighbour, and the bf16 P of the
 # attention backward is rounded at other points than the plain version's.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2's tc route in bf16: ||got - want|| / ||want||, chip_smoke.py's limits
+# (a few times what the route reads, far below a dropped key tile)
+K2_NORM_TOL = {"out": 5e-3, "dq": 1e-2, "dk": 1e-2, "dv": 1.5e-3}
 
 
 def _rel(got, want):
     return ((got.float() - want.float()).abs().max()
             / (1 + want.float().abs().max())).item()
+
+
+def _norm_err(got, want):
+    g, w = got.double(), want.double()
+    return ((g - w).norm() / w.norm()).item()
 
 
 @pytest.mark.cuda
@@ -282,6 +291,126 @@ def test_k2_kernel_matches_plain_on_card(cuda, dtype, case):
     again = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
                                    **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+def _k2_case(cuda, b, sq, sk, nq, nkv, d, off, seed=9):
+    rng = np.random.default_rng(seed)
+
+    def rand(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)) \
+            .to(cuda, torch.bfloat16)
+    q, k, v, dout = rand(b, sq, nq, d), rand(b, sk, nkv, d), \
+        rand(b, sk, nkv, d), rand(b, sq, nq, d)
+    q_pos = (off + torch.arange(sq, dtype=torch.int32, device=cuda)) \
+        .expand(b, sq).contiguous()
+    k_pos = torch.arange(sk, dtype=torch.int32, device=cuda)
+    return q, k, v, dout, q_pos, k_pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, nq, nkv, d, causal, window, q offset): ragged and whole
+    # tiles, GQA groups 1, 2, 4 and 8, windows, a q offset, non-causal
+    (2, 100, 100, 8, 2, 64, True, 0, 0),
+    (1, 64, 200, 4, 4, 64, True, 0, 136),
+    (2, 70, 70, 8, 1, 64, True, 24, 0),
+    (1, 300, 300, 4, 4, 64, False, 0, 0),
+    (2, 256, 256, 16, 2, 64, True, 0, 0),
+    (1, 50, 90, 6, 3, 128, False, 0, 0),
+    (2, 100, 100, 8, 2, 128, True, 0, 0),
+    (1, 200, 200, 8, 1, 128, True, 50, 0)])
+def test_k2_tc_route_matches_plain_on_card(cuda, case):
+    """The tc route (wgmma + TMA) against the plain version in bf16, with
+    the limits of the simt route's bf16 test and ``K2_NORM_TOL``, and its
+    backward repeating bit for bit."""
+    b, sq, sk, nq, nkv, d, causal, window, off = case
+    q, k, v, dout, q_pos, k_pos = _k2_case(cuda, b, sq, sk, nq, nkv, d, off)
+    kw = dict(causal=causal, window=window)
+    assert k2.route_for(q, k, v, dout) == "tc"
+    before = (dict(k2.launches_by_route), dict(k2.launches_bwd_by_route))
+    out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw)
+    grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert k2.launches_by_route == dict(before[0],
+                                        tc=before[0]["tc"] + 1)
+    assert k2.launches_bwd_by_route == dict(before[1],
+                                            tc=before[1]["tc"] + 1)
+    out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
+    grads2 = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
+                                          k_pos, **kw)
+    torch.cuda.synchronize()
+    assert _rel(lse, lse2) <= 1e-5
+    assert _rel(out, out2) <= TOL[torch.bfloat16]
+    for got, want in zip(grads, grads2):
+        assert got.dtype == torch.bfloat16
+        assert _rel(got, want) <= TOL[torch.bfloat16]
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (out2, *grads2)):
+        assert _norm_err(got, want) <= K2_NORM_TOL[name], name
+    again = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_k2_routes_repeat_bit_for_bit_and_count(cuda, route):
+    q, k, v, dout, q_pos, k_pos = _k2_case(cuda, 2, 130, 130, 8, 2, 64, 0)
+    before = (k2.launches, k2.launches_bwd, dict(k2.launches_by_route),
+              dict(k2.launches_bwd_by_route))
+    runs = []
+    for _ in range(2):
+        out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force=route)
+        runs.append((out, lse, *k2.flash_attention_bwd(
+            q, k, v, out, dout, lse, q_pos, k_pos, force=route)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert (k2.launches, k2.launches_bwd) == (before[0] + 2, before[1] + 2)
+    for r in k2.ROUTES:
+        assert k2.launches_by_route[r] == before[2][r] + 2 * (r == route)
+        assert k2.launches_bwd_by_route[r] == before[3][r] + 2 * (r == route)
+
+
+@pytest.mark.cuda
+def test_k2_tc_route_refuses_what_it_cannot_take(cuda):
+    q, k, v, dout, q_pos, k_pos = _k2_case(cuda, 1, 64, 64, 4, 2, 64, 0)
+    before = (k2.launches, k2.launches_bwd)
+    with pytest.raises(ValueError):                  # f32
+        k2.flash_attention_fwd(q.float(), k.float(), v.float(), q_pos, k_pos,
+                               force="tc")
+    with pytest.raises(ValueError):                  # d 32
+        k2.flash_attention_fwd(*(t[..., :32].contiguous() for t in (q, k, v)),
+                               q_pos, k_pos, force="tc")
+    buf = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    q_off = buf[1:].view(q.shape)                    # off 16 bytes
+    q_off.copy_(q)
+    assert q_off.is_contiguous() and k2.route_for(q_off, k, v) == "simt"
+    with pytest.raises(ValueError):
+        k2.flash_attention_fwd(q_off, k, v, q_pos, k_pos, force="tc")
+    out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos)
+    with pytest.raises(ValueError):
+        k2.flash_attention_bwd(q, k, v, out, q_off, lse, q_pos, k_pos,
+                               force="tc")
+    with pytest.raises(ValueError):
+        k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force="cudnn")
+    assert (k2.launches, k2.launches_bwd) == (before[0] + 1, before[1])
+    # the unaligned view takes simt and matches the plain version
+    got, _ = k2.flash_attention_fwd(q_off, k, v, q_pos, k_pos)
+    want, _ = k2.flash_attention_fwd_plain(q_off, k, v, q_pos, k_pos)
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_k2_autograd_takes_the_tc_route(cuda):
+    q, k, v, _, q_pos, k_pos = _k2_case(cuda, 1, 96, 96, 8, 2, 64, 0)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = (dict(k2.launches_by_route), dict(k2.launches_bwd_by_route))
+    out, _ = k2.flash_attention(q, k, v, q_pos, k_pos)
+    out.float().square().sum().backward()
+    assert k2.launches_by_route == dict(before[0], tc=before[0]["tc"] + 1)
+    assert k2.launches_bwd_by_route == dict(before[1],
+                                            tc=before[1]["tc"] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
 @pytest.mark.cuda

@@ -3,8 +3,10 @@
 On the CPU each kernel module's plain version runs and is held against the
 reference's Pallas kernel in interpret mode and its jnp oracle: K1 (matmul
 + bias + activation) at 1e-4 in f32, K4 (paged flash-decode, residuals
-included) at 1e-5.  ``test_torch_cuda.py`` holds each CUDA kernel against
-its plain version on the card.
+included) at 1e-5.  The routing of K1 and K2 between their kernels is
+checked here too (K2's plain version is held against the JAX package in
+``test_torch_train.py``).  ``test_torch_cuda.py`` holds each CUDA kernel
+against its plain version on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import torch
 from repro.kernels import ops, ref
 from repro.kernels.matmul import matmul as pallas_matmul_bias
 from repro.kernels.paged_decode import paged_flash_decode as jax_paged_decode
+from repro_torch.kernels import flash_attention as k2
 from repro_torch.kernels import matmul as k1
 from repro_torch.kernels import paged_decode as k4
 from test_torch_cuda import _mm_inputs, _paged_case
@@ -156,6 +159,83 @@ def test_k1_force_names_a_route():
     x, w = torch.zeros(4, 8), torch.zeros(8, 8)
     # CPU tensors run the plain version whatever route is named
     assert torch.equal(k1.matmul(x, w, force="tc"), k1.matmul_plain(x, w))
+
+
+# ---------------------------------------------------------------------------
+# K2 flash attention: routes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d", k2.TC_HEAD_DIMS)
+def test_k2_routes_aligned_bf16_at_d64_d128_to_tensor_cores(d):
+    q = torch.empty(2, 128, 8, d, dtype=torch.bfloat16)
+    kv = torch.empty(2, 128, 2, d, dtype=torch.bfloat16)
+    assert k2.route(torch.bfloat16, d, True) == "tc"
+    assert k2.route_for(q, kv, kv) == "tc"
+
+
+@pytest.mark.parametrize("dtype,d,aligned", [
+    (torch.float32, 64, True), (torch.float32, 128, True),
+    (torch.float32, 16, True), (torch.bfloat16, 16, True),
+    (torch.bfloat16, 32, True), (torch.bfloat16, 64, False),
+    (torch.bfloat16, 128, False)])
+def test_k2_routes_f32_small_heads_and_unaligned_to_simt(dtype, d, aligned):
+    assert k2.route(dtype, d, aligned) == "simt"
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_k2_routes_unaligned_views_to_simt(which):
+    """A contiguous view may start off 16 bytes: TMA cannot take it."""
+    shapes = {"q": (1, 64, 4, 64), "k": (1, 64, 2, 64), "v": (1, 64, 2, 64)}
+    ts = {n: torch.empty(s, dtype=torch.bfloat16) for n, s in shapes.items()}
+    buf = torch.empty(ts[which].numel() + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    ts[which] = buf[8:].view(shapes[which])
+    assert k2.route_for(ts["q"], ts["k"], ts["v"]) == "tc"
+    ts[which] = buf[1:1 + ts[which].numel()].view(shapes[which])
+    assert ts[which].is_contiguous()
+    assert k2.route_for(ts["q"], ts["k"], ts["v"]) == "simt"
+
+
+def _k2_cpu_case(dtype=torch.float32):
+    rng = np.random.default_rng(5)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype) for s in ((1, 40, 4, 64), (1, 40, 2, 64),
+                                         (1, 40, 2, 64), (1, 40, 4, 64)))
+    pos = torch.arange(40, dtype=torch.int32)
+    return q, k, v, dout, pos[None].contiguous(), pos
+
+
+@pytest.mark.parametrize("force", k2.ROUTES)
+def test_k2_force_names_a_route(force):
+    """CPU tensors run the plain versions whatever route is named, and
+    never touch the launch counters."""
+    q, k, v, dout, q_pos, k_pos = _k2_cpu_case(torch.bfloat16)
+    before = (k2.launches, k2.launches_bwd, dict(k2.launches_by_route),
+              dict(k2.launches_bwd_by_route))
+    out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force=force)
+    want = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos)
+    assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+    grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   force=force)
+    want = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
+                                        k_pos)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    qg = q.clone().requires_grad_()
+    k2.flash_attention(qg, k, v, q_pos, k_pos)[0].float().sum().backward()
+    assert torch.isfinite(qg.grad.float()).all()
+    assert (k2.launches, k2.launches_bwd, k2.launches_by_route,
+            k2.launches_bwd_by_route) == before
+
+
+def test_k2_force_rejects_an_unknown_route():
+    q, k, v, dout, q_pos, k_pos = _k2_cpu_case()
+    out, lse = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos)
+    with pytest.raises(ValueError):
+        k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force="sdpa")
+    with pytest.raises(ValueError):
+        k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                               force="cudnn")
+    with pytest.raises(ValueError):
+        k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force="TC")
 
 
 # ---------------------------------------------------------------------------
