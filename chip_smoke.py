@@ -21,7 +21,11 @@ Phases, in order (any failure raises and exits nonzero):
      64-1024 tokens, a windowed case, null and recycled blocks, residuals;
   4. K3 RMSNorm forward and backward against their plain versions at the
      training shape (8192 rows x 2048), bf16 and f32, with and without a
-     zero-centred gain; times beside ``F.rms_norm``;
+     zero-centred gain, and at 3072 and 4096 (zamba2's gate_ln) in bf16:
+     within 1e-4 (f32) or 3e-2 (bf16) of 1 + max and within
+     ``K3_NORM_TOL`` of the plain version's norm, dg repeating bit for
+     bit; then device times at each width beside ``F.rms_norm``'s forward
+     and its backward (the backward's kernels summed by torch.profiler);
   5. K2 flash attention forward and backward against their plain versions
      at the main paths' attention shapes, all causal at d = 64: the
      tinyllama training layer (4 x 2048, 32/4 heads), zamba2's shared
@@ -33,11 +37,17 @@ Phases, in order (any failure raises and exits nonzero):
      runs giving the same bits, and the cost of the tc kernels' bf16 dS
      measured by the plain backward with dS rounded; f32 through the simt
      route at 1e-4.  Then the times of both routes, the plain version and
-     ``F.scaled_dot_product_attention`` at each shape, beside the bound;
+     ``F.scaled_dot_product_attention`` at each shape, beside the bound.
+     Last, the head dims only the simt route takes (``K2_WIDE_SHAPES``):
+     the paper's model, 4 x 512, 64/64 heads of 48, and gemma-2b, 4 x
+     2048, 8/1 heads of 256, f32 and bf16 (bf16 also to ``K2_NORM_TOL``),
+     timed beside SDPA and the bound;
   6. full-width two-layer tinyllama in f32 (K1's simt route) and in bf16
      (its tc and decode routes): CPU (plain versions) against the card
      (kernels), serving prefill and the first fused decode step's logits,
-     then one f32 training step's loss and gradients (batch 2 x 512);
+     then one f32 training step's loss and gradients (batch 2 x 512),
+     also of the paper's model (d 48) and gemma-2b (d 256) cut to two
+     layers, with K2's launches on the card counted;
   7. the serving run: ``repro_torch.launch.serve`` serves 8 requests of
      tinyllama-1.1b at full depth and width in bf16 (weights from a seed),
      with the kernels' launch counters reset just before and read after;
@@ -56,8 +66,9 @@ Phases, in order (any failure raises and exits nonzero):
      summed over the GEMMs of one step of each;
  11. K5 SSD scan forward and backward against their plain versions at
      zamba2's training shape (4 x 2048, 64 heads of 64, 2 groups, d_state
-     64, chunk 256), bf16 and f32 B/C, a ragged T, a strongly negative
-     log-decay, and two backward runs that must give the same bits;
+     64, chunk 256), bf16 and f32 B/C, a ragged T (a chunk of 250 steps),
+     a strongly negative log-decay, each within its scaled limit and
+     ``K5_NORM_TOL``, and two backward runs that must give the same bits;
  12. full-width zamba2 cut to [mamba, mamba, attn] in f32: one training
      step's loss and gradients, CPU (plain versions) against the card;
  13. the zamba2 training run: ``repro_torch.launch.train`` trains
@@ -529,64 +540,157 @@ def phase_k4(dev):
     return timing
 
 
+# K3: the limits on ||got - want|| / ||want|| against the plain version,
+# per dtype, 3-5x the readings of the redesign (on an H100: f32 y 4-6e-8,
+# dx 6-8e-8, dg 2-4e-7; bf16 y 0.4-1.6e-5, dx 0.5-2.4e-5).  bf16 dg is one
+# rounding of an f32 sum over the rows: it reads 0 where no rounding
+# flips, and one flipped entry of H = 4096 reads up to ~6e-5, so its
+# limit is 3e-4.  One row's share of dg dropped reads ~1e-2 at 8192 rows
+# (tools/k3k5_planted_faults.py)
+K3_NORM_TOL = {"float32": {"y": 3e-7, "dx": 3e-7, "dg": 1.5e-6},
+               "bfloat16": {"y": 6e-5, "dx": 1e-4, "dg": 3e-4}}
+# K3's widths on the main paths: every norm of tinyllama and zamba2 (2048),
+# zamba2's gate_ln over d_inner (4096), and the 3072 instance
+K3_WIDTHS = (2048, 3072, 4096)
+
+
+def kernels_by_name(fn, reps):
+    """{kernel name: device ms per call of ``fn``}, largest first, summed
+    by torch.profiler over ``reps`` calls (after one warm-up call); the
+    names without their arguments and anonymous namespace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {k: v / reps for k, v in sorted(out.items(),
+                                           key=lambda kv: -kv[1])}
+
+
+def kernel_ms(fn, reps):
+    """Device time of ``fn``, its kernels' durations summed (see
+    ``kernels_by_name``), or None when the profiler sees no kernel: for
+    calls that cannot be captured in a CUDA graph, such as an autograd
+    backward."""
+    return sum(kernels_by_name(fn, reps).values()) or None
+
+
+def k3_case(k3, dev, gen, m, h, dtype, zc, tag="[4]"):
+    """K3's forward and backward against the plain version at (m, h):
+    y, rstd, dx and dg within the scaled limit (1e-4 f32, 3e-2 bf16, of
+    1 + max) and within ``K3_NORM_TOL`` of the plain version's norm, and
+    two backward runs giving the same dg bits.  Returns the inputs, rstd
+    and the worst absolute error."""
+    import torch
+    x = torch.randn(m, h, generator=gen, device=dev).to(dtype)
+    g = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).to(dtype)
+    dy = torch.randn(m, h, generator=gen, device=dev).to(dtype)
+    y, rstd = k3.rmsnorm_fwd(x, g, zero_centered=zc)
+    dx, dg = k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)
+    again = k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)[1]
+    y2, rstd2 = k3.rmsnorm_plain(x, g, zero_centered=zc)
+    dx2, dg2 = k3.rmsnorm_bwd_plain(dy, x, g, rstd2, zero_centered=zc)
+    pairs = (("y", y, y2), ("rstd", rstd, rstd2), ("dx", dx, dx2),
+             ("dg", dg, dg2))
+    errs = {n: scaled_err(a, b) for n, a, b in pairs}
+    norms = {n: norm_err(a, b) for n, a, b in pairs if n != "rstd"}
+    name = str(dtype)[6:]
+    tol, ntol = {"float32": 1e-4, "bfloat16": 3e-2}[name], K3_NORM_TOL[name]
+    same = torch.equal(dg, again)
+    print(f"{tag} K3 ({m},{h}) {name:8s} zc={zc!s:5s} errors "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {tol:.0e}, relative to 1 + max); ||error|| / ||plain|| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in norms.items())
+          + " (tol " + ", ".join(f"{k} {v:.0e}" for k, v in ntol.items())
+          + f"); dg repeats bit for bit: {same}")
+    check(all(norms[k] <= ntol[k] for k in ntol),
+          f"K3 ({m},{h}) {dtype} zc={zc}: ||error|| / ||plain|| {norms}")
+    check(max(errs.values()) <= tol, f"K3 ({m},{h}) {dtype} zc={zc}: {errs}")
+    check(same, f"K3 ({m},{h}) {dtype} zc={zc}: dg does not repeat")
+    worst = max(abs_err(a, b) for n, a, b in pairs if n != "rstd")
+    return (x, g, dy), rstd, worst, norms
+
+
 def phase_k3(dev):
-    """K3 at the training shape: every norm of a step sees 8192 rows of
-    2048.  Returns the path case's numbers (bf16, no zero-centring), the
-    kernel's time as forward + backward of one norm."""
+    """K3 at the training shape: every norm of a step sees 8192 rows, of
+    2048 (tinyllama, zamba2) or 4096 (zamba2's gate_ln); the 3072 instance
+    too.  Checked in f32 and bf16, with and without zero-centring at 2048;
+    then the device times of the kernels, the plain versions and
+    ``F.rms_norm``'s forward and backward at each width in bf16.  Returns
+    the 2048 case's numbers (bf16, no zero-centring), the kernel's time
+    as forward + backward of one norm (device time), the other widths
+    under ``shapes``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as k3
-    m, h = TRAIN_B * TRAIN_S, D
+    m = TRAIN_B * TRAIN_S
     gen = torch.Generator(device=dev).manual_seed(3)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-    worst_path_err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn(m, h, generator=gen, device=dev).to(dtype)
-        g = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).to(dtype)
-        dy = torch.randn(m, h, generator=gen, device=dev).to(dtype)
-        for zc in (False, True):
-            y, rstd = k3.rmsnorm_fwd(x, g, zero_centered=zc)
-            dx, dg = k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)
-            y2, rstd2 = k3.rmsnorm_plain(x, g, zero_centered=zc)
-            dx2, dg2 = k3.rmsnorm_bwd_plain(dy, x, g, rstd2, zero_centered=zc)
-            errs = {"y": scaled_err(y, y2), "rstd": scaled_err(rstd, rstd2),
-                    "dx": scaled_err(dx, dx2), "dg": scaled_err(dg, dg2)}
-            worst = max(errs.values())
-            print(f"[4] K3 ({m},{h}) {str(dtype)[6:]:8s} zc={zc!s:5s} errors "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                  + f" (tol {tol[dtype]:.0e}, relative to 1 + max)")
-            check(worst <= tol[dtype], f"K3 {dtype} zc={zc}: {errs}")
-            if dtype == torch.bfloat16 and not zc:
-                worst_path_err = max(abs_err(a, b) for a, b in
-                                     ((y, y2), (dx, dx2), (dg, dg2)))
-    xr = x.detach().requires_grad_()
-    gr = g.detach().requires_grad_()
+    cases = [(D, dtype, zc) for dtype in (torch.float32, torch.bfloat16)
+             for zc in (False, True)]
+    cases += [(h, torch.bfloat16, False) for h in K3_WIDTHS if h != D]
+    out = {}
+    for h, dtype, zc in cases:
+        (x, g, dy), rstd, worst, norms = k3_case(k3, dev, gen, m, h, dtype,
+                                                 zc)
+        if dtype != torch.bfloat16 or zc:
+            continue
+        xr = x.detach().requires_grad_()
+        gr = g.detach().requires_grad_()
+        lib_out = F.rms_norm(xr, (h,), gr, 1e-6)
 
-    def lib_fwd_bwd():
-        out = F.rms_norm(xr, (h,), gr, 1e-6)
-        torch.autograd.grad(out, (xr, gr), dy)
-    t = {"fwd_ms": time_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
-         "bwd_ms": time_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 50),
-         "plain_fwd_ms": time_ms(lambda: k3.rmsnorm_plain(x, g), 20),
-         "plain_bwd_ms": time_ms(lambda: k3.rmsnorm_bwd_plain(dy, x, g, rstd),
-                                 20),
-         "library_fwd_ms": time_ms(lambda: F.rms_norm(x, (h,), g, 1e-6), 50),
-         "library_ms": time_ms(lib_fwd_bwd, 50)}
-    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
-    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
-    fb, fo = bound_ms(2 * m * h * 2 + h * 2 + m * 4, 4 * m * h,
-                      H100_F32_FLOPS)
-    bb, bo = bound_ms(3 * m * h * 2 + 2 * h * 2 + m * 4, 10 * m * h,
-                      H100_F32_FLOPS)
-    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
-             bound_by=fo if fo == bo else "bytes and operations",
-             max_abs_err=worst_path_err)
-    print(f"[4] K3 bf16 ({m},{h}): forward {t['fwd_ms']:.4f} ms (plain "
-          f"{t['plain_fwd_ms']:.4f}, F.rms_norm {t['library_fwd_ms']:.4f}, "
-          f"bound {fb:.4f} {fo}); backward {t['bwd_ms']:.4f} ms (plain "
-          f"{t['plain_bwd_ms']:.4f}, bound {bb:.4f} {bo}); F.rms_norm fwd+bwd"
-          f" {t['library_ms']:.4f} ms")
-    return t
+        def lib_bwd():
+            torch.autograd.grad(lib_out, (xr, gr), dy, retain_graph=True)
+        t = {"fwd_ms": graph_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
+             "bwd_ms": graph_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 50),
+             "fwd_host_ms": time_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
+             "bwd_host_ms": time_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd),
+                                    50),
+             "bwd_kernels_ms": kernel_ms(
+                 lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 20),
+             "plain_fwd_ms": time_ms(lambda: k3.rmsnorm_plain(x, g), 10),
+             "plain_bwd_ms": time_ms(
+                 lambda: k3.rmsnorm_bwd_plain(dy, x, g, rstd), 10),
+             "library_fwd_ms": graph_ms(
+                 lambda: F.rms_norm(x, (h,), g, 1e-6), 50),
+             "library_bwd_ms": kernel_ms(lib_bwd, 20),
+             "norm_err": norms, "max_abs_err": worst}
+        t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+        t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+        t["library_ms"] = (t["library_fwd_ms"] + t["library_bwd_ms"]
+                           if t["library_bwd_ms"] is not None else None)
+        fb, fo = bound_ms(2 * m * h * 2 + h * 2 + m * 4, 4 * m * h,
+                          H100_F32_FLOPS)
+        bb, bo = bound_ms(3 * m * h * 2 + 2 * h * 2 + m * 4, 10 * m * h,
+                          H100_F32_FLOPS)
+        t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+                 bound_by=fo if fo == bo else "bytes and operations")
+        lb = t["library_bwd_ms"]
+        print(f"[4] K3 bf16 ({m},{h}), device time: forward {t['fwd_ms']:.4f}"
+              f" ms ({fb / t['fwd_ms'] * 100:.0f}% of its bound {fb:.4f} {fo};"
+              f" F.rms_norm {t['library_fwd_ms']:.4f}, "
+              f"{t['fwd_ms'] / t['library_fwd_ms']:.2f}x); backward "
+              f"{t['bwd_ms']:.4f} ms ({bb / t['bwd_ms'] * 100:.0f}% of its "
+              f"bound {bb:.4f} {bo}; its kernels summed by the profiler "
+              f"{t['bwd_kernels_ms'] or float('nan'):.4f}; F.rms_norm's "
+              f"backward, its kernels summed by the profiler, "
+              + (f"{lb:.4f}, {t['bwd_kernels_ms'] / lb:.2f}x"
+                 if lb and t["bwd_kernels_ms"] else "not measured")
+              + f"); called from the host {t['fwd_host_ms']:.4f} + "
+              f"{t['bwd_host_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} + "
+              f"{t['plain_bwd_ms']:.4f} ms")
+        out[h] = t
+        del xr, gr, lib_out
+    return dict(out[D], shapes={f"{m}x{h}": t for h, t in out.items()})
 
 
 # the attention shapes of the main paths (phase 5): (label, batch, seq, q
@@ -594,6 +698,12 @@ def phase_k3(dev):
 K2_SHAPES = [("train", TRAIN_B, TRAIN_S, NQ, NKV, 0),
              ("zamba2", TRAIN_B, TRAIN_S, Z_HEADS, Z_HEADS, Z_WINDOW),
              ("prefill", 8, 512, NQ, NKV, 0)]
+# the head dims the tc route does not take, at their configs' training
+# shapes (phase 5): (label, batch, seq, q heads, kv heads, d), causal: the
+# paper's model (configs/paper_transformer.py, seq 512) and gemma-2b
+# (configs/gemma_2b.py, MQA)
+K2_WIDE_SHAPES = [("paper d48", 4, 512, 64, 64, 48),
+                  ("gemma d256", 4, 2048, 8, 1, 256)]
 
 
 def k2_work(q_pos, k_pos, b, nq, nkv, d, elt, window=0):
@@ -658,7 +768,8 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
     return dq.reshape(b, sq, nq, d).to(q.dtype), dk.to(k.dtype)
 
 
-def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label):
+def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
+            d=DH):
     """K2's routes against the plain version at one shape: out, lse, dq,
     dk and dv, and two backward runs of each route that must give the same
     bits.  In bf16 each of out, dq, dk and dv is also held to
@@ -671,10 +782,10 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label):
     q_pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
         .contiguous()
     k_pos = torch.arange(s, dtype=torch.int32, device=dev)
-    q = torch.randn(b, s, nq, DH, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, nkv, DH, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, nkv, DH, generator=gen, device=dev).to(dtype)
-    dout = torch.randn(b, s, nq, DH, generator=gen, device=dev).to(dtype)
+    q = torch.randn(b, s, nq, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, nkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, nkv, d, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(b, s, nq, d, generator=gen, device=dev).to(dtype)
     kw = dict(window=window)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     lse_tol = 1e-4 if dtype == torch.float32 else 1e-5
@@ -682,7 +793,7 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label):
     out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
     path = k2.route_for(q, k, v, out2)
     worst, kept, norms = 0.0, None, {}
-    tag = (f"[5] K2 {label} ({b},{s},{nq}/{nkv},{DH}) causal"
+    tag = (f"[5] K2 {label} ({b},{s},{nq}/{nkv},{d}) causal"
            f"{f' window {window}' if window else ''} {str(dtype)[6:]:8s}")
     for r in routes:
         out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force=r,
@@ -822,7 +933,59 @@ def phase_k2(dev):
               f"({t['fwd_device_ms'] / t['library_fwd_device_ms']:.2f}x)")
         t_all[label] = t
         del q, k, v, dout, out, lse, qt, kt, vt
+    for label, b, s_, nq, nkv, d in K2_WIDE_SHAPES:
+        t_all[label] = k2_wide(k2, dev, gen, b, s_, nq, nkv, d, label)
     return dict(t_all["train"], shapes=t_all, max_abs_err=worst_path_err)
+
+
+def k2_wide(k2, dev, gen, b, s, nq, nkv, d, label):
+    """K2 at a head dim only the simt route takes: f32 and bf16 against
+    the plain version (bf16 also to ``K2_NORM_TOL``), then the simt
+    route's, the plain version's and SDPA's times in bf16 beside the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    k2_case(k2, dev, gen, b, s, nq, nkv, 0, torch.float32, ["simt"], label,
+            d=d)
+    (q, k, v, dout, q_pos, k_pos), (out, lse), worst, norms = k2_case(
+        k2, dev, gen, b, s, nq, nkv, 0, torch.bfloat16, ["simt"], label, d=d)
+    check(k2.route_for(q, k, v, out, dout) == "simt",
+          f"K2 {label}: the bf16 path does not take the simt route")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    t = {"fwd_ms": time_ms(lambda: k2.flash_attention_fwd(
+             q, k, v, q_pos, k_pos), 3),
+         "bwd_ms": time_ms(lambda: k2.flash_attention_bwd(
+             q, k, v, out, dout, lse, q_pos, k_pos), 2),
+         "plain_fwd_ms": time_ms(lambda: k2.flash_attention_fwd_plain(
+             q, k, v, q_pos, k_pos), 2),
+         "plain_bwd_ms": time_ms(lambda: k2.flash_attention_bwd_plain(
+             q, k, v, out, dout, lse, q_pos, k_pos), 2),
+         "library_fwd_ms": time_ms(sdpa, 20),
+         "library_ms": time_ms(
+             lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt), 20),
+         "norm_err": norms, "max_abs_err": worst}
+    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+    fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, d, 2)
+    fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
+    bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
+    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+             bound_by=fo if fo == bo else "bytes and operations")
+    print(f"[5] K2 bf16 {label} ({b},{s},{nq}/{nkv},{d}) causal, simt route:"
+          f" forward {t['fwd_ms']:.3f} ms ({ffl / t['fwd_ms'] / 1e9:.1f} "
+          f"TFLOP/s), backward {t['bwd_ms']:.3f} ms "
+          f"({bfl / t['bwd_ms'] / 1e9:.1f} TFLOP/s); plain "
+          f"{t['plain_fwd_ms']:.3f} + {t['plain_bwd_ms']:.3f}; sdpa fwd "
+          f"{t['library_fwd_ms']:.4f}, fwd+bwd {t['library_ms']:.4f} "
+          f"({t['ms'] / t['library_ms']:.1f}x); bound {fb:.4f} + {bb:.4f} "
+          f"({fo})")
+    return t
 
 
 def phase_two_layer(dev, dtype_name="float32"):
@@ -911,48 +1074,66 @@ def phase_two_layer(dev, dtype_name="float32"):
         check(err <= lim and math.isfinite(err), f"two-layer {name}: {err}")
 
 
-def phase_two_layer_train(dev):
-    """One training step's loss and gradients of full-width tinyllama cut
-    to two layers, f32, batch 2 x 512: CPU (plain versions) against the
-    card (kernels), the same seeded weights and tokens."""
+def phase_two_layer_train(dev, arch="tinyllama-1.1b", seed=1, rows=2,
+                          seq=512):
+    """One training step's loss and gradients of a full-width model cut
+    to two layers, f32, batch 2 x 512 (or ``rows`` x ``seq``): CPU (plain
+    versions) against the card (kernels), the same seeded weights and
+    tokens.  K2 must have run on the card, forward and backward:
+    tinyllama-1.1b, and the paper's model (d 48) and gemma-2b (d 256),
+    whose head dims only K2's simt route takes."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.core.params import init_params, tree_leaves, tree_map
     from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import flash_attention as k2
     from repro_torch.models import transformer
-    cfg = dataclasses.replace(get("tinyllama-1.1b"), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get(arch), n_layers=2, dtype="float32")
     layout = ParallelPlan().validate(mode="train").build()
-    cpu = init_params(transformer.abstract_params(cfg),
-                      torch.Generator().manual_seed(1), "cpu",
-                      torch.float32)
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 513)))
+    # drawn on the card (a CPU generator takes seconds for gemma's
+    # 256000-word embedding), then copied: both sides start from these
+    cpu = tree_map(lambda t: t.cpu(), init_params(
+        transformer.abstract_params(cfg),
+        torch.Generator(device=dev).manual_seed(seed), dev, torch.float32))
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq + 1)))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
-    batch["labels"][1, -7:] = -1
+    batch["labels"][-1, -7:] = -1
     res = {}
     for d in ("cpu", dev):
+        before = (dict(k2.launches_by_route), dict(k2.launches_bwd_by_route))
         live = tree_map(lambda t: t.detach().to(d).requires_grad_(), cpu)
         loss, _ = transformer.forward(
             cfg, layout, live, {k: v.to(d) for k, v in batch.items()},
             mode="train")
         grads = torch.autograd.grad(loss, tree_leaves(live))
-        res[str(d)] = (loss.item(), [g.cpu() for g in grads])
-    (l_cpu, g_cpu), (l_dev, g_dev) = res["cpu"], res[str(dev)]
+        routes = {r: (k2.launches_by_route[r] - before[0][r],
+                      k2.launches_bwd_by_route[r] - before[1][r])
+                  for r in k2.ROUTES}
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads], routes)
+        del live, loss, grads
+    (l_cpu, g_cpu, r_cpu), (l_dev, g_dev, r_dev) = res["cpu"], res[str(dev)]
     names = [".".join(p) for p in _paths(cpu)]
     worst = max(scaled_err(a, b) for a, b in zip(g_dev, g_cpu))
     shown = {n: scaled_err(a, b) for n, a, b in zip(names, g_dev, g_cpu)
              if n in ("embed", "head", "ln_f.g", "stack.dense.ln1.g",
                       "stack.dense.attn.wq", "stack.dense.mlp.w_down")}
     tol = 1e-3      # f32 on both; the order of the sums differs
-    print(f"[6] two-layer full width f32 train step (2x512): loss cpu "
+    print(f"[6] two-layer full width {arch} (d {cfg.d_head}, "
+          f"{cfg.n_heads}/{cfg.n_kv} heads) f32 train step "
+          f"({rows}x{seq}): loss cpu "
           f"{l_cpu:.6f} card {l_dev:.6f}; gradient errors relative to "
           f"1 + max: " + ", ".join(f"{k} {v:.1e}" for k, v in shown.items())
-          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e})")
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e}); "
+          f"K2 launches (forward, backward) by route on the card {r_dev}")
+    check(all(c == (0, 0) for c in r_cpu.values()),
+          f"two-layer train {arch}: K2 counted CPU calls {r_cpu}")
+    check(r_dev["simt"][0] > 0 and r_dev["simt"][1] > 0,
+          f"two-layer train {arch}: K2 did not run on the card {r_dev}")
     check(abs(l_cpu - l_dev) <= 1e-4 and math.isfinite(l_dev),
-          f"two-layer train loss: {l_cpu} vs {l_dev}")
-    check(worst <= tol, f"two-layer train gradients: {worst}")
+          f"two-layer train {arch} loss: {l_cpu} vs {l_dev}")
+    check(worst <= tol, f"two-layer train {arch} gradients: {worst}")
 
 
 def phase_k1_train(dev):
@@ -1026,6 +1207,81 @@ def k5_work(b, T, Q, bc_elt):
     return (*fwd, *bwd)
 
 
+# K5: the limits on ||got - want|| / ||want|| against the plain version
+# (set in k5_case's comment from the readings); "la << 0" is the case of
+# log-decays near -200 a step, where the decays differ by up to ~1%
+K5_NORM_TOL = {
+    "float32": dict.fromkeys(("y", "states", "dxbar", "dla", "dB", "dC"),
+                             5e-6),
+    "bfloat16": dict(dict.fromkeys(("y", "states", "dxbar", "dla"), 5e-6),
+                     dB=2.5e-4, dC=2.5e-4),
+    "la << 0": dict(y=1e-4, states=3e-4, dxbar=1e-4, dla=3e-3, dB=1e-4,
+                    dC=1e-4)}
+
+
+def k5_case(k5, dev, gen, label, b, T, dtype, la_scale, tag="[11]"):
+    """K5's forward and backward against the plain version at zamba2's
+    heads (b, T): y, states, dxbar, dla, dB and dC within the scaled limit
+    and within ``K5_NORM_TOL`` of the plain version's norm, every output
+    finite, and two backward runs giving the same bits.  Returns the
+    inputs, the states and the worst absolute error."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    xbar = 0.5 * rnd(b, T, Z_NH, DH)
+    la = -la_scale * rnd(b, T, Z_NH).abs()
+    B = (0.3 * rnd(b, T, Z_G, Z_N)).to(dtype)
+    C = (0.3 * rnd(b, T, Z_G, Z_N)).to(dtype)
+    dy = rnd(b, T, Z_NH, DH)
+    y, st = k5.ssd_scan_fwd(xbar, la, B, C, Z_CHUNK)
+    grads = k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)
+    y2, st2 = k5.ssd_scan_plain(xbar, la, B, C, Z_CHUNK)
+    grads2 = k5.ssd_scan_bwd_plain(dy, xbar, la, B, C, st2, Z_CHUNK)
+    pairs = [("y", y, y2), ("states", st, st2)] + list(
+        zip(("dxbar", "dla", "dB", "dC"), grads, grads2))
+    errs = {n: scaled_err(a, c) for n, a, c in pairs}
+    norms = {n: norm_err(a, c) for n, a, c in pairs}
+    finite = all(bool(torch.isfinite(t).all()) for t in (y, *grads))
+    again = k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)
+    same = all(torch.equal(a, g) for a, g in zip(again, grads))
+    # f32 everywhere but dB and dC in bf16, which round once.  With la
+    # near -160 a step, cum reaches -4e4 in a chunk, where one f32 ulp is
+    # 4e-3: a decay exp(cum_i - cum_j) between neighbours is the difference
+    # of two such sums, and the kernel's and torch.cumsum's orders may
+    # differ by an ulp or two, so those decays may differ by ~1%: 1e-2
+    # there (the case is for the masked exponent, NaN-free).  The norm
+    # limits are 3-6x the readings of the redesign (on an H100): f32
+    # 0.8-1.4e-6, bf16 B/C dB and dC 5.5-5.9e-5; la << 0, over three
+    # seeds, y and dxbar 1.1-2.9e-5, states 0-7.8e-5, dla 4.7-7.2e-4, dB
+    # and dC 0.5-3.3e-5
+    tol = 1e-4 if dtype == torch.float32 and la_scale < 1 else 1e-2
+    ntol = K5_NORM_TOL["la << 0" if la_scale >= 1 else str(dtype)[6:]]
+    print(f"{tag} K5 {label:13s} ({b},{T},{Z_NH},{DH}) B/C "
+          f"{str(dtype)[6:]:8s} errors " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {tol:.0e}, relative to 1 + max); ||error|| / ||plain|| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in norms.items())
+          + " (tol " + ", ".join(f"{k} {v:.1e}" for k, v in ntol.items())
+          + f"); finite {finite}; backward repeats bit for bit {same}")
+    check(all(norms[k] <= ntol[k] for k in ntol),
+          f"K5 {label} {dtype}: ||error|| / ||plain|| {norms}")
+    check(finite, f"K5 {label} {dtype}: a non-finite output")
+    check(same, f"K5 {label} {dtype}: backward not deterministic")
+    check(max(errs.values()) <= tol, f"K5 {label} {dtype}: {errs}")
+    worst = max(abs_err(a, c) for n, a, c in pairs)
+    return (xbar, la, B, C, dy), st, worst, norms
+
+
+# (label, b, T, B/C dtype, log-decay scale): T 2000 gives Q = 250, a chunk
+# of 3 whole and one 58-row sub-chunk; la near -200 a step would overflow
+# any exponent formed above the diagonal
+K5_CASES = [("train shape", TRAIN_B, TRAIN_S, "float32", 0.1),
+            ("train shape", TRAIN_B, TRAIN_S, "bfloat16", 0.1),
+            ("ragged T=2000", 1, 2000, "float32", 0.1),
+            ("la << 0", 1, TRAIN_S, "float32", 200.0)]
+
+
 def phase_k5(dev):
     """K5 at zamba2's training shape of one layer.  The model's B and C are
     f32 (the SiLU of the conv runs in f32), so the path case is f32; bf16
@@ -1034,54 +1290,13 @@ def phase_k5(dev):
     import torch
     from repro_torch.kernels import ssd_scan as k5
     gen = torch.Generator(device=dev).manual_seed(5)
-
-    def inputs(b, T, dtype, la_scale):
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device=dev)
-        xbar = 0.5 * rnd(b, T, Z_NH, DH)
-        la = -la_scale * rnd(b, T, Z_NH).abs()
-        B = (0.3 * rnd(b, T, Z_G, Z_N)).to(dtype)
-        C = (0.3 * rnd(b, T, Z_G, Z_N)).to(dtype)
-        return xbar, la, B, C, rnd(b, T, Z_NH, DH)
-    # (label, b, T, B/C dtype, log-decay scale): T 2000 gives Q = 250, a
-    # chunk of 3 whole and one 58-row sub-block; la near -200 a step
-    # would overflow any exponent formed above the diagonal
-    cases = [("train shape", TRAIN_B, TRAIN_S, torch.float32, 0.1),
-             ("train shape", TRAIN_B, TRAIN_S, torch.bfloat16, 0.1),
-             ("ragged T=2000", 1, 2000, torch.float32, 0.1),
-             ("la << 0", 1, TRAIN_S, torch.float32, 200.0)]
     worst_path_err, path = 0.0, None
-    for label, b, T, dtype, scale in cases:
-        xbar, la, B, C, dy = inputs(b, T, dtype, scale)
-        y, st = k5.ssd_scan_fwd(xbar, la, B, C, Z_CHUNK)
-        grads = k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)
-        y2, st2 = k5.ssd_scan_plain(xbar, la, B, C, Z_CHUNK)
-        grads2 = k5.ssd_scan_bwd_plain(dy, xbar, la, B, C, st2, Z_CHUNK)
-        pairs = [("y", y, y2), ("states", st, st2)] + list(
-            zip(("dxbar", "dla", "dB", "dC"), grads, grads2))
-        errs = {n: scaled_err(a, c) for n, a, c in pairs}
-        finite = all(bool(torch.isfinite(t).all()) for t in (y, *grads))
-        again = k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)
-        same = all(torch.equal(a, g) for a, g in zip(again, grads))
-        # f32 everywhere but dB and dC in bf16, which round once.  With la
-        # near -160 a step, cum reaches -4e4 in a chunk, where one f32 ulp
-        # is 4e-3: a decay exp(cum_i - cum_j) between neighbours is the
-        # difference of two such sums, and the kernel's and torch.cumsum's
-        # orders may differ by an ulp or two, so those decays may differ by
-        # ~1%: 1e-2 there (the case is for the masked exponent, NaN-free)
-        tol = 1e-4 if dtype == torch.float32 and scale < 1 else 1e-2
-        print(f"[11] K5 {label:13s} ({b},{T},{Z_NH},{DH}) B/C "
-              f"{str(dtype)[6:]:8s} errors " + ", ".join(
-                  f"{k} {v:.2e}" for k, v in errs.items())
-              + f" (tol {tol:.0e}, relative to 1 + max); finite {finite}; "
-              f"backward repeats bit for bit {same}")
-        check(finite, f"K5 {label} {dtype}: a non-finite output")
-        check(same, f"K5 {label} {dtype}: backward not deterministic")
-        check(max(errs.values()) <= tol, f"K5 {label} {dtype}: {errs}")
-        if label == "train shape" and dtype == torch.float32:
-            worst_path_err = max(abs_err(a, c) for n, a, c in pairs)
-            path = (xbar, la, B, C, dy, st)
-        del grads2, y2, st2, again
+    for label, b, T, dtype, scale in K5_CASES:
+        inputs, st, worst, norms = k5_case(k5, dev, gen, label, b, T,
+                                           getattr(torch, dtype), scale)
+        if label == "train shape" and dtype == "float32":
+            worst_path_err, path, path_norms = worst, (*inputs, st), norms
+        del inputs, st
     xbar, la, B, C, dy, st = path
     t = {"fwd_ms": time_ms(lambda: k5.ssd_scan_fwd(xbar, la, B, C, Z_CHUNK),
                            10),
@@ -1094,6 +1309,12 @@ def phase_k5(dev):
          "library_ms": None}
     t["ms"] = t["fwd_ms"] + t["bwd_ms"]
     t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+    t["kernels_ms"] = kernels_by_name(
+        lambda: (k5.ssd_scan_fwd(xbar, la, B, C, Z_CHUNK),
+                 k5.ssd_scan_bwd(dy, xbar, la, B, C, st, Z_CHUNK)), 3)
+    print("[11] K5 kernels, device time of one forward and one backward "
+          "(torch.profiler): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in t["kernels_ms"].items()))
     fby, ffl, bby, bfl = k5_work(TRAIN_B, TRAIN_S, Z_CHUNK, 4)
     # the operations at the dense bf16 peak, as K2's: the least time the
     # card could take; the f32 rate outside the tensor cores is printed
@@ -1101,7 +1322,7 @@ def phase_k5(dev):
     bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
     t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
              bound_by=fo if fo == bo else "bytes and operations",
-             max_abs_err=worst_path_err)
+             max_abs_err=worst_path_err, norm_err=path_norms)
     fw, bw = t["fwd_ms"], t["bwd_ms"]
     print(f"[11] K5 f32 B/C ({TRAIN_B},{TRAIN_S}, {Z_NH} heads of {DH}, "
           f"{Z_G} groups, N {Z_N}, Q {Z_CHUNK}): forward {fw:.3f} ms "
@@ -1321,10 +1542,13 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
 def kernel_group(name: str) -> str:
     """The part of a training step a device kernel belongs to."""
     low = name.lower()
-    if "ssd_fwd" in name:
-        return "K5 forward (and its recompute)"
-    if "ssd_bwd" in name or "group_sum" in name:
+    # K5's backward runs the forward's first two passes again (with true);
+    # its ssd_cb is the forward's kernel and is counted with it
+    if re.search(r"ssd_(state|pass)<[^>]*true>", name) or \
+            "ssd_bwd" in name or "group_sum" in name:
         return "K5 backward"
+    if "ssd_" in name:
+        return "K5 forward (and its recompute)"
     # every K1 kernel's name starts with k1_ (matmul_kernel is the simt
     # route's kernel); matched before the library's gemm names
     if re.search(r"(^|[^A-Za-z0-9_])k1_", name) or "matmul_kernel" in name:
@@ -1432,24 +1656,37 @@ def main():
     print(f"chip_smoke on {card}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    phase_build()
-    k1_numbers = phase_k1(dev)
-    k1_numbers["decode"]["decode_max_m_measured"] = phase_k1_threshold(dev)
-    k4_numbers = phase_k4(dev)
-    k3_numbers = phase_k3(dev)
-    k2_numbers = phase_k2(dev)
-    phase_two_layer(dev)
-    phase_two_layer(dev, "bfloat16")
-    phase_two_layer_train(dev)
-    serve_launches, serve_routes, serve_k2 = phase_serve(card)
-    train_launches, train_routes, train_k2 = phase_train(card)
-    phase_breakdown(dev, card)
-    k1_train, k1_train_err = phase_k1_train(dev)
-    k5_numbers = phase_k5(dev)
-    phase_two_layer_zamba2(dev)
-    zamba_launches, zamba_routes, zamba_k2 = phase_train(
-        card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES, tag="13")
-    phase_breakdown(dev, card, "zamba2-1.2b", tag="14")
+
+    def timed(fn, *args, **kw):
+        """fn's result, with the seconds it took printed after it."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"    ({fn.__name__} took {time.perf_counter() - t:.1f} s)")
+        return out
+    timed(phase_build)
+    k1_numbers = timed(phase_k1, dev)
+    k1_numbers["decode"]["decode_max_m_measured"] = timed(
+        phase_k1_threshold, dev)
+    k4_numbers = timed(phase_k4, dev)
+    k3_numbers = timed(phase_k3, dev)
+    k2_numbers = timed(phase_k2, dev)
+    timed(phase_two_layer, dev)
+    timed(phase_two_layer, dev, "bfloat16")
+    timed(phase_two_layer_train, dev)
+    # one sequence of 256: the CPU side of gemma's 256000-word head is
+    # the slow part of these two
+    timed(phase_two_layer_train, dev, "paper-transformer", seed=6, rows=1,
+          seq=256)
+    timed(phase_two_layer_train, dev, "gemma-2b", seed=7, rows=1, seq=256)
+    serve_launches, serve_routes, serve_k2 = timed(phase_serve, card)
+    train_launches, train_routes, train_k2 = timed(phase_train, card)
+    timed(phase_breakdown, dev, card)
+    k1_train, k1_train_err = timed(phase_k1_train, dev)
+    k5_numbers = timed(phase_k5, dev)
+    timed(phase_two_layer_zamba2, dev)
+    zamba_launches, zamba_routes, zamba_k2 = timed(
+        phase_train, card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES, tag="13")
+    timed(phase_breakdown, dev, card, "zamba2-1.2b", tag="14")
 
     def launched(*names):
         by = {path: sum(counts[n] for n in names) for path, counts in
@@ -1518,7 +1755,9 @@ def main():
              "simt_ms", "fwd_ms", "bwd_ms", "simt_fwd_ms", "simt_bwd_ms",
              "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms", "fwd_bound_ms",
              "bwd_bound_ms", "fwd_device_ms", "bwd_device_ms",
-             "library_fwd_device_ms", "shapes") + tuple(
+             "library_fwd_device_ms", "fwd_host_ms", "bwd_host_ms",
+             "bwd_kernels_ms", "library_bwd_ms", "norm_err", "kernels_ms",
+             "shapes") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))

@@ -19,12 +19,17 @@
 //   dQ = scale dS K, dK = dS^T (scale q).
 //
 // Bound on an H100: operations (at d = 64 each K/V element read is used by
-// 2 * BQ flops per q tile), f32 on CUDA cores in this version.
+// 2 * 64 flops per q tile), f32 on CUDA cores in this version.
 //
-// Design: 64 x 64 tiles of Q, K, V, dO and P in shared memory as f32, rows
+// Design: BT x BT tiles of Q, K, V, dO and P in shared memory as f32, rows
 // padded to an odd stride so that the strided reads of a tile are free of
-// bank conflicts; 256 threads, each owning a 4 x (cols / 16) register tile
-// of every product, all FMA in f32 (never TF32).  The TPU grid carries the
+// bank conflicts; 256 threads, each owning a (BT / 16) x (cols / 16)
+// register tile of every product, all FMA in f32 (never TF32).  BT is 64,
+// and 32 at d = 256, where the backward's four 64-row f32 tiles would need
+// (4 * 64 * 257 + 64 * 65) * 4 = 279,808 bytes of shared memory, above an
+// H100's 232,448: at BT = 32 the backward takes (4 * 32 * 257 + 32 * 33) * 4
+// = 135,808 bytes and the forward 102,912.  d = 48 runs at BT = 64 with
+// three 16-column register tiles per row.  The TPU grid carries the
 // online softmax from one kv block to the next; here one block per (q tile,
 // q head, batch) loops over the k tiles itself.  A (q tile, k tile) pair with
 // no allowed entry is skipped before its K and V (backward: Q and dO) are
@@ -43,9 +48,11 @@
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, THREADS = 256;
-constexpr int KP = BK + 1;  // padded row stride of the P / dS tile
+constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
+
+// rows of a q or k tile: 32 at d = 256 (shared memory), else 64
+__host__ __device__ constexpr int tile_rows(int D) { return D > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -74,13 +81,13 @@ __device__ __forceinline__ bool allowed(int qp, int kp, bool qok, int causal,
   return true;
 }
 
-// rows [r0, r0 + 64) of head h of a (B, S, H, D) tensor into a (64, D+1) f32
-// tile, times mul; rows past S are zero.
-template <typename T, int D>
+// rows [r0, r0 + BT) of head h of a (B, S, H, D) tensor into a (BT, D+1)
+// f32 tile, times mul; rows past S are zero.
+template <typename T, int D, int BT>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
                                           int r0, int S, int H, int h,
                                           float mul) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < BT * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
     const int s = r0 + r;
     float v = 0.0f;
@@ -89,20 +96,20 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
   }
 }
 
-// acc[i][j] += sum_t A(t, ty + 16 i) * B(t, tx + 16 j), where
+// acc[i][j] += sum_t A(t, ty + 16 i) * B(t, tx + 16 j) (i < R, j < NJ), where
 // A(t, r) = As[r * ARS + t * ATS] and B(t, c) = Bs[c * BCS + t * BTS].
-template <int NT, int NJ, int ARS, int ATS, int BCS, int BTS>
-__device__ __forceinline__ void mm(float (&acc)[4][NJ], const float* As,
+template <int NT, int R, int NJ, int ARS, int ATS, int BCS, int BTS>
+__device__ __forceinline__ void mm(float (&acc)[R][NJ], const float* As,
                                    const float* Bs, int ty, int tx) {
 #pragma unroll 4
   for (int t = 0; t < NT; ++t) {
-    float a[4], b[NJ];
+    float a[R], b[NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = As[(ty + 16 * i) * ARS + t * ATS];
+    for (int i = 0; i < R; ++i) a[i] = As[(ty + 16 * i) * ARS + t * ATS];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) b[j] = Bs[(tx + 16 * j) * BCS + t * BTS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
@@ -127,6 +134,7 @@ __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
   constexpr int DP = D + 1, NJ = D / 16;
+  constexpr int BQ = tile_rows(D), BK = BQ, KP = BK + 1, R = BQ / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * DP;
@@ -140,16 +148,16 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
 
-  load_tile<T, D>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
+  load_tile<T, D, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
   if (threadIdx.x < BQ)
     qpos[threadIdx.x] = q0 + (int)threadIdx.x < a.Sq
         ? a.q_pos[(int64_t)b * a.Sq + q0 + threadIdx.x] : 0;
   __syncthreads();
-  int qp[4];
-  bool qok[4];
-  float m[4], l[4], acc[4][NJ];
+  int qp[R];
+  bool qok[R];
+  float m[R], l[R], acc[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     qp[i] = qpos[ty + 16 * i];
     qok[i] = q0 + ty + 16 * i < a.Sq;
     m[i] = NEG_INF;
@@ -164,26 +172,26 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
       kpos[threadIdx.x] = k0 + (int)threadIdx.x < a.Sk
           ? a.k_pos[k0 + threadIdx.x] : -1;
     __syncthreads();
-    bool ok[4][4], any = false;
+    bool ok[R][R], any = false;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         ok[i][j] = allowed(qp[i], kpos[tx + 16 * j], qok[i], a.causal,
                            a.window);
         any |= ok[i][j];
       }
     if (!__syncthreads_or(any)) continue;  // skipped before K/V are read
-    load_tile<T, D>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
-    load_tile<T, D>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, D, BQ>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, D, BQ>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
     __syncthreads();
-    float s[4][4] = {};
-    mm<D, 4, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
+    float s[R][R] = {};
+    mm<D, R, R, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         if (!ok[i][j]) s[i][j] = NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -191,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
       const float corr = expf(m[i] - m_new);
       float sum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
         Ps[(ty + 16 * i) * KP + tx + 16 * j] = round_to<T>(p);
@@ -202,12 +210,12 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
       for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
-    mm<BK, NJ, KP, 1, 1, DP>(acc, Ps, Vs, ty, tx);
+    mm<BK, R, NJ, KP, 1, 1, DP>(acc, Ps, Vs, ty, tx);
   }
 
   T* out = static_cast<T*>(a.o);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (!qok[i]) continue;
     const int row = q0 + ty + 16 * i;
     const float lc = fmaxf(l[i], 1e-30f);
@@ -223,6 +231,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
   constexpr int DP = D + 1, NJ = D / 16;
+  constexpr int BQ = tile_rows(D), BK = BQ, KP = BK + 1, R = BQ / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * DP;
@@ -241,8 +250,8 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
   const T* out = static_cast<const T*>(a.out);
   const int64_t row0 = ((int64_t)b * a.Hq + h) * a.Sq;
 
-  load_tile<T, D>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
-  load_tile<T, D>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.Hq, h,
+  load_tile<T, D, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
+  load_tile<T, D, BQ>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.Hq, h,
                   1.0f);
   if (threadIdx.x < BQ) {
     const bool in = q0 + (int)threadIdx.x < a.Sq;
@@ -265,11 +274,11 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
     }
   }
   __syncthreads();
-  int qp[4];
-  bool qok[4];
-  float lse[4], dl[4], dq[4][NJ];
+  int qp[R];
+  bool qok[R];
+  float lse[R], dl[R], dq[R][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     qp[i] = qpos[r];
     qok[i] = q0 + r < a.Sq;
@@ -285,36 +294,36 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
       kpos[threadIdx.x] = k0 + (int)threadIdx.x < a.Sk
           ? a.k_pos[k0 + threadIdx.x] : -1;
     __syncthreads();
-    bool ok[4][4], any = false;
+    bool ok[R][R], any = false;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         ok[i][j] = allowed(qp[i], kpos[tx + 16 * j], qok[i], a.causal,
                            a.window);
         any |= ok[i][j];
       }
     if (!__syncthreads_or(any)) continue;
-    load_tile<T, D>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
-    load_tile<T, D>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, D, BQ>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, D, BQ>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm<D, 4, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
-    mm<D, 4, DP, 1, DP, 1>(dp, dOs, Vs, ty, tx);
+    float s[R][R] = {}, dp[R][R] = {};
+    mm<D, R, R, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
+    mm<D, R, R, DP, 1, DP, 1>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const float p = ok[i][j] ? expf(s[i][j] - lse[i]) : 0.0f;
         Ps[(ty + 16 * i) * KP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
       }
     __syncthreads();
-    mm<BK, NJ, KP, 1, 1, DP>(dq, Ps, Ks, ty, tx);
+    mm<BK, R, NJ, KP, 1, 1, DP>(dq, Ps, Ks, ty, tx);
   }
 
   T* dqo = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     if (!qok[i]) continue;
     T* row = dqo + (((int64_t)b * a.Sq + q0 + ty + 16 * i) * a.Hq + h) * D;
 #pragma unroll
@@ -326,6 +335,7 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
   constexpr int DP = D + 1, NJ = D / 16;
+  constexpr int BQ = tile_rows(D), BK = BQ, KP = BK + 1, R = BQ / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BK * DP;
@@ -339,18 +349,18 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
   const T* q = static_cast<const T*>(a.q);
   const T* dout = static_cast<const T*>(a.dout);
 
-  load_tile<T, D>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.Hkv, kh, 1.0f);
-  load_tile<T, D>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.Hkv, kh, 1.0f);
+  load_tile<T, D, BQ>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.Hkv, kh, 1.0f);
+  load_tile<T, D, BQ>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.Hkv, kh, 1.0f);
   if (threadIdx.x < BK)
     kpos[threadIdx.x] = k0 + (int)threadIdx.x < a.Sk
         ? a.k_pos[k0 + threadIdx.x] : -1;
   __syncthreads();
-  int kp[4];
-  float dk[4][NJ], dv[4][NJ];
+  int kp[R];
+  float dk[R][NJ], dv[R][NJ];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) kp[j] = kpos[tx + 16 * j];
+  for (int j = 0; j < R; ++j) kp[j] = kpos[tx + 16 * j];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.0f;
 
@@ -367,49 +377,49 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
         delta_s[threadIdx.x] = in ? a.delta[row0 + q0 + threadIdx.x] : 0.0f;
       }
       __syncthreads();
-      bool ok[4][4], any = false;
+      bool ok[R][R], any = false;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           const int r = ty + 16 * i;
           ok[i][j] = allowed(qpos[r], kp[j], q0 + r < a.Sq, a.causal,
                              a.window);
           any |= ok[i][j];
         }
       if (!__syncthreads_or(any)) continue;  // skipped before Q/dO are read
-      load_tile<T, D>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
-      load_tile<T, D>(dOs, dout, b, q0, a.Sq, a.Hq, h, 1.0f);
+      load_tile<T, D, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
+      load_tile<T, D, BQ>(dOs, dout, b, q0, a.Sq, a.Hq, h, 1.0f);
       __syncthreads();
-      float s[4][4] = {}, p[4][4];
-      mm<D, 4, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
+      float s[R][R] = {}, p[R][R];
+      mm<D, R, R, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
           p[i][j] = ok[i][j] ? expf(s[i][j] - lse_s[ty + 16 * i]) : 0.0f;
           Ps[(ty + 16 * i) * KP + tx + 16 * j] = round_to<T>(p[i][j]);
         }
       __syncthreads();
-      mm<BQ, NJ, 1, KP, 1, DP>(dv, Ps, dOs, ty, tx);     // dV += P^T dO
-      float dp[4][4] = {};
-      mm<D, 4, DP, 1, DP, 1>(dp, dOs, Vs, ty, tx);        // dP = dO V^T
+      mm<BQ, R, NJ, 1, KP, 1, DP>(dv, Ps, dOs, ty, tx);     // dV += P^T dO
+      float dp[R][R] = {};
+      mm<D, R, R, DP, 1, DP, 1>(dp, dOs, Vs, ty, tx);        // dP = dO V^T
       __syncthreads();                                    // P is consumed
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < R; ++j)
           Ps[(ty + 16 * i) * KP + tx + 16 * j] =
               p[i][j] * (dp[i][j] - delta_s[ty + 16 * i]);
       __syncthreads();
-      mm<BQ, NJ, 1, KP, 1, DP>(dk, Ps, Qs, ty, tx);      // dK += dS^T (scale q)
+      mm<BQ, R, NJ, 1, KP, 1, DP>(dk, Ps, Qs, ty, tx);      // dK += dS^T (scale q)
     }
   }
 
   T* dko = static_cast<T*>(a.dk);
   T* dvo = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= a.Sk) continue;
     const int64_t off = (((int64_t)b * a.Sk + r) * a.Hkv + kh) * D;
@@ -430,20 +440,28 @@ int launch(K kernel, dim3 grid, size_t smem, cudaStream_t s, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// dynamic shared memory of a pass holding `tiles` (BT, D + 1) f32 tiles
+// and the (BT, BT + 1) P tile
+constexpr size_t smem_bytes(int D, int tiles) {
+  return (size_t)(tiles * tile_rows(D) * (D + 1)
+                  + tile_rows(D) * (tile_rows(D) + 1)) * sizeof(float);
+}
+
 template <typename T, int D>
 int fwd(const Args& a, cudaStream_t s) {
-  const size_t smem = (size_t)(3 * 64 * (D + 1) + BQ * KP) * sizeof(float);
-  return launch(fa_fwd<T, D>, dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), smem, s, a);
+  constexpr int BT = tile_rows(D);
+  return launch(fa_fwd<T, D>, dim3((a.Sq + BT - 1) / BT, a.Hq, a.B),
+                smem_bytes(D, 3), s, a);
 }
 
 template <typename T, int D>
 int bwd(const Args& a, cudaStream_t s) {
-  const size_t smem = (size_t)(4 * 64 * (D + 1) + BQ * KP) * sizeof(float);
-  int err = launch(fa_bwd_dq<T, D>, dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B),
-                   smem, s, a);
+  constexpr int BT = tile_rows(D);
+  int err = launch(fa_bwd_dq<T, D>, dim3((a.Sq + BT - 1) / BT, a.Hq, a.B),
+                   smem_bytes(D, 4), s, a);
   if (err != 0) return err;
-  return launch(fa_bwd_dkdv<T, D>, dim3((a.Sk + BK - 1) / BK, a.Hkv, a.B),
-                smem, s, a);
+  return launch(fa_bwd_dkdv<T, D>, dim3((a.Sk + BT - 1) / BT, a.Hkv, a.B),
+                smem_bytes(D, 4), s, a);
 }
 
 template <int D>
@@ -458,8 +476,10 @@ int run(bool backward, int D, int dtype, const Args& a, cudaStream_t s) {
   switch (D) {
     case 16: return dispatch<16>(backward, dtype, a, s);
     case 32: return dispatch<32>(backward, dtype, a, s);
+    case 48: return dispatch<48>(backward, dtype, a, s);
     case 64: return dispatch<64>(backward, dtype, a, s);
     case 128: return dispatch<128>(backward, dtype, a, s);
+    case 256: return dispatch<256>(backward, dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -467,7 +487,7 @@ int run(bool backward, int D, int dtype, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, out and the gradients share it);
-// D in {16, 32, 64, 128}.  Returns cudaGetLastError() after the launch.
+// D in {16, 32, 48, 64, 128, 256}.  Returns cudaGetLastError() after the launch.
 extern "C" int k2_flash_fwd(const void* q, const void* k, const void* v,
                             const void* q_pos, const void* k_pos, void* out,
                             void* lse, int B, int Sq, int Sk, int Hq, int Hkv,

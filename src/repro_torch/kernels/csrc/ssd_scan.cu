@@ -15,30 +15,56 @@
 // Bound on an H100: bytes (xbar in and y out in f32 are most of them; the
 // ~26 GFLOP of a training-shape forward take 0.026 ms at the bf16 peak).
 //
-// Design: one 256-thread block per (head, batch) walks the chunks in order
-// (the backward in reverse), carrying the state H (or dH) in shared memory.
-// A chunk is cut into 64-row sub-blocks; for the row block I and each
-// column block J <= I, 64 x 64 f32 tiles sit in shared memory with rows
-// padded to 65 floats (the strided column reads are free of bank
-// conflicts), and each thread owns a 4 x 4 register tile: rows ty + 16a,
-// columns tx + 16b.  exp(cum_i - cum_j) is formed only where i >= j and
-// both rows lie in the chunk: above the diagonal it overflows to inf, and
-// inf * 0 is NaN in the backward.  The backward accumulates dxbar and the
-// per-head dB in global memory, each element always by the same thread in
-// a fixed order, and a second kernel sums the per-head dB and dC over the
-// heads of each group in head order: no atomics anywhere, so the same
-// inputs give the same bits.
+// Design (chunk-parallel, the structure of the Mamba2 SSD kernels of
+// arXiv:2405.21060 sections 7-8).  The recurrence above holds for any
+// split of a chunk, so the kernels cut every chunk into sub-chunks of
+// L = 64 steps (the last one shorter when 64 does not divide Q) and carry
+// the state from sub-chunk to sub-chunk: what the chunk's sub-blocks below
+// the diagonal would add is the carried state's term of the later
+// sub-chunks.  That halves the products of a 256-step chunk, and every
+// product is one 64 x 64 x 64 tile.  The forward runs three passes:
+//   1. ssd_state: one block per (sub-chunk, head, batch), in parallel,
+//      computes the sub-chunk's own state S = sum_j exp(tot - cum_j)
+//      B_j^T xbar_j and its decay exp(tot);
+//   2. ssd_pass: a short sequential pass over the sub-chunks of each
+//      (batch, head), parallel over the N x P entries, replaces each S by
+//      the state H at its sub-chunk's start (H <- exp(tot) H + S) and
+//      writes `states` at every chunk's start;
+//   3. ssd_out: one block per (sub-chunk, head, batch) computes
+//      y = exp(cum) (C H) + ((C B^T) * L) xbar, L_ij = exp(cum_i - cum_j)
+//      formed only where i >= j.  C B^T is the same for every head of a
+//      group, so ssd_cb forms it once per (sub-chunk, group, batch).
+// The backward repeats passes 1 and 2 from `states` (H at each
+// sub-chunk's start) and, in the same kernels, builds dH in reverse: pass
+// 1 also computes each sub-chunk's sum_i exp(cum_i) C_i^T dy_i, and pass 2
+// carries dH <- exp(tot) dH + that sum backwards over every sub-chunk.
+// Then ssd_bwd_sub, one block per (sub-chunk, head, batch), computes
+// dxbar, dla (a reverse scan inside the sub-chunk) and the per-head dB and
+// dC from H and the dH after the sub-chunk; group_sum adds the heads of
+// each group in head order.  No atomics anywhere: the same inputs give the
+// same bits.
+//
+// Products: f32 FMA on CUDA cores (a TF32 mma reads ~1e-3 off, and the
+// kernels are held to 1e-4).  A block of 128 threads computes a 64 x 64
+// tile, each thread an 8 x 4 register tile (rows 8 tm + a, columns
+// tn + 16 b), its operands read from shared memory mostly as 16-byte
+// vectors: 4-8 wavefronts a warp for 32 FMA a thread, against 8 for 16
+// in a 4 x 4 tile read float by float (see mm).  Tiles sit in shared
+// memory as [row][col] with rows padded to 68 floats (16-byte aligned,
+// and rows 1 apart on other banks).  f32 tiles arrive by cp.async, all of
+// a block's loads in flight at once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 64;               // sub-block rows; N, P <= TILE
-constexpr int LD = TILE + 1;           // padded row stride of a tile
-constexpr int TILE_FLOATS = TILE * LD;
+constexpr int THREADS = 128;
+constexpr int L = 64;                  // sub-chunk rows; N, P <= L
+constexpr int LD = L + 4;              // padded row stride of a tile
+constexpr int TILE_FLOATS = L * LD;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -49,563 +75,581 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-// dst[r][c] = src[r * stride + c] for r < nrows, c < ncols; zero elsewhere
-// in the 64 x 64 tile.  Consecutive threads read consecutive columns.
+// The sub-chunk a block handles: blockIdx.x = chunk * nsc + sub, y = head,
+// z = batch.
+struct Sub {
+  int b, h, g, c, s, len;   // s: index over every sub-chunk of the sequence
+  int64_t t0;               // first row, counted over b * T
+  __device__ Sub(int Tn, int nh, int G, int Q) {
+    const int nsc = (Q + L - 1) / L;
+    s = blockIdx.x;
+    c = s / nsc;
+    const int i0 = (s % nsc) * L;
+    len = min(L, Q - i0);
+    h = blockIdx.y;
+    b = blockIdx.z;
+    g = h / (nh / G);
+    t0 = (int64_t)b * Tn + (int64_t)c * Q + i0;
+  }
+};
+
+// Tiles reach shared memory as t[r][c] = src[r * stride + c] for
+// r < nrows, c < ncols, zero elsewhere in the 64 x 64 tile, consecutive
+// threads on consecutive columns.  f32 sources go by cp.async (every load
+// of a block in flight at once, no registers held); bf16 ones through
+// registers, PER elements a thread (a load straight into shared memory
+// would wait for the one before: the compiler cannot tell the two
+// pointers apart).  landed() waits for both kinds.
+constexpr int PER = L * L / THREADS;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d),
+               "l"(src) : "memory");
+}
+
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t stride, int nrows,
                                           int ncols) {
-  for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
-    const int r = e >> 6, c = e & (TILE - 1);
-    float v = 0.0f;
-    if (r < nrows && c < ncols) v = to_f(src[(int64_t)r * stride + c]);
-    dst[r * LD + c] = v;
-  }
-}
-
-// cum[k] = la[0] + ... + la[k] for k < Q (la strided by `stride`), then
-// ecum[k] = exp(cum[k]) and w[k] = exp(tot - cum[k]); zero past Q up to
-// qpad.  Warp 0 scans 32 steps at a time with shuffles (a fixed order).
-// Ends with __syncthreads().
-__device__ void chunk_decays(const float* la, int64_t stride, int Q,
-                             int qpad, float* cum, float* ecum, float* w) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float carry = 0.0f;
-    for (int base = 0; base < Q; base += 32) {
-      const int i = base + lane;
-      float v = i < Q ? la[(int64_t)i * stride] : 0.0f;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll 8
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      const int r = e >> 6, c = e & (L - 1);
+      if (r < nrows && c < ncols)
+        cp_async4(dst + r * LD + c, src + (int64_t)r * stride + c);
+      else
+        dst[r * LD + c] = 0.0f;
+    }
+  } else {
+    float v[PER];
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += u;
-      }
-      v += carry;
-      if (i < Q) cum[i] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      const int r = e >> 6, c = e & (L - 1);
+      v[k] = r < nrows && c < ncols ? to_f(src[(int64_t)r * stride + c])
+                                    : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      dst[(e >> 6) * LD + (e & (L - 1))] = v[k];
     }
   }
+}
+
+// every load_tile of this thread has landed, and (the barrier) every
+// other thread's too
+__device__ __forceinline__ void landed() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  const float tot = cum[Q - 1];
-  for (int k = threadIdx.x; k < qpad; k += THREADS) {
-    const bool in = k < Q;
-    if (!in) cum[k] = tot;
-    ecum[k] = in ? expf(cum[k]) : 0.0f;
-    w[k] = in ? expf(tot - cum[k]) : 0.0f;
+}
+
+// acc[a][b] += sum_{k < K} A(k, 8 tm + a) * B(k, tn + 16 b): a thread's
+// rows are 8 in a row, its columns 16 apart.  A_ROWS: A(k, m) = As[m LD
+// + k], else As[k LD + m]; the same for B and B_ROWS.  K is rounded up to
+// a multiple of 4 (the tiles are zero past K): four steps of k a round,
+// A's fragment read as 16-byte vectors (over k for A_ROWS, over the 8
+// rows otherwise), B's over k for B_ROWS and as single floats otherwise,
+// so that a round reads 4-8 shared-memory wavefronts a warp for 32 FMA a
+// thread, against 12 for a 4 x 4 tile read float by float.
+template <bool A_ROWS, bool B_ROWS>
+__device__ __forceinline__ void mm(float (&acc)[8][4], const float* As,
+                                   const float* Bs, int K, int tm, int tn) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 4) {
+    float a[4][8], b[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; i += A_ROWS ? 1 : 4) {
+      if (A_ROWS) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(As + (8 * tm + i) * LD + k0);
+        a[0][i] = v.x; a[1][i] = v.y; a[2][i] = v.z; a[3][i] = v.w;
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              As + (k0 + kk) * LD + 8 * tm + i);
+          a[kk][i] = v.x; a[kk][i + 1] = v.y; a[kk][i + 2] = v.z;
+          a[kk][i + 3] = v.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (B_ROWS) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(Bs + (tn + 16 * j) * LD + k0);
+        b[0][j] = v.x; b[1][j] = v.y; b[2][j] = v.z; b[3][j] = v.w;
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) b[kk][j] = Bs[(k0 + kk) * LD + tn + 16 * j];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[kk][i], b[kk][j], acc[i][j]);
   }
-  __syncthreads();
 }
 
-// Sum of v over the block, the same on every thread, in a fixed order.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// the operand forms: a tile T[r][c] read as A(k = c, m = r) ("rows"), or
+// as A(k = r, m = c) ("cols"); the same for B
+constexpr bool ROWS = true, COLS = false;
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.0f;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-  for (int i = 0; i < WARPS; ++i) t += red[i];
-  return t;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 }
 
-// Sum over the 16 lanes of a half warp (the tx of one ty).
+// Sum over the 16 lanes of a half warp (the tn of one tm).
 __device__ __forceinline__ float half_warp_sum(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// ---------------------------------------------------------------------------
-// Forward.  Shared memory: C_I, B_J, X_J, S, H tiles, then cum, ecum, w.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-ssd_fwd(const float* __restrict__ xbar, const float* __restrict__ la,
-        const T* __restrict__ Bm, const T* __restrict__ Cm,
-        float* __restrict__ y, float* __restrict__ states, int Tn, int nh,
-        int P, int G, int N, int Q) {
-  extern __shared__ float sm[];
-  const int nsub = (Q + TILE - 1) / TILE, qpad = nsub * TILE;
-  float* sC = sm;
-  float* sB = sC + TILE_FLOATS;
-  float* sX = sB + TILE_FLOATS;
-  float* sS = sX + TILE_FLOATS;
-  float* sH = sS + TILE_FLOATS;          // H[n][p]
-  float* cum = sH + TILE_FLOATS;
-  float* ecum = cum + qpad;
-  float* wv = ecum + qpad;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int g = h / (nh / G);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nc = Tn / Q;
-  const int64_t xs = (int64_t)nh * P, bs = (int64_t)G * N;
-
-  for (int e = threadIdx.x; e < TILE_FLOATS; e += THREADS) sH[e] = 0.0f;
+// cum[k] = la[0] + ... + la[k] for k < len (la strided by `stride`), then
+// ecum[k] = exp(cum[k]) and w[k] = exp(tot - cum[k]), zero for k >= len;
+// returns tot.  Warp 0 scans 32 steps at a time with shuffles (a fixed
+// order).  Ends with __syncthreads().
+__device__ float decays(const float* la, int64_t stride, int len, float* cum,
+                        float* ecum, float* w) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float carry = 0.0f;
+    for (int base = 0; base < len; base += 32) {
+      const int i = base + lane;
+      float v = i < len ? la[(int64_t)i * stride] : 0.0f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      v += carry;
+      if (i < len) cum[i] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
   __syncthreads();
+  const float tot = cum[len - 1];
+  for (int k = threadIdx.x; k < L; k += THREADS) {
+    const bool in = k < len;
+    ecum[k] = in ? expf(cum[k]) : 0.0f;
+    w[k] = in ? expf(tot - cum[k]) : 0.0f;
+    if (!in) cum[k] = tot;
+  }
+  __syncthreads();
+  return tot;
+}
 
-  for (int c = 0; c < nc; ++c) {
-    const int64_t t0 = (int64_t)b * Tn + (int64_t)c * Q;
-    {
-      float* st = states + (((int64_t)b * nh + h) * nc + c) * N * P;
-      for (int e = threadIdx.x; e < N * P; e += THREADS)
-        st[e] = sH[(e / P) * LD + e % P];
+// out[n * P + p] = acc (rows n < N, columns p < P)
+__device__ __forceinline__ void store_np(float* out, const float (&acc)[8][4],
+                                         int N, int P, int tm, int tn) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int n = 8 * tm + i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = tn + 16 * j;
+      if (p < P) out[n * P + p] = acc[i][j];
     }
-    chunk_decays(la + t0 * nh + h, nh, Q, qpad, cum, ecum, wv);
-    const float etot = expf(cum[Q - 1]);
-
-    float hacc[4][4];                  // the next state, rows n, cols p
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        hacc[a][bb] = etot * sH[(ty + 16 * a) * LD + tx + 16 * bb];
-
-    for (int I = 0; I < nsub; ++I) {
-      const int i0 = I * TILE, ni = min(TILE, Q - i0);
-      __syncthreads();                 // sC is free
-      load_tile(sC, Cm + (t0 + i0) * bs + (int64_t)g * N, bs, ni, N);
-      __syncthreads();
-
-      // carried state: y_i = exp(cum_i) C_i H
-      float yacc[4][4] = {};
-      for (int k = 0; k < N; ++k) {
-        float cv[4], hv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = sC[(ty + 16 * a) * LD + k];
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) hv[bb] = sH[k * LD + tx + 16 * bb];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) yacc[a][bb] = fmaf(cv[a], hv[bb], yacc[a][bb]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float e = ecum[i0 + ty + 16 * a];
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) yacc[a][bb] *= e;
-      }
-
-      for (int J = 0; J <= I; ++J) {
-        const int j0 = J * TILE, nj = min(TILE, Q - j0);
-        __syncthreads();               // sB, sX, sS are free
-        load_tile(sB, Bm + (t0 + j0) * bs + (int64_t)g * N, bs, nj, N);
-        load_tile(sX, xbar + (t0 + j0) * xs + (int64_t)h * P, xs, nj, P);
-        __syncthreads();
-        float s[4][4] = {};
-        for (int k = 0; k < N; ++k) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) cv[a] = sC[(ty + 16 * a) * LD + k];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) bv[bb] = sB[(tx + 16 * bb) * LD + k];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) s[a][bb] = fmaf(cv[a], bv[bb], s[a][bb]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = ty + 16 * a;
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) {
-            const int j = tx + 16 * bb;
-            const bool ok = i0 + i >= j0 + j && i < ni && j < nj;
-            // the exponent only where allowed: never exp of a positive gap
-            sS[i * LD + j] = ok ? s[a][bb] * expf(cum[i0 + i] - cum[j0 + j])
-                                : 0.0f;
-          }
-        }
-        __syncthreads();
-        for (int k = 0; k < nj; ++k) {
-          float sv[4], xv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) sv[a] = sS[(ty + 16 * a) * LD + k];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) xv[bb] = sX[k * LD + tx + 16 * bb];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) yacc[a][bb] = fmaf(sv[a], xv[bb], yacc[a][bb]);
-        }
-      }
-
-      // sB and sX hold block I: its share of the next state
-      for (int k = 0; k < ni; ++k) {
-        const float wk = wv[i0 + k];
-        float bv[4], xv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) bv[a] = wk * sB[k * LD + ty + 16 * a];
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) xv[bb] = sX[k * LD + tx + 16 * bb];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) hacc[a][bb] = fmaf(bv[a], xv[bb], hacc[a][bb]);
-      }
-
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ty + 16 * a;
-        if (i >= ni) continue;
-        float* yr = y + (t0 + i0 + i) * xs + (int64_t)h * P;
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int p = tx + 16 * bb;
-          if (p < P) yr[p] = yacc[a][bb];
-        }
-      }
-    }
-    __syncthreads();                   // every read of the old H is done
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        sH[(ty + 16 * a) * LD + tx + 16 * bb] = hacc[a][bb];
-    __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// Backward.  Shared memory: C_I, dY_I, B_J, X_J, S, dS*L, S*dS, dH, H
-// tiles, then cum, ecum, w, rowpart, colpart, r, q.
+// Pass 1: the sub-chunk's own state S = sum_j w_j B_j^T xbar_j and its decay
+// exp(tot); with BWD also U = sum_i ecum_i C_i^T dy_i.  S, U: (b, nh, nsub,
+// N, P); decay: (b, nh, nsub).
+// ---------------------------------------------------------------------------
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(THREADS)
+ssd_state(const float* __restrict__ xbar, const float* __restrict__ la,
+          const T* __restrict__ Bm, const T* __restrict__ Cm,
+          const float* __restrict__ dy, float* __restrict__ S,
+          float* __restrict__ U, float* __restrict__ decay, int Tn, int nh,
+          int P, int G, int N, int Q) {
+  extern __shared__ float sm[];
+  float* sB = sm;
+  float* sX = sB + TILE_FLOATS;
+  float* sC = sX + TILE_FLOATS;         // BWD only
+  float* sDY = sC + TILE_FLOATS;        // BWD only
+  __shared__ float cum[L], ecum[L], wv[L];
+  const Sub q(Tn, nh, G, Q);
+  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
+  const int64_t xs = (int64_t)nh * P, bs = (int64_t)G * N;
+  load_tile(sB, Bm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+  load_tile(sX, xbar + q.t0 * xs + (int64_t)q.h * P, xs, q.len, P);
+  if (BWD) {
+    load_tile(sC, Cm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+    load_tile(sDY, dy + q.t0 * xs + (int64_t)q.h * P, xs, q.len, P);
+  }
+  landed();
+  const float tot = decays(la + q.t0 * nh + q.h, nh, q.len, cum, ecum, wv);
+  const int64_t slot = ((int64_t)q.b * nh + q.h) * gridDim.x + q.s;
+  if (threadIdx.x == 0) decay[slot] = expf(tot);
+  // scale row j of B by w_j (and row i of C by ecum_i)
+  for (int e = threadIdx.x; e < L * L; e += THREADS) {
+    const int r = e >> 6, c = e & (L - 1);
+    sB[r * LD + c] *= wv[r];
+    if (BWD) sC[r * LD + c] *= ecum[r];
+  }
+  __syncthreads();
+  float acc[8][4];
+  zero(acc);
+  mm<COLS, COLS>(acc, sB, sX, q.len, tm, tn);     // (n, p), k = j
+  store_np(S + slot * N * P, acc, N, P, tm, tn);
+  if (BWD) {
+    zero(acc);
+    mm<COLS, COLS>(acc, sC, sDY, q.len, tm, tn);
+    store_np(U + slot * N * P, acc, N, P, tm, tn);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 2, one thread per entry (n, p) of one (batch, head).  Forward: walks
+// the sub-chunks in order, replacing S by the state at the sub-chunk's
+// start and writing `states` at each chunk's start.  Backward: the blocks
+// of the first half of blockIdx.x do the same from `states` (the state
+// restarts from it at every chunk); those of the second half replace U by
+// dH after the sub-chunk, walking in reverse.  Loads go ahead in runs of
+// RUN sub-chunks, so that each thread keeps several in flight.
+// ---------------------------------------------------------------------------
+constexpr int RUN = 32;
+
+template <bool BWD>
+__global__ void __launch_bounds__(THREADS)
+ssd_pass(float* __restrict__ S, float* __restrict__ U,
+         const float* __restrict__ decay, float* __restrict__ states,
+         int nsub, int nsc, int NP) {
+  const int half = BWD ? gridDim.x / 2 : gridDim.x;
+  const bool reverse = blockIdx.x >= half;
+  const int e = (blockIdx.x - (reverse ? half : 0)) * THREADS + threadIdx.x;
+  if (e >= NP) return;
+  const int64_t bh = (int64_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const float* a = decay + bh * nsub;
+  if (!reverse) {
+    float* Sb = S + bh * nsub * NP + e;
+    float* st = states + bh * (nsub / nsc) * NP + e;
+    float h = 0.0f;
+    for (int s0 = 0; s0 < nsub; s0 += RUN) {
+      float v[RUN];
+#pragma unroll
+      for (int u = 0; u < RUN; ++u)
+        if (s0 + u < nsub) v[u] = Sb[(int64_t)(s0 + u) * NP];
+#pragma unroll
+      for (int u = 0; u < RUN; ++u) {
+        const int s = s0 + u;
+        if (s >= nsub) break;
+        if (s % nsc == 0) {
+          if (BWD) h = st[(int64_t)(s / nsc) * NP];
+          else st[(int64_t)(s / nsc) * NP] = h;
+        }
+        Sb[(int64_t)s * NP] = h;
+        h = a[s] * h + v[u];
+      }
+    }
+    return;
+  }
+  float* Ub = U + bh * nsub * NP + e;
+  float gd = 0.0f;
+  for (int s0 = nsub - 1; s0 >= 0; s0 -= RUN) {
+    float v[RUN];
+#pragma unroll
+    for (int u = 0; u < RUN; ++u)
+      if (s0 - u >= 0) v[u] = Ub[(int64_t)(s0 - u) * NP];
+#pragma unroll
+    for (int u = 0; u < RUN; ++u) {
+      const int s = s0 - u;
+      if (s < 0) break;
+      Ub[(int64_t)s * NP] = gd;
+      gd = a[s] * gd + v[u];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// C B^T of each sub-chunk and group, (b, G, nsub, 64, 64): the same for
+// every head of the group, so it is formed once and read by each head's
+// ssd_out and ssd_bwd_sub.  blockIdx.y is the group here.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_bwd(const float* __restrict__ dy, const float* __restrict__ xbar,
-        const float* __restrict__ la, const T* __restrict__ Bm,
-        const T* __restrict__ Cm, const float* __restrict__ states,
-        float* __restrict__ dx, float* __restrict__ dla,
-        float* __restrict__ dBh, float* __restrict__ dCh, int Tn, int nh,
+ssd_cb(const T* __restrict__ Bm, const T* __restrict__ Cm,
+       float* __restrict__ cb, int Tn, int G, int N, int Q) {
+  extern __shared__ float sm[];
+  float* sC = sm;
+  float* sB = sC + TILE_FLOATS;
+  const Sub q(Tn, G, G, Q);            // one "head" per group
+  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
+  const int64_t bs = (int64_t)G * N;
+  load_tile(sC, Cm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+  load_tile(sB, Bm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+  landed();
+  float acc[8][4];
+  zero(acc);
+  mm<ROWS, ROWS>(acc, sC, sB, N, tm, tn);         // (i, j), k = n
+  store_np(cb + (((int64_t)q.b * G + q.g) * gridDim.x + q.s) * L * L, acc,
+           L, L, tm, tn);
+}
+
+// S[r][c] = CB[r][c] exp(cum_r - cum_c) where r >= c and r < len, else 0,
+// in place: the exponent only where allowed, never exp of a positive gap
+__device__ __forceinline__ void decay_mask(float* sS, const float* cum,
+                                           int len) {
+  for (int e = threadIdx.x; e < L * L; e += THREADS) {
+    const int r = e >> 6, c = e & (L - 1);
+    const int o = r * LD + c;
+    sS[o] = r >= c && r < len ? sS[o] * expf(cum[r] - cum[c]) : 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 3 of the forward: y = exp(cum) (C H) + ((C B^T) * L) xbar.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_out(const float* __restrict__ xbar, const float* __restrict__ la,
+        const T* __restrict__ Cm, const float* __restrict__ cb,
+        const float* __restrict__ Hs, float* __restrict__ y, int Tn, int nh,
         int P, int G, int N, int Q) {
   extern __shared__ float sm[];
-  __shared__ float red[WARPS];
-  const int nsub = (Q + TILE - 1) / TILE, qpad = nsub * TILE;
   float* sC = sm;
-  float* sDY = sC + TILE_FLOATS;
-  float* sB = sDY + TILE_FLOATS;
-  float* sX = sB + TILE_FLOATS;
-  float* sS = sX + TILE_FLOATS;        // S = (C B^T) * L
-  float* sD = sS + TILE_FLOATS;        // dS * L
-  float* sM = sD + TILE_FLOATS;        // S * dS
-  float* sG = sM + TILE_FLOATS;        // dH[n][p] after this chunk
-  float* sH = sG + TILE_FLOATS;        // H[n][p] at the chunk's start
-  float* cum = sH + TILE_FLOATS;
-  float* ecum = cum + qpad;
-  float* wv = ecum + qpad;
-  float* rowpart = wv + qpad;          // sum_j M_kj
-  float* colpart = rowpart + qpad;     // sum_i M_ik
-  float* rbuf = colpart + qpad;        // exp(cum_k) C_k.(H dy_k)
-  float* qbuf = rbuf + qpad;           // w_k B_k.(dH xbar_k)
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int g = h / (nh / G);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int nc = Tn / Q;
+  float* sH = sC + TILE_FLOATS;
+  float* sS = sH + TILE_FLOATS;          // C B^T, then S = (C B^T) * L
+  float* sX = sS + TILE_FLOATS;
+  __shared__ float cum[L], ecum[L], wv[L];
+  const Sub q(Tn, nh, G, Q);
+  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
   const int64_t xs = (int64_t)nh * P, bs = (int64_t)G * N;
-  const int64_t hs = (int64_t)nh * N;  // row stride of dBh, dCh
+  const int64_t slot = ((int64_t)q.b * nh + q.h) * gridDim.x + q.s;
+  load_tile(sC, Cm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+  load_tile(sH, Hs + slot * N * P, P, N, P);
+  load_tile(sS, cb + (((int64_t)q.b * G + q.g) * gridDim.x + q.s) * L * L,
+            L, L, L);
+  load_tile(sX, xbar + q.t0 * xs + (int64_t)q.h * P, xs, q.len, P);
+  landed();
+  decays(la + q.t0 * nh + q.h, nh, q.len, cum, ecum, wv);
+  decay_mask(sS, cum, q.len);
+  __syncthreads();
+  float yacc[8][4];
+  zero(yacc);
+  mm<ROWS, COLS>(yacc, sC, sH, N, tm, tn);        // (i, p), k = n
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) yacc[i][j] *= ecum[8 * tm + i];
+  mm<ROWS, COLS>(yacc, sS, sX, q.len, tm, tn);    // (i, p), k = j
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tm + i;
+    if (r >= q.len) continue;
+    float* yr = y + (q.t0 + r) * xs + (int64_t)q.h * P;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = tn + 16 * j;
+      if (p < P) yr[p] = yacc[i][j];
+    }
+  }
+}
 
-  for (int e = threadIdx.x; e < TILE_FLOATS; e += THREADS) sG[e] = 0.0f;
+// ---------------------------------------------------------------------------
+// The backward of one sub-chunk, from H at its start and dH (G) after it:
+//   S = (C B^T) * L, dS = dy xbar^T, D = dS * L, M = S * dS
+//   dxbar = S^T dy + w (B G)
+//   dC    = D B + ecum (dy H^T),           r_i = C_i . ecum_i (H dy_i)
+//   dB    = D^T C + w (xbar G^T),          q_j = B_j . w_j (G xbar_j)
+//   dcum  = rowsum(M) - colsum(M) + r - q
+//   dtot  = sum q + exp(tot) <H, G>,       dla_m = sum_{k>=m} dcum_k + dtot
+// dB, dC per head into dBh, dCh (b, T, nh, N).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_sub(const float* __restrict__ dy, const float* __restrict__ xbar,
+            const float* __restrict__ la, const T* __restrict__ Bm,
+            const T* __restrict__ Cm, const float* __restrict__ cb,
+            const float* __restrict__ Hs, const float* __restrict__ Gs,
+            float* __restrict__ dx, float* __restrict__ dla,
+            float* __restrict__ dBh, float* __restrict__ dCh, int Tn, int nh,
+            int P, int G, int N, int Q) {
+  extern __shared__ float sm[];
+  float* sC = sm;
+  float* sB = sC + TILE_FLOATS;
+  float* sX = sB + TILE_FLOATS;          // xbar[j][p], then D[i][j]
+  float* sDY = sX + TILE_FLOATS;
+  float* sT = sDY + TILE_FLOATS;         // H[n][p], then G[n][p]
+  float* sS = sT + TILE_FLOATS;          // C B^T, then S[i][j]
+  __shared__ float cum[L], ecum[L], wv[L];
+  __shared__ float rowm[L], colm[L], rq[L], qv[L];
+  __shared__ float colpart[8][L];
+  __shared__ float red[THREADS / 32];
+  const Sub q(Tn, nh, G, Q);
+  const int tm = threadIdx.x >> 4, tn = threadIdx.x & 15;
+  const int64_t xs = (int64_t)nh * P, bs = (int64_t)G * N;
+  const int64_t hs = (int64_t)nh * N;    // row stride of dBh, dCh
+  const int64_t slot = ((int64_t)q.b * nh + q.h) * gridDim.x + q.s;
+  load_tile(sC, Cm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+  load_tile(sB, Bm + q.t0 * bs + (int64_t)q.g * N, bs, q.len, N);
+  load_tile(sX, xbar + q.t0 * xs + (int64_t)q.h * P, xs, q.len, P);
+  load_tile(sDY, dy + q.t0 * xs + (int64_t)q.h * P, xs, q.len, P);
+  load_tile(sT, Hs + slot * N * P, P, N, P);
+  load_tile(sS, cb + (((int64_t)q.b * G + q.g) * gridDim.x + q.s) * L * L,
+            L, L, L);
+  landed();
+  const float tot = decays(la + q.t0 * nh + q.h, nh, q.len, cum, ecum, wv);
+  decay_mask(sS, cum, q.len);
 
-  for (int c = nc - 1; c >= 0; --c) {
-    const int64_t t0 = (int64_t)b * Tn + (int64_t)c * Q;
-    load_tile(sH, states + (((int64_t)b * nh + h) * nc + c) * N * P, P, N, P);
-    for (int k = threadIdx.x; k < qpad; k += THREADS)
-      rowpart[k] = colpart[k] = rbuf[k] = qbuf[k] = 0.0f;
-    __syncthreads();
-    chunk_decays(la + t0 * nh + h, nh, Q, qpad, cum, ecum, wv);
-    const float etot = expf(cum[Q - 1]);
-
-    float gacc[4][4];                  // dH before this chunk, rows n, cols p
+  // dC's carried-state part, (i, n), k = p; and r_i
+  float dc[8][4];
+  zero(dc);
+  mm<ROWS, ROWS>(dc, sDY, sT, P, tm, tn);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tm + i;
+    float t = 0.0f;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        gacc[a][bb] = etot * sG[(ty + 16 * a) * LD + tx + 16 * bb];
-
-    for (int I = 0; I < nsub; ++I) {
-      const int i0 = I * TILE, ni = min(TILE, Q - i0);
-      __syncthreads();                 // sC, sDY are free
-      load_tile(sC, Cm + (t0 + i0) * bs + (int64_t)g * N, bs, ni, N);
-      load_tile(sDY, dy + (t0 + i0) * xs + (int64_t)h * P, xs, ni, P);
-      __syncthreads();
-
-      // dC_i = exp(cum_i) H dy_i (rows i, cols n) and r_i = C_i . dC_i
-      float dcacc[4][4] = {};
-      for (int k = 0; k < P; ++k) {
-        float dv[4], hv[4];
+    for (int j = 0; j < 4; ++j) {
+      dc[i][j] *= ecum[r];
+      t = fmaf(sC[r * LD + tn + 16 * j], dc[i][j], t);
+    }
+    t = half_warp_sum(t);
+    if (tn == 0) rq[r] = t;
+  }
+  __syncthreads();                       // every read of H is done
+  // G replaces H; <H, G> on the way
+  float hg = 0.0f;
+  {
+    const float* src = Gs + slot * N * P;
+    float gv[PER];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) dv[a] = sDY[(ty + 16 * a) * LD + k];
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      const int r = e >> 6, c = e & (L - 1);
+      gv[k] = r < N && c < P ? src[r * P + c] : 0.0f;
+    }
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) hv[bb] = sH[(tx + 16 * bb) * LD + k];
+    for (int k = 0; k < PER; ++k) {
+      const int e = threadIdx.x + k * THREADS;
+      const int o = (e >> 6) * LD + (e & (L - 1));
+      hg = fmaf(sT[o], gv[k], hg);
+      sT[o] = gv[k];
+    }
+  }
+  __syncthreads();
+  // dB's carried-state part, (j, n), k = p; and q_j
+  float db[8][4];
+  zero(db);
+  mm<ROWS, ROWS>(db, sX, sT, P, tm, tn);
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tm + i;
+    float t = 0.0f;
 #pragma unroll
-          for (int bb = 0; bb < 4; ++bb) dcacc[a][bb] = fmaf(dv[a], hv[bb], dcacc[a][bb]);
+    for (int j = 0; j < 4; ++j) {
+      db[i][j] *= wv[r];
+      t = fmaf(sB[r * LD + tn + 16 * j], db[i][j], t);
+    }
+    t = half_warp_sum(t);
+    if (tn == 0) qv[r] = t;
+  }
+  // dxbar's carried-state part, (j, p), k = n
+  float dxa[8][4];
+  zero(dxa);
+  mm<ROWS, COLS>(dxa, sB, sT, N, tm, tn);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dxa[i][j] *= wv[8 * tm + i];
+  // dS, (i, j)
+  float ds[8][4];
+  zero(ds);
+  mm<ROWS, ROWS>(ds, sDY, sX, P, tm, tn);
+  __syncthreads();                       // every read of xbar is done
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tm + i;
+    float rs = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tn + 16 * j;
+      float dl = 0.0f, mv = 0.0f;
+      if (r >= c && r < q.len) {         // the exponent only where allowed
+        dl = ds[i][j] * expf(cum[r] - cum[c]);
+        mv = sS[r * LD + c] * ds[i][j];
       }
+      sX[r * LD + c] = dl;
+      rs += mv;
+      ds[i][j] = mv;                     // M, for the column sums
+    }
+    rs = half_warp_sum(rs);
+    if (tn == 0) rowm[r] = rs;
+  }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ty + 16 * a;
-        const float e = ecum[i0 + i];
-        float r = 0.0f;
+  for (int j = 0; j < 4; ++j) {
+    float cs = 0.0f;
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          dcacc[a][bb] *= e;
-          r = fmaf(sC[i * LD + tx + 16 * bb], dcacc[a][bb], r);
-        }
-        r = half_warp_sum(r);
-        if (tx == 0 && i < ni) rbuf[i0 + i] = r;
-      }
-      // dH before the chunk += exp(cum_i) C_i^T dy_i
-      for (int k = 0; k < ni; ++k) {
-        const float e = ecum[i0 + k];
-        float cv[4], dv[4];
+    for (int i = 0; i < 8; ++i) cs += ds[i][j];
+    colpart[tm][tn + 16 * j] = cs;
+  }
+  __syncthreads();
+  if (threadIdx.x < L) {
+    float cs = 0.0f;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = e * sC[k * LD + ty + 16 * a];
+    for (int t = 0; t < 8; ++t) cs += colpart[t][threadIdx.x];
+    colm[threadIdx.x] = cs;
+  }
+  mm<COLS, COLS>(dxa, sS, sDY, q.len, tm, tn);   // += S^T dy, k = i
+  mm<ROWS, COLS>(dc, sX, sB, q.len, tm, tn);     // += D B, k = j
+  mm<COLS, COLS>(db, sX, sC, q.len, tm, tn);     // += D^T C, k = i
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) dv[bb] = sDY[k * LD + tx + 16 * bb];
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tm + i;
+    if (r >= q.len) continue;
+    float* xr = dx + (q.t0 + r) * xs + (int64_t)q.h * P;
+    float* cr = dCh + (q.t0 + r) * hs + (int64_t)q.h * N;
+    float* br = dBh + (q.t0 + r) * hs + (int64_t)q.h * N;
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) gacc[a][bb] = fmaf(cv[a], dv[bb], gacc[a][bb]);
-      }
-
-      for (int J = 0; J <= I; ++J) {
-        const int j0 = J * TILE, nj = min(TILE, Q - j0);
-        const bool diag = J == I;
-        __syncthreads();               // sB, sX, sS, sD, sM are free
-        load_tile(sB, Bm + (t0 + j0) * bs + (int64_t)g * N, bs, nj, N);
-        load_tile(sX, xbar + (t0 + j0) * xs + (int64_t)h * P, xs, nj, P);
-        __syncthreads();
-        float cb[4][4] = {}, ds[4][4] = {};
-        for (int k = 0; k < N; ++k) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) cv[a] = sC[(ty + 16 * a) * LD + k];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) bv[bb] = sB[(tx + 16 * bb) * LD + k];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) cb[a][bb] = fmaf(cv[a], bv[bb], cb[a][bb]);
-        }
-        for (int k = 0; k < P; ++k) {
-          float dv[4], xv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dv[a] = sDY[(ty + 16 * a) * LD + k];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) xv[bb] = sX[(tx + 16 * bb) * LD + k];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) ds[a][bb] = fmaf(dv[a], xv[bb], ds[a][bb]);
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = ty + 16 * a;
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) {
-            const int j = tx + 16 * bb;
-            const bool ok = i0 + i >= j0 + j && i < ni && j < nj;
-            float sv = 0.0f, dl = 0.0f, mv = 0.0f;
-            if (ok) {                  // the exponent only where allowed
-              const float L = expf(cum[i0 + i] - cum[j0 + j]);
-              sv = cb[a][bb] * L;
-              dl = ds[a][bb] * L;
-              mv = sv * ds[a][bb];
-            }
-            sS[i * LD + j] = sv;
-            sD[i * LD + j] = dl;
-            sM[i * LD + j] = mv;
-          }
-        }
-        __syncthreads();
-
-        // rows and columns of M, each entry by one thread
-        if (threadIdx.x < TILE) {
-          const int i = threadIdx.x;
-          if (i < ni) {
-            float t = 0.0f;
-            for (int k = 0; k < nj; ++k) t += sM[i * LD + k];
-            rowpart[i0 + i] += t;
-          }
-        } else if (threadIdx.x < 2 * TILE) {
-          const int j = threadIdx.x - TILE;
-          if (j < nj) {
-            float t = 0.0f;
-            for (int k = 0; k < ni; ++k) t += sM[k * LD + j];
-            colpart[j0 + j] += t;
-          }
-        }
-
-        // dC_I += (dS*L) B_J
-        for (int k = 0; k < nj; ++k) {
-          float dv[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dv[a] = sD[(ty + 16 * a) * LD + k];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) bv[bb] = sB[k * LD + tx + 16 * bb];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) dcacc[a][bb] = fmaf(dv[a], bv[bb], dcacc[a][bb]);
-        }
-
-        // dxbar_J += S^T dY_I (+ w_j B_j dH on the diagonal, with q_j)
-        float acc[4][4] = {};
-        for (int k = 0; k < ni; ++k) {
-          float sv[4], dv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) sv[a] = sS[k * LD + ty + 16 * a];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) dv[bb] = sDY[k * LD + tx + 16 * bb];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(sv[a], dv[bb], acc[a][bb]);
-        }
-        if (diag) {
-          float hx[4][4] = {};
-          for (int k = 0; k < N; ++k) {
-            float bv[4], gv[4];
-#pragma unroll
-            for (int a = 0; a < 4; ++a) bv[a] = sB[(ty + 16 * a) * LD + k];
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) gv[bb] = sG[k * LD + tx + 16 * bb];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-              for (int bb = 0; bb < 4; ++bb) hx[a][bb] = fmaf(bv[a], gv[bb], hx[a][bb]);
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int j = ty + 16 * a;
-            const float wj = wv[j0 + j];
-            float qv = 0.0f;
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) {
-              hx[a][bb] *= wj;
-              qv = fmaf(hx[a][bb], sX[j * LD + tx + 16 * bb], qv);
-              acc[a][bb] += hx[a][bb];
-            }
-            qv = half_warp_sum(qv);
-            if (tx == 0 && j < nj) qbuf[j0 + j] = qv;
-          }
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int j = ty + 16 * a;
-          if (j >= nj) continue;
-          float* row = dx + (t0 + j0 + j) * xs + (int64_t)h * P;
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) {
-            const int p = tx + 16 * bb;
-            if (p < P) row[p] = diag ? acc[a][bb] : row[p] + acc[a][bb];
-          }
-        }
-
-        // dB_J += (dS*L)^T C_I (+ w_j dH xbar_j on the diagonal)
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) acc[a][bb] = 0.0f;
-        for (int k = 0; k < ni; ++k) {
-          float dv[4], cv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dv[a] = sD[k * LD + ty + 16 * a];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) cv[bb] = sC[k * LD + tx + 16 * bb];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(dv[a], cv[bb], acc[a][bb]);
-        }
-        if (diag) {
-          float hb[4][4] = {};
-          for (int k = 0; k < P; ++k) {
-            float xv[4], gv[4];
-#pragma unroll
-            for (int a = 0; a < 4; ++a) xv[a] = sX[(ty + 16 * a) * LD + k];
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) gv[bb] = sG[(tx + 16 * bb) * LD + k];
-#pragma unroll
-            for (int a = 0; a < 4; ++a)
-#pragma unroll
-              for (int bb = 0; bb < 4; ++bb) hb[a][bb] = fmaf(xv[a], gv[bb], hb[a][bb]);
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float wj = wv[j0 + ty + 16 * a];
-#pragma unroll
-            for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(wj, hb[a][bb], acc[a][bb]);
-          }
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int j = ty + 16 * a;
-          if (j >= nj) continue;
-          float* row = dBh + (t0 + j0 + j) * hs + (int64_t)h * N;
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb) {
-            const int n = tx + 16 * bb;
-            if (n < N) row[n] = diag ? acc[a][bb] : row[n] + acc[a][bb];
-          }
-        }
-      }
-
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ty + 16 * a;
-        if (i >= ni) continue;
-        float* row = dCh + (t0 + i0 + i) * hs + (int64_t)h * N;
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int n = tx + 16 * bb;
-          if (n < N) row[n] = dcacc[a][bb];
-        }
+    for (int j = 0; j < 4; ++j) {
+      const int c = tn + 16 * j;
+      if (c < P) xr[c] = dxa[i][j];
+      if (c < N) {
+        cr[c] = dc[i][j];
+        br[c] = db[i][j];
       }
     }
-    __syncthreads();                   // rowpart, colpart, r, q are complete
-
-    // dtot = sum_k q_k + exp(tot) <H, dH>
-    float part = 0.0f;
+  }
+  // dtot = sum_k q_k + exp(tot) <H, G>, in a fixed order
+  float part = hg * expf(tot);
+  if (threadIdx.x < L && threadIdx.x < q.len) part += qv[threadIdx.x];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = part;
+  __syncthreads();                       // colm, red complete
+  if (threadIdx.x < 32) {
+    float dtot = 0.0f;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int o = (ty + 16 * a) * LD + tx + 16 * bb;
-        part = fmaf(sH[o], sG[o], part);
+    for (int w = 0; w < THREADS / 32; ++w) dtot += red[w];
+    // dla_m = sum_{k >= m} dcum_k + dtot: a scan from the sub-chunk's end
+    const int lane = threadIdx.x;
+    float carry = dtot;
+    for (int base = 0; base < q.len; base += 32) {
+      const int k = q.len - 1 - (base + lane);
+      float v = k >= 0 ? rowm[k] - colm[k] + rq[k] - qv[k] : 0.0f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
       }
-    part *= etot;
-    for (int k = threadIdx.x; k < Q; k += THREADS) part += qbuf[k];
-    const float dtot = block_sum(part, red);
-
-    // dla_m = sum_{k >= m} dcum_k + dtot: warp 0 scans from the chunk's end
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      float carry = dtot;
-      for (int base = 0; base < Q; base += 32) {
-        const int k = Q - 1 - (base + lane);
-        float v = k >= 0 ? rowpart[k] - colpart[k] + rbuf[k] - qbuf[k] : 0.0f;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float u = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += u;
-        }
-        v += carry;
-        if (k >= 0) dla[(t0 + k) * nh + h] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
+      v += carry;
+      if (k >= 0) dla[(q.t0 + k) * nh + q.h] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
     }
-    __syncthreads();                   // every read of the old dH is done
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        sG[(ty + 16 * a) * LD + tx + 16 * bb] = gacc[a][bb];
-    __syncthreads();
   }
 }
 
@@ -630,87 +674,140 @@ __global__ void group_sum(const float* __restrict__ dBh,
   (isB ? dB : dC)[o] = from_f<T>(s);
 }
 
-size_t fwd_smem(int Q) {
-  const int qpad = (Q + TILE - 1) / TILE * TILE;
-  return (size_t)(5 * TILE_FLOATS + 3 * qpad) * sizeof(float);
-}
-
-size_t bwd_smem(int Q) {
-  const int qpad = (Q + TILE - 1) / TILE * TILE;
-  return (size_t)(9 * TILE_FLOATS + 7 * qpad) * sizeof(float);
-}
-
-template <typename T>
-int fwd(const void* xbar, const void* la, const void* B, const void* C,
-        void* y, void* states, int batch, int Tn, int nh, int P, int G,
-        int N, int Q, cudaStream_t s) {
-  const size_t smem = fwd_smem(Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_fwd<T><<<dim3(nh, batch), THREADS, smem, s>>>(
-      static_cast<const float*>(xbar), static_cast<const float*>(la),
-      static_cast<const T*>(B), static_cast<const T*>(C),
-      static_cast<float*>(y), static_cast<float*>(states), Tn, nh, P, G, N,
-      Q);
+// launches kernel on `grid` with `tiles` tiles of dynamic shared memory
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), dim3 grid, int tiles, cudaStream_t s,
+           Args... args) {
+  const size_t smem = (size_t)tiles * TILE_FLOATS * sizeof(float);
+  if (smem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, THREADS, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
+struct Shape {
+  int batch, Tn, nh, P, G, N, Q, nsc, nsub;
+  Shape(int batch_, int Tn_, int nh_, int P_, int G_, int N_, int Q_)
+      : batch(batch_), Tn(Tn_), nh(nh_), P(P_), G(G_), N(N_), Q(Q_),
+        nsc((Q_ + L - 1) / L), nsub(Tn_ / Q_ * ((Q_ + L - 1) / L)) {}
+  dim3 subs() const { return dim3(nsub, nh, batch); }
+  // ssd_pass's grid: blocks over the N x P entries (twice for the
+  // backward: forward in time and in reverse)
+  dim3 entries(bool bwd) const {
+    return dim3((N * P + THREADS - 1) / THREADS * (bwd ? 2 : 1), nh, batch);
+  }
+};
+
 template <typename T>
-int bwd(const void* dy, const void* xbar, const void* la, const void* B,
-        const void* C, const void* states, void* dx, void* dla, void* dBh,
-        void* dCh, void* dB, void* dC, int batch, int Tn, int nh, int P,
-        int G, int N, int Q, cudaStream_t s) {
-  const size_t smem = bwd_smem(Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd<T><<<dim3(nh, batch), THREADS, smem, s>>>(
-      static_cast<const float*>(dy), static_cast<const float*>(xbar),
-      static_cast<const float*>(la), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<const float*>(states),
-      static_cast<float*>(dx), static_cast<float*>(dla),
-      static_cast<float*>(dBh), static_cast<float*>(dCh), Tn, nh, P, G, N,
-      Q);
-  int e = static_cast<int>(cudaGetLastError());
-  if (e != 0) return e;
-  const int64_t per = (int64_t)batch * Tn * G * N;
-  const int64_t blocks = (2 * per + THREADS - 1) / THREADS;
-  group_sum<T><<<(unsigned)blocks, THREADS, 0, s>>>(
-      static_cast<const float*>(dBh), static_cast<const float*>(dCh),
-      static_cast<T*>(dB), static_cast<T*>(dC), per, G, nh / G, N);
+int fwd(const float* xbar, const float* la, const T* B, const T* C, float* y,
+        float* states, float* S, float* cb, float* decay, const Shape& z,
+        cudaStream_t s) {
+  const float* none = nullptr;
+  int err = launch(ssd_state<T, false>, z.subs(), 2, s, xbar, la, B, C, none,
+                   S, (float*)nullptr, decay, z.Tn, z.nh, z.P, z.G, z.N,
+                   z.Q);
+  if (err != 0) return err;
+  err = launch(ssd_cb<T>, dim3(z.nsub, z.G, z.batch), 2, s, B, C, cb, z.Tn,
+               z.G, z.N, z.Q);
+  if (err != 0) return err;
+  err = launch(ssd_pass<false>, z.entries(false), 0, s, S, (float*)nullptr,
+               (const float*)decay, states, z.nsub, z.nsc, z.N * z.P);
+  if (err != 0) return err;
+  return launch(ssd_out<T>, z.subs(), 4, s, xbar, la, C, (const float*)cb,
+                (const float*)S, y, z.Tn, z.nh, z.P, z.G, z.N, z.Q);
+}
+
+template <typename T>
+int bwd(const float* dy, const float* xbar, const float* la, const T* B,
+        const T* C, float* states, float* dx, float* dla, float* dBh,
+        float* dCh, T* dB, T* dC, float* S, float* U, float* cb,
+        float* decay, const Shape& z, cudaStream_t s) {
+  int err = launch(ssd_state<T, true>, z.subs(), 4, s, xbar, la, B, C, dy, S,
+                   U, decay, z.Tn, z.nh, z.P, z.G, z.N, z.Q);
+  if (err != 0) return err;
+  err = launch(ssd_cb<T>, dim3(z.nsub, z.G, z.batch), 2, s, B, C, cb, z.Tn,
+               z.G, z.N, z.Q);
+  if (err != 0) return err;
+  err = launch(ssd_pass<true>, z.entries(true), 0, s, S, U, (const float*)decay,
+               states, z.nsub, z.nsc, z.N * z.P);
+  if (err != 0) return err;
+  err = launch(ssd_bwd_sub<T>, z.subs(), 6, s, dy, xbar, la, B, C,
+               (const float*)cb, (const float*)S, (const float*)U, dx, dla,
+               dBh, dCh, z.Tn, z.nh, z.P, z.G, z.N, z.Q);
+  if (err != 0) return err;
+  const int64_t per = (int64_t)z.batch * z.Tn * z.G * z.N;
+  const int64_t blocks = (2 * per + 255) / 256;
+  group_sum<T><<<(unsigned)blocks, 256, 0, s>>>(dBh, dCh, dB, dC, per, z.G,
+                                                z.nh / z.G, z.N);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// S, U: float32 (b, nh, nsub, N, P) scratch, cb float32 (b, G, nsub, 64,
+// 64) and decay float32 (b, nh, nsub), nsub = (T / Q) * ceil(Q / 64).
 // dtype: 0 float32, 1 bfloat16 (of B and C).  Returns cudaGetLastError()
 // after the launches (0 = success).
 extern "C" int k5_ssd_fwd(const void* xbar, const void* la, const void* B,
-                          const void* C, void* y, void* states, int batch,
-                          int Tn, int nh, int P, int G, int N, int Q,
-                          int dtype, void* stream) {
+                          const void* C, void* y, void* states, void* S,
+                          void* cb, void* decay, int batch, int Tn, int nh,
+                          int P, int G, int N, int Q, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Shape z(batch, Tn, nh, P, G, N, Q);
+  const float* x = static_cast<const float*>(xbar);
+  const float* a = static_cast<const float*>(la);
+  float* yo = static_cast<float*>(y);
+  float* st = static_cast<float*>(states);
+  float* sb = static_cast<float*>(S);
+  float* cbp = static_cast<float*>(cb);
+  float* dc = static_cast<float*>(decay);
   if (dtype == 0)
-    return fwd<float>(xbar, la, B, C, y, states, batch, Tn, nh, P, G, N, Q, s);
+    return fwd<float>(x, a, static_cast<const float*>(B),
+                      static_cast<const float*>(C), yo, st, sb, cbp, dc, z,
+                      s);
   if (dtype == 1)
-    return fwd<__nv_bfloat16>(xbar, la, B, C, y, states, batch, Tn, nh, P, G,
-                              N, Q, s);
+    return fwd<__nv_bfloat16>(x, a, static_cast<const __nv_bfloat16*>(B),
+                              static_cast<const __nv_bfloat16*>(C), yo, st,
+                              sb, cbp, dc, z, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dBh, dCh: float32 (b, T, nh, N) scratch for the per-head partials.
+// dBh, dCh: float32 (b, T, nh, N) scratch for the per-head partials; S, U,
+// cb, decay as for the forward.
 extern "C" int k5_ssd_bwd(const void* dy, const void* xbar, const void* la,
                           const void* B, const void* C, const void* states,
                           void* dx, void* dla, void* dBh, void* dCh, void* dB,
-                          void* dC, int batch, int Tn, int nh, int P, int G,
-                          int N, int Q, int dtype, void* stream) {
+                          void* dC, void* S, void* U, void* cb, void* decay,
+                          int batch, int Tn, int nh, int P, int G, int N,
+                          int Q, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Shape z(batch, Tn, nh, P, G, N, Q);
+  const float* d = static_cast<const float*>(dy);
+  const float* x = static_cast<const float*>(xbar);
+  const float* a = static_cast<const float*>(la);
+  float* st = const_cast<float*>(static_cast<const float*>(states));
+  float* dxo = static_cast<float*>(dx);
+  float* dlo = static_cast<float*>(dla);
+  float* bh = static_cast<float*>(dBh);
+  float* ch = static_cast<float*>(dCh);
+  float* sb = static_cast<float*>(S);
+  float* ub = static_cast<float*>(U);
+  float* cbp = static_cast<float*>(cb);
+  float* dc = static_cast<float*>(decay);
   if (dtype == 0)
-    return bwd<float>(dy, xbar, la, B, C, states, dx, dla, dBh, dCh, dB, dC,
-                      batch, Tn, nh, P, G, N, Q, s);
+    return bwd<float>(d, x, a, static_cast<const float*>(B),
+                      static_cast<const float*>(C), st, dxo, dlo, bh, ch,
+                      static_cast<float*>(dB), static_cast<float*>(dC), sb,
+                      ub, cbp, dc, z, s);
   if (dtype == 1)
-    return bwd<__nv_bfloat16>(dy, xbar, la, B, C, states, dx, dla, dBh, dCh,
-                              dB, dC, batch, Tn, nh, P, G, N, Q, s);
+    return bwd<__nv_bfloat16>(
+        d, x, a, static_cast<const __nv_bfloat16*>(B),
+        static_cast<const __nv_bfloat16*>(C), st, dxo, dlo, bh, ch,
+        static_cast<__nv_bfloat16*>(dB), static_cast<__nv_bfloat16*>(dC), sb,
+        ub, cbp, dc, z, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

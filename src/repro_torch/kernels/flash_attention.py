@@ -35,9 +35,10 @@ picks one of two designs:
   tile, summing the GQA group), no atomics; dS enters its two products in
   bf16, where the plain version keeps it in f32.
 - ``simt`` (``csrc/flash_attention.cu``): f32, where tensor cores would
-  round to TF32, bf16 at d in (16, 32), and bf16 that TMA cannot describe.
-  64 x 64 f32 tiles in shared memory, f32 FMA on CUDA cores, the same
-  tile skipping and the same two backward passes.
+  round to TF32, bf16 at d in (16, 32, 48, 256), and bf16 that TMA cannot
+  describe.  64 x 64 f32 tiles in shared memory (32 x 32 at d = 256,
+  where four 64-row f32 tiles of the backward would not fit), f32 FMA on
+  CUDA cores, the same tile skipping and the same two backward passes.
 
 This is a choice between kernels by dtype and shape, not a fallback: a
 failed build or launch raises, and no bf16 attention of the model's main
@@ -60,7 +61,7 @@ from . import _build
 
 F32 = torch.float32
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("tc", "simt")

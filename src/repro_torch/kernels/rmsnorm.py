@@ -14,27 +14,34 @@ function); the port's backward is a kernel too.
 
 with ``g' = g + 1`` when ``zero_centered`` (gemma), else ``g``.
 
-Bound on an H100: bytes (about 4 flops per element read).  Design: one
-256-thread block per row in the forward; the backward gives each block a
-run of rows and keeps dg's per-block partial in shared memory, one column
-per thread, then a second kernel sums the partials in block order.  No
-float atomics, so dg is the same from run to run.  CUDA C++ rather than
-Triton: the port's rule, and the reduction is short enough to write by
-hand.
+Bound on an H100: bytes (about 4 flops per element read).  Design (for
+Hopper): a row belongs to a group of 2-8 warps, read once with 16-byte
+loads into registers; the sum of squares or the backward's dot is a
+shuffle tree, then a fixed-order sum over the group's warps, and y or dx
+is written from the same registers.  Instances exist for the paths'
+widths 2048, 3072 and 4096 (tensors starting on 16 bytes); other widths
+up to ``MAX_H``, and unaligned views, take the same kernel with a block
+per row and scalar accesses.  The backward runs a persistent grid (as
+many blocks as the SMs hold at once): each lane keeps its columns' share
+of dg in registers across the rows it walks, loading the next row while
+it finishes the current one; each block sums its groups' shares
+in order, and a second kernel sums the blocks' partials in block order.
+No float atomics, so dg is the same from run to run.  CUDA C++ rather
+than Triton: the port's rule, and the reduction is short enough to write
+by hand.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_H = 12288          # the backward's dg partial lives in 48 KB of smem
-BWD_BLOCKS = 264       # backward blocks: two per SM of an H100
+MAX_H = 12288          # 48 columns a thread of a 256-thread block
+BWD_BLOCKS_PER_SM = 4  # the most persistent backward blocks an SM takes
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 launches = 0           # forward
@@ -73,11 +80,10 @@ def _lib():
     lib = _build.library("rmsnorm")
     fwd, bwd = lib.k3_rmsnorm_fwd, lib.k3_rmsnorm_bwd
     fwd.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
     bwd.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -97,6 +103,18 @@ def _check(x, gamma):
         raise ValueError("K3 rmsnorm: more than 2**31 - 1 rows")
 
 
+@functools.cache
+def _sms(index) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(*tensors) -> int:
+    """1 when every tensor starts on 16 bytes, as the 16-byte accesses of
+    the wide instances need (a contiguous view may start anywhere)."""
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def rmsnorm_fwd(x, gamma, eps: float = 1e-6, zero_centered: bool = False):
     """``(y, rstd)``: the kernel for CUDA tensors, ``rmsnorm_plain`` for CPU
     tensors."""
@@ -112,7 +130,7 @@ def rmsnorm_fwd(x, gamma, eps: float = 1e-6, zero_centered: bool = False):
             stream = torch.cuda.current_stream().cuda_stream
             err = _lib()[0](x.data_ptr(), gamma.data_ptr(), y.data_ptr(),
                             rstd.data_ptr(), m, h, eps, int(zero_centered),
-                            _DTYPES[x.dtype], stream)
+                            _aligned(x, gamma, y), _DTYPES[x.dtype], stream)
         _build.check_launch("K3 rmsnorm forward", err)
         global launches
         launches += 1
@@ -134,17 +152,16 @@ def rmsnorm_bwd(dy, x, gamma, rstd, zero_centered: bool = False):
     dx = torch.empty_like(x)
     if m == 0:
         return dx, torch.zeros_like(gamma)
-    nblocks = min(m, BWD_BLOCKS)
-    rows = math.ceil(m / nblocks)
-    nblocks = math.ceil(m / rows)
+    # the kernel uses as many rows as it launches blocks: at most nblocks
+    nblocks = min(m, BWD_BLOCKS_PER_SM * _sms(x.device.index))
     part = torch.empty((nblocks, h), dtype=torch.float32, device=x.device)
     dg = torch.empty_like(gamma)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()[1](dy.data_ptr(), x.data_ptr(), gamma.data_ptr(),
                         rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                        dg.data_ptr(), m, h, rows, nblocks,
-                        int(zero_centered), _DTYPES[x.dtype], stream)
+                        dg.data_ptr(), m, h, nblocks, int(zero_centered),
+                        _aligned(dy, x, gamma, dx), _DTYPES[x.dtype], stream)
     _build.check_launch("K3 rmsnorm backward", err)
     global launches_bwd
     launches_bwd += 1

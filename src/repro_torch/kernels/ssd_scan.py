@@ -34,16 +34,23 @@ the diagonal it overflows to inf and inf * 0 is NaN in a backward
 Bound on an H100: bytes.  At the training shape (b 4, T 2048, 64 heads of
 64, G 2, N 64, Q 256) a forward does about 26 GFLOP over the allowed pairs
 (0.026 ms at the dense bf16 peak) and must move about 0.28 GB (0.083 ms at
-3.35 TB/s): xbar in and y out in f32 are most of it.  Design: one
-256-thread block per (head, batch) walks the chunks in order, the state in
-shared memory; the chunk is cut into 64-row sub-blocks and only the
-sub-block pairs on or below the diagonal are computed, 64 x 64 f32 tiles
-in padded shared memory with 4 x 4 register tiles of f32 FMA.  The
-backward walks the chunks in reverse with dH
-carried the same way; dB and dC are written per head and summed over the
-heads of each group by a second kernel in a fixed order: no atomics, so
-the same inputs give the same bits.  The repeated B and C are never
-materialised.
+3.35 TB/s): xbar in and y out in f32 are most of it.  Design (for Hopper,
+chunk-parallel as the public Mamba2 SSD kernels are): every chunk is cut
+into sub-chunks of ``SUB`` = 64 steps, across which the state is carried
+(the recurrence holds for any split, and what the chunk's sub-blocks below
+the diagonal would add becomes the carried state's term).  The forward
+computes each sub-chunk's own state in parallel, then passes the state
+over the sub-chunk boundaries in a short sequential pass (which writes
+``states``), then each sub-chunk's outputs in parallel; the backward does
+the same from ``states``, carries dH over the boundaries in reverse, and
+computes dxbar, dla and the per-head dB and dC of each sub-chunk in
+parallel, summed over the heads of each group by a last kernel in a fixed
+order: no atomics, so the same inputs give the same bits.  C B^T is the
+same for every head of a group and is formed once per group.  Every
+product is a 64 x 64 x 64 tile in f32 FMA with 8 x 4 register tiles; the
+exponent exp(cum_i - cum_j) is formed only where i >= j.  The repeated B
+and C are never materialised; the per-sub-chunk states and C B^T live in
+scratch the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -55,8 +62,8 @@ import torch
 from . import _build
 
 F32 = torch.float32
-TILE = 64              # sub-block rows; N and P are at most this
-MAX_Q = 1024           # chunk length the kernels' shared memory holds
+TILE = 64              # N and P are at most this
+SUB = 64               # sub-chunk steps the state is carried across
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
@@ -179,9 +186,9 @@ def ssd_scan_bwd_plain(dy, xbar, la, B, C, states, chunk: int = 256):
 def _lib():
     lib = _build.library("ssd_scan")
     fwd, bwd = lib.k5_ssd_fwd, lib.k5_ssd_bwd
-    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
-    bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+    bwd.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
@@ -201,18 +208,26 @@ def _check(xbar, la, B, C, chunk, *more):
     b, T, nh, P = xbar.shape
     G, N = B.shape[2], B.shape[3]
     if (tuple(la.shape) != (b, T, nh) or B.shape[:2] != (b, T) or G == 0
-            or nh % G or not 0 < P <= TILE or not 0 < N <= TILE
-            or chunk_len(T, chunk) > MAX_Q):
+            or nh % G or not 0 < P <= TILE or not 0 < N <= TILE):
         raise ValueError(
             f"K5 ssd_scan: xbar {tuple(xbar.shape)}, la {tuple(la.shape)}, "
             f"B {tuple(B.shape)}, chunk {chunk}; needs la (b, T, nh), nh "
-            f"divisible by G, P and N in 1..{TILE}, a chunk of at most "
-            f"{MAX_Q} steps")
-    if b > 65535 or nh > 2 ** 31 - 1 or b * T * nh * max(P, N) >= 2 ** 62:
+            f"divisible by G, P and N in 1..{TILE}")
+    if b > 65535 or nh > 65535 or b * T * nh * max(P, N) >= 2 ** 62:
         raise ValueError("K5 ssd_scan: a dimension is too large")
     for t in (xbar, la, B, C, *more):
         if not t.is_contiguous():
             raise ValueError("K5 ssd_scan takes contiguous tensors")
+
+
+def _scratch(b, nh, G, T, q, N, P, device):
+    """(per-sub-chunk states (b, nh, nsub, N, P), C B^T per group and
+    sub-chunk (b, G, nsub, SUB, SUB), decays (b, nh, nsub)), f32, nsub =
+    (T / q) * ceil(q / SUB): the kernels' scratch."""
+    nsub = T // q * -(-q // SUB)
+    return (torch.empty((b, nh, nsub, N, P), dtype=F32, device=device),
+            torch.empty((b, G, nsub, SUB, SUB), dtype=F32, device=device),
+            torch.empty((b, nh, nsub), dtype=F32, device=device))
 
 
 def ssd_scan_fwd(xbar, la, B, C, chunk: int = 256):
@@ -228,10 +243,12 @@ def ssd_scan_fwd(xbar, la, B, C, chunk: int = 256):
     states = torch.empty((b, nh, T // q if T else 0, N, P), dtype=F32,
                          device=xbar.device)
     if xbar.numel():
+        S, cb, decay = _scratch(b, nh, G, T, q, N, P, xbar.device)
         with torch.cuda.device(xbar.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = _lib()[0](xbar.data_ptr(), la.data_ptr(), B.data_ptr(),
                             C.data_ptr(), y.data_ptr(), states.data_ptr(),
+                            S.data_ptr(), cb.data_ptr(), decay.data_ptr(),
                             b, T, nh, P, G, N, q, _DTYPES[B.dtype], stream)
         _build.check_launch("K5 ssd_scan forward", err)
         global launches
@@ -260,12 +277,17 @@ def ssd_scan_bwd(dy, xbar, la, B, C, states, chunk: int = 256):
     # per-head partials of dB and dC, summed over each group's heads
     dBh = torch.empty((b, T, nh, N), dtype=F32, device=xbar.device)
     dCh = torch.empty_like(dBh)
+    # the state at each sub-chunk's start and dH after it
+    S, cb, decay = _scratch(b, nh, G, T, q, N, P, xbar.device)
+    U = torch.empty_like(S)
     with torch.cuda.device(xbar.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()[1](dy.data_ptr(), xbar.data_ptr(), la.data_ptr(),
                         B.data_ptr(), C.data_ptr(), states.data_ptr(),
                         dx.data_ptr(), dla.data_ptr(), dBh.data_ptr(),
                         dCh.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                        S.data_ptr(), U.data_ptr(), cb.data_ptr(),
+                        decay.data_ptr(),
                         b, T, nh, P, G, N, q, _DTYPES[B.dtype], stream)
     _build.check_launch("K5 ssd_scan backward", err)
     global launches_bwd

@@ -224,7 +224,7 @@ def _rel(got, want):
 
 def _norm_err(got, want):
     g, w = got.double(), want.double()
-    return ((g - w).norm() / w.norm()).item()
+    return ((g - w).norm() / w.norm().clamp_min(1e-300)).item()
 
 
 @pytest.mark.cuda
@@ -252,6 +252,46 @@ def test_k3_kernel_matches_plain_on_card(cuda, dtype, zc, shape):
     # the same inputs give the same bits: no atomics
     assert torch.equal(k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)[1],
                        dg)
+
+
+# K3: ||got - want|| / ||want|| against the plain version, per dtype
+# (chip_smoke.py's limits, a few times the readings)
+K3_NORM_TOL = {torch.float32: {"y": 3e-7, "dx": 3e-7, "dg": 1.5e-6},
+               torch.bfloat16: {"y": 6e-5, "dx": 1e-4, "dg": 3e-4}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [128, 2048, 3072, 4096, 1000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k3_widths_match_plain_on_card(cuda, dtype, h, offset):
+    """The paths' widths (16-byte accesses from registers), a narrow and
+    an odd width (a block per row), and views that start off 16 bytes
+    (offset 1: the same kernel with scalar accesses): within the scaled
+    limit and ``K3_NORM_TOL``, dg repeating bit for bit, over a row count
+    that no block's row count divides."""
+    m = 333
+    rng = np.random.default_rng(h + offset)
+    buf = torch.from_numpy(rng.standard_normal(m * h + offset)
+                           .astype(np.float32)).to(cuda, dtype)
+    x = buf[offset:].view(m, h)
+    g = torch.from_numpy((rng.standard_normal(h) * 0.1 + 1)
+                         .astype(np.float32)).to(cuda, dtype)
+    dy = torch.from_numpy(rng.standard_normal((m, h)).astype(np.float32)) \
+        .to(cuda, dtype)
+    for zc in (False, True):
+        y, rstd = k3.rmsnorm_fwd(x, g, zero_centered=zc)
+        dx, dg = k3.rmsnorm_bwd(dy, x, g, rstd, zero_centered=zc)
+        y2, rstd2 = k3.rmsnorm_plain(x, g, zero_centered=zc)
+        dx2, dg2 = k3.rmsnorm_bwd_plain(dy, x, g, rstd2, zero_centered=zc)
+        torch.cuda.synchronize()
+        assert _rel(rstd, rstd2) <= 1e-5
+        for name, got, want in (("y", y, y2), ("dx", dx, dx2),
+                                ("dg", dg, dg2)):
+            assert _rel(got, want) <= TOL[dtype], name
+            assert _norm_err(got, want) <= K3_NORM_TOL[dtype][name], name
+        assert torch.equal(k3.rmsnorm_bwd(dy, x, g, rstd,
+                                          zero_centered=zc)[1], dg)
 
 
 @pytest.mark.cuda
@@ -288,6 +328,50 @@ def test_k2_kernel_matches_plain_on_card(cuda, dtype, case):
     assert _rel(out, out2) <= TOL[dtype]
     for got, want in zip(grads, grads2):
         assert got.dtype == dtype and _rel(got, want) <= TOL[dtype]
+    again = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, nq, nkv, d, causal, window, q offset): the paper's head
+    # dim 48 and gemma's 256 (MQA), ragged tiles, GQA, a window, an offset
+    (2, 100, 100, 8, 8, 48, True, 0, 0),
+    (1, 70, 130, 6, 2, 48, True, 0, 60),
+    (2, 90, 90, 4, 1, 48, True, 24, 0),
+    (1, 130, 130, 4, 1, 256, True, 0, 0),
+    (2, 50, 90, 8, 1, 256, False, 0, 0),
+    (1, 100, 100, 8, 2, 256, True, 40, 0)])
+def test_k2_simt_takes_head_dims_48_and_256_on_card(cuda, dtype, case):
+    """The simt route at the head dims the tc route does not take, forward
+    and backward against the plain version (bf16 also to ``K2_NORM_TOL``),
+    the backward repeating bit for bit."""
+    b, sq, sk, nq, nkv, d, causal, window, off = case
+    q, k, v, dout, q_pos, k_pos = (
+        t.to(dtype) if t.is_floating_point() else t
+        for t in _k2_case(cuda, b, sq, sk, nq, nkv, d, off, seed=d))
+    kw = dict(causal=causal, window=window)
+    assert k2.route_for(q, k, v, dout) == "simt"
+    before = (dict(k2.launches_by_route), dict(k2.launches_bwd_by_route))
+    out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw)
+    grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert k2.launches_by_route == dict(before[0],
+                                        simt=before[0]["simt"] + 1)
+    assert k2.launches_bwd_by_route == dict(before[1],
+                                            simt=before[1]["simt"] + 1)
+    out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
+    grads2 = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
+                                          k_pos, **kw)
+    torch.cuda.synchronize()
+    assert _rel(lse, lse2) <= 1e-5
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (out2, *grads2)):
+        assert got.dtype == dtype and _rel(got, want) <= TOL[dtype], name
+        if dtype == torch.bfloat16:
+            assert _norm_err(got, want) <= K2_NORM_TOL[name], name
     again = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
                                    **kw)
     assert all(torch.equal(a, g) for a, g in zip(again, grads))
@@ -446,9 +530,9 @@ def test_k2_k3_refuse_what_they_do_not_take(cuda):
         k2.flash_attention(q.half(), kv.half(), kv.half(), pos[None], pos)
     with pytest.raises(TypeError):                   # positions must be int32
         k2.flash_attention(q, kv, kv, pos[None].long(), pos.long())
-    with pytest.raises(ValueError):                  # head dim 48
-        k2.flash_attention(q[..., :48].contiguous(), kv[..., :48].contiguous(),
-                           kv[..., :48].contiguous(), pos[None], pos)
+    with pytest.raises(ValueError):                  # head dim 40
+        k2.flash_attention(q[..., :40].contiguous(), kv[..., :40].contiguous(),
+                           kv[..., :40].contiguous(), pos[None], pos)
     with pytest.raises(ValueError):                  # 4 q heads on 3 kv heads
         k2.flash_attention(q, torch.zeros(1, 8, 3, 64, device=cuda),
                            torch.zeros(1, 8, 3, 64, device=cuda), pos[None],
@@ -471,6 +555,19 @@ def ssd_inputs(b, T, nh, P, G, N, *, seed=0, la_scale=0.1):
     return xbar, la, B, C
 
 
+# K5: ||got - want|| / ||want|| against the plain version (chip_smoke.py's
+# limits, a few times the readings; bf16 B/C rounds dB and dC once, and
+# with la near -200 a step the decays differ by up to ~1%)
+_K5_F32 = dict.fromkeys(("y", "states", "dxbar", "dla", "dB", "dC"), 5e-6)
+K5_NORM_TOL = {
+    str(torch.float32): _K5_F32,
+    str(torch.bfloat16): dict(_K5_F32, dB=2.5e-4, dC=2.5e-4),
+    "la << 0" + str(torch.float32): dict(y=1e-4, states=3e-4, dxbar=1e-4,
+                                         dla=3e-3, dB=1e-4, dC=1e-4),
+    "la << 0" + str(torch.bfloat16): dict(y=1e-4, states=3e-4, dxbar=1e-4,
+                                          dla=3e-3, dB=3e-4, dC=3e-4)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
@@ -478,7 +575,8 @@ def ssd_inputs(b, T, nh, P, G, N, *, seed=0, la_scale=0.1):
     (2, 512, 8, 64, 2, 64, 256, 0.1),       # rep 4, two whole chunks
     (1, 300, 4, 64, 1, 16, 256, 0.1),       # ragged: Q = 150, not 64k
     (2, 200, 6, 32, 3, 48, 64, 0.1),        # Q = 50, P and N below 64
-    (1, 256, 4, 64, 2, 64, 256, 200.0)])    # la << 0: exp(gap) overflows
+    (1, 256, 4, 64, 2, 64, 256, 200.0),     # la << 0: exp(gap) overflows
+    (1, 2000, 8, 64, 2, 64, 256, 0.1)])     # Q = 250: a 58-step sub-chunk
 def test_k5_kernel_matches_plain_on_card(cuda, dtype, case):
     b, T, nh, P, G, N, chunk, scale = case
     xbar, la, B, C = (torch.from_numpy(a).to(cuda) for a in
@@ -504,6 +602,10 @@ def test_k5_kernel_matches_plain_on_card(cuda, dtype, case):
         assert got.dtype == want.dtype and torch.isfinite(got).all()
         assert _rel(got, want) <= (tol if got.dtype == torch.float32
                                    else 1e-2)
+    ntol = K5_NORM_TOL[("la << 0" if scale >= 1 else "") + str(dtype)]
+    for name, got, want in zip(("y", "states", "dxbar", "dla", "dB", "dC"),
+                               (y, states, *grads), (y2, states2, *grads2)):
+        assert _norm_err(got, want) <= ntol[name], name
     again = k5.ssd_scan_bwd(dy, xbar, la, B, C, states, chunk)
     assert all(torch.equal(a, g) for a, g in zip(again, grads))
 

@@ -8,7 +8,8 @@ the 3-D linear's and the embedding's autograd against the reference's
 tinyllama-1.1b (2 layers, d_model 256) within 1e-4 in f32; three AdamW
 steps at microbatch 1 and 2 within 1e-2, and the same for reduced
 zamba2-1.2b (2 Mamba2 layers and the shared attention block, remat on,
-sequences long enough that the SSD state crosses chunks); and the copies (token stream,
+sequences long enough that the SSD state crosses chunks), the paper's
+model at head dim 48 and gemma-2b at head dim 256; and the copies (token stream,
 configs, FLOPs formula, schedule, plan), the launcher and its refusals.
 Inputs come from numpy with a seed; weights cross by
 ``convert.params_from_jax``.
@@ -53,13 +54,19 @@ from repro_torch.train.step import make_train_step
 
 F32 = jnp.float32
 # variant -> (arch, config change); the reduced zamba2 has the plan
-# [mamba, mamba, attn], SSD chunk 64 and attention window 64
+# [mamba, mamba, attn], SSD chunk 64 and attention window 64.  The paper's
+# model and gemma-2b keep their published head dims, 48 and 256 (which
+# config.reduced would set to 64): 4/4 heads of 48 with LayerNorm, and 4/1
+# heads of 256 (MQA) with the zero-centred RMSNorm
 VARIANTS = {"mha": ("tinyllama-1.1b", {}),
             "gqa_remat": ("tinyllama-1.1b", {"n_kv": 2, "remat": True}),
-            "zamba2": ("zamba2-1.2b", {"remat": True})}
+            "zamba2": ("zamba2-1.2b", {"remat": True}),
+            "paper_d48": ("paper-transformer", {"d_head": 48}),
+            "gemma_d256": ("gemma-2b", {"d_head": 256})}
 # arch -> sequence length of (the loss test, the AdamW test): zamba2's
 # cross the SSD chunk ends at Q = 40 (4 chunks) and Q = 48 (2 chunks)
-SEQ = {"tinyllama-1.1b": (32, 16), "zamba2-1.2b": (160, 96)}
+SEQ = {"tinyllama-1.1b": (32, 16), "zamba2-1.2b": (160, 96),
+       "paper-transformer": (32, 16), "gemma-2b": (32, 16)}
 
 
 def _np(a):
