@@ -5,7 +5,8 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 Phases, in order (any failure raises and exits nonzero):
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-     (one process per source, all at once) and print each kernel's
+     (one process per source, all at once, with an empty kernel of this
+     script's own for phase 3's launch floor) and print each kernel's
      registers, spills and shared memory from ``-Xptxas -v``;
   2. K1 matmul against its plain version at every GEMM shape of
      tinyllama-1.1b's decode and prefill: f32 through the simt route,
@@ -17,8 +18,19 @@ Phases, in order (any failure raises and exits nonzero):
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
   3. K4 paged decode against its plain version at the tinyllama shape
-     (B = 8, 32 q heads, 4 kv heads, d = 64, block 16): ragged contexts of
-     64-1024 tokens, a windowed case, null and recycled blocks, residuals;
+     (32 q heads, 4 kv heads, d = 64, block 16), bf16 through both routes
+     (split and simt), f32 through simt: ragged contexts of 64-1024 tokens,
+     a windowed case, null and recycled blocks, residuals, the serve shape,
+     a slot with no valid entry and slots that end inside the first split,
+     64 slots of 1024-2048 tokens, 16 of them at d 128 in blocks of 32,
+     and the step entry that folds in the current token; each within
+     ``K4_NORM_TOL`` of the plain version's norm, the split route
+     repeating bit for bit.  Then device times (CUDA graph) of both routes
+     at the serve, the long and the d 128 shape beside the bound, the
+     plain version, one empty kernel (the launch floor) and SDPA over
+     contiguous K/V (not the same function); and, under torch.profiler,
+     that one decode layer's attention launches K4's two passes and no
+     other kernel (a profiler that sees no kernel fails the phase);
   4. K3 RMSNorm forward and backward against their plain versions at the
      training shape (8192 rows x 2048), bf16 and f32, with and without a
      zero-centred gain, and at 3072 and 4096 (zamba2's gate_ln) in bf16:
@@ -239,12 +251,36 @@ def abs_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
 
+# An empty kernel, built beside the port's kernels (into the ignored
+# build/ directory, not into the port): the launch floor that K4's times
+# are read against in phase 3.
+EMPTY_KERNEL = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+EMPTY_LIB = ROOT / "build" / "chip_smoke" / "empty_kernel.so"
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    logs = _build.build()
-    print(f"[1] built {sorted(logs) or 'nothing (up to date)'} in "
-          f"{time.perf_counter() - t0:.1f}s")
+    EMPTY_LIB.parent.mkdir(parents=True, exist_ok=True)
+    src = EMPTY_LIB.with_suffix(".cu")
+    src.write_text(EMPTY_KERNEL)
+    empty = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                              str(EMPTY_LIB), str(src)],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        logs = _build.build()
+    finally:
+        text = empty.communicate()[0]
+    check(empty.returncode == 0, f"the empty kernel did not build:\n{text}")
+    print(f"[1] built {sorted(logs) or 'nothing (up to date)'} and the "
+          f"empty kernel in {time.perf_counter() - t0:.1f}s")
     for name, text in sorted(logs.items()):
         kernel = "?"
         for line in text.splitlines():
@@ -448,12 +484,14 @@ def phase_k1_threshold(dev):
     return crossover
 
 
-def k4_case(dev, lens, nb, dtype, seed):
-    """Tinyllama-shaped pool: each slot's blocks at shuffled physical ids,
-    unused columns on the null block 0, and slot 0's first unused column on
-    a recycled block 1 whose stale positions lie past every cur."""
+def k4_case(dev, lens, nb, dtype, seed, d=DH, block=16):
+    """Tinyllama-shaped pool (NQ / NKV heads of ``d``, ``block`` entries a
+    block): each slot's blocks at shuffled physical ids, unused columns on
+    the null block 0, and slot 0's first unused column on a recycled block
+    1 whose stale positions lie past every cur; then the step's own k_new
+    and v_new (B, NKV, d).  A slot of length 0 has no valid entry (cur =
+    -1)."""
     import torch
-    block = 16
     g = torch.Generator().manual_seed(seed)
     n_used = sum(-(-n // block) for n in lens)
     n_blocks = 2 + n_used
@@ -461,83 +499,282 @@ def k4_case(dev, lens, nb, dtype, seed):
     pos_pool = torch.full((n_blocks * block,), -1, dtype=torch.int32)
     tables = torch.zeros((len(lens), nb), dtype=torch.int32)
     cur = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
+    e = torch.arange(block, dtype=torch.int32)
     for b, n in enumerate(lens):
         for j in range(-(-n // block)):
             blk = perm.pop()
             tables[b, j] = blk
-            e = torch.arange(block, dtype=torch.int32)
             pos_pool[blk * block:(blk + 1) * block] = torch.where(
                 j * block + e < n, j * block + e, -1)
     pos_pool[block:2 * block] = max(lens) + 100
     tables[0, -(-lens[0] // block)] = 1
     phys = n_blocks * block
-    q = torch.randn(len(lens), NQ, DH, generator=g)
-    k_pool = torch.randn(phys, NKV, DH, generator=g)
-    v_pool = torch.randn(phys, NKV, DH, generator=g)
-    return [t.to(dev, dtype) for t in (q, k_pool, v_pool)] + \
-        [t.to(dev) for t in (pos_pool, tables, cur)]
+    B = len(lens)
+    q = torch.randn(B, NQ, d, generator=g)
+    k_pool = torch.randn(phys, NKV, d, generator=g)
+    v_pool = torch.randn(phys, NKV, d, generator=g)
+    k_new = torch.randn(B, NKV, d, generator=g)
+    v_new = torch.randn(B, NKV, d, generator=g)
+    return ([t.to(dev, dtype) for t in (q, k_pool, v_pool)]
+            + [t.to(dev) for t in (pos_pool, tables, cur)],
+            [t.to(dev, dtype) for t in (k_new, v_new)])
 
 
-def k4_bound(lens, nb, window, elt):
+def k4_bound(lens, nb, window, elt, step=False, d=DH, block=16):
+    """(ms, "bytes" or "operations") of one K4 call: q in and out, the
+    valid K and V entries, every column's positions, the tables and cur;
+    with ``step`` also k_new and v_new and their products."""
     B = len(lens)
     valid = [min(n, window) if window else n for n in lens]
-    nbytes = (B * NQ * DH * elt * 2                      # q in, out
-              + sum(valid) * NKV * 2 * DH * elt          # valid K and V
-              + B * nb * 16 * 4 + B * nb * 4 + B * 4)    # positions, tables, cur
-    flops = sum(2 * NQ * v * 2 * DH for v in valid)
+    nbytes = (B * NQ * d * elt * 2                       # q in, out
+              + sum(valid) * NKV * 2 * d * elt           # valid K and V
+              + B * nb * (block + 1) * 4 + B * 4)  # positions, tables, cur
+    flops = sum(2 * NQ * v * 2 * d for v in valid)
+    if step:
+        nbytes += B * NKV * 2 * d * elt
+        flops += B * NQ * 2 * 2 * d
     return bound_ms(nbytes, flops, H100_BF16_FLOPS)
+
+
+# K4's cases (phase 3): (label, contexts, table columns, window, what is
+# compared: the normalised output, the residuals (acc, m, l) or the step
+# entry with the current token folded in[, head dim, block]).  Tinyllama's
+# heads; d 64 and block 16 unless given.
+K4_RAGGED = [64, 200, 333, 512, 640, 777, 900, 1024]
+K4_SERVE = [n + 16 for n in (259, 260, 261, 262, 263, 259, 260, 261)]
+# a slot with no valid entry, and contexts that end inside the first split
+K4_SHORT = [0, 5, 40, 300, 1000, 64, 17, 1]
+# 64 slots, ragged 1024-2048: ~100 MB of bf16 K/V, twice the L2
+K4_LONG = [1024 + (i * 523) % 1025 for i in range(64)]
+# 16 of them at d 128 in blocks of 32: a ring of 128 KB, one CTA an SM
+K4_WIDE = K4_LONG[:16]
+K4_CASES = [("ragged 64-1024", K4_RAGGED, 64, 0, "out"),
+            ("window 256", K4_RAGGED, 64, 256, "out"),
+            ("residuals", K4_RAGGED, 64, 0, "residuals"),
+            ("serve shape", K4_SERVE, 32, 0, "residuals"),
+            ("serve step", K4_SERVE, 32, 0, "step"),
+            ("short, empty", K4_SHORT, 64, 0, "residuals"),
+            ("short, empty step", K4_SHORT, 64, 0, "step"),
+            ("long context", K4_LONG, 128, 0, "residuals"),
+            ("d 128, block 32", K4_WIDE, 64, 0, "step", 128, 32)]
+# K4: the limits on ||got - want|| / ||want|| against the plain version,
+# per dtype and tensor (m over the rows with a valid entry; rows with none
+# must match exactly), 3-5x the readings over these cases on an H100: bf16
+# out 2e-5-1.1e-4 (split; a bf16 rounding that flips), acc 1.7-2.6e-6, m
+# 1.0e-7, l 2.0-2.6e-7; f32 (simt) out 3.8e-7, acc 7.4e-7, m 0, l 1.6e-7.
+# A dropped entry or split reads 1e-3 or more
+# (tools/k4_planted_faults.py)
+K4_NORM_TOL = {"float32": {"out": 1.5e-6, "acc": 3e-6, "m": 5e-7,
+                           "l": 6e-7},
+               "bfloat16": {"out": 5e-4, "acc": 1e-5, "m": 5e-7,
+                            "l": 1e-6}}
+
+
+def k4_call(k4, args, new, window, kind, force=None, plain=False,
+            block=16):
+    """One K4 call of ``kind`` on ``args`` (+ ``new`` for a step), by the
+    route ``force`` or by the plain version: {name: tensor}."""
+    kw = dict(block=block, window=window)
+    if kind == "step":
+        if plain:
+            return {"out": k4.paged_flash_decode_step_plain(
+                args[0], *new, *args[1:], **kw)}
+        return {"out": k4.paged_flash_decode_step(args[0], *new, *args[1:],
+                                                  force=force, **kw)}
+    res = kind == "residuals"
+    fn = (k4.paged_flash_decode_plain if plain else
+          functools.partial(k4.paged_flash_decode, force=force))
+    got = fn(*args, return_residuals=res, **kw)
+    return dict(zip(("acc", "m", "l"), got)) if res else {"out": got}
+
+
+def k4_errs(got, want):
+    """{tensor: ||got - want|| / ||want||}; m over the rows with a valid
+    entry, its other rows (-1e30 in both) checked exactly."""
+    import torch
+    errs = {}
+    for name, w in want.items():
+        g = got[name]
+        if name == "m":
+            live = w > -1e29
+            check(torch.equal(g[~live], w[~live]),
+                  "K4: m of a row with no valid entry is not -1e30")
+            g, w = g[live], w[live]
+        errs[name] = norm_err(g, w)
+    return errs
+
+
+def k4_checks(dev, cases=None, dtypes=("float32", "bfloat16"), tag="[3]"):
+    """Every case of ``K4_CASES`` on each route that takes it (f32: simt;
+    bf16: split and simt) against the plain version, to ``K4_NORM_TOL``;
+    the split route twice, bit for bit.  Returns the worst max |error| of
+    the split route, by case."""
+    import torch
+    from repro_torch.kernels import paged_decode as k4
+    worst = {}
+    for label, lens, nb, window, kind, *dims in cases or K4_CASES:
+        d, block = dims or (DH, 16)
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            args, new = k4_case(dev, lens, nb, dtype, seed=len(label), d=d,
+                                block=block)
+            call = functools.partial(k4_call, k4, args, new, window, kind,
+                                     block=block)
+            want = call(plain=True)
+            routes = ("split", "simt") if dname == "bfloat16" else ("simt",)
+            for way in routes:
+                got = call(force=way)
+                torch.cuda.synchronize()
+                errs = k4_errs(got, want)
+                absd = max(abs_err(got[n], want[n]) for n in want)
+                print(f"{tag} K4 {label:17s} {dname:8s} {way:5s} "
+                      + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                      + f" (max abs {absd:.2e})")
+                tol = K4_NORM_TOL[dname]
+                check(all(e <= tol[n] for n, e in errs.items()),
+                      f"K4 {label} {dname} {way}: {errs} above {tol}")
+                if way == "split":
+                    again = call(force=way)
+                    check(all(torch.equal(got[n], again[n]) for n in got),
+                          f"K4 {label} split: two runs differ")
+                    worst[label] = absd
+            if dname == "float32":
+                try:
+                    call(force="split")
+                except ValueError:
+                    pass
+                else:
+                    raise SmokeFailure("K4: the split route took float32")
+    return worst
+
+
+def k4_sdpa_ms(dev, lens, reps, d=DH):
+    """F.scaled_dot_product_attention of one query per slot over
+    contiguous K/V of the same lengths (padding masked): what a contiguous
+    cache would cost, not the same function (no block table, no
+    positions)."""
+    import torch
+    import torch.nn.functional as F
+    B, L = len(lens), max(lens)
+    q = torch.randn(B, NQ, 1, d, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(B, NKV, L, d, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(B, NKV, L, d, device=dev, dtype=torch.bfloat16)
+    mask = (torch.arange(L, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])[:, None, None, :]
+    return graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), reps)
+
+
+def launch_floor_ms(reps):
+    """Device time of one empty kernel (``EMPTY_KERNEL``), by
+    ``graph_ms``."""
+    import ctypes
+    import torch
+    fn = ctypes.CDLL(str(EMPTY_LIB)).empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        check(fn(torch.cuda.current_stream().cuda_stream) == 0,
+              "the empty kernel did not launch")
+    return graph_ms(launch, reps)
+
+
+def k4_layer_kernels(dev):
+    """The device kernels that one decode layer's attention
+    (``models/blocks.py:attention_decode_paged``) launches at the serve
+    shape, under torch.profiler: K4's two passes and nothing else, the
+    current token folded in by the combine pass.  A profiler that sees no
+    device kernel fails the check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.blocks import PageInfo, attention_decode_paged
+    args, (k_new, v_new) = k4_case(dev, K4_SERVE, 32, torch.bfloat16,
+                                   seed=11)
+    q, k_pool, v_pool, pos_pool, tables, cur = args
+    cache = {"k": k_pool, "v": v_pool, "pos": pos_pool}
+    page = PageInfo(tables, torch.ones(len(K4_SERVE), dtype=torch.bool,
+                                       device=dev), 16)
+
+    def layer():
+        return attention_decode_paged(None, None, None, q[:, None],
+                                      k_new[:, None], v_new[:, None], cache,
+                                      cur, page)
+    layer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        layer()
+        torch.cuda.synchronize()
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(names, "torch.profiler saw no device kernel of the decode layer: "
+                 "what attention_decode_paged launches is not checked")
+    print(f"[3] kernels of one decode layer's attention on the card: "
+          f"{names}")
+    check(len(names) == 2 and "k4_split" in names[0]
+          and "k4_combine" in names[1],
+          f"attention_decode_paged launched {names}, not K4's two passes")
+    return len(names)
 
 
 def phase_k4(dev):
     import torch
     from repro_torch.kernels import paged_decode as k4
-    ragged = [64, 200, 333, 512, 640, 777, 900, 1024]
-    serve = [n + 16 for n in (259, 260, 261, 262, 263, 259, 260, 261)]
-    cases = [("ragged 64-1024", ragged, 64, 0, False),
-             ("window 256", ragged, 64, 256, False),
-             ("residuals", ragged, 64, 0, True),
-             ("serve shape", serve, 32, 0, True)]
-    tol = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    worst_path_err, timing = 0.0, None
-    for label, lens, nb, window, residuals in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = k4_case(dev, lens, nb, dtype, seed=len(label))
-            kw = dict(block=16, window=window, return_residuals=residuals)
-            got = k4.paged_flash_decode(*args, **kw)
-            want = k4.paged_flash_decode_plain(*args, **kw)
-            if not residuals:
-                got, want = (got,), (want,)
-            # the unnormalized residuals are held relative to their largest
-            # magnitude, the normalized output elementwise
-            errs = [(g - w).abs().max().item() / (1 + w.abs().max().item())
-                    if residuals else rel_err(g, w)
-                    for g, w in zip(got, want)]
-            abs_err = max((g.float() - w.float()).abs().max().item()
-                          for g, w in zip(got, want))
-            print(f"[3] K4 {label:15s} {str(dtype)[6:]:8s} max rel err "
-                  f"{max(errs):.2e} (tol {tol[dtype]:.0e}), max abs err "
-                  f"{abs_err:.2e}")
-            check(max(errs) <= tol[dtype], f"K4 {label} {dtype}: {errs}")
-            if dtype == torch.bfloat16 and label == "serve shape":
-                worst_path_err = abs_err
-                t = {"ms": time_ms(lambda: k4.paged_flash_decode(*args, **kw),
-                                   200),
-                     "plain_ms": time_ms(
-                         lambda: k4.paged_flash_decode_plain(*args, **kw),
-                         50),
-                     "library_ms": None}
-                t["bound_ms"], t["bound_by"] = k4_bound(lens, nb, window, 2)
-                timing = t
-            if dtype == torch.bfloat16 and label == "ragged 64-1024":
-                ms = time_ms(lambda: k4.paged_flash_decode(*args, **kw), 200)
-                bnd = k4_bound(lens, nb, window, 2)[0]
-                print(f"    time bf16 ragged 64-1024: kernel {ms:.4f} ms, "
-                      f"bound {bnd:.4f} ms (bytes)")
-    print(f"[3] K4 serve shape (B=8, contexts 275-279, 32 columns, bf16): "
-          f"kernel {timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f} ms, "
-          f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
-    timing["max_abs_err"] = worst_path_err
-    return timing
+    worst = k4_checks(dev)
+    layer_kernels = k4_layer_kernels(dev)
+    floor = launch_floor_ms(200)
+    print(f"[3] launch floor: one empty kernel {floor:.4f} ms (graph_ms)")
+    shapes = {}
+    for label, lens, nb, reps, d, block in (
+            ("serve", K4_SERVE, 32, 200, DH, 16),
+            ("long", K4_LONG, 128, 50, DH, 16),
+            ("long, d 128, block 32", K4_WIDE, 64, 50, 128, 32)):
+        args, new = k4_case(dev, lens, nb, torch.bfloat16, seed=len(label),
+                            d=d, block=block)
+        kw = dict(block=block)
+
+        def step(way):
+            return lambda: k4.paged_flash_decode_step(args[0], *new,
+                                                      *args[1:], force=way,
+                                                      **kw)
+
+        def resid(way):
+            return lambda: k4.paged_flash_decode(*args, force=way,
+                                                 return_residuals=True, **kw)
+        t = {"split_ms": graph_ms(step("split"), reps),
+             "split_residuals_ms": graph_ms(resid("split"), reps),
+             "simt_ms": graph_ms(resid("simt"), reps),
+             "simt_step_ms": graph_ms(step("simt"), reps),
+             "split_host_ms": time_ms(step("split"), reps),
+             "simt_host_ms": time_ms(resid("simt"), reps),
+             "plain_ms": graph_ms(lambda: k4.paged_flash_decode_step_plain(
+                 args[0], *new, *args[1:], **kw), max(5, reps // 10)),
+             "sdpa_contiguous_ms": k4_sdpa_ms(dev, lens, reps, d)}
+        t["bound_ms"], t["bound_by"] = k4_bound(lens, nb, 0, 2, step=True,
+                                                d=d, block=block)
+        t["splits"], t["cols"], _, t["ctas_per_sm"] = k4.split_grid(
+            args[0], args[1], args[4], block)
+        shapes[label] = t
+        print(f"[3] K4 {label} shape (B {len(lens)}, contexts "
+              f"{min(lens)}-{max(lens)}, d {d}, block {block}, {nb} columns,"
+              f" bf16; {t['splits']} splits of {t['cols']}, "
+              f"{t['ctas_per_sm']} CTAs an SM), device ms (graph_ms): split "
+              f"step {t['split_ms']:.4f} (residuals "
+              f"{t['split_residuals_ms']:.4f}), simt {t['simt_ms']:.4f} "
+              f"(step with the PyTorch fold {t['simt_step_ms']:.4f}), plain "
+              f"{t['plain_ms']:.4f}; bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}, {t['bound_ms'] / t['split_ms'] * 100:.1f}%"
+              f" of it), launch floor {floor:.4f}; from the host split "
+              f"{t['split_host_ms']:.4f}, simt {t['simt_host_ms']:.4f}; "
+              f"contiguous SDPA, not the same function, "
+              f"{t['sdpa_contiguous_ms']:.4f}")
+    serve = shapes["serve"]
+    return {"ms": serve["split_ms"], "plain_ms": serve["plain_ms"],
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+            "library_ms": None, "simt_ms": serve["simt_ms"],
+            "launch_floor_ms": floor, "max_abs_err": max(worst.values()),
+            "decode_layer_kernels": layer_kernels, "shapes": shapes}
 
 
 # K3: the limits on ||got - want|| / ||want|| against the plain version,
@@ -1414,7 +1651,9 @@ def reset_launches():
     from repro_torch.kernels import ssd_scan as k5
     k1.launches = k2.launches = k2.launches_bwd = k3.launches = 0
     k3.launches_bwd = k4.launches = k5.launches = k5.launches_bwd = 0
+    k4.launches_combine = 0
     k1.launches_by_route = dict.fromkeys(k1.ROUTES, 0)
+    k4.launches_by_route = dict.fromkeys(k4.ROUTES, 0)
     k2.launches_by_route = dict.fromkeys(k2.ROUTES, 0)
     k2.launches_bwd_by_route = dict.fromkeys(k2.ROUTES, 0)
 
@@ -1456,10 +1695,25 @@ def read_launches():
     from repro_torch.kernels import ssd_scan as k5
     return {"K1": k1.launches, "K2": k2.launches, "K2 bwd": k2.launches_bwd,
             "K3": k3.launches, "K3 bwd": k3.launches_bwd, "K4": k4.launches,
-            "K5": k5.launches, "K5 bwd": k5.launches_bwd}
+            "K4 combine": k4.launches_combine, "K5": k5.launches,
+            "K5 bwd": k5.launches_bwd}
 
 
-def phase_serve(card):
+def check_k4_routes(launches, label):
+    """The K4 launches of the serving run by route: every bf16 decode step
+    takes split, none simt, each with its combine pass."""
+    from repro_torch.kernels import paged_decode as k4
+    routes = dict(k4.launches_by_route)
+    print(f"[7] K4 launches by route in the {label}: {routes}, combine "
+          f"passes {launches['K4 combine']}")
+    check(routes["simt"] == 0, f"{label}: {routes['simt']} bf16 K4 "
+          "launches took the simt route")
+    check(routes["split"] == launches["K4"] == launches["K4 combine"],
+          f"{label}: K4 routes {routes} != total {launches['K4']}")
+    return routes
+
+
+def phase_serve(card, k4_serve_ms):
     import torch
     from repro_torch.launch import serve
     reset_launches()
@@ -1472,7 +1726,9 @@ def phase_serve(card):
     steps = stats["prefill_steps"] + stats["decode_steps"]
     want = {"K1": 155 * steps, "K2": LAYERS * stats["prefill_steps"],
             "K2 bwd": 0, "K3": (2 * LAYERS + 1) * steps, "K3 bwd": 0,
-            "K4": LAYERS * stats["decode_steps"], "K5": 0, "K5 bwd": 0}
+            "K4": LAYERS * stats["decode_steps"],
+            "K4 combine": LAYERS * stats["decode_steps"], "K5": 0,
+            "K5 bwd": 0}
     print(f"[7] launches in the serving run: {launches} over "
           f"{stats['prefill_steps']} prefill + {stats['decode_steps']} decode "
           f"steps (expected {want})")
@@ -1487,12 +1743,16 @@ def phase_serve(card):
     check(routes["tc"] > 0 and routes["decode"] > 0,
           f"serving run: K1 routes {routes}")
     k2_routes = check_k2_routes(launches, "7", "serving run")
+    k4_routes = check_k4_routes(launches, "serving run")
+    print(f"[7] K4 device time per decode step: {LAYERS} layers x "
+          f"{k4_serve_ms:.4f} ms (the split step at the serve shape, phase "
+          f"3) = {LAYERS * k4_serve_ms:.4f} ms")
     print(f"[7] serving tinyllama-1.1b bf16, 8 requests x 32 new tokens on "
           f"{card}: TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
           f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
           f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} tok/s")
-    return launches, routes, k2_routes
+    return launches, routes, k2_routes, k4_routes
 
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
@@ -1512,7 +1772,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     torch.cuda.synchronize()
     launches = read_launches()
     want = {k: steps * n for k, n in per_step.items()}
-    want["K4"] = 0
+    want["K4"] = want["K4 combine"] = 0
     tel = out["telemetry"]
     print(f"[{tag}] launches in the {arch} training run: {launches} over "
           f"{steps} steps (expected {want})")
@@ -1678,7 +1938,8 @@ def main():
     timed(phase_two_layer_train, dev, "paper-transformer", seed=6, rows=1,
           seq=256)
     timed(phase_two_layer_train, dev, "gemma-2b", seed=7, rows=1, seq=256)
-    serve_launches, serve_routes, serve_k2 = timed(phase_serve, card)
+    serve_launches, serve_routes, serve_k2, serve_k4 = timed(
+        phase_serve, card, k4_numbers["ms"])
     train_launches, train_routes, train_k2 = timed(phase_train, card)
     timed(phase_breakdown, dev, card)
     k1_train, k1_train_err = timed(phase_k1_train, dev)
@@ -1740,9 +2001,12 @@ def main():
              replaces="src/repro/kernels/rmsnorm.py:19",
              **launched("K3", "K3 bwd"), **k3_numbers),
         dict(name="K4 paged_flash_decode", route="cuda",
-             source="src/repro_torch/kernels/csrc/paged_decode.cu",
+             source="src/repro_torch/kernels/csrc/paged_decode_hopper.cu "
+                    "(split), src/repro_torch/kernels/csrc/paged_decode.cu "
+                    "(simt)",
              replaces="src/repro/kernels/paged_decode.py:72",
-             **launched("K4"), **k4_numbers),
+             **launched("K4"), launches_by_route=serve_k4,
+             launches_combine=serve_launches["K4 combine"], **k4_numbers),
         dict(name="K5 ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:23",
@@ -1757,7 +2021,8 @@ def main():
              "bwd_bound_ms", "fwd_device_ms", "bwd_device_ms",
              "library_fwd_device_ms", "fwd_host_ms", "bwd_host_ms",
              "bwd_kernels_ms", "library_bwd_ms", "norm_err", "kernels_ms",
-             "shapes") + tuple(
+             "shapes", "launch_floor_ms", "launches_combine",
+             "decode_layer_kernels") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))

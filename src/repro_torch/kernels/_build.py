@@ -107,6 +107,12 @@ def on_cuda(kernel: str, *tensors: Optional[torch.Tensor]) -> bool:
                      "tensors and its plain version CPU tensors")
 
 
+@functools.cache
+def sm_count(index: Optional[int]) -> int:
+    """The SM count of CUDA device ``index`` (None: the current one)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_launch(kernel: str, err: int):
     """Raise if the C launcher reported a CUDA error (cudaGetLastError)."""
     if err != 0:

@@ -1,9 +1,10 @@
-// K4: paged flash-decode.  Attention for one new token per slot, read
-// straight out of the paged KV pool through the block table.
+// K4, simt route: paged flash-decode.  Attention for one new token per
+// slot, read straight out of the paged KV pool through the block table.
 //
 // Replaces the Pallas kernel src/repro/kernels/paged_decode.py:_decode_kernel
-// (via _pallas_impl, entry paged_flash_decode), called by every attention
-// layer of every fused decode step.
+// (via _pallas_impl, entry paged_flash_decode) for what the split route
+// (paged_decode_hopper.cu) does not take: f32, dv != dk, other head dims,
+// groups and block sizes, unaligned tensors (kernels/paged_decode.py:route).
 //
 // Contract (kernels/paged_decode.py of the reference): q (B,nq,dk),
 // k_pool (phys,nkv,dk), v_pool (phys,nkv,dv), pos_pool (phys,) int32,
@@ -25,8 +26,8 @@
 // are 64-bit.  A column whose positions are all masked (the null block,
 // unwritten tails) is skipped before its K/V are read: in the online softmax
 // it would change nothing.  An id outside the pool is treated as masked.
-// Known limit: B*nkv blocks (32 at B = 8 on tinyllama) on 132 SMs; split-K
-// over the table columns comes later.
+// B*nkv blocks (32 at B = 8 on tinyllama) on 132 SMs, one column at a time:
+// the split route spreads the columns over the card instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

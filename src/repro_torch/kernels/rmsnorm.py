@@ -103,12 +103,6 @@ def _check(x, gamma):
         raise ValueError("K3 rmsnorm: more than 2**31 - 1 rows")
 
 
-@functools.cache
-def _sms(index) -> int:
-    """The SM count of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _aligned(*tensors) -> int:
     """1 when every tensor starts on 16 bytes, as the 16-byte accesses of
     the wide instances need (a contiguous view may start anywhere)."""
@@ -153,7 +147,7 @@ def rmsnorm_bwd(dy, x, gamma, rstd, zero_centered: bool = False):
     if m == 0:
         return dx, torch.zeros_like(gamma)
     # the kernel uses as many rows as it launches blocks: at most nblocks
-    nblocks = min(m, BWD_BLOCKS_PER_SM * _sms(x.device.index))
+    nblocks = min(m, BWD_BLOCKS_PER_SM * _build.sm_count(x.device.index))
     part = torch.empty((nblocks, h), dtype=torch.float32, device=x.device)
     dg = torch.empty_like(gamma)
     with torch.cuda.device(x.device):

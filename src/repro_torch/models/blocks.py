@@ -15,7 +15,6 @@ above axis size 1.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -27,7 +26,7 @@ from ..core.linear3d import layernorm, plinear, rmsnorm
 from ..core.params import Param
 from ..core.topology import Dirs, Layout
 from ..kernels.flash_attention import flash_attention
-from ..kernels.paged_decode import paged_flash_decode
+from ..kernels.paged_decode import paged_flash_decode_step
 
 F32 = torch.float32
 
@@ -110,37 +109,21 @@ def attention_decode_paged(layout: Layout, cfg: ModelConfig, dirs: Dirs,
     """One-token decode straight against the paged KV pool (reference
     ``blocks.py:236-345``).
 
-    The pool is READ-ONLY here: the K4 kernel streams the already-written
-    past through the block table and returns its softmax residuals; the
-    current token's (k, v), not yet in the pool, is folded into the same
-    online softmax afterwards.  The layer returns only its new entries; the
-    engine writes every layer's entries back in one scatter
+    The pool is READ-ONLY here: K4 (``paged_flash_decode_step``) streams
+    the already-written past through the block table and folds the current
+    token's (k, v), not yet in the pool, into the same online softmax (on
+    the card in its combine pass).  The layer returns only its new entries;
+    the engine writes every layer's entries back in one scatter
     (``kvcache.scatter_step``).
 
     q: (B, 1, nq, d); k_new/v_new: (B, 1, nkv, d); cache: this layer's pool
     slice {"k": (phys, nkv, d), "v": ..., "pos": (phys,)}; pos: (B,) int32.
     Returns (out, {"k": (B, nkv, d), "v": (B, nkv, d), "pos": (B,)})."""
-    q0 = q[:, 0].contiguous()
-    acc, m, l = paged_flash_decode(q0, cache["k"], cache["v"], cache["pos"],
-                                   page.tables, pos, block=page.block,
-                                   window=window, return_residuals=True)
-    # fold the current token (always valid: age 0) into the softmax
-    B, nq, d = q0.shape
-    hloc = cache["k"].shape[1]
-    g = nq // hloc
-    scale = 1.0 / math.sqrt(d)
-    qf = q0.to(F32).reshape(B, hloc, g, d)
-    s0 = torch.einsum("bhgd,bhd->bhg", qf, k_new[:, 0].to(F32)) * scale
-    s0 = s0.reshape(B, nq)
-    m2 = torch.maximum(m, s0)
-    wp, wc = torch.exp(m - m2), torch.exp(s0 - m2)
-    dv = v_new.shape[-1]
-    vb = v_new[:, 0, :, None].to(F32).expand(B, hloc, g, dv).reshape(B, nq, dv)
-    o = acc * wp[..., None] + vb * wc[..., None]
-    ls = l * wp + wc
-    out = o / ls.clamp_min(1e-30)[..., None]
-    return out[:, None].to(q.dtype), {"k": k_new[:, 0], "v": v_new[:, 0],
-                                      "pos": pos}
+    out = paged_flash_decode_step(
+        q[:, 0].contiguous(), k_new[:, 0].contiguous(),
+        v_new[:, 0].contiguous(), cache["k"], cache["v"], cache["pos"],
+        page.tables, pos, block=page.block, window=window)
+    return out[:, None], {"k": k_new[:, 0], "v": v_new[:, 0], "pos": pos}
 
 
 # ---------------------------------------------------------------------------

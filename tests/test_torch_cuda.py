@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 K1 matmul (each route), K2 flash attention (each route) and K3 RMSNorm
-(forward and backward), K4 paged decode, K5 SSD scan (forward and
-backward).
+(forward and backward), K4 paged decode (each route), K5 SSD scan
+(forward and backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -184,6 +184,138 @@ def test_k4_kernel_matches_plain_on_card(cuda, window, residuals):
         got, want = (got,), (want,)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 1e-5
+
+
+def _paged_lens_case(lens, *, nq, nkv, d, block, nb, seed=0):
+    """A pool holding one slot per context length (blocks at shuffled
+    ids, the null block 0 on unused columns, slot 0's first unused column
+    on a recycled block 1 whose stale positions lie past every cur; a
+    length of 0 leaves a slot with no valid entry), and the step's own
+    k_new, v_new (B, nkv, d)."""
+    rng = np.random.default_rng(seed)
+    used = sum(-(-n // block) for n in lens)
+    n_blocks = used + 2
+    ids = list(rng.permutation(used) + 2)
+    pos_pool = np.full((n_blocks * block,), -1, np.int32)
+    tables = np.zeros((len(lens), nb), np.int32)
+    for b, n in enumerate(lens):
+        for j in range(-(-n // block)):
+            blk = ids.pop()
+            tables[b, j] = blk
+            e = np.arange(block)
+            pos_pool[blk * block:(blk + 1) * block] = np.where(
+                j * block + e < n, j * block + e, -1)
+    pos_pool[block:2 * block] = max(lens) + 100
+    tables[0, -(-lens[0] // block)] = 1
+    cur = np.asarray([n - 1 for n in lens], np.int32)
+    B, phys = len(lens), n_blocks * block
+    q, k_pool, v_pool, k_new, v_new = (
+        rng.standard_normal(shape).astype(np.float32)
+        for shape in ((B, nq, d), (phys, nkv, d), (phys, nkv, d),
+                      (B, nkv, d), (B, nkv, d)))
+    return (q, k_pool, v_pool, pos_pool, tables, cur), (k_new, v_new)
+
+
+# K4 in bf16, ||got - want|| / ||want|| against the plain version: the
+# limits of chip_smoke.py phase 3 (m over the rows with a valid entry)
+K4_NORM_TOL = {"out": 5e-4, "acc": 1e-5, "m": 5e-7, "l": 1e-6}
+
+
+def _k4_on_card(cuda, case, new):
+    args = [torch.from_numpy(a).to(cuda) for a in case]
+    for i in range(3):
+        args[i] = args[i].bfloat16()
+    return args, [torch.from_numpy(a).to(cuda).bfloat16() for a in new]
+
+
+def _k4_check(got, want):
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    names = ("acc", "m", "l") if len(want) == 3 else ("out",)
+    for name, g, w in zip(names, got, want):
+        if name == "m":
+            live = w > -1e29
+            assert torch.equal(g[~live], w[~live])
+            g, w = g[live], w[live]
+        err = _norm_err(g, w)
+        assert err <= K4_NORM_TOL[name], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,d,nq,nkv,lens,nb", [
+    # the serve shape: 3 CTAs an SM, 8 splits of 4 columns
+    (16, 64, 32, 4, [275, 276, 277, 278, 279, 275, 276, 277], 32),
+    (8, 64, 32, 4, [0, 5, 40, 300, 100, 64, 17, 1], 48),  # block 8, empty
+    (16, 128, 16, 2, [700, 33, 1200, 511], 96),           # d 128: 2 an SM
+    (32, 64, 8, 8, [900, 31, 1500], 64),                  # block 32, MHA
+    (32, 128, 8, 4, [2000, 1], 80),                       # 1 an SM, group 2
+    (16, 64, 16, 4, [3000], 200),                         # one slot: 50 splits
+])
+@pytest.mark.parametrize("kind", ["out", "residuals", "step"])
+def test_k4_split_route_matches_plain_on_card(cuda, block, d, nq, nkv, lens,
+                                               nb, kind):
+    """The split route (both passes) against the plain version in bf16:
+    the normalised output, the residuals (acc, m, l), and the step entry
+    with the current token folded in by the combine pass, at head dims 64
+    and 128, blocks 8-32, groups 1-8 and 8 to 50 splits (each shape's own
+    plan); a second run gives the same bits."""
+    case, new = _paged_lens_case(lens, nq=nq, nkv=nkv, d=d, block=block,
+                                 nb=nb)
+    args, new = _k4_on_card(cuda, case, new)
+    assert k4.route_for(*args[:4], block) == "split"
+    kw = dict(block=block)
+    if kind == "step":
+        def run():
+            return k4.paged_flash_decode_step(args[0], *new, *args[1:],
+                                              force="split", **kw)
+        want = k4.paged_flash_decode_step_plain(args[0], *new, *args[1:],
+                                                block=block)
+    else:
+        res = kind == "residuals"
+
+        def run():
+            return k4.paged_flash_decode(*args, force="split",
+                                         return_residuals=res, **kw)
+        want = k4.paged_flash_decode_plain(*args, block=block,
+                                           return_residuals=res)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    _k4_check(got, want)
+    if isinstance(got, torch.Tensor):
+        got, again = (got,), (again,)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_k4_routes_count_and_refuse(cuda):
+    """Each call adds one to ``launches`` and to its route's count, the
+    split route's combine pass one to ``launches_combine``; ``force``
+    names a route that must take the inputs, and an unknown name raises."""
+    case, new = _paged_lens_case([40, 20, 0], nq=32, nkv=4, d=64, block=16,
+                                 nb=4)
+    args, new = _k4_on_card(cuda, case, new)
+    before = (k4.launches, dict(k4.launches_by_route), k4.launches_combine)
+    k4.paged_flash_decode_step(args[0], *new, *args[1:], block=16)
+    k4.paged_flash_decode(*args, block=16, force="simt")
+    k4.paged_flash_decode_step(args[0], *new, *args[1:], block=16,
+                               force="simt")
+    assert k4.route_for(args[0], args[1], args[2], args[3], 16) == "split"
+    assert k4.launches == before[0] + 3
+    assert k4.launches_by_route["split"] == before[1]["split"] + 1
+    assert k4.launches_by_route["simt"] == before[1]["simt"] + 2
+    assert k4.launches_combine == before[2] + 1
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    with pytest.raises(ValueError):               # f32 takes simt only
+        k4.paged_flash_decode(*f32, block=16, force="split")
+    wide = _paged_case(B=3, nq=8, nkv=2, dk=32, dv=48, block=8, nb=5,
+                       n_blocks=16)
+    wide = [torch.from_numpy(a).to(cuda) for a in wide]
+    wide[:3] = [t.bfloat16() for t in wide[:3]]
+    with pytest.raises(ValueError):               # dv != dk
+        k4.paged_flash_decode(*wide, block=8, force="split")
+    with pytest.raises(ValueError):
+        k4.paged_flash_decode(*args, block=16, force="tc")
+    assert k4.launches == before[0] + 3
 
 
 @pytest.mark.cuda

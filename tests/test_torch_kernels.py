@@ -264,3 +264,108 @@ def test_k4_plain_matches_pallas(shape, window, residuals):
         assert tuple(g.shape) == w.shape
         err = float(np.max(np.abs(g.numpy() - np.asarray(w))))
         assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, nq, nkv, dk, dv, block, nb, n_blocks)
+    (3, 8, 2, 32, 32, 8, 5, 16),
+    (2, 4, 1, 16, 48, 4, 7, 16),      # MQA, dv != dk
+])
+@pytest.mark.parametrize("splits", [1, 3, "nb"])
+@pytest.mark.parametrize("window", [0, 10])
+@pytest.mark.parametrize("residuals", [False, True])
+def test_k4_split_algebra_matches_pallas(shape, splits, window, residuals):
+    """The split route's algebra (the plain K4's residuals over runs of
+    table columns, then the combine pass) against the Pallas kernel in
+    interpret mode.  At 3 and nb splits the last splits hold no valid
+    column (every slot's context ends before them)."""
+    B, nq, nkv, dk, dv, block, nb, n_blocks = shape
+    case = _paged_case(B=B, nq=nq, nkv=nkv, dk=dk, dv=dv, block=block,
+                       nb=nb, n_blocks=n_blocks)
+    n = nb if splits == "nb" else splits
+    assert k4.split_cols(nb, n)[0] == n
+    want = jax_paged_decode(*map(jnp.asarray, case), block=block,
+                            window=window, impl="pallas", interpret=True,
+                            return_residuals=residuals)
+    got = k4.paged_flash_decode_split_plain(
+        *map(torch.from_numpy, case), block=block, splits=n, window=window,
+        return_residuals=residuals)
+    if not residuals:
+        want, got = (want,), (got,)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        err = float(np.max(np.abs(g.numpy() - np.asarray(w))))
+        assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("n_kv", [4, 2, 1])
+@pytest.mark.parametrize("window", [0, 10])
+def test_k4_step_plain_matches_reference_fold(n_kv, window):
+    """The fused-fold entry's plain version (residual K4, then the current
+    token folded in) against the reference's ``attention_decode_paged``
+    (``src/repro/models/blocks.py``: K4's residuals, then the fold) on the
+    same inputs, at tinyllama's reduced widths with 4/n_kv heads."""
+    import dataclasses
+
+    from repro.config import reduced as jreduced
+    from repro.configs.registry import get as jget
+    from repro.core.topology import Dirs, single_device_layout
+    from repro.models import blocks as jblocks
+    cfg = dataclasses.replace(jreduced(jget("tinyllama-1.1b")), n_kv=n_kv)
+    nq, d, block, nb = cfg.n_heads, cfg.head_dim, 8, 5
+    case = _paged_case(B=3, nq=nq, nkv=n_kv, dk=d, dv=d, block=block, nb=nb,
+                       n_blocks=16)
+    q, k_pool, v_pool, pos_pool, tables, cur = case
+    rng = np.random.default_rng(1)
+    k_new, v_new = (rng.standard_normal((3, n_kv, d)).astype(np.float32)
+                    for _ in range(2))
+    lay = single_device_layout("3d")
+    page = jblocks.PageInfo(jnp.asarray(tables), jnp.ones((3,), bool), block)
+    cache = {"k": jnp.asarray(k_pool), "v": jnp.asarray(v_pool),
+             "pos": jnp.asarray(pos_pool)}
+    want, _ = jblocks.attention_decode_paged(
+        lay, cfg, Dirs("y", "z"), jnp.asarray(q)[:, None],
+        jnp.asarray(k_new)[:, None], jnp.asarray(v_new)[:, None], cache,
+        jnp.asarray(cur), page, window=window)
+    t = [torch.from_numpy(a) for a in (q, k_new, v_new, k_pool, v_pool,
+                                       pos_pool, tables, cur)]
+    got = k4.paged_flash_decode_step_plain(*t, block=block, window=window)
+    assert k4.paged_flash_decode_step(*t, block=block, window=window).equal(
+        got)
+    err = float(np.max(np.abs(got.numpy() - np.asarray(want)[:, 0])))
+    assert err <= 1e-4, err
+
+
+def test_k4_routes_and_split_plan():
+    """``route`` sends bf16 at dk = dv in (64, 128) with a group of 1-8 and
+    a block of 8-32 (a multiple of 8), on 16 bytes, to the split kernel and
+    everything else to simt; ``split_plan`` fills one wave of the CTAs the
+    card holds from host sizes alone and covers every column; the ring
+    that sets how many CTAs an SM holds grows with d and the block."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert k4.route(bf, 64, 64, 8, 16, True) == "split"        # tinyllama
+    assert k4.route(bf, 128, 128, 1, 8, True) == "split"
+    assert k4.route(bf, 128, 128, 4, 32, True) == "split"
+    for args in [(f32, 64, 64, 8, 16, True), (bf, 32, 48, 4, 8, True),
+                 (bf, 64, 64, 8, 16, False), (bf, 64, 64, 16, 16, True),
+                 (bf, 64, 64, 3, 16, True), (bf, 64, 64, 8, 12, True),
+                 (bf, 64, 64, 8, 64, True), (bf, 256, 256, 8, 16, True)]:
+        assert k4.route(*args) == "simt", args
+    assert k4.split_ring(16, 64) == (4, 64 * 1024)     # 3 CTAs an SM
+    assert k4.split_ring(16, 128) == (3, 96 * 1024)    # 2
+    assert k4.split_ring(32, 64) == (3, 96 * 1024)
+    assert k4.split_ring(32, 128) == (2, 128 * 1024)   # 1
+    assert k4.split_plan(8, 4, 32, 3 * 132) == (8, 4)      # serve: 256 CTAs
+    assert k4.split_plan(64, 4, 128, 3 * 132) == (1, 128)  # long: 256 CTAs
+    assert k4.split_plan(4, 4, 128, 3 * 132) == (16, 8)    # 256 CTAs
+    assert k4.split_plan(4, 4, 128, 132) == (8, 16)        # 128 CTAs
+    for B, nkv, nb, per_sm in [(8, 4, 32, 3), (1, 1, 7, 3), (3, 4, 200, 2),
+                               (64, 8, 1, 2), (2, 2, 0, 1), (512, 8, 64, 1),
+                               (16, 4, 64, 1)]:
+        n, cols = k4.split_plan(B, nkv, nb, per_sm * 132)
+        assert n >= 1 and n * cols >= nb and (n - 1) * cols < max(nb, 1)
+        assert cols % k4.WARPS == 0
+        assert n == 1 or n * B * nkv <= per_sm * 132
+    with pytest.raises(ValueError):
+        k4.paged_flash_decode(*(torch.zeros(1) for _ in range(6)), block=1,
+                              force="tc")
