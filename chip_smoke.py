@@ -13,7 +13,9 @@ Phases, in order (any failure raises and exits nonzero):
      bf16 through both the tc (wgmma + TMA) and the decode (split-K)
      route, every activation, with and without bias; then the times of
      the route the path takes, the other bf16 route, the simt kernel,
-     the plain version and ``torch.matmul`` beside the bound;
+     the plain version and ``torch.matmul`` beside the bound; and every
+     GEMM of zamba2-1.2b's decode step (M = 8, ``Z_DECODE_GEMMS``) in
+     bf16 through the decode route, which ``route`` must pick for each;
  2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
@@ -30,7 +32,14 @@ Phases, in order (any failure raises and exits nonzero):
      plain version, one empty kernel (the launch floor) and SDPA over
      contiguous K/V (not the same function); and, under torch.profiler,
      that one decode layer's attention launches K4's two passes and no
-     other kernel (a profiler that sees no kernel fails the phase);
+     other kernel (a profiler that sees no kernel fails the phase).  Last,
+     K4 at the contiguous caches' shapes under the identity block table
+     (``K4_CONTIG``: zamba2's shared block, 8 slots, 32/32 heads, L 512,
+     contexts 32-96 and a wrapped ring; the speculative draft's cache of
+     528), both routes to ``K4_NORM_TOL``, timed beside the bound and SDPA
+     with the position mask, which computes the same function there; and,
+     under torch.profiler, that a contiguous decode layer's attention
+     launches K4's two passes and no PyTorch attention;
   4. K3 RMSNorm forward and backward against their plain versions at the
      training shape (8192 rows x 2048), bf16 and f32, with and without a
      zero-centred gain, and at 3072 and 4096 (zamba2's gate_ln) in bf16:
@@ -66,6 +75,33 @@ Phases, in order (any failure raises and exits nonzero):
      no bf16 K1 GEMM and no bf16 K2 attention, forward or backward, may
      take the simt route, and the routes add up to the totals (also in
      phases 8 and 13);
+ 7p. the prefix cache: the same 8 requests served twice on one engine with
+     ``prefix_cache=True`` (tails prefill through ``transformer.extend``
+     over the gathered view); the warm pass must hit 8 times, and its
+     TTFT is printed beside phase 7's; bf16 prints the share of tokens
+     equal to the plain engine's, and full-width tinyllama cut to 4 layers
+     in f32 (4 requests x 8 new tokens) must give the plain engine's
+     tokens on both passes;
+ 7g. the gather-view decode (``fused_decode=False``): the same requests,
+     every decode attention K4 split over the gathered views under the
+     identity table (exact launches), and the f32 4-layer check;
+ 7s. speculative decoding, γ = 4, with the target itself and the target
+     cut to its first 20 of 22 layers as drafts: accepted drafts, the
+     verified chains by outcome (the cut draft must see chains rejected
+     in their middle), tok/s and K4's launches by path (every one the
+     draft's contiguous decode, exact), every request complete with finite
+     logits in bf16, and the f32 4-layer check with the target and its
+     first 3 layers as drafts, the latter with mid-chain rejections;
+ 7z. zamba2-1.2b served at full depth and width in bf16 through
+     ``repro_torch.launch.serve``: 8 requests in batch 8, prompts of 43-47
+     tokens fed one a step, 32 new tokens, max_len 512; the launches per
+     step exact (``Z_SERVE_STEP``: K1 decode route, K3, K4 split with its
+     combine for each of the 6 shared-block uses, no K2 or K5), then TTFT,
+     TPOT and tok/s beside the step's bound on average over the run
+     (weights, the f32 state and conv tails read and written, the kv
+     entries K4 attends); then one decode step on the same engine's
+     weights broken down by kernel group under torch.profiler, with the
+     device's idle share;
   8. the training run: ``repro_torch.launch.train`` trains tinyllama-1.1b at
      full depth and width in bf16 (batch 4 x 2048, remat, AdamW, synthetic
      tokens from seed 0) for a few steps, counters reset before and read
@@ -83,6 +119,9 @@ Phases, in order (any failure raises and exits nonzero):
      ``K5_NORM_TOL``, and two backward runs that must give the same bits;
  12. full-width zamba2 cut to [mamba, mamba, attn] in f32: one training
      step's loss and gradients, CPU (plain versions) against the card;
+ 12s. the same model through the decode path: a 16-token sequential
+     prefill and 8 greedy steps of 2 slots, the logits within 1e-4 of 1 +
+     max at every step and the same greedy tokens, CPU against the card;
  13. the zamba2 training run: ``repro_torch.launch.train`` trains
      zamba2-1.2b at full depth and width in bf16 (batch 4 x 2048, remat,
      AdamW, synthetic tokens from seed 0), counters reset before and read
@@ -90,8 +129,9 @@ Phases, in order (any failure raises and exits nonzero):
  14. where the time of one zamba2 training step goes (as phase 9);
  15. K1 against ``torch.matmul`` summed over each path's GEMMs.
 
-The lines before the last carry one JSON object of per-kernel numbers and
-the card's name and power limit from nvidia-smi; the last line is
+The lines before the last carry one JSON object of the serving paths'
+numbers (7p, 7g, 7s, 7z), one of per-kernel numbers and the card's name and
+power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits nonzero and
 prints no result.
@@ -137,11 +177,11 @@ TRAIN_GEMMS = [("wq,wo", D, NQ * DH, 2 * 2 * LAYERS),
                ("w_down", FF, D, 2 * LAYERS)]
 
 # zamba2-1.2b (configs/zamba2_1_2b.py): 38 Mamba2 layers (d_inner 4096,
-# 64 SSM heads of 64, 2 groups, d_state 64, chunk 256) and one shared
+# 64 SSM heads of 64, 2 groups, d_state 64, chunk 256, conv 4) and one shared
 # attention block (32/32 heads, gated-GELU MLP of 8192) after every 6
 Z_LAYERS, Z_SHARED, Z_FF = 38, 6, 8192
 Z_HEADS, Z_WINDOW = 32, 4096      # the shared block's attention: 32/32 heads
-Z_DIN, Z_NH, Z_G, Z_N, Z_CHUNK = 4096, 64, 2, 64, 256
+Z_DIN, Z_NH, Z_G, Z_N, Z_CHUNK, Z_CONV = 4096, 64, 2, 64, 256, 4
 Z_STEPS = 4
 # launches per zamba2 training step: K1 runs the 5 linears of each Mamba
 # layer, the 7 of each shared-block use and the 2 head chunks twice
@@ -160,6 +200,10 @@ Z_GEMMS = [("w_x,w_z", D, Z_DIN, 2 * 2 * Z_LAYERS),
            ("wq,wk,wv,wo", D, D, 2 * 4 * Z_SHARED),
            ("w_up,w_gate", D, Z_FF, 2 * 2 * Z_SHARED),
            ("w_down", Z_FF, D, 2 * Z_SHARED)]
+# zamba2's decode step (phase 7z) runs the same GEMMs at M = 8 on the
+# decode route, and its head
+Z_DECODE_GEMMS = [(name, k, n) for name, k, n, _ in Z_GEMMS] + \
+    [("head", D, VOCAB)]
 
 
 class SmokeFailure(RuntimeError):
@@ -442,6 +486,17 @@ def phase_k1(dev):
     by = {times[(PREFILL_M, name)]["bound_by"] for name, *_ in LAYER_GEMMS}
     prefill["bound_by"] = by.pop() if len(by) == 1 else \
         "bytes and operations"
+    for name, k, n in Z_DECODE_GEMMS:
+        path = k1.route(DECODE_M, n, k, torch.bfloat16, True)
+        check(path == "decode", f"K1 zamba2 {name} ({DECODE_M},{k},{n}) "
+              f"would take {path}, not decode")
+        x, w, b = k1_inputs(gen, dev, DECODE_M, k, n, torch.bfloat16)
+        worst, worst_abs = k1_check(k1, x, w, b, "decode")
+        print(f"[2] K1 zamba2 {name:12s} ({DECODE_M},{k})@({k},{n}) bfloat16"
+              f" decode max rel err {worst:.2e} (tol 1e-02), max abs err "
+              f"{worst_abs:.2e}")
+        check(worst <= 1e-2, f"K1 zamba2 {name} bf16 decode: {worst}")
+        path_err["decode"] = max(path_err["decode"], worst_abs)
     step["max_abs_err"] = path_err["decode"]
     prefill["max_abs_err"] = path_err["tc"]
     return {"decode": step, "tc": prefill}
@@ -520,19 +575,20 @@ def k4_case(dev, lens, nb, dtype, seed, d=DH, block=16):
             [t.to(dev, dtype) for t in (k_new, v_new)])
 
 
-def k4_bound(lens, nb, window, elt, step=False, d=DH, block=16):
+def k4_bound(lens, nb, window, elt, step=False, d=DH, block=16, nq=NQ,
+             nkv=NKV):
     """(ms, "bytes" or "operations") of one K4 call: q in and out, the
     valid K and V entries, every column's positions, the tables and cur;
     with ``step`` also k_new and v_new and their products."""
     B = len(lens)
     valid = [min(n, window) if window else n for n in lens]
-    nbytes = (B * NQ * d * elt * 2                       # q in, out
-              + sum(valid) * NKV * 2 * d * elt           # valid K and V
+    nbytes = (B * nq * d * elt * 2                       # q in, out
+              + sum(valid) * nkv * 2 * d * elt           # valid K and V
               + B * nb * (block + 1) * 4 + B * 4)  # positions, tables, cur
-    flops = sum(2 * NQ * v * 2 * d for v in valid)
+    flops = sum(2 * nq * v * 2 * d for v in valid)
     if step:
-        nbytes += B * NKV * 2 * d * elt
-        flops += B * NQ * 2 * 2 * d
+        nbytes += B * nkv * 2 * d * elt
+        flops += B * nq * 2 * 2 * d
     return bound_ms(nbytes, flops, H100_BF16_FLOPS)
 
 
@@ -718,6 +774,164 @@ def k4_layer_kernels(dev):
     return len(names)
 
 
+# K4 at the contiguous caches' shapes (phase 3): (label, each slot's
+# current position, cache length L, q heads, kv heads, window).  The cache
+# (B, L, nkv, d) is K4's pool laid out flat under the identity block table
+# (models/blocks.py:attention_decode): zamba2's shared block (32/32 heads,
+# contexts 32-96, and a wrapped ring whose positions run past L) and the
+# speculative draft's cache of 512 + 4 entries rounded up to 528.
+K4_CONTIG = [("contiguous zamba2", [31 + (i * 9) % 65 for i in range(8)],
+              512, Z_HEADS, Z_HEADS, Z_WINDOW),
+             ("contiguous zamba2, wrapped ring",
+              [600 + 97 * i for i in range(8)], 512, Z_HEADS, Z_HEADS,
+              Z_WINDOW),
+             ("contiguous draft", [n + 3 for n in K4_SERVE], 528, NQ, NKV,
+              0)]
+
+
+def k4_contig_case(dev, curs, L, nq, nkv, dtype, seed, d=DH, block=16):
+    """A contiguous cache as decode leaves it: each slot's last L
+    positions up to its cur at slot p % L (a ring once cur >= L), the rest
+    -1; q, and the cache flattened into K4's pool with the identity
+    table."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    B = len(curs)
+    cpos = torch.full((B, L), -1, dtype=torch.int32)
+    for b, c in enumerate(curs):
+        p = torch.arange(max(0, c - L + 1), c + 1, dtype=torch.int32)
+        cpos[b, p % L] = p
+    q = torch.randn(B, nq, d, generator=g)
+    k = torch.randn(B * L, nkv, d, generator=g)
+    v = torch.randn(B * L, nkv, d, generator=g)
+    tables = torch.arange(B * L // block, dtype=torch.int32).view(B, -1)
+    cur = torch.tensor(curs, dtype=torch.int32)
+    return ([t.to(dev, dtype) for t in (q, k, v)]
+            + [t.to(dev) for t in (cpos.reshape(-1), tables, cur)])
+
+
+def k4_contig_sdpa(args, L, window):
+    """F.scaled_dot_product_attention over the same contiguous cache with
+    the position mask: the same function as K4 here."""
+    import torch.nn.functional as F
+    q, k, v, pos, _, cur = args
+    B, nq, d = q.shape
+    nkv = k.shape[1]
+    kc = k.view(B, L, nkv, d).transpose(1, 2)
+    vc = v.view(B, L, nkv, d).transpose(1, 2)
+    cp = pos.view(B, L)
+    mask = (cp >= 0) & (cp <= cur[:, None])
+    if window:
+        mask &= (cur[:, None] - cp) < window
+    mask = mask[:, None, None, :]
+    qs = q[:, :, None]
+    return lambda: F.scaled_dot_product_attention(
+        qs, kc, vc, attn_mask=mask, enable_gqa=nq != nkv)[:, :, 0]
+
+
+def k4_contig_layer_kernels(dev):
+    """The device kernels that one contiguous decode layer's attention
+    (``models/blocks.py:attention_decode``) launches at zamba2's
+    shared-block shape, under torch.profiler: the writes of the new entry,
+    the identity table, K4's two passes, and no PyTorch attention (no
+    GEMM, softmax or reduction).  A profiler that sees no device kernel
+    fails the check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.blocks import attention_decode
+    label, curs, L, nq, nkv, window = K4_CONTIG[0]
+    q, k, v, pos, _, cur = k4_contig_case(dev, curs, L, nq, nkv,
+                                          torch.bfloat16, seed=13)
+    B = len(curs)
+    cache = {"k": k.view(B, L, nkv, -1), "v": v.view(B, L, nkv, -1),
+             "pos": pos.view(B, L)}
+    new = torch.randn(2, B, 1, nkv, q.shape[-1], device=dev,
+                      dtype=torch.bfloat16)
+
+    def layer():
+        return attention_decode(None, None, None, q[:, None], new[0],
+                                new[1], cache, cur + 1, window=window)
+    layer()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        layer()
+        torch.cuda.synchronize()
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(names, "torch.profiler saw no device kernel of the contiguous "
+                 "decode layer: what attention_decode launches is not "
+                 "checked")
+    print(f"[3] kernels of one contiguous decode layer's attention on the "
+          f"card ({label}): {names}")
+    k4_names = [n for n in names if "k4_" in n]
+    check(len(k4_names) == 2 and "k4_split" in k4_names[0]
+          and "k4_combine" in k4_names[1],
+          f"attention_decode launched K4 as {k4_names}, not its two passes")
+    attn = [n for n in names if re.search(
+        r"gemm|softmax|reduce|sdpa|flash|fmha|attention|xmma|nvjet", n,
+        re.I)]
+    check(not attn, f"attention_decode launched PyTorch attention: {attn}")
+    return len(names)
+
+
+def phase_k4_contiguous(dev):
+    """K4 at ``K4_CONTIG``: both routes against the plain version to
+    ``K4_NORM_TOL`` (f32 through simt), the split route twice bit for bit;
+    then device times (graph_ms) of the split route, the plain version and
+    SDPA with the position mask (the same function here) beside the
+    bound.  Returns {label: numbers} for the K4 row's ``shapes``."""
+    import torch
+    from repro_torch.kernels import paged_decode as k4
+    shapes = {}
+    for label, curs, L, nq, nkv, window in K4_CONTIG:
+        for dname in ("float32", "bfloat16"):
+            args = k4_contig_case(dev, curs, L, nq, nkv,
+                                  getattr(torch, dname), seed=len(label))
+            call = functools.partial(k4_call, k4, args, None, window, "out")
+            want = call(plain=True)
+            for way in (("split", "simt") if dname == "bfloat16"
+                        else ("simt",)):
+                got = call(force=way)
+                torch.cuda.synchronize()
+                errs = k4_errs(got, want)
+                print(f"[3] K4 {label:32s} {dname:8s} {way:5s} "
+                      f"out {errs['out']:.2e} (max abs "
+                      f"{abs_err(got['out'], want['out']):.2e})")
+                check(errs["out"] <= K4_NORM_TOL[dname]["out"],
+                      f"K4 {label} {dname} {way}: {errs}")
+                if way == "split":
+                    again = call(force=way)
+                    check(torch.equal(got["out"], again["out"]),
+                          f"K4 {label} split: two runs differ")
+                    worst = abs_err(got["out"], want["out"])
+        check(k4.route_for(args[0], args[1], args[2], args[3], 16)
+              == "split", f"K4 {label}: bf16 does not take the split route")
+        sdpa = k4_contig_sdpa(args, L, window)
+        sdpa_err = norm_err(sdpa(), want["out"])
+        check(sdpa_err <= 1e-2, f"K4 {label}: SDPA with the position mask "
+              f"is not the same function ({sdpa_err:.2e})")
+        valid = [min(c + 1, L, window or L) for c in curs]
+        t = {"ms": graph_ms(lambda: k4.paged_flash_decode(
+                 *args, block=16, window=window), 200),
+             "plain_ms": graph_ms(lambda: k4.paged_flash_decode_plain(
+                 *args, block=16, window=window), 20),
+             "library_ms": graph_ms(sdpa, 200), "max_abs_err": worst,
+             "sdpa_norm_err": sdpa_err}
+        t["bound_ms"], t["bound_by"] = k4_bound(valid, L // 16, 0, 2,
+                                                nq=nq, nkv=nkv)
+        shapes[label] = t
+        print(f"[3] K4 {label} (B {len(curs)}, {nq}/{nkv} heads, L {L}, "
+              f"positions {min(curs)}-{max(curs)}, bf16, identity table): "
+              f"device ms (graph_ms) split {t['ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, SDPA with the position mask (the same "
+              f"function; ||SDPA - plain|| / ||plain|| {sdpa_err:.1e}) "
+              f"{t['library_ms']:.4f}; bound {t['bound_ms']:.4f} "
+              f"({t['bound_by']}, {t['bound_ms'] / t['ms'] * 100:.1f}% of "
+              f"it)")
+    return shapes
+
+
 def phase_k4(dev):
     import torch
     from repro_torch.kernels import paged_decode as k4
@@ -769,12 +983,15 @@ def phase_k4(dev):
               f"{t['split_host_ms']:.4f}, simt {t['simt_host_ms']:.4f}; "
               f"contiguous SDPA, not the same function, "
               f"{t['sdpa_contiguous_ms']:.4f}")
+    shapes.update(phase_k4_contiguous(dev))
+    contig_kernels = k4_contig_layer_kernels(dev)
     serve = shapes["serve"]
     return {"ms": serve["split_ms"], "plain_ms": serve["plain_ms"],
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
             "library_ms": None, "simt_ms": serve["simt_ms"],
             "launch_floor_ms": floor, "max_abs_err": max(worst.values()),
-            "decode_layer_kernels": layer_kernels, "shapes": shapes}
+            "decode_layer_kernels": layer_kernels,
+            "contiguous_layer_kernels": contig_kernels, "shapes": shapes}
 
 
 # K3: the limits on ||got - want|| / ||want|| against the plain version,
@@ -1699,12 +1916,12 @@ def read_launches():
             "K5 bwd": k5.launches_bwd}
 
 
-def check_k4_routes(launches, label):
-    """The K4 launches of the serving run by route: every bf16 decode step
+def check_k4_routes(launches, label, tag="7"):
+    """The K4 launches of a serving run by route: every bf16 decode step
     takes split, none simt, each with its combine pass."""
     from repro_torch.kernels import paged_decode as k4
     routes = dict(k4.launches_by_route)
-    print(f"[7] K4 launches by route in the {label}: {routes}, combine "
+    print(f"[{tag}] K4 launches by route in the {label}: {routes}, combine "
           f"passes {launches['K4 combine']}")
     check(routes["simt"] == 0, f"{label}: {routes['simt']} bf16 K4 "
           "launches took the simt route")
@@ -1752,7 +1969,444 @@ def phase_serve(card, k4_serve_ms):
           f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
           f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} tok/s")
-    return launches, routes, k2_routes, k4_routes
+    return launches, routes, k2_routes, k4_routes, stats["ttft_p50_s"] * 1e3
+
+
+def serve_requests(n, shared=256, max_new=32):
+    """``launch/serve.py``'s synthetic requests: a common prefix of
+    ``shared`` tokens and a tail of 3-7."""
+    from repro_torch.serve import Request
+    common = [3 + j % 13 for j in range(shared)]
+    return [Request(uid=i, prompt=common + [2 + (i + j) % 17
+                                            for j in range(3 + i % 5)],
+                    max_new=max_new) for i in range(n)]
+
+
+def served_model(dev, dtype_name="bfloat16", n_layers=None, n=8,
+                 max_new=32):
+    """Full-width tinyllama-1.1b (cut to ``n_layers``) with weights from
+    seed 0, as ``launch/serve.py`` draws them, an engine factory of batch
+    8 and max_len 512 over them, and the plain engine's tokens for
+    ``serve_requests(n, max_new=max_new)``: (cfg, layout, params,
+    engine(**kw), tokens).  Built once and shared by phases 7p, 7g and
+    7s."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine
+    cfg = dataclasses.replace(get("tinyllama-1.1b"),
+                              n_layers=n_layers or LAYERS, dtype=dtype_name)
+    layout = ParallelPlan().validate(mode="serve").build()
+    params = init_params(transformer.abstract_params(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev,
+                         getattr(torch, dtype_name))
+
+    def engine(**kw):
+        return Engine(cfg, layout, params, batch_size=8, max_len=512, **kw)
+    plain = serve_requests(n, max_new=max_new)
+    engine().run(plain)
+    return cfg, layout, params, engine, [r.out for r in plain]
+
+
+def equal_share(got, want):
+    """The share of emitted tokens equal to the plain engine's, position by
+    position."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    return same / max(1, sum(len(w) for w in want))
+
+
+# zamba2 served (phase 7z): every step is a decode step (sequential
+# prefill); per step K1 runs the 5 linears of each Mamba layer, the 7 of
+# each shared-block use and the head, K3 the 2 norms of each Mamba layer
+# and of each use and ln_f, K4 the attention of each use (with its combine
+# pass)
+Z_SERVE_STEP = {"K1": 5 * Z_LAYERS + 7 * Z_SHARED + 1,
+                "K2": 0, "K2 bwd": 0,
+                "K3": 2 * Z_LAYERS + 2 * Z_SHARED + 1, "K3 bwd": 0,
+                "K4": Z_SHARED, "K4 combine": Z_SHARED, "K5": 0,
+                "K5 bwd": 0}
+
+
+def param_bytes(tree):
+    """Bytes of a tree of Params, bf16 where a leaf pins no dtype."""
+    import torch
+    from repro_torch.core.params import tree_leaves
+    return sum(math.prod(p.shape) * (p.dtype or torch.bfloat16).itemsize
+               for p in tree_leaves(tree))
+
+
+def zamba2_step_bytes(prompts, max_new, block=16, L=512):
+    """(bytes per step on average, steps, parts) of 7z's decode steps,
+    each input read once and each output written once: the weights (of the
+    embedding only the slots' rows), and for each slot still running its
+    f32 recurrent state and conv tails read and written and, in each use
+    of the shared block, the kv entries K4 attends (as ``k4_bound`` counts
+    them: q in and out, the valid K and V, the positions of the table's
+    columns, the table and cur) with the new entry written.  A slot of
+    prompt p runs p + max_new - 1 steps, its context t + 1 at step t."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    params = transformer.abstract_params(get("zamba2-1.2b"))
+    weights = param_bytes(params) - param_bytes({"e": params["embed"]})
+    state = Z_LAYERS * Z_NH * 64 * Z_N * 4
+    conv = Z_LAYERS * (Z_CONV - 1) * (Z_DIN + 2 * Z_G * Z_N) * 4
+    entry = Z_HEADS * DH * 2 * 2                 # one position's K and V
+    runs = [p + max_new - 1 for p in prompts]
+    steps, slot_steps = max(runs), sum(runs)
+    kv = Z_SHARED * sum(
+        Z_HEADS * DH * 2 * 2 + t * entry + entry
+        + (L // block) * (block + 1) * 4 + 4
+        for n in runs for t in range(1, n + 1))
+    parts = {"weights": steps * weights, "embed rows": slot_steps * D * 2,
+             "state": slot_steps * 2 * state, "conv tails":
+             slot_steps * 2 * conv, "shared-block kv": kv}
+    return sum(parts.values()) / steps, steps, {
+        k: v / steps for k, v in parts.items()}
+
+
+def phase_serve_zamba2(card):
+    """``repro_torch.launch.serve`` serves zamba2-1.2b at full depth and
+    width in bf16, weights from a seed: 8 requests in batch 8, prompts of
+    43-47 tokens fed one a step, 32 new tokens each, max_len 512, greedy.
+    The launch counters reset just before and read just after; the
+    launches per step are exact, and no bf16 GEMM or decode attention
+    takes simt.  Returns the launcher's engine too, for the breakdown."""
+    import torch
+    from repro_torch.kernels import paged_decode as k4
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+    built, run = [], Engine.run
+
+    def keep(self, *args, **kw):                 # the launcher's engine
+        built.append(self)
+        return run(self, *args, **kw)
+    Engine.run = keep
+    reset_launches()
+    try:
+        stats = serve.main(["--arch", "zamba2-1.2b", "--device", "cuda",
+                            "--requests", "8", "--batch-size", "8",
+                            "--shared-prefix", "40", "--max-new", "32",
+                            "--max-len", "512"])
+        torch.cuda.synchronize()
+    finally:
+        Engine.run = run
+    launches = read_launches()
+    steps = stats["decode_steps"]
+    want = {k: n * steps for k, n in Z_SERVE_STEP.items()}
+    print(f"[7z] launches in the zamba2 serving run: {launches} over "
+          f"{stats['prefill_steps']} prefill + {steps} decode steps "
+          f"(expected {want})")
+    check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
+          f"zamba2 serving run: {stats['tokens']} tokens, "
+          f"{stats['completed']} done")
+    check(stats["nonfinite_rows"] == 0,
+          f"zamba2 serving run: {stats['nonfinite_rows']} non-finite rows")
+    check(stats["prefill_steps"] == 0 and launches == want,
+          f"zamba2 serving run launches {launches} != {want}")
+    routes = check_k1_routes(launches, "7z", "zamba2 serving run")
+    k4_routes = dict(k4.launches_by_route)
+    check(k4_routes["simt"] == 0 and k4_routes["split"] == launches["K4"],
+          f"zamba2 serving run: K4 routes {k4_routes}")
+    step_bytes, want_steps, parts = zamba2_step_bytes(
+        [len(r.prompt) for r in serve_requests(8, shared=40)], 32)
+    check(steps == want_steps, f"zamba2 serving run: {steps} decode steps, "
+          f"the bound counts {want_steps}")
+    bound = step_bytes / H100_BYTES_PER_S * 1e3
+    print(f"[7z] serving zamba2-1.2b bf16, 8 requests (prompts 43-47 fed one "
+          f"a step) x 32 new tokens on {card}: TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
+          f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
+          f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} "
+          f"tok/s; a step's bound on average {bound:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
+          + " a step, at 3.35 TB/s)")
+    return launches, routes, k4_routes, built[0], {
+        "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
+        "tpot_p50_ms": stats["tpot_p50_s"] * 1e3,
+        "tok_per_s": stats["tok_per_s"], "step_bound_ms": bound}
+
+
+def phase_two_layer_zamba2_serve(dev):
+    """Phase 12's model (full-width zamba2 cut to [mamba, mamba, attn],
+    f32, the same seeded weights) through the decode path: a 16-token
+    sequential prefill and 8 greedy decode steps of 2 slots, CPU (plain
+    versions) against the card (kernels): logits within 1e-4 of 1 + max
+    at every step, the same greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import paged_decode as k4
+    from repro_torch.models import transformer
+    from repro_torch.serve.kvcache import cache_with_dtype
+    base = get("zamba2-1.2b")
+    cfg = dataclasses.replace(base, n_layers=2, dtype="float32",
+                              ssm=dataclasses.replace(base.ssm, attn_every=2))
+    layout = ParallelPlan().validate(mode="serve").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(2), "cpu", torch.float32)
+    rng = np.random.default_rng(2)
+    m = cpu["stack"]["mamba"]
+    for k in ("dt_bias", "A_log", "D"):
+        m[k] += torch.from_numpy(0.3 * rng.standard_normal(m[k].shape)
+                                 .astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+    tree = cache_with_dtype(transformer.abstract_cache(cfg, layout, 2, 512),
+                            torch.float32)
+    res = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d), cpu)
+        cache = init_params(tree, None, d)
+        before = k4.launches
+        logits, toks = [], []
+        tok = prompt[:, :1]
+        for t in range(16 + 8):
+            lg, cache = transformer.forward(
+                cfg, layout, params, {"token": tok.to(d),
+                                      "pos": torch.full((2,), t,
+                                                        dtype=torch.int32,
+                                                        device=d)},
+                mode="decode", cache=cache)
+            lg = lg.float().cpu()
+            logits.append(lg)
+            nxt = lg.argmax(-1)[:, None]
+            toks.append(nxt)
+            tok = prompt[:, t + 1:t + 2] if t + 1 < 16 else nxt
+        res[str(d)] = (torch.stack(logits), torch.cat(toks, 1),
+                       k4.launches - before)
+    (l_cpu, t_cpu, n_cpu), (l_dev, t_dev, n_dev) = res["cpu"], res[str(dev)]
+    err = ((l_dev - l_cpu).abs().amax(dim=(1, 2))
+           / (1 + l_cpu.abs().amax(dim=(1, 2))))
+    print(f"[12s] zamba2 [mamba, mamba, attn] full width f32 decode path (2 "
+          f"slots, 16 prompt tokens one a step, 8 greedy steps): logits max "
+          f"|card - cpu| / (1 + max |cpu|) per step, worst "
+          f"{err.max().item():.1e} (tol 1e-4); greedy tokens equal "
+          f"{torch.equal(t_cpu[:, 15:], t_dev[:, 15:])}; K4 launches cpu "
+          f"{n_cpu}, card {n_dev}")
+    check(n_cpu == 0 and n_dev == 24, f"zamba2 decode path: K4 launches "
+          f"cpu {n_cpu}, card {n_dev} (expected 0 and 24)")
+    check(err.max().item() <= 1e-4 and torch.isfinite(l_dev).all(),
+          f"zamba2 decode path logits: {err.tolist()}")
+    check(torch.equal(t_cpu[:, 15:], t_dev[:, 15:]),
+          f"zamba2 decode path greedy tokens differ: {t_cpu} vs {t_dev}")
+
+
+def check_equal_tokens(f32, tag, label, passes=1, draft_layers=False,
+                       mid_chain=False, **kw):
+    """The f32 equality check on ``f32`` (``served_model``'s full-width
+    tinyllama cut to 4 layers, 4 requests with a shared 256-token prefix x
+    8 new tokens): the engine of ``kw``, with a draft of ``draft_layers``
+    layers (None: the target itself; False: none), run ``passes`` times,
+    gives the plain engine's tokens; with ``mid_chain``, some verify also
+    rejects a draft after accepting the one before it."""
+    cfg, layout, params, engine, base = f32
+    if draft_layers is not False:
+        kw["draft"] = draft_for(cfg, layout, params, draft_layers)
+    eng = engine(**kw)
+    rounds = spec_rounds(eng) if "draft" in kw else None
+    for i in range(passes):
+        reqs = serve_requests(4, max_new=8)
+        st = eng.run(reqs)
+        same = [r.out for r in reqs] == base
+        print(f"[{tag}] f32 4-layer {label}, pass {i + 1}: tokens equal to "
+              f"the plain engine's: {same}"
+              + (f" (prefix hits {st['prefix_hits']})" if kw.get(
+                  "prefix_cache") else "")
+              + (f" (accepted mean {st['accepted_mean']:.2f}; chains by "
+                 f"outcome {chains(rounds, kw['draft'].gamma)})"
+                 if rounds is not None else ""))
+        check(same, f"{label} pass {i + 1}: {[r.out for r in reqs]} != "
+              f"{base}")
+    if mid_chain:
+        by = chains(rounds, kw["draft"].gamma)
+        check(by["rejected mid-chain"] > 0, f"{label}: no verify rejected "
+              f"a draft after accepting the one before it: {by}")
+
+
+def spec_rounds(eng):
+    """Records (accepted, limit) of each active row of every verify the
+    engine runs."""
+    rec, verify = [], eng._verify
+
+    def recording(*args):
+        out = verify(*args)
+        length, limit = args[6], args[9]
+        rec.extend((a, lim) for a, lim, n in zip(
+            out[0].tolist(), limit.tolist(), length.tolist()) if n)
+        return out
+    eng._verify = recording
+    return rec
+
+
+def chains(rounds, gamma):
+    """Verified chains by outcome: every draft within the limit accepted,
+    the first rejected, or one rejected after the one before it was
+    accepted (0 < accepted < min(γ, limit))."""
+    by = dict.fromkeys(("all accepted", "first rejected",
+                        "rejected mid-chain"), 0)
+    for a, lim in rounds:
+        by["all accepted" if a == min(gamma, lim) else
+           "first rejected" if a == 0 else "rejected mid-chain"] += 1
+    return by
+
+
+def draft_for(cfg, layout, params, n_layers, gamma=4):
+    """The target itself (``n_layers`` None) or the target cut to its
+    first ``n_layers`` layers, sharing embed and head, as a draft."""
+    from repro_torch.core.params import tree_map
+    from repro_torch.serve.speculate import DraftSpec
+    if n_layers is None:
+        return DraftSpec(cfg, layout, params, gamma=gamma)
+    cut = dict(params, stack=tree_map(lambda t: t[:n_layers],
+                                      params["stack"]))
+    return DraftSpec(dataclasses.replace(cfg, n_layers=n_layers), layout,
+                     cut, gamma=gamma)
+
+
+def phase_prefix(bf16, f32, card, ttft7_ms):
+    """The prefix cache: tinyllama-1.1b bf16 (``bf16``, from
+    ``served_model``) serves phase 7's 8 requests (a shared 256-token
+    prefix) twice on one engine with prefix_cache=True; the second pass
+    must hit 8 times.  Tails prefill through extend over the gathered view
+    (PyTorch attention, so no K2), decode through K4 split.  Then the f32
+    equality check."""
+    import torch
+    *_, engine, plain = bf16
+    eng = engine(prefix_cache=True)
+    out = []
+    reset_launches()
+    for i in range(2):
+        reqs = serve_requests(8)
+        st = eng.run(reqs)
+        check(st["tokens"] == 8 * 32 and st["nonfinite_rows"] == 0,
+              f"prefix pass {i + 1}: {st['tokens']} tokens, "
+              f"{st['nonfinite_rows']} non-finite rows")
+        share = equal_share([r.out for r in reqs], plain)
+        out.append({"ttft_p50_ms": st["ttft_p50_s"] * 1e3,
+                    "tok_per_s": st["tok_per_s"],
+                    "prefix_hits": st["prefix_hits"],
+                    "tokens_reused": st["prefix_tokens_reused"],
+                    "equal_share": share})
+        print(f"[7p] prefix cache pass {i + 1} on {card}: prefix hits "
+              f"{st['prefix_hits']}/{st['prefix_lookups']}, "
+              f"{st['prefix_tokens_reused']} tokens reused; TTFT p50 "
+              f"{st['ttft_p50_s'] * 1e3:.1f} ms (phase 7 without the cache "
+              f"{ttft7_ms:.1f} ms), TPOT p50 {st['tpot_p50_s'] * 1e3:.2f} "
+              f"ms, {st['tok_per_s']:.1f} tok/s; bf16 tokens equal to the "
+              f"plain engine's: {share * 100:.1f}%")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[7p] launches over both passes: {launches}")
+    check(out[1]["prefix_hits"] == 8,
+          f"prefix cache: warm pass hit {out[1]['prefix_hits']} of 8")
+    check(launches["K2"] == 0 and launches["K4"] > 0,
+          f"prefix cache: launches {launches}")
+    check_k1_routes(launches, "7p", "prefix-cache runs")
+    check_k4_routes(launches, "prefix-cache runs", tag="7p")
+    check_equal_tokens(f32, "7p", "prefix cache", prefix_cache=True,
+                       passes=2)
+    return out
+
+
+def phase_gather(bf16, f32, card):
+    """The gather-view decode (``fused_decode=False``): tinyllama-1.1b bf16
+    serves phase 7's 8 requests decoding over each slot's gathered view
+    as a contiguous cache, so every decode attention is K4 split through
+    the identity table (exactly LAYERS a step); then the f32 equality
+    check."""
+    import torch
+    *_, engine, fused = bf16
+    reqs = serve_requests(8)
+    reset_launches()
+    st = engine(fused_decode=False).run(reqs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    share = equal_share([r.out for r in reqs], fused)
+    print(f"[7g] gather-view decode on {card}: TTFT p50 "
+          f"{st['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{st['tpot_p50_s'] * 1e3:.2f} ms, {st['tok_per_s']:.1f} tok/s; "
+          f"bf16 tokens equal to the fused decode's: {share * 100:.1f}%; "
+          f"launches {launches}")
+    check(st["tokens"] == 8 * 32 and st["nonfinite_rows"] == 0,
+          f"gather-view decode: {st['tokens']} tokens, "
+          f"{st['nonfinite_rows']} non-finite rows")
+    check(launches["K4"] == LAYERS * st["decode_steps"],
+          f"gather-view decode: K4 launches {launches['K4']} != "
+          f"{LAYERS} x {st['decode_steps']}")
+    check_k1_routes(launches, "7g", "gather-view run")
+    check_k4_routes(launches, "gather-view run", tag="7g")
+    check_equal_tokens(f32, "7g", "gather-view decode", fused_decode=False)
+    return {"tpot_p50_ms": st["tpot_p50_s"] * 1e3,
+            "tok_per_s": st["tok_per_s"], "equal_share": share,
+            "k4": launches["K4"]}
+
+
+def phase_spec(bf16, f32, card):
+    """Speculative decoding: tinyllama-1.1b bf16 serves phase 7's 8
+    requests with γ = 4 and two drafts, the target itself and the target
+    cut to its first LAYERS - 2 layers (sharing embed and head), which
+    agrees with it in part, so that chains are rejected in their middle.
+    Every decode step is a round: the draft's γ + 1 contiguous decode steps
+    (K4 split through the identity table) and the target's verify (an
+    extend: no paged decode).  Then the f32 equality check with the target
+    itself and with its first 3 of 4 layers as drafts, the latter with
+    mid-chain rejections."""
+    import torch
+    cfg, layout, params, engine, _ = bf16
+    gamma, out = 4, {}
+    for label, n in (("self", None), (f"{LAYERS - 2}-layer", LAYERS - 2)):
+        eng = engine(draft=draft_for(cfg, layout, params, n, gamma))
+        rounds = spec_rounds(eng)
+        reqs = serve_requests(8)
+        reset_launches()
+        st = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        steps = st["decode_steps"]
+        want_k4 = steps * (gamma + 1) * (n or LAYERS)
+        # the draft's γ + 1 contiguous decode steps a round; the rest of
+        # the run's K4 launches would be the target's paged decode
+        by_path = {"spec_draft": want_k4,
+                   "target_paged_decode": launches["K4"] - want_k4}
+        by_outcome = chains(rounds, gamma)
+        print(f"[7s] speculative, draft {label} on {card}: accepted mean "
+              f"{st['accepted_mean']:.2f} of {gamma} over {st['spec_steps']}"
+              f" verifies in {steps} rounds, chains by outcome {by_outcome}; "
+              f"{st['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{st['ttft_p50_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{st['tpot_p50_s'] * 1e3:.2f} ms; K4 launches by path "
+              f"{by_path} (expected {want_k4} from the draft); all "
+              f"launches {launches}")
+        check(st["tokens"] == 8 * 32 and st["completed"] == 8
+              and st["nonfinite_rows"] == 0,
+              f"speculative {label}: {st['tokens']} tokens, "
+              f"{st['nonfinite_rows']} non-finite rows")
+        check(by_path["target_paged_decode"] == 0,
+              f"speculative {label}: K4 launches {launches['K4']} != "
+              f"{want_k4} (the draft's)")
+        check_k1_routes(launches, "7s", f"speculative run ({label})")
+        check_k4_routes(launches, f"speculative run ({label})", tag="7s")
+        out[label] = {"accepted_mean": st["accepted_mean"],
+                      "chains": by_outcome, "tok_per_s": st["tok_per_s"],
+                      "k4_by_path": by_path}
+    # the clamp to max_new caps the last round of each request, and bf16
+    # decode and extend may round an argmax apart, so not every draft of
+    # the target's own is accepted
+    check(out["self"]["accepted_mean"] >= 1.0,
+          f"the target as its own draft accepted only "
+          f"{out['self']['accepted_mean']:.2f} of {gamma}")
+    cut = out[f"{LAYERS - 2}-layer"]["chains"]
+    check(cut["rejected mid-chain"] > 0, f"the {LAYERS - 2}-layer draft: "
+          f"no chain was rejected in its middle: {cut}")
+    check_equal_tokens(f32, "7s", "speculative, draft self",
+                       draft_layers=None)
+    check_equal_tokens(f32, "7s", "speculative, 3-layer draft",
+                       draft_layers=3, mid_chain=True)
+    return out
 
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
@@ -1813,6 +2467,8 @@ def kernel_group(name: str) -> str:
     # route's kernel); matched before the library's gemm names
     if re.search(r"(^|[^A-Za-z0-9_])k1_", name) or "matmul_kernel" in name:
         return "K1 matmul (forward linears and their recompute)"
+    if "k4_" in name or "paged_decode" in name:
+        return "K4 decode attention"
     # the tc route's kernels (k2_tc_*) and the simt route's (fa_*)
     if "k2_tc_fwd" in name or "fa_fwd" in name:
         return "K2 forward (and its recompute)"
@@ -1832,7 +2488,6 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
     synchronised).  A profiler that sees no device kernel leaves the
     breakdown unmeasured; it does not fail the run."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import OptimConfig, ShapeConfig
     from repro_torch.configs.registry import get
@@ -1864,10 +2519,20 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(math.isfinite(met["loss"].item()), "breakdown step: loss")
+    return report_breakdown(prof, wall_ms, tag, f"one {arch} training step "
+                            f"(batch {TRAIN_B} x {TRAIN_S})", card)
+
+
+def report_breakdown(prof, wall_ms, tag, what, card):
+    """Device time of a profiled window by kernel group, the union of the
+    kernels' intervals (device busy) and the idle share against the
+    window's wall time.  A profiler that saw no device kernel leaves it
+    unmeasured (None)."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print(f"[{tag}] torch.profiler saw no device kernels on {card}: the"
-              f" {arch} step's breakdown is not measured")
+        print(f"[{tag}] torch.profiler saw no device kernels on {card}: "
+              f"{what}'s breakdown is not measured")
         return None
     groups, spans, names = {}, [], {}
     for e in kernels:
@@ -1884,15 +2549,50 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
             busy += b - max(a, end)
             end = b
     busy_ms = busy / 1e3
-    print(f"[{tag}] one {arch} training step (batch {TRAIN_B} x {TRAIN_S}) "
-          f"under torch.profiler on {card}: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    print(f"[{tag}] {what} under torch.profiler on {card}: wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
     for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {g}: {ms:.1f} ms in {n} kernels "
               f"({ms / wall_ms * 100:.1f}% of the step)")
     for name, ms in sorted(names.items(), key=lambda kv: -kv[1])[:4]:
         print(f"    largest in other: {name[:90]}: {ms:.1f} ms")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "groups": groups}
+
+
+def phase_decode_breakdown_zamba2(eng, card):
+    """Where the time of one zamba2-1.2b decode step goes, on phase 7z's
+    engine's weights (8 slots, bf16, weights from seed 0) and a fresh
+    cache 40 tokens in: torch.profiler's device time by kernel group
+    against the step's synchronised wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.params import init_params
+    from repro_torch.models import transformer
+    from repro_torch.serve.kvcache import cache_with_dtype
+    cfg, layout, params, dev = eng.cfg, eng.layout, eng.params, eng.device
+    cache = init_params(cache_with_dtype(
+        transformer.abstract_cache(cfg, layout, 8, 512), torch.bfloat16),
+        None, dev)
+    tok = torch.full((8, 1), 7, dtype=torch.long, device=dev)
+
+    def step(t):
+        pos = torch.full((8,), t, dtype=torch.int32, device=dev)
+        return transformer.forward(cfg, layout, params,
+                                   {"token": tok, "pos": pos},
+                                   mode="decode", cache=cache)[0]
+    for t in range(40):
+        step(t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits = step(40)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.isfinite(logits).all().item(), "zamba2 decode step: logits")
+    return report_breakdown(prof, wall_ms, "7z", "one zamba2-1.2b decode "
+                            "step (8 slots)", card)
 
 
 def main():
@@ -1938,28 +2638,45 @@ def main():
     timed(phase_two_layer_train, dev, "paper-transformer", seed=6, rows=1,
           seq=256)
     timed(phase_two_layer_train, dev, "gemma-2b", seed=7, rows=1, seq=256)
-    serve_launches, serve_routes, serve_k2, serve_k4 = timed(
+    serve_launches, serve_routes, serve_k2, serve_k4, ttft7 = timed(
         phase_serve, card, k4_numbers["ms"])
+    bf16 = timed(served_model, dev)
+    f32 = timed(served_model, dev, "float32", 4, n=4, max_new=8)
+    prefix_numbers = timed(phase_prefix, bf16, f32, card, ttft7)
+    gather_numbers = timed(phase_gather, bf16, f32, card)
+    spec_numbers = timed(phase_spec, bf16, f32, card)
+    del bf16, f32
+    spec_k4 = sum(v["k4_by_path"]["spec_draft"]
+                  for v in spec_numbers.values())
+    zserve_launches, zserve_routes, zserve_k4, zserve_eng, \
+        zserve_numbers = timed(phase_serve_zamba2, card)
+    zserve_numbers["breakdown"] = timed(phase_decode_breakdown_zamba2,
+                                        zserve_eng, card)
+    del zserve_eng
     train_launches, train_routes, train_k2 = timed(phase_train, card)
     timed(phase_breakdown, dev, card)
     k1_train, k1_train_err = timed(phase_k1_train, dev)
     k5_numbers = timed(phase_k5, dev)
     timed(phase_two_layer_zamba2, dev)
+    timed(phase_two_layer_zamba2_serve, dev)
     zamba_launches, zamba_routes, zamba_k2 = timed(
         phase_train, card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES, tag="13")
     timed(phase_breakdown, dev, card, "zamba2-1.2b", tag="14")
 
-    def launched(*names):
-        by = {path: sum(counts[n] for n in names) for path, counts in
-              (("serve", serve_launches), ("train", train_launches),
-               ("train_zamba2", zamba_launches))}
+    paths = (("serve", serve_launches), ("train", train_launches),
+             ("train_zamba2", zamba_launches),
+             ("serve_zamba2", zserve_launches))
+
+    def launched(*names, **more):
+        by = {path: sum(counts[n] for n in names) for path, counts in paths}
+        by.update(more)
         return dict(launches=sum(by.values()), launches_by_path=by)
     k1_tc, k1_dec = k1_numbers["tc"], k1_numbers["decode"]
     for arch, agg in k1_train.items():
         k1_tc.update({f"train_{arch}_{k}": v for k, v in agg.items()})
     k1_tc["max_abs_err"] = max(k1_tc["max_abs_err"], k1_train_err)
     by_route = {r: serve_routes[r] + train_routes[r] + zamba_routes[r]
-                for r in serve_routes}
+                + zserve_routes[r] for r in serve_routes}
     k2_by_route = {key: {r: sum(p[key][r] for p in (serve_k2, train_k2,
                                                     zamba_k2))
                          for r in serve_k2[key]} for key in serve_k2}
@@ -1967,7 +2684,8 @@ def main():
     def k1_launched(route):
         by = {path: routes[route] for path, routes in
               (("serve", serve_routes), ("train", train_routes),
-               ("train_zamba2", zamba_routes))}
+               ("train_zamba2", zamba_routes),
+               ("serve_zamba2", zserve_routes))}
         return dict(launches=sum(by.values()), launches_by_path=by,
                     launches_by_route=by_route)
     ratios = {"decode step": k1_dec["ms"] / k1_dec["library_ms"],
@@ -2005,8 +2723,15 @@ def main():
                     "(split), src/repro_torch/kernels/csrc/paged_decode.cu "
                     "(simt)",
              replaces="src/repro/kernels/paged_decode.py:72",
-             **launched("K4"), launches_by_route=serve_k4,
-             launches_combine=serve_launches["K4 combine"], **k4_numbers),
+             **launched("K4", spec_draft=spec_k4,
+                        serve_gather_view=gather_numbers["k4"]),
+             launches_by_route={r: serve_k4[r] + zserve_k4[r] + (
+                 spec_k4 + gather_numbers["k4"] if r == "split" else 0)
+                 for r in serve_k4},
+             launches_combine=(serve_launches["K4 combine"]
+                               + zserve_launches["K4 combine"] + spec_k4
+                               + gather_numbers["k4"]),
+             **k4_numbers),
         dict(name="K5 ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:23",
@@ -2022,10 +2747,14 @@ def main():
              "library_fwd_device_ms", "fwd_host_ms", "bwd_host_ms",
              "bwd_kernels_ms", "library_bwd_ms", "norm_err", "kernels_ms",
              "shapes", "launch_floor_ms", "launches_combine",
-             "decode_layer_kernels") + tuple(
+             "decode_layer_kernels", "contiguous_layer_kernels") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))
+    print("serving paths: " + json.dumps({
+        "prefix_cache": prefix_numbers, "gather_view": gather_numbers,
+        "speculative": spec_numbers,
+        "serve_zamba2": zserve_numbers}))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

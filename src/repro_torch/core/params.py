@@ -19,7 +19,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Param:
     shape: Tuple[int, ...]
-    init: str = "fan_in"        # fan_in | zeros | ones | embed
+    init: str = "fan_in"        # fan_in | zeros | ones | neg_ones | embed
     fan_axis: int = -2          # contraction axis for fan_in scaling
     scale: float = 1.0
     dtype: Optional[torch.dtype] = None   # None: the model's dtype
@@ -42,15 +42,18 @@ def init_params(abstract, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.bfloat16):
     """Random weights for a tree of Params, such as
     ``transformer.abstract_params(cfg)``, drawn from ``generator``
-    (which must live on ``device``): N(0, scale) for embeddings,
-    N(0, scale / sqrt(fan_in)) for weights, ones and zeros for norms.
-    Leaves are in ``dtype`` except those whose Param pins its own."""
+    (which must live on ``device``; None for a tree of constants, such as
+    a decode cache): N(0, scale) for embeddings, N(0, scale / sqrt(fan_in))
+    for weights, ones and zeros for norms, -1 for cache positions.  Leaves
+    are in ``dtype`` except those whose Param pins its own."""
     def one(p: Param) -> torch.Tensor:
         dt = p.dtype or dtype
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dt, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dt, device=device)
+        if p.init == "neg_ones":
+            return torch.full(p.shape, -1, dtype=dt, device=device)
         std = p.scale
         if p.init == "fan_in":
             std = p.scale / math.sqrt(max(p.shape[p.fan_axis], 1))

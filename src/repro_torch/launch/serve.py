@@ -1,12 +1,16 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8``
-builds the continuous-batching engine (paged KV cache + chunked prefill)
-on one device, submits synthetic requests and reports the serving metrics
-(TTFT / TPOT p50/p95, tok/s).  Same flags as ``repro.launch.serve`` for the
-serving path this slice ports, plus ``--device {cuda,cpu}`` (default cuda:
-raises when no GPU is present unless ``--device cpu``).  Weights are drawn
-from ``--seed`` at the config's published shapes.  Exits nonzero when no
-tokens were produced.
+builds the continuous-batching engine on one device (the paged KV cache
+with chunked prefill for the dense family, the per-slot recurrent state
+with sequential prefill for zamba2), submits synthetic requests and
+reports the serving metrics (TTFT / TPOT p50/p95, tok/s, prefix hits,
+accepted drafts).  Same flags as ``repro.launch.serve`` for the paths the
+port has (``--prefix-cache``, ``--draft ARCH --spec-tokens N``,
+``--no-fused-decode``), plus ``--device {cuda,cpu}`` (default cuda: raises
+when no GPU is present unless ``--device cpu``).  Weights are drawn from
+``--seed`` at the config's published shapes, a draft's too (so a draft of
+the target's own arch is the target itself, as in the reference).
+Exits nonzero when no tokens were produced.
 """
 from __future__ import annotations
 
@@ -46,7 +50,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--inference-opt", action="store_true",
                     help="x-replicated decode weights (zero per-token gathers)")
     ap.add_argument("--no-fused-decode", action="store_true",
-                    help="gather-view decode (not in this slice: raises)")
+                    help="paged decode over gathered per-slot views instead "
+                         "of the fused block-table path")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=False,
+                    help="shared-prefix KV reuse: prompts whose prefix is "
+                         "resident enter by block reference (copy-on-write "
+                         "on partial-block divergence)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false")
+    ap.add_argument("--draft", default="",
+                    help="draft model arch for speculative decoding (greedy "
+                         "output stays identical to the non-speculative "
+                         "engine)")
+    ap.add_argument("--spec-tokens", type=int, default=4,
+                    help="draft tokens proposed per speculative step (γ)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common tokens to every "
                          "synthetic request")
@@ -67,6 +85,7 @@ def main(argv=None) -> dict:
     from repro_torch.obs import make_tracer
     from repro_torch.serve import Engine, Request
     from repro_torch.serve.metrics import format_summary
+    from repro_torch.serve.speculate import DraftSpec
 
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("--device cuda: no CUDA device is available (pass "
@@ -90,6 +109,16 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(transformer.abstract_params(cfg),
                          gen, device, getattr(torch, cfg.dtype))
+    draft = None
+    if args.draft:
+        dcfg = get(args.draft)
+        if args.reduced:
+            dcfg = reduced(dcfg)
+        dgen = torch.Generator(device=device).manual_seed(args.seed)
+        dparams = init_params(transformer.abstract_params(dcfg), dgen,
+                              device, getattr(torch, dcfg.dtype))
+        draft = DraftSpec(dcfg, layout, dparams, gamma=args.spec_tokens)
+        print(f"draft: {dcfg.arch}, gamma={args.spec_tokens}")
     tracer = make_tracer(bool(args.trace))
     eng = Engine(cfg, layout, params, batch_size=args.batch_size,
                  max_len=args.max_len, temperature=args.temperature,
@@ -97,7 +126,8 @@ def main(argv=None) -> dict:
                  block_size=args.block_size,
                  prefill_chunk=args.prefill_chunk,
                  chunked_prefill=not args.no_chunked_prefill,
-                 fused_decode=not args.no_fused_decode, tracer=tracer)
+                 fused_decode=not args.no_fused_decode,
+                 prefix_cache=args.prefix_cache, draft=draft, tracer=tracer)
     common = [3 + j % 13 for j in range(args.shared_prefix)]
     reqs = [Request(uid=i,
                     prompt=common + [2 + (i + j) % 17

@@ -12,9 +12,17 @@ Every block holds an even number of 3-D linears, so the direction state is
 restored at block exit (paper §3.2).  The attention islands are written for
 one device: their collectives go through ``core/comm.py``, which raises
 above axis size 1.
+
+Four attention paths: ``attention`` (prefill and training, K2),
+``attention_decode_paged`` (one token against the paged pool, K4),
+``attention_decode`` (one token against a contiguous per-slot cache, also
+K4: the cache is K4's pool laid out flat under the identity block table)
+and ``attention_extend`` (fresh tokens continuing past a cache view, plain
+PyTorch as the reference's is jnp outside any kernel).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -26,9 +34,11 @@ from ..core.linear3d import layernorm, plinear, rmsnorm
 from ..core.params import Param
 from ..core.topology import Dirs, Layout
 from ..kernels.flash_attention import flash_attention
-from ..kernels.paged_decode import paged_flash_decode_step
+from ..kernels.paged_decode import (paged_flash_decode,
+                                    paged_flash_decode_step)
 
 F32 = torch.float32
+NEG_INF = -1e30
 
 
 def norm_params(cfg: ModelConfig, d: int):
@@ -52,6 +62,17 @@ def dense_block_params(cfg: ModelConfig):
         mlp["w_gate"] = Param((d, cfg.d_ff))
     return {"ln1": norm_params(cfg, d), "attn": attn,
             "ln2": norm_params(cfg, d), "mlp": mlp}
+
+
+def kv_cache_init(cfg: ModelConfig, batch: int, length: int):
+    """Abstract contiguous KV cache of one layer (reference
+    ``blocks.py:kv_cache_init``; length = the window for sliding-window
+    configs): positions start at -1, every entry invalid."""
+    nkv, dh = cfg.n_kv, cfg.head_dim
+    return {"k": Param((batch, length, nkv, dh), init="zeros"),
+            "v": Param((batch, length, nkv, dh), init="zeros"),
+            "pos": Param((batch, length), init="neg_ones",
+                         dtype=torch.int32)}
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +147,83 @@ def attention_decode_paged(layout: Layout, cfg: ModelConfig, dirs: Dirs,
     return out[:, None], {"k": k_new[:, 0], "v": v_new[:, 0], "pos": pos}
 
 
+def contiguous_block(length: int) -> int:
+    """The K4 block that tiles a contiguous cache of ``length`` entries:
+    16 (the serving pool's block) where it divides, else the largest power
+    of two below it that does.  ``paged_decode.route`` takes the split
+    route from 8 up."""
+    return next(b for b in (16, 8, 4, 2, 1) if length % b == 0)
+
+
+def attention_decode(layout: Layout, cfg: ModelConfig, dirs: Dirs,
+                     q, k_new, v_new, cache, pos, *, window=0):
+    """One-token decode against a contiguous per-slot cache (reference
+    ``blocks.py:439-525`` at one device): write (k_new, v_new, pos) at
+    slot ``pos % L``, then attend every entry with ``0 <= cpos <= pos``
+    within the window.
+
+    The write comes first, so that a ring slot being overwritten is never
+    attended at its old position.  The cache (B, L, nkv, d) is then K4's
+    pool laid out flat, (B * L, nkv, d), under the identity block table
+    ``arange(B * L / blk).view(B, L / blk)``: no data moves, and
+    ``paged_flash_decode`` with ``cur = pos`` computes exactly the
+    reference's masked f32 softmax.
+
+    q: (B, 1, nq, d); k_new/v_new: (B, 1, nkv, d); cache: {"k", "v":
+    (B, L, nkv, d), "pos": (B, L) int32}, written in place; pos: (B,)
+    int32.  Returns (out (B, 1, nq, d), cache)."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    b, L = cpos.shape
+    rows = torch.arange(b, device=q.device)
+    slot = (pos % L).long()
+    ck[rows, slot] = k_new[:, 0].to(ck.dtype)
+    cv[rows, slot] = v_new[:, 0].to(cv.dtype)
+    cpos[rows, slot] = pos.to(cpos.dtype)
+    blk = contiguous_block(L)
+    tables = torch.arange(b * L // blk, dtype=torch.int32,
+                          device=q.device).view(b, L // blk)
+    out = paged_flash_decode(
+        q[:, 0].contiguous(), ck.view(b * L, *ck.shape[2:]),
+        cv.view(b * L, *cv.shape[2:]), cpos.view(b * L), tables,
+        pos.to(torch.int32).contiguous(), block=blk, window=window)
+    return out[:, None], cache
+
+
+def attention_extend(layout: Layout, cfg: ModelConfig, dirs: Dirs,
+                     q, k_new, v_new, cache, positions, *, window=0):
+    """Multi-token continuation (reference ``blocks.py:348-436`` at one
+    device): ``S`` fresh tokens per row at ``positions`` (B, S), -1 on
+    padding, attend the cache entries with ``cpos < positions[:, 0]`` and
+    each other causally by position, in one f32 softmax.  Nothing is
+    written; the engine scatters the returned (k, v) itself.
+
+    q/k_new/v_new: (B, S, n, d) rope'd; cache: one layer's view {"k", "v":
+    (B, L, nkv, d), "pos": (B, L)}.  Returns (B, S, nq, d) in q's dtype."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    b, sq, nq, d = q.shape
+    nkv = ck.shape[2]
+    qf = (q.to(F32) * (1.0 / math.sqrt(d))).reshape(b, sq, nkv, nq // nkv, d)
+    ka = torch.cat([ck.to(F32), k_new.to(F32)], dim=1)
+    va = torch.cat([cv.to(F32), v_new.to(F32)], dim=1)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qf, ka)
+    qpos = positions
+    live = (qpos >= 0)[:, :, None]
+    mc = ((cpos >= 0)[:, None, :] & (cpos[:, None, :] < qpos[:, :1, None])
+          & live)
+    ms = ((qpos >= 0)[:, None, :] & (qpos[:, None, :] <= qpos[:, :, None])
+          & live)
+    if window:
+        mc = mc & (qpos[:, :, None] - cpos[:, None, :] < window)
+        ms = ms & (qpos[:, :, None] - qpos[:, None, :] < window)
+    mask = torch.cat([mc, ms], dim=2)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p, va)
+    out = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, sq, nq, d).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Dense attention + MLP block
 # ---------------------------------------------------------------------------
@@ -138,8 +236,10 @@ def _act_fn(name: str):
 def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
                *, causal=True, window=0, decode=False, cache=None,
                return_kv=False, page=None):
-    """Self-attention sub-block.  Returns (out, new_cache): the layer's new
-    decode entries, or the rope'd (k, v) of a prefill when ``return_kv``."""
+    """Self-attention sub-block.  Returns (out, new_cache): with ``decode``
+    the layer's new entries (paged, ``page`` given) or its written cache
+    (contiguous); else the rope'd (k, v) when ``return_kv``.  A prefill
+    with a ``cache`` view is an extend."""
     dh = cfg.head_dim
     hx = layout.size(dirs.in_ax)
     kv_sf = cfg.n_kv % hx == 0 and cfg.n_kv >= hx
@@ -162,13 +262,19 @@ def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
 
     new_cache = None
     if decode:
-        if page is None:
-            raise ValueError("decode runs against the paged pool only: pass "
-                             "page=PageInfo(...)")
-        pvec = positions[:, 0] if positions.dim() > 1 else positions
-        out, new_cache = attention_decode_paged(
-            layout, cfg, dirs, q, k, v, cache, pvec.contiguous(), page,
-            window=window)
+        pvec = (positions[:, 0] if positions.dim() > 1 else positions)
+        pvec = pvec.to(torch.int32).contiguous()
+        if page is not None:
+            out, new_cache = attention_decode_paged(
+                layout, cfg, dirs, q, k, v, cache, pvec, page, window=window)
+        else:
+            out, new_cache = attention_decode(layout, cfg, dirs, q, k, v,
+                                              cache, pvec, window=window)
+    elif cache is not None:
+        out = attention_extend(layout, cfg, dirs, q, k, v, cache, positions,
+                               window=window)
+        if return_kv:
+            new_cache = (k, v)
     else:
         out = attention(layout, cfg, dirs, q, k, v, causal=causal,
                         window=window)

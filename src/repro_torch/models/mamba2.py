@@ -1,5 +1,5 @@
-"""Mamba2 (SSD) block, the training path (port of the train/prefill branch
-of ``repro/models/mamba2.py``).
+"""Mamba2 (SSD) block (port of ``repro/models/mamba2.py``): the
+train/prefill branch and the one-token decode branch.
 
 The four input projections and the output projection are the paper's 3-D
 linears (K1); the norms ``ln`` and ``gate_ln`` go through K3; the SSD scan
@@ -10,8 +10,13 @@ per-step log-decay dt * a, xbar = x * dt, the D skip.  At one device the
 reference's scan island (``shard_map`` gathering the sequence and slicing
 the heads) is the identity, so the block runs over all heads here.
 
-``ssd_step``, ``MambaCache`` and the decode branch belong to the serving
-slice of the state families and are not ported yet (ROADMAP.md).
+Serving decodes one token a step (``mamba_decode``, the reference's
+``decode=True`` branch) against a per-slot cache (``mamba_cache_init``):
+the f32 SSM state and the two conv tails.  ``ssd_step`` is the one-step recurrence,
+elementwise work and two small products per slot in f32, plain PyTorch on
+the card too (it reaches no kernel in the reference either); the norms
+(K3) and the five linears (K1, whose decode route takes M = batch) are
+the training path's.
 """
 from __future__ import annotations
 
@@ -73,6 +78,41 @@ def ssd_chunked(x, dt, A_log, B, C, D, chunk: int):
     return y + x.to(F32) * D.to(F32)[None, None, :, None]
 
 
+def ssd_step(state, x_t, dt_t, A_log, B_t, C_t, D):
+    """One decode step of the SSD in f32 (reference ``mamba2.py:92-107``):
+    decay = exp(softplus(dt) * -exp(A_log)), the rank-1 state update
+    state * decay + (x * dt) B^T, the C readout and the D skip.
+    state: (b, nh, dh, N); x_t: (b, nh, dh); dt_t: (b, nh); B_t, C_t: (b,
+    G, N).  Returns (y (b, nh, dh), new state), both f32."""
+    nh = state.shape[1]
+    rep = nh // B_t.shape[1]
+    a = -torch.exp(A_log.to(F32))
+    dtf = F.softplus(dt_t.to(F32))                        # (b, nh)
+    decay = torch.exp(dtf * a)
+    Bh = B_t.to(F32).repeat_interleave(rep, dim=1)        # (b, nh, N)
+    Ch = C_t.to(F32).repeat_interleave(rep, dim=1)
+    xbar = x_t.to(F32) * dtf[..., None]                   # (b, nh, dh)
+    new = (state.to(F32) * decay[..., None, None]
+           + xbar[..., :, None] * Bh[:, :, None, :])
+    y = torch.einsum("bhdn,bhn->bhd", new, Ch) \
+        + x_t.to(F32) * D.to(F32)[None, :, None]
+    return y, new
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int):
+    """Abstract decode cache of one Mamba2 layer, zeroed, f32 (reference
+    ``MambaCache`` and ``mamba_cache_init``, ``mamba2.py:121``, ``:268``):
+    "state" (B, nh, 64, N), "conv" (B, K - 1, d_inner), the x channel's
+    conv tail, and "conv_bc" (B, K - 1, 2 G N)."""
+    d_in, nh, G, N = mamba_dims(cfg)
+    K = cfg.ssm.d_conv
+    return {"state": Param((batch, nh, MAMBA_HEAD_DIM, N), init="zeros",
+                           dtype=F32),
+            "conv": Param((batch, K - 1, d_in), init="zeros", dtype=F32),
+            "conv_bc": Param((batch, K - 1, 2 * G * N), init="zeros",
+                             dtype=F32)}
+
+
 def causal_conv(x, w, b):
     """Depthwise causal conv with its SiLU, in f32 (reference
     ``mamba2.py:110-115``).  x: (b, T, C); w: (K, C); b: (C,)."""
@@ -118,3 +158,39 @@ def mamba_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p):
     y = rmsnorm(y * F.silu(zg.to(F32)).to(y.dtype), p["gate_ln"])
     out, _ = plinear(layout, d2, y, p["w_out"], kind="second")
     return x + out
+
+
+def mamba_decode(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, cache):
+    """One decode token through a pre-norm Mamba2 block with its residual
+    (the ``decode=True`` branch of reference ``mamba2.py:189-204``).
+    x: (B, 1, d); cache: one layer's ``mamba_cache_init`` leaves.  The conv runs
+    over [tail, new] with its SiLU, dt gets dt_bias, ``ssd_step`` advances
+    the state, and the tails shift by one.  Returns (x + out, the new
+    cache leaves)."""
+    if layout.n_devices != 1:
+        raise NotImplementedError(MULTI_RANK_TODO)
+    d_in, nh, G, N = mamba_dims(cfg)
+    b = x.shape[0]
+    h = rmsnorm(x, p["ln"])
+    xc, d2 = plinear(layout, dirs, h, p["w_x"], kind="first", decode=True)
+    zg, _ = plinear(layout, dirs, h, p["w_z"], kind="first", decode=True)
+    bc, _ = plinear(layout, dirs, h, p["w_bc"], kind="first", shard_f=False,
+                    decode=True)
+    dt, _ = plinear(layout, dirs, h, p["w_dt"], kind="first", shard_f=False,
+                    decode=True)
+    conv_in = torch.cat([cache["conv"], xc.to(F32)], dim=1)  # (B, K, d_in)
+    x_t = F.silu((conv_in * p["conv_x"].to(F32)[None]).sum(dim=1)
+                 + p["conv_x_b"].to(F32))
+    conv_bc_in = torch.cat([cache["conv_bc"], bc.to(F32)], dim=1)
+    bc_t = F.silu((conv_bc_in * p["conv_bc"].to(F32)[None]).sum(dim=1)
+                  + p["conv_bc_b"].to(F32))
+    B_t = bc_t[:, :G * N].reshape(b, G, N)
+    C_t = bc_t[:, G * N:].reshape(b, G, N)
+    dt_t = dt[:, 0].to(F32) + p["dt_bias"].to(F32)
+    y, state = ssd_step(cache["state"], x_t.reshape(b, nh, MAMBA_HEAD_DIM),
+                        dt_t, p["A_log"], B_t, C_t, p["D"])
+    y = y.reshape(b, 1, d_in).to(x.dtype)
+    y = rmsnorm(y * F.silu(zg.to(F32)).to(y.dtype), p["gate_ln"])
+    out, _ = plinear(layout, d2, y, p["w_out"], kind="second", decode=True)
+    return x + out, {"state": state, "conv": conv_in[:, 1:],
+                     "conv_bc": conv_bc_in[:, 1:]}

@@ -1,17 +1,21 @@
 """The hooks of ``repro/models/registry.py`` that the port's paths need,
 for the dense and hybrid families: the layer plan and its segments, the
-loss labels and mask, the microbatch weight, and the train-FLOPs estimate
-that is the MFU numerator (``obs/telemetry.py``).  The reference module
+decode-cache tree (``stack_cache``), the loss labels and mask, the
+microbatch weight, and the train-FLOPs estimate that is the MFU numerator
+(``obs/telemetry.py``).  The reference module
 imports jax, so the port keeps its own copies; ``tests/test_torch_train.py``
 and ``tests/test_torch_ssm.py`` hold them equal to the originals.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
 from ..config import Family, ModelConfig
+from .blocks import kv_cache_init
+from .mamba2 import mamba_cache_init
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -53,6 +57,32 @@ def segments(plan) -> Tuple[Tuple[str, int], ...]:
         else:
             segs.append([k, 1])
     return tuple((k, n) for k, n in segs)
+
+
+def _attn_cache(cfg: ModelConfig, batch: int, length: int):
+    """One attention layer's contiguous cache: ``L = min(length, window)``
+    (reference ``registry.py:274-278``)."""
+    L = min(length, cfg.window) if cfg.window else length
+    return kv_cache_init(cfg, batch, L)
+
+
+# the decode cache of one layer of each kind (reference registry.py:
+# BlockKind.cache); zamba2's shared block has one per use
+KIND_CACHES = {"dense": _attn_cache, "attn": _attn_cache,
+               "mamba": lambda cfg, batch, length:
+                   mamba_cache_init(cfg, batch)}
+
+
+def stack_cache(cfg: ModelConfig, batch: int, length: int):
+    """The decode-cache tree (reference ``registry.py:627-637``): one slab
+    per kind in plan order, each leaf stacked (n, ...) over the kind's n
+    layers, or its n uses for the shared "attn" kind."""
+    plan = layer_plan(cfg)
+    return {kind: {name: dataclasses.replace(p, shape=(plan.count(kind),
+                                                       *p.shape))
+                   for name, p in KIND_CACHES[kind](cfg, batch,
+                                                    length).items()}
+            for kind in dict.fromkeys(plan)}
 
 
 def text_labels(batch):

@@ -23,14 +23,18 @@ no transposes.
 differentiable in every parameter: embedding, the layer plan (dense
 blocks, or zamba2's Mamba2 blocks and its shared attention block; each
 block recomputed in the backward when ``cfg.remat``), ``ln_f`` and the
-chunked vocab-parallel head and cross-entropy.  ``prefill`` runs whole
-right-padded prompts and hands their rope'd (k, v) to the paged pool;
-``forward(mode="decode", page=...)`` advances every slot by one token
-against that pool.  The reference scans stacked layer parameters
-(``registry.run_stack``); PyTorch runs eagerly, so here the layer plan is a
-Python loop over one ``torch.unbind`` of each stacked leaf, whose backward
-is a single stack (indexing a layer out of a stack would build a full-size
-zero gradient per layer).
+chunked vocab-parallel head and cross-entropy.  Serving: ``prefill`` runs
+whole right-padded prompts and hands their rope'd (k, v) to the paged
+pool; ``forward(mode="decode")`` advances every slot by one token, against
+that pool (``page=...``) or against a contiguous per-slot cache tree
+(``abstract_cache``: zamba2's recurrent state and shared-block caches, the
+speculative draft's cache, the gather-view decode); ``extend`` continues
+past a cache view with several fresh tokens a row (the prefix-hit tail
+prefill and the speculative verify).  The reference scans stacked layer
+parameters (``registry.run_stack``); PyTorch runs eagerly, so here the
+layer plan is a Python loop over one ``torch.unbind`` of each stacked
+leaf, whose backward is a single stack (indexing a layer out of a stack
+would build a full-size zero gradient per layer).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ from ..core.params import Param, tree_map
 from ..core.topology import Dirs, Layout
 from . import blocks as B
 from . import mamba2
-from .registry import SHARED_KINDS, layer_plan, segments, text_labels
+from .registry import (SHARED_KINDS, layer_plan, segments, stack_cache,
+                       text_labels)
 
 
 # block kinds with per-layer (stacked) parameters; "attn" reads the one
@@ -112,18 +117,24 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
     into each stacked slab, the shared kind ("attn", zamba2's one attention
     block) applied unrolled with ``params["shared"]["attn"]``.  With
     ``remat`` each block is recomputed in the backward (``jax.checkpoint``
-    of the scan body and of the shared block there).  Returns (x,
-    new_cache): decode -> {"dense": {"k", "v", "pos"}} stacked per layer;
-    prefill with ``collect_kv`` -> {"dense": (k, v)} stacked (n_layers, B,
-    S, nkv, d).  The hybrid family trains only: its serving path waits for
-    the state-family serving slice."""
+    of the scan body and of the shared block there).
+
+    Returns (x, new_cache): paged decode (``page``) -> {"dense": {"k", "v",
+    "pos"}}, each layer's new entries stacked; contiguous decode -> the
+    ``cache`` tree itself, written in place (attention entries, Mamba
+    state and conv tails; the shared kind's slab holds one cache per use);
+    prefill or extend with ``collect_kv`` -> {"dense": (k, v)} stacked
+    (n_layers, B, S, nkv, d).  Prefill and extend take the dense family
+    only: a recurrent state has no chunked form, so the hybrid family
+    prefills one token a step through decode."""
     plan = layer_plan(cfg)
-    if mode != "train" and cfg.family != Family.DENSE:
+    if mode in ("prefill", "extend") and cfg.family != Family.DENSE:
         raise NotImplementedError(
-            f"{cfg.arch}: serving the {cfg.family.value!r} family (ssd_step,"
-            " the Mamba state cache, sequential prefill) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
+            f"{cfg.arch}: the {cfg.family.value!r} family serves with "
+            f"recurrent state, which has no {mode} form: it prefills one "
+            "token a step through forward(mode='decode')")
     decode = mode == "decode"
+    contiguous = decode and page is None
     stacks = {k: _layers(t, plan.count(k))
               for k, t in params["stack"].items()}
 
@@ -141,15 +152,28 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
                 else stacks[kind][i]
             if remat:
                 x = checkpoint(block, kind, x, p, use_reentrant=False)
+            elif contiguous:
+                c = _layer(cache[kind], i)
+                if kind == "mamba":
+                    x, nc = mamba2.mamba_decode(layout, cfg, dirs, x, p, c)
+                    for name, t in nc.items():
+                        c[name].copy_(t)
+                else:
+                    x, _ = B.dense_block_apply(layout, cfg, dirs, x, p,
+                                               positions, decode=True,
+                                               cache=c)
             elif kind != "dense":
                 x = block(kind, x, p)
             else:
-                c = _layer(cache["dense"], i) if decode else None
+                c = (_layer(cache["dense"], i)
+                     if decode or mode == "extend" else None)
                 x, nc = B.dense_block_apply(layout, cfg, dirs, x, p,
                                             positions, decode=decode, cache=c,
                                             return_kv=collect_kv, page=page)
                 if nc is not None:
                     outs.append(nc)
+    if contiguous:
+        return x, cache
     if not outs:
         return x, {}
     if decode:
@@ -206,19 +230,18 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
     (B, S), "labels": (B, S)}, labels < 0 masked out (reference
     ``transformer.py:177-242``).
 
-    mode='decode' -> (logits (B, V), new entries) against the paged pool
-    (reference ``transformer.py:177-230`` with ``page=...``): ``batch`` is
-    {"token": (B, 1), "pos": (B,) int32}, ``cache`` the pool tree (leaves
-    (n_layers, phys, ...)), read-only here; the returned entries are
-    written back by ``kvcache.scatter_step``."""
+    mode='decode' -> (logits (B, V), cache) for ``batch`` {"token": (B,
+    1), "pos": (B,) int32} (reference ``transformer.py:177-230``).  With
+    ``page=...`` ``cache`` is the paged pool tree (leaves (n_layers, phys,
+    ...)), read-only here, and the second result holds the step's new
+    entries for ``kvcache.scatter_step``; without, ``cache`` is a
+    contiguous tree of ``abstract_cache``'s shape, written in place and
+    returned."""
     if mode == "train":
         return _forward_train(cfg, layout, params, batch)
     if mode != "decode":
         raise NotImplementedError(
             f"forward(mode={mode!r}): prompts go through prefill()")
-    if page is None:
-        raise ValueError("decode runs against the paged pool only: pass "
-                         "page=PageInfo(...)")
     dirs = entry_dirs()
     x = embed(layout, cfg, dirs, params, batch["token"], decode=True)
     positions = batch["pos"][:, None]                      # (B, 1)
@@ -270,6 +293,41 @@ def prefill(cfg: ModelConfig, layout: Layout, params, batch):
     logits, _ = plinear(layout, dirs, last, params["head"], kind="first",
                         decode=True)
     return logits[:, 0], kv
+
+
+def extend(cfg: ModelConfig, layout: Layout, params, batch, view):
+    """Multi-token continuation past a cache view (reference
+    ``transformer.py:359-400``): the prefix-hit tail prefill and the
+    speculative verify.  ``batch``: {"tokens": (B, S) right-padded fresh
+    tokens, "offset": (B,) int32 position of each row's first fresh token,
+    "length": (B,) int32 valid fresh tokens (0 = inactive row)}; ``view``:
+    a gathered cache tree {"dense": {"k", "v", "pos"}} with leaves
+    (n_layers, B, L, ...).  Returns (logits (B, S, V) at every fresh
+    position, the collected (k, v) for ``pack_prefill_cache``, positions
+    (B, S) int32 with -1 on padding)."""
+    if serve_cache_mode(cfg) != "paged":
+        raise ValueError(
+            f"extend: family {cfg.family} serves with recurrent state, not a "
+            "kv view; only 'paged' families support multi-token continuation")
+    dirs = entry_dirs()
+    tokens = batch["tokens"]
+    x = embed(layout, cfg, dirs, params, tokens)
+    S = tokens.shape[1]
+    i = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    positions = torch.where(i[None, :] < batch["length"][:, None],
+                            batch["offset"][:, None] + i[None, :], -1)
+    x, kv = run_stack(layout, cfg, dirs, x, params, positions, mode="extend",
+                      cache=view, collect_kv=True)
+    x = B.apply_norm(cfg, x, params["ln_f"])
+    logits, _ = plinear(layout, dirs, x, params["head"], kind="first")
+    return logits, kv, positions
+
+
+def abstract_cache(cfg: ModelConfig, layout: Layout, batch: int,
+                   length: int):
+    """The contiguous decode-cache tree of ``batch`` slots of ``length``
+    (reference ``transformer.py:406-409``): ``registry.stack_cache``."""
+    return stack_cache(cfg, batch, length)
 
 
 def pack_prefill_cache(cfg: ModelConfig, collected, pos2d):

@@ -1,25 +1,35 @@
-"""Continuous-batching serving engine (port of ``repro/serve/engine.py``
-for the dense family's paged serving path).
+"""Continuous-batching serving engine (port of ``repro/serve/engine.py``).
 
   * ``scheduler.Scheduler``  — FIFO + priority queues, admission control,
     slot refill, prefill grouping (host-side policy).
-  * ``kvcache.PagedKVCache`` — block-table paged KV pool.
+  * ``kvcache.PagedKVCache`` — block-table paged KV pool for the 'paged'
+    family (dense attention), with the shared-prefix index; the 'state'
+    family (zamba2's recurrent state) keeps contiguous per-slot caches.
   * ``sampling.make_sampler`` — greedy / temperature / top-k / top-p under
     one engine-owned, seeded ``torch.Generator``.
-  * ``metrics.ServeMetrics`` — TTFT / TPOT / throughput / queue depth.
+  * ``speculate.DraftSpec`` — the optional draft model of speculative
+    decoding.
+  * ``metrics.ServeMetrics`` — TTFT / TPOT / throughput / queue depth,
+    prefix hits, accepted drafts.
 
 A *prefill* step pushes a whole padded group of freshly admitted prompts
 through ``transformer.prefill``, scatters the returned kv into the pool and
-emits each request's first token.  A *decode* step advances every
-in-flight slot by one token: the blocks attend the read-only pool through
-the block tables (the K4 kernel), and the step writes every layer's new
-entries back in one scatter.  With ``chunked_prefill=False`` prompts are
-fed one token per decode step instead.
+emits each request's first token; with the prefix cache on, only each
+prompt's un-hit tail runs, through ``transformer.extend`` over the slot's
+gathered view.  A *decode* step advances every in-flight slot by one
+token: by default the blocks attend the read-only pool through the block
+tables (K4) and the step writes every layer's new entries back in one
+scatter; with ``fused_decode=False`` the step gathers each slot's view,
+decodes against it as a contiguous cache (K4 under the identity table) and
+scatters the new entries back.  With a draft, a decode step is a
+speculative round: the draft bursts γ proposals, the target verifies them
+in one extend.  The 'state' family has no chunked prefill: it feeds one
+prompt token a step through the decode path (as ``chunked_prefill=False``
+does for the paged family), and a reused slot's state is reset.
 
-The engine runs on the device its parameters lie on.  Not in this slice
-(each raises ValueError): recurrent-state and MoE/MLA families, the
-gather-view decode (``fused_decode=False``), the prefix cache and
-speculative decoding.
+The engine runs on the device its parameters lie on.  Not in the port yet
+(each raises ValueError): the families other than dense and hybrid
+(recurrent xLSTM, MoE, MLA, encoder-decoder, vision-language).
 """
 from __future__ import annotations
 
@@ -31,14 +41,14 @@ import numpy as np
 import torch
 
 from ..config import Family, ModelConfig
-from ..core.params import tree_leaves
+from ..core.params import init_params
 from ..core.topology import Layout
 from ..models import blocks as B
 from ..models import transformer
 from ..obs.trace import NULL
-from . import kvcache, sampling
+from . import kvcache, sampling, speculate
 from .metrics import ServeMetrics
-from .scheduler import Scheduler
+from .scheduler import Scheduler, pad_bucket
 
 LATER = "arrives with a later serving slice of the port (ROADMAP.md)"
 
@@ -67,29 +77,48 @@ class Engine:
                  n_blocks: Optional[int] = None, prefill_chunk: int = 4096,
                  chunked_prefill: bool = True,
                  fused_decode: Optional[bool] = None,
-                 prefix_cache: bool = False, draft=None, tracer=None):
-        if transformer.serve_cache_mode(cfg) != "paged":
-            raise ValueError(
-                f"{cfg.arch}: family {cfg.family.value!r} serves with "
-                f"recurrent state; its engine {LATER}")
-        if cfg.family != Family.DENSE:
+                 prefix_cache: bool = False,
+                 draft: Optional[speculate.DraftSpec] = None, tracer=None):
+        if cfg.family not in (Family.DENSE, Family.HYBRID) \
+                or cfg.mla is not None:
             raise ValueError(f"{cfg.arch}: family {cfg.family.value!r} {LATER}")
-        if fused_decode is False:
-            raise ValueError(f"fused_decode=False (gather-view decode) {LATER}")
-        if prefix_cache:
-            raise ValueError(f"prefix_cache=True (shared-prefix KV reuse) "
-                             f"{LATER}")
-        if draft is not None:
-            raise ValueError(f"draft=... (speculative decoding) {LATER}")
         self.cfg, self.layout, self.params = cfg, layout, params
         # observability: per-request lifecycle spans come from the metrics
         # hooks; the engine adds one span per device tick on the "engine"
         # lane.  The default NULL tracer makes all of it free.
         self.tracer = tracer if tracer is not None else NULL
         self.B, self.max_len = batch_size, max_len
-        self.chunked = chunked_prefill
-        first = tree_leaves(params)[0]
-        self.device = first.device
+        self.paged = transformer.serve_cache_mode(cfg) == "paged"
+        self.chunked = chunked_prefill and self.paged
+        # fused paged decode (default on): attend the pool through the
+        # block tables instead of gathering each slot's view
+        self.fused = (fused_decode if fused_decode is not None
+                      else True) and self.paged
+        if prefix_cache:
+            if not (self.paged and self.chunked):
+                raise ValueError(
+                    "prefix_cache requires a paged family with chunked "
+                    "prefill (the shared blocks enter via the block tables)")
+            if cfg.mla is not None:
+                raise ValueError(
+                    "prefix_cache: MLA latent caches have no extend path "
+                    "yet; serve this model without --prefix-cache")
+        self.prefix = bool(prefix_cache)
+        if draft is not None:
+            reason = speculate.draft_unsupported_reason(cfg, draft.cfg)
+            if reason:
+                raise ValueError(reason)
+            if not self.chunked:
+                raise ValueError("speculative decoding requires chunked "
+                                 "prefill (the verify step extends the "
+                                 "paged pool)")
+            if temperature > 0 and (top_k or top_p):
+                raise ValueError(
+                    "speculative decoding keeps the sampled distribution "
+                    "exact only for greedy or plain-temperature sampling; "
+                    "drop top_k/top_p or --draft")
+        dtype = params["embed"].dtype
+        self.device = params["embed"].device
         self.sampler = sampling.make_sampler(temperature, top_k, top_p)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.scheduler = Scheduler(batch_size, max_len,
@@ -102,10 +131,23 @@ class Engine:
         # rows whose logits held a non-finite value, over the current run
         self.nonfinite_rows = 0
 
-        self.kv = kvcache.PagedKVCache(cfg, batch_size, max_len,
-                                       block=block_size, n_blocks=n_blocks,
-                                       dtype=params["embed"].dtype)
-        self.pool = self.kv.init_pool(self.device)
+        self.spec = None
+        if self.paged:
+            self.kv = kvcache.PagedKVCache(cfg, batch_size, max_len,
+                                           block=block_size,
+                                           n_blocks=n_blocks, dtype=dtype,
+                                           prefix_cache=self.prefix)
+            self.pool = self.kv.init_pool(self.device)
+            if draft is not None:
+                self.spec = draft.build(batch_size, max_len, temperature)
+                self._verify = speculate.make_verify(
+                    cfg, layout, self.kv.block, self.spec.gamma,
+                    self._spec_pad(), temperature)
+        else:
+            tree = kvcache.cache_with_dtype(
+                transformer.abstract_cache(cfg, layout, batch_size, max_len),
+                dtype)
+            self.cache = init_params(tree, None, self.device)
 
     # ------------------------------------------------------------------
     # Device steps
@@ -122,17 +164,43 @@ class Engine:
         return host[0], host[1].astype(bool)
 
     def _decode_step(self, tok, pos, tables, active):
+        """One paged decode step: fused through the block tables, or over
+        the gathered views (``fused_decode=False``)."""
         blk, L = self.kv.block, self.kv.view_len
-        page = B.PageInfo(tables=tables, active=active, block=blk)
-        logits, upd = transformer.forward(
-            self.cfg, self.layout, self.params, {"token": tok, "pos": pos},
-            mode="decode", cache=self.pool, page=page)
+        batch = {"token": tok, "pos": pos}
         rows = torch.arange(tok.shape[0], device=self.device)
         slot = pos.long() % L
         phys = tables[rows, slot // blk].long() * blk + slot % blk
         phys = torch.where(active, phys, blk + rows % blk)   # idle -> trash
-        kvcache.scatter_step(self.pool, upd, phys)
+        if self.fused:
+            page = B.PageInfo(tables=tables, active=active, block=blk)
+            logits, upd = transformer.forward(
+                self.cfg, self.layout, self.params, batch, mode="decode",
+                cache=self.pool, page=page)
+            kvcache.scatter_step(self.pool, upd, phys)
+        else:
+            view = kvcache.gather_view(self.pool, tables, blk)
+            logits, view = transformer.forward(
+                self.cfg, self.layout, self.params, batch, mode="decode",
+                cache=view)
+            kvcache.scatter_decode(self.pool, view, slot, phys)
         return self._sample(logits)
+
+    def _state_step(self, tok, pos):
+        """One decode step against the contiguous per-slot caches."""
+        logits, self.cache = transformer.forward(
+            self.cfg, self.layout, self.params, {"token": tok, "pos": pos},
+            mode="decode", cache=self.cache)
+        return self._sample(logits)
+
+    def _reset_rows(self, mask):
+        """Wipe reused slots' state (recurrent carries to 0, kv positions
+        to -1) so that a new request never sees its predecessor's
+        context."""
+        for leaves in self.cache.values():
+            for leaf in leaves.values():
+                m = mask.view((1, -1) + (1,) * (leaf.dim() - 2))
+                leaf.masked_fill_(m, 0 if leaf.is_floating_point() else -1)
 
     def _prefill_step(self, tokens, length, phys_map):
         logits, kv = transformer.prefill(
@@ -144,6 +212,24 @@ class Engine:
         kvcache.scatter_prefill(self.pool, updates, phys_map)
         return self._sample(logits)
 
+    def _extend_step(self, tokens, offset, length, tables, phys_map):
+        """Prefix-hit tail prefill: only the un-hit prompt tails run, and
+        attend the shared blocks through the gathered view."""
+        view = kvcache.gather_view(self.pool, tables, self.kv.block)
+        logits, kv, positions = transformer.extend(
+            self.cfg, self.layout, self.params,
+            {"tokens": tokens, "offset": offset, "length": length}, view)
+        updates = transformer.pack_prefill_cache(self.cfg, kv, positions)
+        kvcache.scatter_prefill(self.pool, updates, phys_map)
+        idx = (length.long() - 1).clamp(0, tokens.shape[1] - 1)
+        rows = torch.arange(tokens.shape[0], device=self.device)
+        return self._sample(logits[rows, idx])
+
+    def _spec_pad(self) -> int:
+        """Verify-batch padded length: γ + 1 rounded to the prefill
+        buckets."""
+        return pad_bucket(self.spec.gamma + 1)
+
     # ------------------------------------------------------------------
     # Request lifecycle
     # ------------------------------------------------------------------
@@ -153,15 +239,21 @@ class Engine:
             self.metrics.reject(req.uid)
 
     def _can_place(self, req: Request, slot: int) -> bool:
-        return self.kv.can_admit(len(req.prompt) + req.max_new)
+        if not self.paged:
+            return True
+        return self.kv.can_admit(len(req.prompt) + req.max_new,
+                                 req.prompt if self.prefix else None)
 
     def _admit(self):
         free = [i for i in range(self.B) if self.slots[i] is None]
         placed = []
         for slot, req in self.scheduler.fill(free, self._can_place):
-            if not self.kv.admit(slot, len(req.prompt) + req.max_new):
-                # can_place saw the free count before this tick's earlier
-                # admissions took their blocks: requeue at the head
+            if self.paged and not self.kv.admit(
+                    slot, len(req.prompt) + req.max_new,
+                    req.prompt if self.prefix else None):
+                # the free count moved between can_place and admit (an
+                # earlier admission of this tick took blocks, or shrank
+                # this prompt's prefix hit): requeue at the head
                 self.scheduler.pending_prefill.remove(slot)
                 q = (self.scheduler.prio if req.priority > 0
                      else self.scheduler.fifo)
@@ -173,9 +265,25 @@ class Engine:
             placed.append((slot, req))
             self.metrics.admit(req.uid)
         if placed:
-            # invalidate recycled blocks before anything reads them
-            idx = self.kv.clear_targets([s for s, _ in placed])
-            kvcache.clear_positions(self.pool, self._to_dev(idx))
+            mask = np.zeros((self.B,), bool)
+            mask[[s for s, _ in placed]] = True
+            if self.paged:
+                # invalidate recycled blocks before anything reads them
+                # (the slots' private blocks only: shared prefix blocks
+                # keep their content), then copy any partly shared block
+                idx = self.kv.clear_targets([s for s, _ in placed])
+                kvcache.clear_positions(self.pool, self._to_dev(idx))
+                if self.prefix:
+                    cow = self.kv.cow_rows([s for s, _ in placed])
+                    if cow is not None:
+                        kvcache.copy_block(self.pool,
+                                           *map(self._to_dev, cow))
+                    for s, _ in placed:
+                        self.kv.cow_done(s)
+                if self.spec is not None:
+                    self.spec.reset(self._to_dev(mask))
+            else:
+                self._reset_rows(self._to_dev(mask))
         if not self.chunked:
             # sequential prefill starts feeding immediately, no prefill queue
             self.scheduler.pending_prefill.clear()
@@ -194,7 +302,8 @@ class Engine:
         req = self.slots[i]
         req.done = True
         self.slots[i] = None
-        self.kv.release(i)
+        if self.paged:
+            self.kv.release(i)
         self.metrics.finish(req.uid)
 
     # ------------------------------------------------------------------
@@ -202,13 +311,17 @@ class Engine:
     # ------------------------------------------------------------------
     def step(self):
         """One engine step: admit waiting work, then either one chunked
-        prefill group or one global decode tick."""
+        prefill group, one speculative round or one global decode tick."""
         self._admit()
         tr = self.tracer
         if self.chunked and self.scheduler.pending_prefill:
             with tr.span("prefill_tick", track="engine"):
                 self._prefill_tick()
             kind = "prefill"
+        elif self.spec is not None:
+            with tr.span("spec_tick", track="engine"):
+                self._spec_tick()
+            kind = "decode"
         else:
             with tr.span("decode_tick", track="engine"):
                 self._decode_tick()
@@ -220,34 +333,64 @@ class Engine:
                        track="engine")
         self.steps += 1
 
-    def _emit(self, i: int, tok: int, bad: bool):
+    def _emit(self, i: int, toks, bad: bool):
+        """Append the tokens a step emitted for slot ``i``; finish it at
+        ``max_new`` or at the length bound."""
         req = self.slots[i]
-        req.out.append(int(tok))
+        req.out.extend(int(t) for t in toks)
         self.nonfinite_rows += int(bad)
-        self.metrics.token(req.uid)
+        self.metrics.token(req.uid, len(toks))
         if len(req.out) >= req.max_new or self.pos[i] >= self.max_len - 1:
             self._finish(i)
 
     def _prefill_tick(self):
-        lens = {s: len(self.slots[s].prompt)
-                for s in self.scheduler.pending_prefill}
+        # with the prefix cache on, each slot prefills only its un-hit
+        # tail: grouping, padding and the token budget run on the tail
+        hit = {s: self.kv.hit_len(s) if self.prefix else 0
+               for s in self.scheduler.pending_prefill}
+        lens = {s: len(self.slots[s].prompt) - hit[s] for s in hit}
         group, s_pad = self.scheduler.prefill_group(lens)
         tokens = np.zeros((self.B, s_pad), np.int64)
         length = np.zeros((self.B,), np.int32)
+        offset = np.zeros((self.B,), np.int32)
         for s in group:
             p = self.slots[s].prompt
-            tokens[s, :len(p)] = p
-            length[s] = len(p)
-        phys_map = self.kv.prefill_phys_map({s: lens[s] for s in group},
-                                            s_pad)
-        tok, bad = self._prefill_step(self._to_dev(tokens),
-                                      self._to_dev(length),
-                                      self._to_dev(phys_map))
+            tokens[s, :lens[s]] = p[hit[s]:]
+            length[s] = lens[s]
+            offset[s] = hit[s]
+        if self.prefix:
+            phys_map = self.kv.extend_phys_map(
+                {s: (hit[s], lens[s]) for s in group}, s_pad)
+            tok, bad = self._extend_step(
+                self._to_dev(tokens), self._to_dev(offset),
+                self._to_dev(length), self.kv.tables_device(self.device),
+                self._to_dev(phys_map))
+        else:
+            phys_map = self.kv.prefill_phys_map(
+                {s: lens[s] for s in group}, s_pad)
+            tok, bad = self._prefill_step(self._to_dev(tokens),
+                                          self._to_dev(length),
+                                          self._to_dev(phys_map))
+        if self.spec is not None:
+            # the draft prefills the FULL prompt into its private cache: it
+            # shares no prefix, and its bursts need the whole context
+            d_pad = pad_bucket(max(len(self.slots[s].prompt) for s in group))
+            dtok = np.zeros((self.B, d_pad), np.int64)
+            dlen = np.zeros((self.B,), np.int32)
+            for s in group:
+                p = self.slots[s].prompt
+                dtok[s, :len(p)] = p
+                dlen[s] = len(p)
+            self.spec.prefill(self._to_dev(dtok), self._to_dev(dlen))
         for s in group:
             req = self.slots[s]
             self.pos[s] = len(req.prompt)
             req._fed = len(req.prompt)
-            self._emit(s, tok[s], bad[s])
+            if self.prefix:
+                # publish this prompt's full blocks before any release
+                # below: completed requests still seed the index
+                self.kv.register_prefix(s)
+            self._emit(s, tok[s:s + 1], bad[s])
 
     def _decode_tick(self):
         tok = np.zeros((self.B, 1), np.int64)
@@ -264,9 +407,13 @@ class Engine:
                 active[i] = True
         if not active.any():
             return
-        nxt, bad = self._decode_step(
-            self._to_dev(tok), self._to_dev(self.pos),
-            self.kv.tables_device(self.device), self._to_dev(active))
+        if self.paged:
+            nxt, bad = self._decode_step(
+                self._to_dev(tok), self._to_dev(self.pos),
+                self.kv.tables_device(self.device), self._to_dev(active))
+        else:
+            nxt, bad = self._state_step(self._to_dev(tok),
+                                        self._to_dev(self.pos))
         for i, req in enumerate(self.slots):
             if req is None or not active[i]:
                 continue
@@ -275,7 +422,57 @@ class Engine:
                 req._fed += 1
                 if req._fed < len(req.prompt):
                     continue
-            self._emit(i, nxt[i], bad[i])
+            self._emit(i, nxt[i:i + 1], bad[i])
+
+    def _spec_tick(self):
+        """One speculative round: the draft bursts γ proposals per active
+        slot, the target verifies them in one batched extend, and each row
+        emits ``accepted + 1`` tokens (accepted drafts + bonus)."""
+        gamma, s_pad = self.spec.gamma, self._spec_pad()
+        t0 = np.zeros((self.B,), np.int64)
+        tprev = np.zeros((self.B,), np.int64)
+        posv = np.ones((self.B,), np.int32)
+        limit = np.zeros((self.B,), np.int64)
+        active = np.zeros((self.B,), bool)
+        pending = set(self.scheduler.pending_prefill)
+        rows = {}
+        for i, req in enumerate(self.slots):
+            if req is None or i in pending or not req.out:
+                continue
+            t0[i] = req.out[-1]
+            tprev[i] = req.out[-2] if len(req.out) >= 2 else req.prompt[-1]
+            posv[i] = self.pos[i]
+            # emit at most limit + 1 tokens: stay under max_new and under
+            # the decode length bound (pos must end < max_len - 1, as in
+            # the non-speculative finish condition)
+            limit[i] = max(min(req.max_new - len(req.out),
+                               self.max_len - 1 - self.pos[i]) - 1, 0)
+            active[i] = True
+            rows[i] = (int(self.pos[i]), gamma + 1)
+        if not active.any():
+            return
+        t0_d, pos_d = self._to_dev(t0), self._to_dev(posv)
+        drafts, qprobs = self.spec.propose(self._to_dev(tprev), t0_d, pos_d,
+                                           self.generator)
+        vtok = torch.zeros((self.B, s_pad), dtype=torch.long,
+                           device=self.device)
+        vtok[:, 0] = t0_d
+        vtok[:, 1:gamma + 1] = drafts
+        phys_map = self.kv.extend_phys_map(rows, s_pad)
+        length = np.where(active, gamma + 1, 0).astype(np.int32)
+        a, emit, bad = self._verify(
+            self.params, self.pool, vtok, drafts, qprobs, pos_d,
+            self._to_dev(length), self.kv.tables_device(self.device),
+            self._to_dev(phys_map), self._to_dev(limit), self.generator)
+        host = torch.cat([a[:, None], emit, bad.long()[:, None]],
+                         dim=1).cpu().numpy()
+        for i, req in enumerate(self.slots):
+            if req is None or not active[i]:
+                continue
+            n = int(host[i, 0]) + 1
+            self.metrics.spec_accept(n - 1)
+            self.pos[i] += n
+            self._emit(i, host[i, 1:1 + n], bool(host[i, -1]))
 
     # ------------------------------------------------------------------
     def _busy(self) -> bool:
@@ -287,6 +484,9 @@ class Engine:
         # per-run metrics: each run() reports exactly its own requests
         self.metrics = ServeMetrics(tracer=self.tracer)
         self.nonfinite_rows = 0
+        if self.paged:
+            self.kv.lookups = self.kv.hits = self.kv.tokens_reused = 0
+            self.kv.allocator.evictions = 0
         for r in requests:
             self.submit(r)
         t0 = time.time()
@@ -296,6 +496,10 @@ class Engine:
             if progress and (self.steps - start) % 16 == 0:
                 progress(self.steps)
         wall = time.time() - t0
+        if self.paged:
+            self.metrics.prefix_stats(self.kv.lookups, self.kv.hits,
+                                      self.kv.tokens_reused,
+                                      self.kv.allocator.evictions)
         stats = self.metrics.summary(wall)
         stats.update(steps=self.steps - start, wall_s=wall,
                      tokens=sum(len(r.out) for r in requests),

@@ -435,15 +435,32 @@ def test_sampling_filters_match_reference():
 # ---------------------------------------------------------------------------
 # What this slice refuses, and the rule that the port imports no jax
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("case", ["prefix", "draft", "gather", "state", "moe"])
+# (case, arch, engine keywords, what the message says): the families the
+# port has not reached, and the refusals the reference itself makes
+REFUSALS = {
+    "state": ("xlstm-350m", {}, "later serving slice"),
+    "moe": ("mixtral-8x7b", {}, "later serving slice"),
+    "prefix-sequential": ("tinyllama-1.1b",
+                          {"prefix_cache": True, "chunked_prefill": False},
+                          "prefix_cache requires a paged family with "
+                          "chunked prefill"),
+    "draft-state-target": ("zamba2-1.2b", {"draft": "tinyllama-1.1b"},
+                           "target zamba2-1.2b serves with recurrent state"),
+    "draft-top-k": ("tinyllama-1.1b", {"draft": "tinyllama-1.1b",
+                                       "temperature": 0.7, "top_k": 5},
+                    "exact only for greedy or plain-temperature sampling"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_engine_refuses_later_slices(tlayout, case):
-    cfg = reduced(get("tinyllama-1.1b"))
-    kw = {"prefix": {"prefix_cache": True}, "draft": {"draft": object()},
-          "gather": {"fused_decode": False}}.get(case, {})
-    if case in ("state", "moe"):
-        cfg = reduced(get("xlstm-350m" if case == "state" else "mixtral-8x7b"))
-    with pytest.raises(ValueError, match="later serving slice"):
-        Engine(cfg, tlayout, {}, **kw)
+    from repro_torch.serve.speculate import DraftSpec
+    arch, kw, match = REFUSALS[case]
+    kw = dict(kw)
+    if "draft" in kw:
+        kw["draft"] = DraftSpec(reduced(get(kw["draft"])), tlayout, {})
+    with pytest.raises(ValueError, match=match):
+        Engine(reduced(get(arch)), tlayout, {}, **kw)
 
 
 def test_multi_rank_refused():
@@ -489,6 +506,15 @@ def test_port_imports_no_jax_and_no_reference():
         "             'cpu', '--steps', '1', '--batch', '1', '--seq', '96'])",
         "assert len(out['losses']) == 1, out",
         "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan",
+        "import repro_torch.serve.speculate, repro_torch.serve.kvcache",
+        "for extra in (['--arch', 'zamba2-1.2b'], ['--prefix-cache',",
+        "              '--shared-prefix', '20'], ['--draft',",
+        "              'tinyllama-1.1b'], ['--no-fused-decode']):",
+        "    arch = [] if extra[0] == '--arch' else ['--arch',",
+        "                                            'tinyllama-1.1b']",
+        "    stats = main(arch + extra + ['--reduced', '--device', 'cpu',",
+        "                 '--requests', '3', '--max-new', '4'])",
+        "    assert stats['tokens'] == 12, (extra, stats['tokens'])",
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')",
         "       or m == 'repro' or m.startswith('repro.')]",
         "assert not bad, bad",
