@@ -15,7 +15,9 @@ Phases, in order (any failure raises and exits nonzero):
      the route the path takes, the other bf16 route, the simt kernel,
      the plain version and ``torch.matmul`` beside the bound; and every
      GEMM of zamba2-1.2b's decode step (M = 8, ``Z_DECODE_GEMMS``) in
-     bf16 through the decode route, which ``route`` must pick for each;
+     bf16 through the decode route, which ``route`` must pick for each,
+     and every GEMM of xlstm-350m (``X_GEMMS``, w_if's N = 8 among them)
+     at M = 8 (decode route) and M = 8192 (tc route);
  2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
@@ -42,7 +44,8 @@ Phases, in order (any failure raises and exits nonzero):
      launches K4's two passes and no PyTorch attention;
   4. K3 RMSNorm forward and backward against their plain versions at the
      training shape (8192 rows x 2048), bf16 and f32, with and without a
-     zero-centred gain, and at 3072 and 4096 (zamba2's gate_ln) in bf16:
+     zero-centred gain, and at 1024 (xlstm's ln), 3072 and 4096 (zamba2's
+     gate_ln) in bf16:
      within 1e-4 (f32) or 3e-2 (bf16) of 1 + max and within
      ``K3_NORM_TOL`` of the plain version's norm, dg repeating bit for
      bit; then device times at each width beside ``F.rms_norm``'s forward
@@ -127,10 +130,36 @@ Phases, in order (any failure raises and exits nonzero):
      AdamW, synthetic tokens from seed 0), counters reset before and read
      after; every loss finite and the launches exact;
  14. where the time of one zamba2 training step goes (as phase 9);
- 15. K1 against ``torch.matmul`` summed over each path's GEMMs.
+ 15. K1 against ``torch.matmul`` summed over each path's GEMMs;
+ 16. full-width xlstm-350m cut to [mlstm, slstm] in f32: one training
+     step's loss and every gradient leaf (1 x 512, two mLSTM chunks),
+     CPU (plain versions) against the card, K1 and K3 launches exact;
+ 16s. the same model through the decode path from a fresh cache: a
+     16-token sequential prefill and 8 greedy steps of 2 slots, the
+     logits within 1e-4 of 1 + max at every step, the same tokens;
+ 7x. xlstm-350m served at full depth and width in bf16 through
+     ``repro_torch.launch.serve`` as 7z serves zamba2 (8 requests,
+     prompts of 43-47 tokens fed one a step, 32 new tokens): launches per
+     step exact (``X_SERVE_STEP``: K1 decode route, K3; no K2, K4, K5),
+     TTFT, TPOT and tok/s beside the step's bytes bound
+     (``xlstm_step_bytes``: the weights and the f32 mLSTM/sLSTM state
+     read and written);
+ 17. the xlstm training run: ``repro_torch.launch.train`` trains
+     xlstm-350m at full depth and width in bf16 (batch 4 x 2048, remat,
+     AdamW), launches exact (``X_LAUNCHES``), step time, tok/s, MFU (the
+     reference's SSM formula, which undercounts) and peak memory;
+ 18. one xlstm training step at 4 x 512 under torch.profiler (as phase
+     9), then one mLSTM and one sLSTM block timed at 4 x 2048: forward,
+     forward + backward, and both under remat as the step runs them, and
+     their share of phase 17's step;
+ 19. the checkpoint round trip at full width and depth (xlstm-350m, 2 x
+     256): the train launcher saves step 2, resumes from it (every leaf
+     bit for bit what was saved) and saves step 4, and the serve launcher
+     restores step 4 (bit for bit) and serves.
 
 The lines before the last carry one JSON object of the serving paths'
-numbers (7p, 7g, 7s, 7z), one of per-kernel numbers and the card's name and
+numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
+19), one of per-kernel numbers and the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits nonzero and
@@ -204,6 +233,34 @@ Z_GEMMS = [("w_x,w_z", D, Z_DIN, 2 * 2 * Z_LAYERS),
 # decode route, and its head
 Z_DECODE_GEMMS = [(name, k, n) for name, k, n, _ in Z_GEMMS] + \
     [("head", D, VOCAB)]
+
+# xlstm-350m (configs/xlstm_350m.py, arXiv:2405.04517): 24 layers, 21
+# mLSTM blocks (d_in 2048, 4 heads of 512, an f32 C of 4 x 512 x 512 a
+# slot) and 3 sLSTM blocks (4 heads of 256, R 4 x 4 x 256 x 256), d_model
+# 1024, vocab 50304
+X_D, X_DIN, X_NH, X_VOCAB, X_MLSTM, X_SLSTM = 1024, 2048, 4, 50304, 21, 3
+X_STEPS = 3
+# (name, K, N) of its GEMMs, run at a decode step's M = 8 and a training
+# step's M = 8192 in phase 2; w_if's N = 8 (the input and forget gates of
+# 4 heads) is narrower than one 64-column tile
+X_GEMMS = [("w_q,w_k,w_v,w_z", X_D, X_DIN), ("w_if", X_D, 2 * X_NH),
+           ("w_gates", X_D, 4 * X_D), ("slstm w_out", X_D, X_D),
+           ("mlstm w_out", X_DIN, X_D), ("head", X_D, X_VOCAB)]
+# launches per xlstm training step: K1 runs the 6 linears of each mLSTM
+# block, the 2 of each sLSTM block and the head's 2 loss chunks twice
+# (forward and remat recompute); K3 the 2 norms of each mLSTM block and
+# the 1 of each sLSTM block twice and ln_f once, backward once each
+X_LAUNCHES = {"K1": 2 * (6 * X_MLSTM + 2 * X_SLSTM + 2), "K2": 0,
+              "K2 bwd": 0, "K3": 2 * (2 * X_MLSTM + X_SLSTM) + 1,
+              "K3 bwd": 2 * X_MLSTM + X_SLSTM + 1, "K5": 0, "K5 bwd": 0}
+# xlstm served (phase 7x): every step a decode step; K1 the 8 kinds of
+# linear above once and the head, K3 each norm once and ln_f
+X_SERVE_STEP = {"K1": 6 * X_MLSTM + 2 * X_SLSTM + 1, "K2": 0, "K2 bwd": 0,
+                "K3": 2 * X_MLSTM + X_SLSTM + 1, "K3 bwd": 0, "K4": 0,
+                "K4 combine": 0, "K5": 0, "K5 bwd": 0}
+# the checkpoint round trip (phase 19) trains at full width and depth on
+# sequences of this length: it checks bits, not speed
+X_CKPT_B, X_CKPT_S = 2, 256
 
 
 class SmokeFailure(RuntimeError):
@@ -497,6 +554,21 @@ def phase_k1(dev):
               f"{worst_abs:.2e}")
         check(worst <= 1e-2, f"K1 zamba2 {name} bf16 decode: {worst}")
         path_err["decode"] = max(path_err["decode"], worst_abs)
+    for m in (DECODE_M, TRAIN_B * TRAIN_S):
+        want = "decode" if m == DECODE_M else "tc"
+        for name, k, n in X_GEMMS:
+            path = k1.route(m, n, k, torch.bfloat16, True)
+            check(path == want, f"K1 xlstm {name} ({m},{k},{n}) would take "
+                  f"{path}, not {want}")
+            x, w, b = k1_inputs(gen, dev, m, k, n, torch.bfloat16)
+            worst, worst_abs = k1_check(k1, x, w, b, path)
+            print(f"[2] K1 xlstm {name:15s} ({m},{k})@({k},{n}) bfloat16 "
+                  f"{path:6s} max rel err {worst:.2e} (tol 1e-02), max abs "
+                  f"err {worst_abs:.2e}")
+            check(worst <= 1e-2, f"K1 xlstm {name} ({m}) bf16 {path}: "
+                  f"{worst}")
+            path_err[path] = max(path_err[path], worst_abs)
+            del x, w, b
     step["max_abs_err"] = path_err["decode"]
     prefill["max_abs_err"] = path_err["tc"]
     return {"decode": step, "tc": prefill}
@@ -1004,8 +1076,9 @@ def phase_k4(dev):
 K3_NORM_TOL = {"float32": {"y": 3e-7, "dx": 3e-7, "dg": 1.5e-6},
                "bfloat16": {"y": 6e-5, "dx": 1e-4, "dg": 3e-4}}
 # K3's widths on the main paths: every norm of tinyllama and zamba2 (2048),
-# zamba2's gate_ln over d_inner (4096), and the 3072 instance
-K3_WIDTHS = (2048, 3072, 4096)
+# zamba2's gate_ln over d_inner (4096), the 3072 instance, and xlstm's
+# ln and ln_f (1024, a block per row; its out_ln is 2048)
+K3_WIDTHS = (1024, 2048, 3072, 4096)
 
 
 def kernels_by_name(fn, reps):
@@ -1077,8 +1150,8 @@ def k3_case(k3, dev, gen, m, h, dtype, zc, tag="[4]"):
 
 def phase_k3(dev):
     """K3 at the training shape: every norm of a step sees 8192 rows, of
-    2048 (tinyllama, zamba2) or 4096 (zamba2's gate_ln); the 3072 instance
-    too.  Checked in f32 and bf16, with and without zero-centring at 2048;
+    2048 (tinyllama, zamba2, xlstm's out_ln), 4096 (zamba2's gate_ln) or
+    1024 (xlstm's ln and ln_f); the 3072 instance too.  Checked in f32 and bf16, with and without zero-centring at 2048;
     then the device times of the kernels, the plain versions and
     ``F.rms_norm``'s forward and backward at each width in bf16.  Returns
     the 2048 case's numbers (bf16, no zero-centring), the kernel's time
@@ -2413,7 +2486,8 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
                 per_step=TRAIN_LAUNCHES, tag="8"):
     """``repro_torch.launch.train`` at full depth and width in bf16, batch
     4 x 2048, remat, AdamW, synthetic tokens from seed 0; the launch
-    counters reset just before and read just after."""
+    counters reset just before and read just after.  Returns the launches,
+    the K1 and K2 routes and the telemetry summary."""
     import torch
     from repro_torch.launch import train
     tel_path = ROOT / "build" / f"chip_smoke_train_{arch}_telemetry.json"
@@ -2450,7 +2524,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
           + f" s (first = warm-up); steady {tel['t_step_s']:.3f} s/step, "
           f"{tel['tokens_per_s']:.0f} tok/s, {mfu}; peak memory "
           f"{tel['mem_peak_bytes'] / 2 ** 30:.2f} GiB")
-    return launches, routes, k2_routes
+    return launches, routes, k2_routes, tel
 
 
 def kernel_group(name: str) -> str:
@@ -2481,12 +2555,13 @@ def kernel_group(name: str) -> str:
     return "other (elementwise, reductions, AdamW, copies)"
 
 
-def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
+def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
+                    seq=TRAIN_S):
     """Where the time of one training step goes: torch.profiler over the
-    second step of the phase 8 (or 13) configuration, device time summed
-    by kernel group against the step's wall time (host clock,
-    synchronised).  A profiler that sees no device kernel leaves the
-    breakdown unmeasured; it does not fail the run."""
+    second step of the phase 8 (or 13, 17) configuration, at ``seq``
+    tokens a row, device time summed by kernel group against the step's
+    wall time (host clock, synchronised).  A profiler that sees no device
+    kernel leaves the breakdown unmeasured; it does not fail the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import OptimConfig, ShapeConfig
@@ -2505,7 +2580,7 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
     state = adamw_init(params)
     step = make_train_step(cfg, layout, OptimConfig(
         lr=3e-4, warmup=20, total_steps=TRAIN_STEPS))
-    data = TokenStream(cfg, ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train"),
+    data = TokenStream(cfg, ShapeConfig("smoke", seq, TRAIN_B, "train"),
                        DataConfig(seed=0), dev)
     sync = (torch.cuda.synchronize if torch.device(dev).type == "cuda"
             else lambda: None)
@@ -2520,7 +2595,7 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9"):
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(math.isfinite(met["loss"].item()), "breakdown step: loss")
     return report_breakdown(prof, wall_ms, tag, f"one {arch} training step "
-                            f"(batch {TRAIN_B} x {TRAIN_S})", card)
+                            f"(batch {TRAIN_B} x {seq})", card)
 
 
 def report_breakdown(prof, wall_ms, tag, what, card):
@@ -2595,6 +2670,366 @@ def phase_decode_breakdown_zamba2(eng, card):
                             "step (8 slots)", card)
 
 
+def xlstm_two_layer_cfg():
+    """Full-width xlstm-350m cut to the plan [mlstm, slstm], f32."""
+    from repro_torch.configs.registry import get
+    base = get("xlstm-350m")
+    return dataclasses.replace(base, n_layers=2, dtype="float32",
+                               ssm=dataclasses.replace(base.ssm,
+                                                       slstm_every=2))
+
+
+def phase_two_layer_xlstm(dev):
+    """One training step's loss and gradients of full-width xlstm cut to
+    [mlstm, slstm], f32, batch 1 x 512 (two mLSTM chunks of 256, 512
+    sLSTM steps), remat on: CPU (plain versions) against the card
+    (kernels), the same seeded weights and tokens; K1 and K3 launch on
+    the card only, as many times as the plan says."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import matmul as k1
+    from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.models import transformer
+    cfg = xlstm_two_layer_cfg()
+    layout = ParallelPlan().validate(mode="train").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(3), "cpu", torch.float32)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 513)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][0, -9:] = -1
+    res = {}
+    for d in ("cpu", dev):
+        before = (k1.launches, k3.launches, k3.launches_bwd)
+        live = tree_map(lambda t: t.detach().to(d).requires_grad_(), cpu)
+        loss, _ = transformer.forward(
+            cfg, layout, live, {k: v.to(d) for k, v in batch.items()},
+            mode="train")
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads], tuple(
+            a - b for a, b in zip((k1.launches, k3.launches,
+                                   k3.launches_bwd), before)))
+    (l_cpu, g_cpu, n_cpu), (l_dev, g_dev, n_dev) = res["cpu"], res[str(dev)]
+    names = [".".join(p) for p in _paths(cpu)]
+    errs = {n: (leaf_err(a, b), b.abs().max().item())
+            for n, a, b in zip(names, g_dev, g_cpu)}
+    worst = max(e for e, _ in errs.values())
+    tol = 1e-4
+    # K1: 8 linears twice (forward, recompute) and the head's one chunk
+    # twice; K3: 3 norms twice and ln_f, backward once each
+    want = (2 * 8 + 2, 2 * 3 + 1, 3 + 1)
+    print(f"[16] xlstm [mlstm, slstm] full width f32 train step (1x512): "
+          f"loss cpu {l_cpu:.6f} card {l_dev:.6f}; gradient max |card - "
+          f"cpu| / max |cpu| per leaf, worst first (max |cpu| in "
+          f"brackets): " + ", ".join(
+              f"{k} {e:.1e} [{g:.1e}]" for k, (e, g) in sorted(
+                  errs.items(), key=lambda kv: -kv[1][0])[:8])
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e}); "
+          f"(K1, K3, K3 backward) launches cpu {n_cpu}, card {n_dev}")
+    check(n_cpu == (0, 0, 0) and n_dev == want, f"two-layer xlstm: "
+          f"launches cpu {n_cpu}, card {n_dev} (expected {want})")
+    check(abs(l_cpu - l_dev) <= tol * (1 + abs(l_cpu))
+          and math.isfinite(l_dev),
+          f"two-layer xlstm train loss: {l_cpu} vs {l_dev}")
+    check(worst <= tol, f"two-layer xlstm train gradients: {worst}")
+
+
+def phase_two_layer_xlstm_serve(dev):
+    """Phase 16's model (the same seeded weights) through the decode path
+    from a fresh cache: a 16-token sequential prefill and 8 greedy decode
+    steps of 2 slots, CPU (plain versions) against the card (kernels):
+    logits within 1e-4 of 1 + max at every step, the same greedy tokens,
+    K1 and K3 launched on the card only."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import init_params, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import matmul as k1
+    from repro_torch.kernels import rmsnorm as k3
+    from repro_torch.models import transformer
+    from repro_torch.serve.kvcache import cache_with_dtype
+    cfg = xlstm_two_layer_cfg()
+    layout = ParallelPlan().validate(mode="serve").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(3), "cpu", torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 16)))
+    tree = cache_with_dtype(transformer.abstract_cache(cfg, layout, 2, 64),
+                            torch.float32)
+    res = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d), cpu)
+        cache = init_params(tree, None, d)
+        before = (k1.launches, k3.launches)
+        logits, toks = [], []
+        tok = prompt[:, :1]
+        for t in range(16 + 8):
+            lg, cache = transformer.forward(
+                cfg, layout, params, {"token": tok.to(d),
+                                      "pos": torch.full((2,), t,
+                                                        dtype=torch.int32,
+                                                        device=d)},
+                mode="decode", cache=cache)
+            lg = lg.float().cpu()
+            logits.append(lg)
+            nxt = lg.argmax(-1)[:, None]
+            toks.append(nxt)
+            tok = prompt[:, t + 1:t + 2] if t + 1 < 16 else nxt
+        res[str(d)] = (torch.stack(logits), torch.cat(toks, 1), (
+            k1.launches - before[0], k3.launches - before[1]))
+    (l_cpu, t_cpu, n_cpu), (l_dev, t_dev, n_dev) = res["cpu"], res[str(dev)]
+    err = ((l_dev - l_cpu).abs().amax(dim=(1, 2))
+           / (1 + l_cpu.abs().amax(dim=(1, 2))))
+    want = (24 * (8 + 1), 24 * (3 + 1))
+    print(f"[16s] xlstm [mlstm, slstm] full width f32 decode path (2 slots, "
+          f"16 prompt tokens one a step, 8 greedy steps): logits max |card "
+          f"- cpu| / (1 + max |cpu|) per step, worst {err.max().item():.1e} "
+          f"(tol 1e-4); greedy tokens equal "
+          f"{torch.equal(t_cpu[:, 15:], t_dev[:, 15:])}; (K1, K3) launches "
+          f"cpu {n_cpu}, card {n_dev}")
+    check(n_cpu == (0, 0) and n_dev == want, f"xlstm decode path: launches "
+          f"cpu {n_cpu}, card {n_dev} (expected {want})")
+    check(err.max().item() <= 1e-4 and torch.isfinite(l_dev).all(),
+          f"xlstm decode path logits: {err.tolist()}")
+    check(torch.equal(t_cpu[:, 15:], t_dev[:, 15:]),
+          f"xlstm decode path greedy tokens differ: {t_cpu} vs {t_dev}")
+
+
+def xlstm_step_bytes(prompts, max_new):
+    """(bytes per step on average, steps, parts) of 7x's decode steps,
+    each input read once and each output written once: the weights (of
+    the embedding only the slots' rows) and, for each slot still running,
+    its f32 recurrent state read and written: the mLSTM's C (4 x 512 x
+    512), n and m in each of 21 layers, the sLSTM's c, n, h, m in each of
+    3.  A slot of prompt p runs p + max_new - 1 steps."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    params = transformer.abstract_params(get("xlstm-350m"))
+    weights = param_bytes(params) - param_bytes({"e": params["embed"]})
+    dm, ds = X_DIN // X_NH, X_D // X_NH
+    mstate = X_MLSTM * X_NH * (dm * dm + dm + 1) * 4
+    sstate = X_SLSTM * 4 * X_NH * ds * 4
+    runs = [p + max_new - 1 for p in prompts]
+    steps, slot_steps = max(runs), sum(runs)
+    parts = {"weights": steps * weights, "embed rows": slot_steps * X_D * 2,
+             "mLSTM state": slot_steps * 2 * mstate,
+             "sLSTM state": slot_steps * 2 * sstate}
+    return sum(parts.values()) / steps, steps, {
+        k: v / steps for k, v in parts.items()}
+
+
+def phase_serve_xlstm(card):
+    """``repro_torch.launch.serve`` serves xlstm-350m at full depth and
+    width in bf16, weights from a seed: 8 requests in batch 8, prompts of
+    43-47 tokens fed one a step, 32 new tokens each, max_len 512, greedy.
+    The launch counters reset just before and read just after; the
+    launches per step are exact, and no bf16 GEMM takes simt."""
+    import torch
+    from repro_torch.launch import serve
+    reset_launches()
+    stats = serve.main(["--arch", "xlstm-350m", "--device", "cuda",
+                        "--requests", "8", "--batch-size", "8",
+                        "--shared-prefix", "40", "--max-new", "32",
+                        "--max-len", "512"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = stats["decode_steps"]
+    want = {k: n * steps for k, n in X_SERVE_STEP.items()}
+    print(f"[7x] launches in the xlstm serving run: {launches} over "
+          f"{stats['prefill_steps']} prefill + {steps} decode steps "
+          f"(expected {want})")
+    check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
+          f"xlstm serving run: {stats['tokens']} tokens, "
+          f"{stats['completed']} done")
+    check(stats["nonfinite_rows"] == 0,
+          f"xlstm serving run: {stats['nonfinite_rows']} non-finite rows")
+    check(stats["prefill_steps"] == 0 and launches == want,
+          f"xlstm serving run launches {launches} != {want}")
+    routes = check_k1_routes(launches, "7x", "xlstm serving run")
+    check(routes["decode"] == launches["K1"],
+          f"xlstm serving run: K1 routes {routes}")
+    step_bytes, want_steps, parts = xlstm_step_bytes(
+        [len(r.prompt) for r in serve_requests(8, shared=40)], 32)
+    check(steps == want_steps, f"xlstm serving run: {steps} decode steps, "
+          f"the bound counts {want_steps}")
+    bound = step_bytes / H100_BYTES_PER_S * 1e3
+    print(f"[7x] serving xlstm-350m bf16, 8 requests (prompts 43-47 fed one "
+          f"a step) x 32 new tokens on {card}: TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
+          f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
+          f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} "
+          f"tok/s; a step's bound on average {bound:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
+          + " a step, at 3.35 TB/s)")
+    return launches, routes, {
+        "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
+        "tpot_p50_ms": stats["tpot_p50_s"] * 1e3,
+        "tok_per_s": stats["tok_per_s"], "step_bound_ms": bound}
+
+
+def phase_xlstm_blocks(dev, card, step_s):
+    """How much of an xlstm-350m training step each block kind takes: one
+    mLSTM and one sLSTM block at the training shape (bf16, 4 x 2048, seed
+    weights) on the host clock between synchronisations: the forward
+    alone, the forward with its backward, and the two as a remat step runs
+    them (``torch.utils.checkpoint``: a forward whose saved tensors are
+    dropped, then in the backward the forward again and the backward).
+    21 mLSTM and 3 sLSTM blocks' remat times against phase 17's steady
+    step give each kind's share."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params, tree_leaves
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer, xlstm
+    cfg = get("xlstm-350m")
+    layout = ParallelPlan().validate(mode="train").build()
+    dirs = transformer.entry_dirs()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(TRAIN_B, TRAIN_S, X_D, generator=gen, device=dev) \
+        .to(torch.bfloat16).requires_grad_()
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    per = {}
+    for kind, n in (("mlstm", X_MLSTM), ("slstm", X_SLSTM)):
+        p = init_params(getattr(xlstm, f"{kind}_params")(cfg), gen, dev,
+                        torch.bfloat16)
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_()
+        apply = getattr(xlstm, f"{kind}_apply")
+
+        def block(xx, *ws):
+            return apply(layout, cfg, dirs, xx,
+                         dict(zip(p, ws)) if ws else p)[0]
+
+        def fwd():
+            with torch.no_grad():
+                block(x)
+
+        def fwd_bwd():
+            torch.autograd.grad(block(x), [x] + leaves, dy)
+
+        def remat():
+            y = checkpoint(block, x, *leaves, use_reentrant=False)
+            torch.autograd.grad(y, [x] + leaves, dy)
+        t = {}
+        for name, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd),
+                         ("remat", remat)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+        per[kind] = (n, t)
+    print(f"[18] xlstm-350m blocks at {TRAIN_B} x {TRAIN_S} bf16 on {card}, "
+          "host clock: " + "; ".join(
+              f"{k} forward {t['fwd'] * 1e3:.1f} ms, forward + backward "
+              f"{t['fwd_bwd'] * 1e3:.1f} ms, under remat "
+              f"{t['remat'] * 1e3:.1f} ms, x {n} blocks "
+              f"{n * t['remat']:.3f} s ({n * t['remat'] / step_s * 100:.1f}% "
+              f"of the {step_s:.3f} s step)" for k, (n, t) in per.items()))
+    return {k: {**{f"{name}_ms": v * 1e3 for name, v in t.items()},
+                "share_of_step": n * t["remat"] / step_s}
+            for k, (n, t) in per.items()}
+
+
+def phase_ckpt_roundtrip(card):
+    """The checkpoint store on the card at full width and depth
+    (xlstm-350m, bf16, batch 2 x 256): the train launcher trains 2 steps
+    and saves step 2; run again to 4 steps it restores step 2 (every
+    parameter, moment and the step bit for bit what was saved), trains on
+    and saves step 4; the serve launcher restores step 4 (bit for bit) and
+    serves 8 requests.  The directory is removed afterwards."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core.params import tree_leaves
+    from repro_torch.launch import serve, train
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    saved, restored = {}, {}
+    save, restore = store.save, store.restore
+
+    def copies(params, opt_state):
+        """The leaves' values now: AdamW updates them in place later."""
+        return ([t.clone() for t in tree_leaves(params)], opt_state and (
+            opt_state.step, [t.clone() for t in tree_leaves(opt_state.m)
+                             + tree_leaves(opt_state.v)]))
+
+    def keep_save(ckpt_dir, step, params, opt_state, **kw):
+        saved[step] = copies(params, opt_state)
+        return save(ckpt_dir, step, params, opt_state, **kw)
+
+    def keep_restore(ckpt_dir, step, *args, **kw):
+        out = restore(ckpt_dir, step, *args, **kw)
+        restored[step] = copies(out[0], out[1])
+        return out
+
+    def run(fn, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        print("\n".join("    | " + line
+                        for line in buf.getvalue().splitlines()))
+        return out, buf.getvalue(), sec
+
+    def same(got, want):
+        return len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want))
+    argv = ["--arch", "xlstm-350m", "--device", "cuda", "--batch",
+            str(X_CKPT_B), "--seq", str(X_CKPT_S), "--log-every", "1",
+            "--ckpt-dir", str(ck), "--ckpt-every", "2"]
+    store.save, store.restore = keep_save, keep_restore
+    try:
+        out1, text1, s1 = run(train.main, argv + ["--steps", "2"])
+        out2, text2, s2 = run(train.main, argv + ["--steps", "4"])
+        stats, text3, s3 = run(serve.main, [
+            "--arch", "xlstm-350m", "--device", "cuda", "--requests", "8",
+            "--batch-size", "8", "--max-new", "8", "--ckpt-dir", str(ck)])
+    finally:
+        store.save, store.restore = save, restore
+    size = sum(f.stat().st_size for f in ck.rglob("*.npy"))
+    shutil.rmtree(ck, ignore_errors=True)
+    check(out1["start"] == 0 and sorted(saved) == [2, 4],
+          f"checkpoint round trip: saved steps {sorted(saved)}")
+    check(f"saved {ck / 'step_00000002'}" in text1,
+          "checkpoint round trip: the first run printed no saved line")
+    check(f"restoring step 2 from {ck}" in text2 and out2["start"] == 2
+          and len(out2["losses"]) == 2 and all(
+              map(math.isfinite, out1["losses"] + out2["losses"])),
+          f"checkpoint round trip: resume {out2['start']}, losses "
+          f"{out1['losses']} {out2['losses']}")
+    params2, (step2, moments2) = restored[2]
+    check(same(params2, saved[2][0]),
+          "checkpoint round trip: restored parameters differ from saved")
+    check(step2 == saved[2][1][0] == 2 and same(moments2, saved[2][1][1]),
+          "checkpoint round trip: restored AdamW state differs from saved")
+    check("restored checkpoint step 4" in text3
+          and same(restored[4][0], saved[4][0]),
+          "checkpoint round trip: the server's parameters differ from step 4")
+    check(stats["tokens"] == 64 and stats["nonfinite_rows"] == 0,
+          f"checkpoint round trip: served {stats['tokens']} tokens, "
+          f"{stats['nonfinite_rows']} non-finite rows")
+    n = len(saved[2][0])
+    print(f"[19] checkpoint round trip, xlstm-350m bf16 at full width and "
+          f"depth on {card}: train 2 steps and save {s1:.1f} s, restore "
+          f"step 2 + 2 steps + save {s2:.1f} s, restore step 4 and serve 8 "
+          f"x 8 tokens {s3:.1f} s; {n} parameters, {2 * n} moments and the "
+          f"step restored bit for bit; {size / 2 ** 30:.2f} GiB on disk for "
+          "two steps")
+    return {"train_save_s": s1, "resume_s": s2, "serve_restore_s": s3}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2653,19 +3088,39 @@ def main():
     zserve_numbers["breakdown"] = timed(phase_decode_breakdown_zamba2,
                                         zserve_eng, card)
     del zserve_eng
-    train_launches, train_routes, train_k2 = timed(phase_train, card)
+    train_launches, train_routes, train_k2, _ = timed(phase_train, card)
     timed(phase_breakdown, dev, card)
     k1_train, k1_train_err = timed(phase_k1_train, dev)
     k5_numbers = timed(phase_k5, dev)
     timed(phase_two_layer_zamba2, dev)
     timed(phase_two_layer_zamba2_serve, dev)
-    zamba_launches, zamba_routes, zamba_k2 = timed(
+    zamba_launches, zamba_routes, zamba_k2, _ = timed(
         phase_train, card, "zamba2-1.2b", Z_STEPS, Z_LAUNCHES, tag="13")
     timed(phase_breakdown, dev, card, "zamba2-1.2b", tag="14")
+    timed(phase_two_layer_xlstm, dev)
+    timed(phase_two_layer_xlstm_serve, dev)
+    xserve_launches, xserve_routes, xserve_numbers = timed(
+        phase_serve_xlstm, card)
+    xlstm_launches, xlstm_routes, xlstm_k2, xlstm_tel = timed(
+        phase_train, card, "xlstm-350m", X_STEPS, X_LAUNCHES, tag="17")
+    xlstm_numbers = {"t_step_s": xlstm_tel["t_step_s"],
+                     "tokens_per_s": xlstm_tel["tokens_per_s"],
+                     "mfu": xlstm_tel["mfu"],
+                     "mem_peak_gib": xlstm_tel["mem_peak_bytes"] / 2 ** 30}
+    # a quarter of the sequence: the sLSTM's per-token loop makes a full
+    # step hundreds of thousands of kernels for the profiler to record
+    xlstm_numbers["breakdown"] = timed(phase_breakdown, dev, card,
+                                       "xlstm-350m", tag="18",
+                                       seq=TRAIN_S // 4)
+    xlstm_numbers["block_share"] = timed(phase_xlstm_blocks, dev, card,
+                                         xlstm_tel["t_step_s"])
+    xlstm_numbers["checkpoint"] = timed(phase_ckpt_roundtrip, card)
 
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
-             ("serve_zamba2", zserve_launches))
+             ("serve_zamba2", zserve_launches),
+             ("train_xlstm", xlstm_launches),
+             ("serve_xlstm", xserve_launches))
 
     def launched(*names, **more):
         by = {path: sum(counts[n] for n in names) for path, counts in paths}
@@ -2675,17 +3130,18 @@ def main():
     for arch, agg in k1_train.items():
         k1_tc.update({f"train_{arch}_{k}": v for k, v in agg.items()})
     k1_tc["max_abs_err"] = max(k1_tc["max_abs_err"], k1_train_err)
-    by_route = {r: serve_routes[r] + train_routes[r] + zamba_routes[r]
-                + zserve_routes[r] for r in serve_routes}
+    k1_paths = (("serve", serve_routes), ("train", train_routes),
+                ("train_zamba2", zamba_routes),
+                ("serve_zamba2", zserve_routes),
+                ("train_xlstm", xlstm_routes), ("serve_xlstm", xserve_routes))
+    by_route = {r: sum(routes[r] for _, routes in k1_paths)
+                for r in serve_routes}
     k2_by_route = {key: {r: sum(p[key][r] for p in (serve_k2, train_k2,
-                                                    zamba_k2))
+                                                    zamba_k2, xlstm_k2))
                          for r in serve_k2[key]} for key in serve_k2}
 
     def k1_launched(route):
-        by = {path: routes[route] for path, routes in
-              (("serve", serve_routes), ("train", train_routes),
-               ("train_zamba2", zamba_routes),
-               ("serve_zamba2", zserve_routes))}
+        by = {path: routes[route] for path, routes in k1_paths}
         return dict(launches=sum(by.values()), launches_by_path=by,
                     launches_by_route=by_route)
     ratios = {"decode step": k1_dec["ms"] / k1_dec["library_ms"],
@@ -2754,7 +3210,8 @@ def main():
     print("serving paths: " + json.dumps({
         "prefix_cache": prefix_numbers, "gather_view": gather_numbers,
         "speculative": spec_numbers,
-        "serve_zamba2": zserve_numbers}))
+        "serve_zamba2": zserve_numbers, "serve_xlstm": xserve_numbers}))
+    print("xlstm training: " + json.dumps(xlstm_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

@@ -2,15 +2,18 @@
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8``
 builds the continuous-batching engine on one device (the paged KV cache
 with chunked prefill for the dense family, the per-slot recurrent state
-with sequential prefill for zamba2), submits synthetic requests and
+with sequential prefill for zamba2 and xlstm), submits synthetic requests and
 reports the serving metrics (TTFT / TPOT p50/p95, tok/s, prefix hits,
 accepted drafts).  Same flags as ``repro.launch.serve`` for the paths the
 port has (``--prefix-cache``, ``--draft ARCH --spec-tokens N``,
 ``--no-fused-decode``), plus ``--device {cuda,cpu}`` (default cuda: raises
 when no GPU is present unless ``--device cpu``).  Weights are drawn from
 ``--seed`` at the config's published shapes, a draft's too (so a draft of
-the target's own arch is the target itself, as in the reference).
-Exits nonzero when no tokens were produced.
+the target's own arch is the target itself, as in the reference);
+``--ckpt-dir`` then restores the target's parameters from the latest step
+saved there by either package's train launcher (reference
+``repro/launch/serve.py:108-114``).  Exits nonzero when no tokens were
+produced.
 """
 from __future__ import annotations
 
@@ -68,6 +71,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common tokens to every "
                          "synthetic request")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="restore the parameters of the latest checkpoint "
+                         "step here")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace of the run here (plus a "
                          "<path>.jsonl event log)")
@@ -77,6 +83,7 @@ def main(argv=None) -> dict:
 
     import torch
 
+    from repro_torch.checkpoint import store
     from repro_torch.config import reduced
     from repro_torch.configs.registry import get
     from repro_torch.core.params import init_params
@@ -109,6 +116,13 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(transformer.abstract_params(cfg),
                          gen, device, getattr(torch, cfg.dtype))
+    if args.ckpt_dir:
+        last = store.latest_step(args.ckpt_dir)
+        if last >= 0:
+            params, _, _ = store.restore(
+                args.ckpt_dir, last, transformer.abstract_params(cfg),
+                device=device, dtype=getattr(torch, cfg.dtype))
+            print(f"restored checkpoint step {last}")
     draft = None
     if args.draft:
         dcfg = get(args.draft)

@@ -3,14 +3,24 @@
 
 The flags of ``repro.launch.train`` plus ``--device {cuda,cpu}`` (default
 cuda; with no card it exits with a message and never falls back to the
-CPU).  It trains the dense and hybrid (zamba2) families on one device,
-the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW; the flags of what
-the port does not carry (more than one device, the 1-D/2-D baselines,
-overlap, ZeRO, Adafactor, checkpoints, the moe/ssm/vlm/audio families)
-raise with a pointer to ROADMAP.md.  Weights are drawn from seed 0 at the config's published shapes.  It prints the
-reference launcher's lines (``arch=... plan=...``, ``params: ...M``,
-``step N loss=... xent=... lr=... gnorm=... s/step``, ``done: first loss
-...``) and returns {"losses", "telemetry"}.
+CPU).  It trains the dense, hybrid (zamba2) and SSM (xlstm) families on
+one device, the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW; the
+flags of what the port does not carry (more than one device, the 1-D/2-D
+baselines, overlap, ZeRO, Adafactor, the moe/vlm/audio families) raise
+with a pointer to ROADMAP.md.  Weights are drawn from seed 0 at the
+config's published shapes.  It prints the reference launcher's lines
+(``arch=... plan=...``, ``params: ...M``, ``step N loss=... xent=...
+lr=... gnorm=... s/step``, ``done: first loss ...``) and returns
+{"losses", "telemetry", "start"}.
+
+``--ckpt-dir`` follows the reference (``repro/launch/train.py:128-180``):
+the latest step found there is restored (``restoring step N from DIR``),
+parameters and AdamW state, and the loop runs from it to ``--steps``;
+every ``--ckpt-every`` steps the state is saved (``saved DIR``) in the
+format both packages read (``checkpoint/store.py``); a restored step at
+or past ``--steps`` prints ``nothing to do: restored step N >= --steps
+M``.  As in the reference, a resumed run restarts the token stream from
+its first batch rather than skipping the batches already trained on.
 """
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ TODO = "not ported yet: see ROADMAP.md, Queue 1"
 
 def _refuse(args, cfg):
     """NotImplementedError for every flag this slice does not carry."""
-    from repro_torch.config import Family
+    from repro_torch.models.registry import PORTED
     bad = []
     if args.dp > 1 or args.model > 1 or args.pp > 1 or args.host_devices:
         bad.append("more than one device (--dp/--model/--pp/--host-devices;"
@@ -38,9 +48,7 @@ def _refuse(args, cfg):
         bad.append(f"--zero {args.zero} (ZeRO over dp, item 6)")
     if args.optimizer != "adamw":
         bad.append(f"--optimizer {args.optimizer} (Adafactor, item 6)")
-    if args.ckpt_dir:
-        bad.append("--ckpt-dir (checkpoints, item 9)")
-    if cfg.family not in (Family.DENSE, Family.HYBRID):
+    if cfg.family not in PORTED:
         bad.append(f"family {cfg.family.value!r} (item 10)")
     if bad:
         raise NotImplementedError(f"{'; '.join(bad)}: {TODO}")
@@ -92,6 +100,7 @@ def main(argv=None) -> dict:
 
     import torch
 
+    from repro_torch.checkpoint import store
     from repro_torch.config import OptimConfig, ShapeConfig, reduced
     from repro_torch.configs.registry import get
     from repro_torch.core.params import init_params, tree_leaves
@@ -145,6 +154,14 @@ def main(argv=None) -> dict:
     print(f"params: {n_params / 1e6:.1f}M")
     opt_state = adamw_init(params)
     step_fn = make_train_step(cfg, layout, opt_cfg)
+    start = 0
+    if args.ckpt_dir:
+        last = store.latest_step(args.ckpt_dir)
+        if last >= 0:
+            print(f"restoring step {last} from {args.ckpt_dir}")
+            params, opt_state, _ = store.restore(args.ckpt_dir, last, params,
+                                                 opt_state)
+            start = last
     data = TokenStream(cfg, shape, DataConfig(kind=args.data,
                                               path=args.data_path), device)
     tel = None
@@ -156,7 +173,7 @@ def main(argv=None) -> dict:
         tel.start()
     t0 = time.time()
     losses = []
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         with tracer.span("data_next", track="train"):
             batch = next(data)
         with tracer.span("train_step", track="train", step=step) as sp:
@@ -169,17 +186,25 @@ def main(argv=None) -> dict:
                 tel.nonfinite["blame"] = tel.blame(params)
                 print(f"non-finite loss at step {step + 1}: "
                       f"{tel.nonfinite['blame']}", file=sys.stderr)
-        if (step + 1) % args.log_every == 0 or step == 0:
+        if (step + 1) % args.log_every == 0 or step == start:
             loss = float(metrics["loss"])
             losses.append(loss)
-            dt = (time.time() - t0) / (step + 1)
+            dt = (time.time() - t0) / (step - start + 1)
             print(f"step {step + 1:5d} loss={loss:8.4f} "
                   f"xent={float(metrics['xent']):8.4f} "
                   f"lr={float(metrics['lr']):.2e} "
                   f"gnorm={float(metrics['gnorm']):7.3f} "
                   f"{dt:6.2f}s/step", flush=True)
+        if args.ckpt_dir and args.ckpt_every and \
+                (step + 1) % args.ckpt_every == 0:
+            d = store.save(args.ckpt_dir, step + 1, params, opt_state,
+                           layout=layout)
+            print(f"saved {d}")
     if losses:
         print(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    else:
+        print(f"nothing to do: restored step {start} >= --steps "
+              f"{args.steps}")
     summary = None
     if tel is not None:
         tel.write(args.telemetry)
@@ -190,7 +215,7 @@ def main(argv=None) -> dict:
         tracer.write_chrome(args.trace)
         tracer.write_jsonl(args.trace + ".jsonl")
         print(f"trace: wrote {args.trace} (+ {args.trace}.jsonl)")
-    return {"losses": losses, "telemetry": summary}
+    return {"losses": losses, "telemetry": summary, "start": start}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The hooks of ``repro/models/registry.py`` that the port's paths need,
-for the dense and hybrid families: the layer plan and its segments, the
+for the dense, hybrid and SSM (xLSTM) families: the layer plan and its
+segments, the
 decode-cache tree (``stack_cache``), the loss labels and mask, the
 microbatch weight, and the train-FLOPs estimate that is the MFU numerator
 (``obs/telemetry.py``).  The reference module
@@ -16,19 +17,42 @@ import torch
 from ..config import Family, ModelConfig
 from .blocks import kv_cache_init
 from .mamba2 import mamba_cache_init
+from .xlstm import mlstm_cache_init, slstm_cache_init
+
+PORTED = (Family.DENSE, Family.HYBRID, Family.SSM)
+
+
+def _plan_xlstm(cfg: ModelConfig) -> Tuple[str, ...]:
+    """mLSTM blocks with one sLSTM block per ``slstm_every`` positions
+    (reference ``registry.py:399-411``)."""
+    every = cfg.ssm.slstm_every
+    if not every:
+        return ("mlstm",) * cfg.n_layers
+    plan, done = [], 0
+    while done < cfg.n_layers:
+        n = min(every - 1, cfg.n_layers - done)
+        plan += ["mlstm"] * n
+        done += n
+        if done < cfg.n_layers:
+            plan.append("slstm")
+            done += 1
+    return tuple(plan)
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The block kind of each layer in order (reference ``_plan_dense`` and
-    ``_plan_hybrid``, ``registry.py:374-396``): zamba2 runs the one shared
-    attention block ("attn") after every full ``attn_every`` Mamba
+    """The block kind of each layer in order (reference ``_plan_dense``,
+    ``_plan_hybrid`` and ``_plan_xlstm``, ``registry.py:374-411``): zamba2
+    runs the one shared attention block ("attn") after every full
+    ``attn_every`` Mamba layers; xlstm-350m is 21 mLSTM and 3 sLSTM
     layers."""
     if cfg.family == Family.DENSE:
         return ("dense",) * cfg.n_layers
+    if cfg.family == Family.SSM:
+        return _plan_xlstm(cfg)
     if cfg.family != Family.HYBRID:
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family.value!r} is not ported yet; "
-            "the port runs the dense and hybrid families (ROADMAP.md, "
+            "the port runs the dense, hybrid and SSM families (ROADMAP.md, "
             "Queue 1 item 10)")
     every = cfg.ssm.attn_every or (cfg.n_layers + 1)
     plan, done = [], 0
@@ -70,7 +94,11 @@ def _attn_cache(cfg: ModelConfig, batch: int, length: int):
 # BlockKind.cache); zamba2's shared block has one per use
 KIND_CACHES = {"dense": _attn_cache, "attn": _attn_cache,
                "mamba": lambda cfg, batch, length:
-                   mamba_cache_init(cfg, batch)}
+                   mamba_cache_init(cfg, batch),
+               "mlstm": lambda cfg, batch, length:
+                   mlstm_cache_init(cfg, batch),
+               "slstm": lambda cfg, batch, length:
+                   slstm_cache_init(cfg, batch)}
 
 
 def stack_cache(cfg: ModelConfig, batch: int, length: int):
@@ -107,15 +135,29 @@ def attn_step_flops(cfg: ModelConfig, s: int) -> float:
     return 3.0 * (2.0 * cfg.n_active_params() + attn)
 
 
+def ssm_step_flops(cfg: ModelConfig, s: int) -> float:
+    """Train FLOPs per token of the SSM family (reference
+    ``registry.py:486-489``): 3x the forward's 2 per active parameter, the
+    recurrent state's work taken to ride inside the parameter MACs."""
+    return 3.0 * 2.0 * cfg.n_active_params()
+
+
 def train_flops_per_token(cfg: ModelConfig, s: int) -> float:
     """Model FLOPs spent per trained token (reference
     ``registry.py:492-494``).  The reference gives the hybrid family no
     estimate of its own, so zamba2 takes ``attn_step_flops`` too, which
     counts its 38 layers as dense attention + MLP layers (``n_params``):
     2.68B parameters against the 1.18B of its real tree, so its MFU reads
-    about 2.3x high.  Copied as it is."""
-    if cfg.family not in (Family.DENSE, Family.HYBRID):
+    about 2.3x high.  The SSM family takes ``ssm_step_flops``, whose
+    ``n_active_params`` counts xlstm-350m's 24 layers as attention blocks
+    with no MLP (d_ff 0): 0.204B parameters against the 0.342B of its real
+    tree, and none of the mLSTM's chunk products, so its MFU reads low, at
+    most 0.60x of what the tree's parameters give.  Both copied as they
+    are."""
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.arch}: family {cfg.family.value!r} is not ported yet "
             "(ROADMAP.md, Queue 1 item 10)")
+    if cfg.family == Family.SSM:
+        return float(ssm_step_flops(cfg, s))
     return float(attn_step_flops(cfg, s))

@@ -1,5 +1,5 @@
-"""Model assembly (port of ``repro/models/transformer.py`` and the dense
-and hybrid parts of ``repro/models/registry.py``).
+"""Model assembly (port of ``repro/models/transformer.py`` and the dense,
+hybrid and SSM parts of ``repro/models/registry.py``).
 
 ``abstract_params(cfg)`` is the parameter tree, with the same nested names,
 shapes and dtypes as the reference's ``transformer.abstract_params`` at
@@ -15,20 +15,24 @@ one device and pp = 1.  The dense family's:
 no ``w_gate`` for a plain GELU MLP).  The hybrid family (zamba2) has
 ``shared.attn``, one unstacked dense block, and ``stack.mamba.{ln, w_x,
 w_z, w_bc, w_dt, dt_bias, A_log, D, conv_x, conv_x_b, conv_bc, conv_bc_b,
-gate_ln, w_out}`` (L, ...) instead of ``stack.dense``.  Weights keep JAX's
+gate_ln, w_out}`` (L, ...) instead of ``stack.dense``; the SSM family
+(xlstm) has ``stack.mlstm.{ln, w_q, w_k, w_v, w_z, w_if, out_ln, w_out}``
+and ``stack.slstm.{ln, w_gates, R, w_out}``.  Weights keep JAX's
 (in, out) layout, so a tree converted by ``convert.params_from_jax`` needs
 no transposes.
 
 ``forward(mode="train")`` returns the loss of a batch of token sequences,
 differentiable in every parameter: embedding, the layer plan (dense
-blocks, or zamba2's Mamba2 blocks and its shared attention block; each
-block recomputed in the backward when ``cfg.remat``), ``ln_f`` and the
-chunked vocab-parallel head and cross-entropy.  Serving: ``prefill`` runs
+blocks, zamba2's Mamba2 blocks and its shared attention block, or
+xlstm's mLSTM and sLSTM blocks; each block recomputed in the backward
+when ``cfg.remat``), ``ln_f`` and the chunked vocab-parallel head and
+cross-entropy.  Serving: ``prefill`` runs
 whole right-padded prompts and hands their rope'd (k, v) to the paged
 pool; ``forward(mode="decode")`` advances every slot by one token, against
 that pool (``page=...``) or against a contiguous per-slot cache tree
-(``abstract_cache``: zamba2's recurrent state and shared-block caches, the
-speculative draft's cache, the gather-view decode); ``extend`` continues
+(``abstract_cache``: zamba2's and xlstm's recurrent state, zamba2's
+shared-block caches, the speculative draft's cache, the gather-view
+decode); ``extend`` continues
 past a cache view with several fresh tokens a row (the prefix-hit tail
 prefill and the speculative verify).  The reference scans stacked layer
 parameters (``registry.run_stack``); PyTorch runs eagerly, so here the
@@ -49,7 +53,7 @@ from ..core.linear3d import embed_lookup, plinear
 from ..core.params import Param, tree_map
 from ..core.topology import Dirs, Layout
 from . import blocks as B
-from . import mamba2
+from . import mamba2, xlstm
 from .registry import (SHARED_KINDS, layer_plan, segments, stack_cache,
                        text_labels)
 
@@ -57,7 +61,15 @@ from .registry import (SHARED_KINDS, layer_plan, segments, stack_cache,
 # block kinds with per-layer (stacked) parameters; "attn" reads the one
 # shared block (reference registry.py:323-329, BlockKind(params=None))
 STACKED_KINDS = {"dense": B.dense_block_params,
-                 "mamba": mamba2.mamba_block_params}
+                 "mamba": mamba2.mamba_block_params,
+                 "mlstm": xlstm.mlstm_params, "slstm": xlstm.slstm_params}
+# the recurrent kinds' one-token decode, (x, p, cache) -> (x, new leaves)
+RECURRENT_DECODE = {
+    "mamba": mamba2.mamba_decode,
+    "mlstm": lambda layout, cfg, dirs, x, p, c: xlstm.mlstm_apply(
+        layout, cfg, dirs, x, p, decode=True, cache=c),
+    "slstm": lambda layout, cfg, dirs, x, p, c: xlstm.slstm_apply(
+        layout, cfg, dirs, x, p, decode=True, cache=c)}
 
 
 def _stacked(block, n: int):
@@ -66,7 +78,7 @@ def _stacked(block, n: int):
 
 
 def abstract_params(cfg: ModelConfig):
-    """Param tree of a dense- or hybrid-family model (see the module
+    """Param tree of a dense-, hybrid- or SSM-family model (see the module
     docstring; reference ``transformer.py:47-73``)."""
     plan = layer_plan(cfg)
     d = cfg.d_model
@@ -125,8 +137,8 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
     state and conv tails; the shared kind's slab holds one cache per use);
     prefill or extend with ``collect_kv`` -> {"dense": (k, v)} stacked
     (n_layers, B, S, nkv, d).  Prefill and extend take the dense family
-    only: a recurrent state has no chunked form, so the hybrid family
-    prefills one token a step through decode."""
+    only: a recurrent state has no chunked form, so the hybrid and SSM
+    families prefill one token a step through decode."""
     plan = layer_plan(cfg)
     if mode in ("prefill", "extend") and cfg.family != Family.DENSE:
         raise NotImplementedError(
@@ -141,6 +153,10 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
     def block(kind, xx, p):
         if kind == "mamba":
             return mamba2.mamba_apply(layout, cfg, dirs, xx, p)
+        if kind == "mlstm":
+            return xlstm.mlstm_apply(layout, cfg, dirs, xx, p)[0]
+        if kind == "slstm":
+            return xlstm.slstm_apply(layout, cfg, dirs, xx, p)[0]
         return B.dense_block_apply(layout, cfg, dirs, xx, p, positions)[0]
 
     outs, offs = [], {}
@@ -154,8 +170,8 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
                 x = checkpoint(block, kind, x, p, use_reentrant=False)
             elif contiguous:
                 c = _layer(cache[kind], i)
-                if kind == "mamba":
-                    x, nc = mamba2.mamba_decode(layout, cfg, dirs, x, p, c)
+                if kind in RECURRENT_DECODE:
+                    x, nc = RECURRENT_DECODE[kind](layout, cfg, dirs, x, p, c)
                     for name, t in nc.items():
                         c[name].copy_(t)
                 else:

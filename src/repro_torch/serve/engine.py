@@ -4,7 +4,8 @@
     slot refill, prefill grouping (host-side policy).
   * ``kvcache.PagedKVCache`` — block-table paged KV pool for the 'paged'
     family (dense attention), with the shared-prefix index; the 'state'
-    family (zamba2's recurrent state) keeps contiguous per-slot caches.
+    families (zamba2's and xlstm's recurrent state) keep contiguous
+    per-slot caches.
   * ``sampling.make_sampler`` — greedy / temperature / top-k / top-p under
     one engine-owned, seeded ``torch.Generator``.
   * ``speculate.DraftSpec`` — the optional draft model of speculative
@@ -25,11 +26,17 @@ scatters the new entries back.  With a draft, a decode step is a
 speculative round: the draft bursts γ proposals, the target verifies them
 in one extend.  The 'state' family has no chunked prefill: it feeds one
 prompt token a step through the decode path (as ``chunked_prefill=False``
-does for the paged family), and a reused slot's state is reset.
+does for the paged family), and a placed slot's state is wiped to 0, as
+the reference's ``reset_rows`` wipes it (``engine.py:230-236``), also on
+the first admission into a fresh cache.  For the sLSTM that sets its
+normaliser n to 0 where its cache init and its training scan start it
+at 1, so xlstm's first decode steps differ from its forward; the port
+keeps the reference's wipe, so that its tokens equal the JAX engine's
+(ROADMAP.md, Queue 3).
 
 The engine runs on the device its parameters lie on.  Not in the port yet
-(each raises ValueError): the families other than dense and hybrid
-(recurrent xLSTM, MoE, MLA, encoder-decoder, vision-language).
+(each raises ValueError): the families other than dense, hybrid and SSM
+(MoE, MLA, encoder-decoder, vision-language).
 """
 from __future__ import annotations
 
@@ -40,11 +47,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..config import Family, ModelConfig
+from ..config import ModelConfig
 from ..core.params import init_params
 from ..core.topology import Layout
 from ..models import blocks as B
 from ..models import transformer
+from ..models.registry import PORTED
 from ..obs.trace import NULL
 from . import kvcache, sampling, speculate
 from .metrics import ServeMetrics
@@ -79,8 +87,7 @@ class Engine:
                  fused_decode: Optional[bool] = None,
                  prefix_cache: bool = False,
                  draft: Optional[speculate.DraftSpec] = None, tracer=None):
-        if cfg.family not in (Family.DENSE, Family.HYBRID) \
-                or cfg.mla is not None:
+        if cfg.family not in PORTED or cfg.mla is not None:
             raise ValueError(f"{cfg.arch}: family {cfg.family.value!r} {LATER}")
         self.cfg, self.layout, self.params = cfg, layout, params
         # observability: per-request lifecycle spans come from the metrics
@@ -194,9 +201,9 @@ class Engine:
         return self._sample(logits)
 
     def _reset_rows(self, mask):
-        """Wipe reused slots' state (recurrent carries to 0, kv positions
-        to -1) so that a new request never sees its predecessor's
-        context."""
+        """Wipe placed slots' state (every float leaf to 0, sLSTM's n
+        included; kv positions to -1) so that a new request never sees its
+        predecessor's context (reference ``engine.py:230-236``)."""
         for leaves in self.cache.values():
             for leaf in leaves.values():
                 m = mask.view((1, -1) + (1,) * (leaf.dim() - 2))

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1 matmul (each route), K2 flash attention (each route) and K3 RMSNorm
-(forward and backward), K4 paged decode (each route), K5 SSD scan
-(forward and backward).
+K1 matmul (each route, xlstm's GEMMs with w_if's N = 8 among them), K2
+flash attention (each route) and K3 RMSNorm (forward and backward, xlstm's
+widths among them), K4 paged decode (each route), K5 SSD scan (forward and
+backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -122,6 +123,39 @@ def test_k1_routes_match_plain_on_card(cuda, m, k, n):
                 err = ((got.float() - want.float()).abs()
                        / (1 + want.float().abs())).max().item()
                 assert err <= 1e-2, (route, act, bias is not None, err)
+
+
+# xlstm-350m's projections (K, N): w_q/w_k/w_v/w_z, w_if (2 x 4 heads),
+# w_gates, the sLSTM's w_out, the mLSTM's w_out, the head
+XLSTM_GEMMS = [(1024, 2048), (1024, 8), (1024, 4096), (1024, 1024),
+               (2048, 1024), (1024, 50304)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", XLSTM_GEMMS)
+@pytest.mark.parametrize("m", [8, 8192])
+def test_k1_xlstm_shapes_match_plain_on_card(cuda, m, k, n):
+    """xlstm's GEMMs at a decode step's M (8) and a training step's (8192):
+    the route ``route`` picks and, at M = 8, the other bf16 route, every
+    activation, with and without bias; w_if's N = 8 (narrower than one
+    64-column tile or TMA box) also on the simt route in f32."""
+    x, w, b = _bf16_case(cuda, m, k, n, seed=m + n + k)
+    path = k1.route_for(x, w)
+    assert path == ("decode" if m <= k1.DECODE_MAX_M else "tc")
+    cases = [(route, x, w, b) for route in
+             (["tc", "decode"] if m <= 128 else [path])]
+    if n < 64:
+        cases.append(("simt", x.float(), w.float(), b.float()))
+    for route, xx, ww, bb in cases:
+        for act in k1.ACTS:
+            for bias in (None, bb):
+                got = k1.matmul(xx, ww, bias, act=act, force=route)
+                want = k1.matmul_plain(xx, ww, bias, act=act)
+                torch.cuda.synchronize()
+                err = ((got.float() - want.float()).abs()
+                       / (1 + want.float().abs())).max().item()
+                tol = 1e-2 if xx.dtype == torch.bfloat16 else 1e-4
+                assert err <= tol, (route, act, bias is not None, err)
 
 
 @pytest.mark.cuda
@@ -424,6 +458,33 @@ def test_k3_widths_match_plain_on_card(cuda, dtype, h, offset):
             assert _norm_err(got, want) <= K3_NORM_TOL[dtype][name], name
         assert torch.equal(k3.rmsnorm_bwd(dy, x, g, rstd,
                                           zero_centered=zc)[1], dg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1024, 2048])
+@pytest.mark.parametrize("m", [8, 8192])
+def test_k3_xlstm_widths_match_plain_on_card(cuda, h, m):
+    """xlstm's norms in bf16: ``ln`` and ``ln_f`` at 1024 (a block per
+    row), the mLSTM's ``out_ln`` at 2048 (a row in registers), at a
+    decode step's 8 rows and a training step's 8192, forward and
+    backward, within the scaled limit and ``K3_NORM_TOL``."""
+    gen = torch.Generator(device=cuda).manual_seed(h + m)
+    x, dy = (torch.randn(m, h, generator=gen, device=cuda)
+             .to(torch.bfloat16) for _ in range(2))
+    g = (torch.randn(h, generator=gen, device=cuda) * 0.1 + 1) \
+        .to(torch.bfloat16)
+    before = (k3.launches, k3.launches_bwd)
+    y, rstd = k3.rmsnorm_fwd(x, g)
+    dx, dg = k3.rmsnorm_bwd(dy, x, g, rstd)
+    assert (k3.launches, k3.launches_bwd) == (before[0] + 1, before[1] + 1)
+    y2, rstd2 = k3.rmsnorm_plain(x, g)
+    dx2, dg2 = k3.rmsnorm_bwd_plain(dy, x, g, rstd2)
+    torch.cuda.synchronize()
+    assert _rel(rstd, rstd2) <= 1e-5
+    for name, got, want in (("y", y, y2), ("dx", dx, dx2), ("dg", dg, dg2)):
+        assert _rel(got, want) <= TOL[torch.bfloat16], name
+        assert _norm_err(got, want) <= K3_NORM_TOL[torch.bfloat16][name], \
+            name
 
 
 @pytest.mark.cuda

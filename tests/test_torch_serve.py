@@ -438,7 +438,7 @@ def test_sampling_filters_match_reference():
 # (case, arch, engine keywords, what the message says): the families the
 # port has not reached, and the refusals the reference itself makes
 REFUSALS = {
-    "state": ("xlstm-350m", {}, "later serving slice"),
+    "state": ("whisper-medium", {}, "later serving slice"),
     "moe": ("mixtral-8x7b", {}, "later serving slice"),
     "prefix-sequential": ("tinyllama-1.1b",
                           {"prefix_cache": True, "chunked_prefill": False},
@@ -507,7 +507,9 @@ def test_port_imports_no_jax_and_no_reference():
         "assert len(out['losses']) == 1, out",
         "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan",
         "import repro_torch.serve.speculate, repro_torch.serve.kvcache",
-        "for extra in (['--arch', 'zamba2-1.2b'], ['--prefix-cache',",
+        "import repro_torch.models.xlstm, repro_torch.checkpoint.store",
+        "for extra in (['--arch', 'zamba2-1.2b'], ['--arch', 'xlstm-350m'],",
+        "              ['--prefix-cache',",
         "              '--shared-prefix', '20'], ['--draft',",
         "              'tinyllama-1.1b'], ['--no-fused-decode']):",
         "    arch = [] if extra[0] == '--arch' else ['--arch',",
