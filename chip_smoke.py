@@ -17,7 +17,9 @@ Phases, in order (any failure raises and exits nonzero):
      GEMM of zamba2-1.2b's decode step (M = 8, ``Z_DECODE_GEMMS``) in
      bf16 through the decode route, which ``route`` must pick for each,
      and every GEMM of xlstm-350m (``X_GEMMS``, w_if's N = 8 among them)
-     at M = 8 (decode route) and M = 8192 (tc route);
+     at M = 8 (decode route) and M = 8192 (tc route), and every K1 GEMM
+     of mixtral-8x7b and Moonlight (``MIX_GEMMS``, ``MOON_GEMMS``) at M =
+     8 through the decode route;
  2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
@@ -27,12 +29,15 @@ Phases, in order (any failure raises and exits nonzero):
      a windowed case, null and recycled blocks, residuals, the serve shape,
      a slot with no valid entry and slots that end inside the first split,
      64 slots of 1024-2048 tokens, 16 of them at d 128 in blocks of 32,
-     and the step entry that folds in the current token; each within
+     mixtral's serve step (32/8 heads of 128, its window) and Moonlight's
+     heads (16/16 of 128), and the step entry that folds in the current
+     token; each within
      ``K4_NORM_TOL`` of the plain version's norm, the split route
      repeating bit for bit.  Then device times (CUDA graph) of both routes
      at the serve, the long and the d 128 shape beside the bound, the
      plain version, one empty kernel (the launch floor) and SDPA over
      contiguous K/V (not the same function); and, under torch.profiler,
+     at mixtral's serve shape too, and, under torch.profiler,
      that one decode layer's attention launches K4's two passes and no
      other kernel (a profiler that sees no kernel fails the phase).  Last,
      K4 at the contiguous caches' shapes under the identity block table
@@ -51,11 +56,13 @@ Phases, in order (any failure raises and exits nonzero):
      bit; then device times at each width beside ``F.rms_norm``'s forward
      and its backward (the backward's kernels summed by torch.profiler);
   5. K2 flash attention forward and backward against their plain versions
-     at the main paths' attention shapes, all causal at d = 64: the
+     at the main paths' attention shapes, all causal: at d = 64 the
      tinyllama training layer (4 x 2048, 32/4 heads), zamba2's shared
      attention (4 x 2048, 32/32 heads, window 4096) and the serving
-     prefill (8 x 512, 32/4): bf16 through the tc route (wgmma + TMA) at
-     all three and through the simt route at the training shape, out, lse,
+     prefill (8 x 512, 32/4); at d = 128 mixtral's training layer (4 x
+     2048, 32/8, window 4096) and Moonlight's (4 x 2048, 16/16): bf16
+     through the tc route (wgmma + TMA) at all five and through the simt
+     route at the training shape, out, lse,
      dq, dk and dv within 3e-2 of 1 + max (lse 1e-5) and out, dq, dk and
      dv within ``K2_NORM_TOL`` of the plain version's norm, two backward
      runs giving the same bits, and the cost of the tc kernels' bf16 dS
@@ -112,9 +119,11 @@ Phases, in order (any failure raises and exits nonzero):
   9. where the time of one such training step goes: torch.profiler's
      device time by kernel group, and the device's idle share;
  10. K1 at training shapes: the tc route against the plain version at
-     every GEMM shape of a tinyllama and a zamba2 training step, then the
-     route, the simt kernel, the plain version and ``torch.matmul``
-     summed over the GEMMs of one step of each;
+     every GEMM shape of a tinyllama, a zamba2, a mixtral (2 layers) and
+     a Moonlight ([dense, moe]) training step (Moonlight's 11264-wide
+     dense layer, its 2816-wide shared experts and its 163840-word head
+     among them), then the route, the simt kernel, the plain version and
+     ``torch.matmul`` summed over the GEMMs of one step of each;
  11. K5 SSD scan forward and backward against their plain versions at
      zamba2's training shape (4 x 2048, 64 heads of 64, 2 groups, d_state
      64, chunk 256), bf16 and f32 B/C, a ragged T (a chunk of 250 steps),
@@ -155,11 +164,39 @@ Phases, in order (any failure raises and exits nonzero):
  19. the checkpoint round trip at full width and depth (xlstm-350m, 2 x
      256): the train launcher saves step 2, resumes from it (every leaf
      bit for bit what was saved) and saves step 4, and the serve launcher
-     restores step 4 (bit for bit) and serves.
+     restores step 4 (bit for bit) and serves;
+ 20. full-width moonshot-v1-16b-a3b (Moonlight) cut to [dense, moe] in
+     f32, which runs every branch of ``models/moe.py`` (64 experts top-6,
+     2 shared experts, the dense first layer of 11264, the 163840-word
+     head): one training step at 1 x 256, capacity 30 a expert so that
+     choices drop; CPU (plain versions) against the card (kernels): the
+     loss, aux and every gradient leaf within 1e-4, the same choices
+     dropped, launches exact;
+ 20s. the same model through the paged engine: a 16-token chunked
+     prefill and 8 greedy fused decode steps of 2 slots, the logits
+     within 1e-4 of 1 + max at every step and the same tokens, CPU
+     against the card, launches exact;
+ 7m. mixtral-8x7b served through ``repro_torch.launch.serve`` at full
+     width in bf16, cut to ``MIX_SERVE_LAYERS`` (16) of its 32 layers,
+     with phase 7's traffic: launches per step exact (K1 tc and decode,
+     K2 tc, K3, K4 split with its combine; no simt), the share of routed
+     choices dropped at capacity per step, TTFT, TPOT and tok/s beside a
+     decode step's bytes bound (``mixtral_step_bytes``: every expert's
+     weights, the attention's, the head, the kv K4 reads), peak memory;
+ 21. the mixtral training run: ``repro_torch.launch.train`` at full
+     width cut to 2 layers, bf16, 4 x 2048, remat, AdamW, 3 steps:
+     launches exact (``MIX_LAUNCHES``), losses finite, step time, tok/s,
+     MFU (the reference's formula, active parameters) and peak memory;
+ 22. one such step under torch.profiler, device time by group: K1, K2,
+     K3, the experts' ``torch.matmul`` (the kernels ``aten::bmm``
+     launched), the other ``torch.matmul``, the dispatch and combine
+     (sorts, index and scatter ops), AdamW (the train step's "optimizer"
+     range), the rest, and the device's idle share.
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
-19), one of per-kernel numbers and the card's name and
+19), one of the MoE family's (7m, 21, 22), one of per-kernel numbers and
+the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits nonzero and
@@ -261,6 +298,46 @@ X_SERVE_STEP = {"K1": 6 * X_MLSTM + 2 * X_SLSTM + 1, "K2": 0, "K2 bwd": 0,
 # the checkpoint round trip (phase 19) trains at full width and depth on
 # sequences of this length: it checks bits, not speed
 X_CKPT_B, X_CKPT_S = 2, 256
+
+# mixtral-8x7b (configs/mixtral_8x7b.py, arXiv:2401.04088): 32 layers of
+# 32/8 heads of 128 (window 4096) and 8 experts (top 2) of 14336, d_model
+# 4096, vocab 32000.  Its 32 layers are 93.4 GB in bf16: it serves cut to
+# the 16 that leave more than 10 GB of an 80 GB card free (phase 7m) and
+# trains cut to 2 with AdamW (phase 21)
+MIX_D, MIX_NQ, MIX_NKV, MIX_DH, MIX_FF, MIX_E = 4096, 32, 8, 128, 14336, 8
+MIX_VOCAB, MIX_WINDOW = 32000, 4096
+MIX_SERVE_LAYERS, MIX_TRAIN_LAYERS, MIX_STEPS = 16, 2, 3
+# its K1 GEMMs (name, K, N): the attention's; the experts' products and
+# the router are torch.matmul (models/moe.py)
+MIX_GEMMS = [("wq,wo", MIX_D, MIX_NQ * MIX_DH), ("wk,wv", MIX_D,
+                                                   MIX_NKV * MIX_DH),
+             ("head", MIX_D, MIX_VOCAB)]
+# mixtral served (phase 7m), per step: K1 the 4 attention linears of each
+# layer and the head, K3 the 2 norms of each layer and ln_f; a prefill
+# step adds K2 for each layer, a decode step K4 (with its combine)
+MIX_SERVE_STEP = {"K1": 4 * MIX_SERVE_LAYERS + 1, "K2 bwd": 0,
+                  "K3": 2 * MIX_SERVE_LAYERS + 1, "K3 bwd": 0, "K5": 0,
+                  "K5 bwd": 0}
+# launches per mixtral training step (phase 21), as TRAIN_LAUNCHES counts
+# them: 4 linears a layer and the head's 2 chunks twice, K2 twice forward
+# and once backward, K3 the 2 norms twice and ln_f once
+MIX_LAUNCHES = {"K1": 2 * 4 * MIX_TRAIN_LAYERS + 2 * 2,
+                "K2": 2 * MIX_TRAIN_LAYERS, "K2 bwd": MIX_TRAIN_LAYERS,
+                "K3": 2 * 2 * MIX_TRAIN_LAYERS + 1,
+                "K3 bwd": 2 * MIX_TRAIN_LAYERS + 1, "K5": 0, "K5 bwd": 0}
+# moonshot-v1-16b-a3b (configs/moonshot_v1_16b_a3b.py, Moonlight-16B-A3B):
+# 16/16 heads of 128, d_model 2048, a dense first layer of 11264, then 64
+# experts (top 6) of 1408 and 2 shared ones (one MLP of 2816), vocab
+# 163840.  Phases 20 and 20s run it cut to [dense, moe] in f32; its K1
+# GEMMs (name, K, N, launches in one forward of that cut) are checked at
+# every bf16 shape in phases 2 and 10
+MOON_D, MOON_NH, MOON_DH, MOON_VOCAB = 2048, 16, 128, 163840
+MOON_GEMMS = [("wq,wk,wv,wo", MOON_D, MOON_NH * MOON_DH, 8),
+              ("dense w_up,w_gate", MOON_D, 11264, 2),
+              ("dense w_down", 11264, MOON_D, 1),
+              ("shared w_up,w_gate", MOON_D, 2816, 2),
+              ("shared w_down", 2816, MOON_D, 1),
+              ("head", MOON_D, MOON_VOCAB, 1)]
 
 
 class SmokeFailure(RuntimeError):
@@ -569,6 +646,21 @@ def phase_k1(dev):
                   f"{worst}")
             path_err[path] = max(path_err[path], worst_abs)
             del x, w, b
+    # the MoE family's decode steps: mixtral's (phase 7m) and Moonlight's
+    for arch, gemms in (("mixtral", MIX_GEMMS),
+                        ("moonlight", [g[:3] for g in MOON_GEMMS])):
+        for name, k, n in gemms:
+            path = k1.route(DECODE_M, n, k, torch.bfloat16, True)
+            check(path == "decode", f"K1 {arch} {name} ({DECODE_M},{k},{n})"
+                  f" would take {path}, not decode")
+            x, w, b = k1_inputs(gen, dev, DECODE_M, k, n, torch.bfloat16)
+            worst, worst_abs = k1_check(k1, x, w, b, "decode")
+            print(f"[2] K1 {arch} {name:18s} ({DECODE_M},{k})@({k},{n}) "
+                  f"bfloat16 decode max rel err {worst:.2e} (tol 1e-02), "
+                  f"max abs err {worst_abs:.2e}")
+            check(worst <= 1e-2, f"K1 {arch} {name} bf16 decode: {worst}")
+            path_err["decode"] = max(path_err["decode"], worst_abs)
+            del x, w, b
     step["max_abs_err"] = path_err["decode"]
     prefill["max_abs_err"] = path_err["tc"]
     return {"decode": step, "tc": prefill}
@@ -611,13 +703,13 @@ def phase_k1_threshold(dev):
     return crossover
 
 
-def k4_case(dev, lens, nb, dtype, seed, d=DH, block=16):
-    """Tinyllama-shaped pool (NQ / NKV heads of ``d``, ``block`` entries a
-    block): each slot's blocks at shuffled physical ids, unused columns on
-    the null block 0, and slot 0's first unused column on a recycled block
-    1 whose stale positions lie past every cur; then the step's own k_new
-    and v_new (B, NKV, d).  A slot of length 0 has no valid entry (cur =
-    -1)."""
+def k4_case(dev, lens, nb, dtype, seed, d=DH, block=16, nq=NQ, nkv=NKV):
+    """A pool of ``nq`` / ``nkv`` heads of ``d`` (tinyllama's by default),
+    ``block`` entries a block: each slot's blocks at shuffled physical
+    ids, unused columns on the null block 0, and slot 0's first unused
+    column on a recycled block 1 whose stale positions lie past every
+    cur; then the step's own k_new and v_new (B, nkv, d).  A slot of
+    length 0 has no valid entry (cur = -1)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     n_used = sum(-(-n // block) for n in lens)
@@ -637,11 +729,11 @@ def k4_case(dev, lens, nb, dtype, seed, d=DH, block=16):
     tables[0, -(-lens[0] // block)] = 1
     phys = n_blocks * block
     B = len(lens)
-    q = torch.randn(B, NQ, d, generator=g)
-    k_pool = torch.randn(phys, NKV, d, generator=g)
-    v_pool = torch.randn(phys, NKV, d, generator=g)
-    k_new = torch.randn(B, NKV, d, generator=g)
-    v_new = torch.randn(B, NKV, d, generator=g)
+    q = torch.randn(B, nq, d, generator=g)
+    k_pool = torch.randn(phys, nkv, d, generator=g)
+    v_pool = torch.randn(phys, nkv, d, generator=g)
+    k_new = torch.randn(B, nkv, d, generator=g)
+    v_new = torch.randn(B, nkv, d, generator=g)
     return ([t.to(dev, dtype) for t in (q, k_pool, v_pool)]
             + [t.to(dev) for t in (pos_pool, tables, cur)],
             [t.to(dev, dtype) for t in (k_new, v_new)])
@@ -666,8 +758,8 @@ def k4_bound(lens, nb, window, elt, step=False, d=DH, block=16, nq=NQ,
 
 # K4's cases (phase 3): (label, contexts, table columns, window, what is
 # compared: the normalised output, the residuals (acc, m, l) or the step
-# entry with the current token folded in[, head dim, block]).  Tinyllama's
-# heads; d 64 and block 16 unless given.
+# entry with the current token folded in[, head dim, block[, q heads, kv
+# heads]]).  Tinyllama's heads, d 64 and block 16 unless given.
 K4_RAGGED = [64, 200, 333, 512, 640, 777, 900, 1024]
 K4_SERVE = [n + 16 for n in (259, 260, 261, 262, 263, 259, 260, 261)]
 # a slot with no valid entry, and contexts that end inside the first split
@@ -684,7 +776,13 @@ K4_CASES = [("ragged 64-1024", K4_RAGGED, 64, 0, "out"),
             ("short, empty", K4_SHORT, 64, 0, "residuals"),
             ("short, empty step", K4_SHORT, 64, 0, "step"),
             ("long context", K4_LONG, 128, 0, "residuals"),
-            ("d 128, block 32", K4_WIDE, 64, 0, "step", 128, 32)]
+            ("d 128, block 32", K4_WIDE, 64, 0, "step", 128, 32),
+            # mixtral's serve step (32/8 heads of 128, its window) and
+            # Moonlight's heads (16/16), phases 7m and 20s
+            ("mixtral serve step", K4_SERVE, 32, MIX_WINDOW, "step",
+             MIX_DH, 16, MIX_NQ, MIX_NKV),
+            ("moonlight step", K4_SERVE, 32, 0, "step", MOON_DH, 16,
+             MOON_NH, MOON_NH)]
 # K4: the limits on ||got - want|| / ||want|| against the plain version,
 # per dtype and tensor (m over the rows with a valid entry; rows with none
 # must match exactly), 3-5x the readings over these cases on an H100: bf16
@@ -741,11 +839,11 @@ def k4_checks(dev, cases=None, dtypes=("float32", "bfloat16"), tag="[3]"):
     from repro_torch.kernels import paged_decode as k4
     worst = {}
     for label, lens, nb, window, kind, *dims in cases or K4_CASES:
-        d, block = dims or (DH, 16)
+        d, block, nq, nkv = (list(dims) + [DH, 16, NQ, NKV][len(dims):])
         for dname in dtypes:
             dtype = getattr(torch, dname)
             args, new = k4_case(dev, lens, nb, dtype, seed=len(label), d=d,
-                                block=block)
+                                block=block, nq=nq, nkv=nkv)
             call = functools.partial(k4_call, k4, args, new, window, kind,
                                      block=block)
             want = call(plain=True)
@@ -776,7 +874,7 @@ def k4_checks(dev, cases=None, dtypes=("float32", "bfloat16"), tag="[3]"):
     return worst
 
 
-def k4_sdpa_ms(dev, lens, reps, d=DH):
+def k4_sdpa_ms(dev, lens, reps, d=DH, nq=NQ, nkv=NKV):
     """F.scaled_dot_product_attention of one query per slot over
     contiguous K/V of the same lengths (padding masked): what a contiguous
     cache would cost, not the same function (no block table, no
@@ -784,9 +882,9 @@ def k4_sdpa_ms(dev, lens, reps, d=DH):
     import torch
     import torch.nn.functional as F
     B, L = len(lens), max(lens)
-    q = torch.randn(B, NQ, 1, d, device=dev, dtype=torch.bfloat16)
-    k = torch.randn(B, NKV, L, d, device=dev, dtype=torch.bfloat16)
-    v = torch.randn(B, NKV, L, d, device=dev, dtype=torch.bfloat16)
+    q = torch.randn(B, nq, 1, d, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(B, nkv, L, d, device=dev, dtype=torch.bfloat16)
+    v = torch.randn(B, nkv, L, d, device=dev, dtype=torch.bfloat16)
     mask = (torch.arange(L, device=dev)[None, :]
             < torch.tensor(lens, device=dev)[:, None])[:, None, None, :]
     return graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1012,12 +1110,14 @@ def phase_k4(dev):
     floor = launch_floor_ms(200)
     print(f"[3] launch floor: one empty kernel {floor:.4f} ms (graph_ms)")
     shapes = {}
-    for label, lens, nb, reps, d, block in (
-            ("serve", K4_SERVE, 32, 200, DH, 16),
-            ("long", K4_LONG, 128, 50, DH, 16),
-            ("long, d 128, block 32", K4_WIDE, 64, 50, 128, 32)):
+    for label, lens, nb, reps, d, block, nq, nkv in (
+            ("serve", K4_SERVE, 32, 200, DH, 16, NQ, NKV),
+            ("long", K4_LONG, 128, 50, DH, 16, NQ, NKV),
+            ("long, d 128, block 32", K4_WIDE, 64, 50, 128, 32, NQ, NKV),
+            ("mixtral serve", K4_SERVE, 32, 200, MIX_DH, 16, MIX_NQ,
+             MIX_NKV)):
         args, new = k4_case(dev, lens, nb, torch.bfloat16, seed=len(label),
-                            d=d, block=block)
+                            d=d, block=block, nq=nq, nkv=nkv)
         kw = dict(block=block)
 
         def step(way):
@@ -1036,14 +1136,16 @@ def phase_k4(dev):
              "simt_host_ms": time_ms(resid("simt"), reps),
              "plain_ms": graph_ms(lambda: k4.paged_flash_decode_step_plain(
                  args[0], *new, *args[1:], **kw), max(5, reps // 10)),
-             "sdpa_contiguous_ms": k4_sdpa_ms(dev, lens, reps, d)}
+             "sdpa_contiguous_ms": k4_sdpa_ms(dev, lens, reps, d, nq, nkv)}
         t["bound_ms"], t["bound_by"] = k4_bound(lens, nb, 0, 2, step=True,
-                                                d=d, block=block)
+                                                d=d, block=block, nq=nq,
+                                                nkv=nkv)
         t["splits"], t["cols"], _, t["ctas_per_sm"] = k4.split_grid(
             args[0], args[1], args[4], block)
         shapes[label] = t
         print(f"[3] K4 {label} shape (B {len(lens)}, contexts "
-              f"{min(lens)}-{max(lens)}, d {d}, block {block}, {nb} columns,"
+              f"{min(lens)}-{max(lens)}, {nq}/{nkv} heads of {d}, block "
+              f"{block}, {nb} columns,"
               f" bf16; {t['splits']} splits of {t['cols']}, "
               f"{t['ctas_per_sm']} CTAs an SM), device ms (graph_ms): split "
               f"step {t['split_ms']:.4f} (residuals "
@@ -1224,7 +1326,10 @@ def phase_k3(dev):
 # heads, kv heads, window), all causal at d = 64
 K2_SHAPES = [("train", TRAIN_B, TRAIN_S, NQ, NKV, 0),
              ("zamba2", TRAIN_B, TRAIN_S, Z_HEADS, Z_HEADS, Z_WINDOW),
-             ("prefill", 8, 512, NQ, NKV, 0)]
+             ("prefill", 8, 512, NQ, NKV, 0),
+             ("mixtral", TRAIN_B, TRAIN_S, MIX_NQ, MIX_NKV, MIX_WINDOW,
+              MIX_DH),
+             ("moonlight", TRAIN_B, TRAIN_S, MOON_NH, MOON_NH, 0, MOON_DH)]
 # the head dims the tc route does not take, at their configs' training
 # shapes (phase 5): (label, batch, seq, q heads, kv heads, d), causal: the
 # paper's model (configs/paper_transformer.py, seq 512) and gemma-2b
@@ -1390,11 +1495,12 @@ def phase_k2(dev):
     label, b, s, nq, nkv, _ = K2_SHAPES[0]
     k2_case(k2, dev, gen, b, s, nq, nkv, 0, torch.float32, ["simt"], label)
     t_all, worst_path_err = {}, 0.0
-    for label, b, s, nq, nkv, window in K2_SHAPES:
+    for label, b, s, nq, nkv, window, *dims in K2_SHAPES:
+        d = dims[0] if dims else DH
         routes = ["tc", "simt"] if label == "train" else ["tc"]
         (q, k, v, dout, q_pos, k_pos), (out, lse), worst, norms = k2_case(
             k2, dev, gen, b, s, nq, nkv, window, torch.bfloat16, routes,
-            label)
+            label, d)
         check(k2.route_for(q, k, v, out, dout) == "tc",
               f"K2 {label}: the bf16 path does not take the tc route")
         worst_path_err = max(worst_path_err, worst)
@@ -1404,6 +1510,7 @@ def phase_k2(dev):
         dt = dout.transpose(1, 2)
 
         def sdpa():
+            # the window never binds at these shapes (4096 >= the sequence)
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                   enable_gqa=True)
 
@@ -1439,12 +1546,12 @@ def phase_k2(dev):
         t["norm_err"] = norms
         t["simt_ms"] = t["simt_fwd_ms"] + t["simt_bwd_ms"]
         t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
-        fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, DH, 2, window)
+        fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, d, 2, window)
         fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
         bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
         t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
                  bound_by=fo if fo == bo else "bytes and operations")
-        print(f"[5] K2 bf16 {label} ({b},{s},{nq}/{nkv},{DH}) causal: tc "
+        print(f"[5] K2 bf16 {label} ({b},{s},{nq}/{nkv},{d}) causal: tc "
               f"forward {t['fwd_ms']:.4f} ms ({ffl / t['fwd_ms'] / 1e9:.1f} "
               f"TFLOP/s), backward {t['bwd_ms']:.4f} ms "
               f"({bfl / t['bwd_ms'] / 1e9:.1f} TFLOP/s); simt "
@@ -1665,24 +1772,33 @@ def phase_two_layer_train(dev, arch="tinyllama-1.1b", seed=1, rows=2,
 
 def phase_k1_train(dev):
     """K1 at the training shapes: every GEMM of one training step of
-    tinyllama and of zamba2 (M = 4 x 2048 rows; the head's 2 chunks 4 x
-    1024) through the route the step takes (tc), held against the plain
-    version in bf16 with every activation, with and without bias; then
-    timed as that route, the simt kernel (the first K1 design), the plain
-    version and ``torch.matmul``, each times its launches a step (forward
-    and remat recompute)."""
+    tinyllama, zamba2, mixtral cut to 2 layers and Moonlight cut to
+    [dense, moe] (M = 4 x 2048 rows; the head's chunks 4 x 1024, or 4 x
+    512 for Moonlight's 4) through the route the step takes (tc), held
+    against the plain version in bf16 with every activation, with and
+    without bias; then timed as that route, the simt kernel (the first K1
+    design), the plain version and ``torch.matmul``, each times its
+    launches a step (forward and remat recompute)."""
     import torch
     from repro_torch.kernels import matmul as k1
     gen = torch.Generator(device=dev).manual_seed(10)
     m = TRAIN_B * TRAIN_S
-    head = [("head", D, VOCAB, 2 * 2)]
+    mix = [(name, k, n, 2 * 2 * MIX_TRAIN_LAYERS) for name, k, n in
+           MIX_GEMMS if name != "head"]
+    moon = [(name, k, n, 2 * per) for name, k, n, per in MOON_GEMMS
+            if name != "head"]
+    # (arch, GEMMs, the head's (K, N, launches a step, rows))
+    archs = (("tinyllama", TRAIN_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
+             ("zamba2", Z_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
+             ("mixtral", mix, (MIX_D, MIX_VOCAB, 2 * 2, m // 2)),
+             ("moonlight", moon, (MOON_D, MOON_VOCAB, 2 * 4, m // 4)))
     seen, out, worst_err = {}, {}, 0.0
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms")
-    for arch, gemms in (("tinyllama", TRAIN_GEMMS), ("zamba2", Z_GEMMS)):
+    for arch, gemms, (hk, hn, hper, hrows) in archs:
         tot = dict.fromkeys(keys, 0.0)
         launches = flops = 0
-        for name, k, n, per_step in gemms + head:
-            rows = m // 2 if name == "head" else m
+        for name, k, n, per_step in gemms + [("head", hk, hn, hper)]:
+            rows = hrows if name == "head" else m
             key = (rows, k, n)
             if key not in seen:
                 path = k1.route(rows, n, k, torch.bfloat16, True)
@@ -2483,11 +2599,12 @@ def phase_spec(bf16, f32, card):
 
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
-                per_step=TRAIN_LAUNCHES, tag="8"):
-    """``repro_torch.launch.train`` at full depth and width in bf16, batch
-    4 x 2048, remat, AdamW, synthetic tokens from seed 0; the launch
-    counters reset just before and read just after.  Returns the launches,
-    the K1 and K2 routes and the telemetry summary."""
+                per_step=TRAIN_LAUNCHES, tag="8", layers=0):
+    """``repro_torch.launch.train`` at full width in bf16 (full depth, or
+    cut to ``layers``), batch 4 x 2048, remat, AdamW, synthetic tokens
+    from seed 0; the launch counters reset just before and read just
+    after.  Returns the launches, the K1 and K2 routes and the telemetry
+    summary."""
     import torch
     from repro_torch.launch import train
     tel_path = ROOT / "build" / f"chip_smoke_train_{arch}_telemetry.json"
@@ -2496,7 +2613,8 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     out = train.main(["--arch", arch, "--device", "cuda",
                       "--steps", str(steps), "--batch", str(TRAIN_B),
                       "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
-                      "--log-every", "1", "--telemetry", str(tel_path)])
+                      "--log-every", "1", "--telemetry", str(tel_path)]
+                     + (["--layers", str(layers)] if layers else []))
     torch.cuda.synchronize()
     launches = read_launches()
     want = {k: steps * n for k, n in per_step.items()}
@@ -2516,8 +2634,9 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     k2_routes = check_k2_routes(launches, tag, f"{arch} training run")
     mfu = (f"MFU {tel['mfu'] * 100:.3f}% of {tel['peak_flops']:.3g} FLOP/s"
            if tel["mfu"] is not None else "MFU not reported")
-    print(f"[{tag}] training {arch} bf16, batch {TRAIN_B} x {TRAIN_S}, "
-          f"remat, AdamW on {card}: losses "
+    print(f"[{tag}] training {arch}"
+          f"{f' cut to {layers} layers' if layers else ''} bf16, batch "
+          f"{TRAIN_B} x {TRAIN_S}, remat, AdamW on {card}: losses "
           + " ".join(f"{x:.4f}" for x in losses)
           + f"; step times " + " ".join(f"{x:.3f}" for x in
                                         tel["series"]["t_step"])
@@ -2556,12 +2675,14 @@ def kernel_group(name: str) -> str:
 
 
 def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
-                    seq=TRAIN_S):
+                    seq=TRAIN_S, layers=0, op_group=None):
     """Where the time of one training step goes: torch.profiler over the
-    second step of the phase 8 (or 13, 17) configuration, at ``seq``
-    tokens a row, device time summed by kernel group against the step's
-    wall time (host clock, synchronised).  A profiler that sees no device
-    kernel leaves the breakdown unmeasured; it does not fail the run."""
+    second step of the phase 8 (or 13, 17, 21) configuration, at ``seq``
+    tokens a row (cut to ``layers``), device time summed by kernel group
+    (``kernel_group``, then moved by ``op_group`` where it names the
+    launching op's part) against the step's wall time (host clock,
+    synchronised).  A profiler that sees no device kernel leaves the
+    breakdown unmeasured; it does not fail the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import OptimConfig, ShapeConfig
@@ -2573,6 +2694,8 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
     from repro_torch.optim import adamw_init
     from repro_torch.train.step import make_train_step
     cfg = get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     layout = ParallelPlan().validate(mode="train").build()
     params = init_params(transformer.abstract_params(cfg),
                          torch.Generator(device=dev).manual_seed(0),
@@ -2594,17 +2717,26 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(math.isfinite(met["loss"].item()), "breakdown step: loss")
-    return report_breakdown(prof, wall_ms, tag, f"one {arch} training step "
-                            f"(batch {TRAIN_B} x {seq})", card)
+    cut = f" cut to {layers} layers" if layers else ""
+    return report_breakdown(prof, wall_ms, tag, f"one {arch}{cut} training "
+                            f"step (batch {TRAIN_B} x {seq})", card, op_group)
 
 
-def report_breakdown(prof, wall_ms, tag, what, card):
-    """Device time of a profiled window by kernel group, the union of the
-    kernels' intervals (device busy) and the idle share against the
-    window's wall time.  A profiler that saw no device kernel leaves it
-    unmeasured (None)."""
+# record_function ranges of the port, which torch.profiler also lists on
+# the device's timeline: not kernels
+RANGES = ("optimizer",)
+
+
+def report_breakdown(prof, wall_ms, tag, what, card, op_group=None):
+    """Device time of a profiled window by kernel group (``kernel_group``
+    of the kernel's name; with ``op_group``, the kernels of each CPU op it
+    names move to that op's group), the union of the kernels' intervals
+    (device busy) and the idle share against the window's wall time.  A
+    profiler that saw no device kernel leaves it unmeasured (None)."""
     from torch.autograd import DeviceType
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in RANGES]
     if not kernels:
         print(f"[{tag}] torch.profiler saw no device kernels on {card}: "
               f"{what}'s breakdown is not measured")
@@ -2618,6 +2750,25 @@ def report_breakdown(prof, wall_ms, tag, what, card):
         if g.startswith("other"):
             names[e.name] = names.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
+    moved = 0
+    for op in events if op_group else ():
+        kerns = getattr(op, "kernels", None) if \
+            op.device_type == DeviceType.CPU else None
+        g = op_group(op) if kerns else None
+        for kn in kerns if g else ():
+            src = kernel_group(kn.name)
+            if src.startswith("K") or src not in groups:
+                continue
+            n, ms = groups[src]
+            groups[src] = (n - 1, ms - kn.duration / 1e3)
+            if kn.name in names:
+                names[kn.name] -= kn.duration / 1e3
+            n, ms = groups.get(g, (0, 0.0))
+            groups[g] = (n + 1, ms + kn.duration / 1e3)
+            moved += 1
+    if op_group:
+        print(f"[{tag}] {moved} kernels regrouped by the op that launched "
+              "them")
     busy, end = 0.0, -math.inf                  # union of kernel intervals
     for a, b in sorted(spans):
         if b > end:
@@ -3030,7 +3181,290 @@ def phase_ckpt_roundtrip(card):
     return {"train_save_s": s1, "resume_s": s2, "serve_restore_s": s3}
 
 
+def moon_two_layer_cfg():
+    """Full-width moonshot-v1-16b-a3b cut to the plan [dense, moe], f32:
+    the dense first layer (MLP 11264), then 64 experts top-6 with the 2
+    shared ones and the 163840-word head."""
+    from repro_torch.configs.registry import get
+    return dataclasses.replace(get("moonshot-v1-16b-a3b"), n_layers=2,
+                               dtype="float32")
+
+
+def routed_and_dropped(fn):
+    """Run ``fn`` with ``models/moe.py``'s drop counter on: (its result,
+    [(routed, dropped)] one pair per MoE call, in call order)."""
+    import torch
+    from repro_torch.models import moe
+    moe.DROPS = []
+    try:
+        out = fn()
+        pairs = [tuple(int(v) for v in t) for t in
+                 (torch.stack(moe.DROPS).cpu() if moe.DROPS else [])]
+    finally:
+        moe.DROPS = None
+    return out, pairs
+
+
+def phase_two_layer_moe(dev):
+    """One training step of Moonlight cut to [dense, moe] at full width,
+    f32, batch 1 x 256, remat on: the capacity is ceil(256 * 6 * 1.25 /
+    64) = 30 a expert, so some choices drop.  CPU (plain versions) against
+    the card (kernels), the same seeded weights and tokens: the loss, aux
+    and every gradient leaf within 1e-4 (of 1 + |loss|, of each leaf's
+    max), the same choices dropped, and K1, K2 and K3 launched on the card
+    only, as many times as the plan says."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    cfg = moon_two_layer_cfg()
+    layout = ParallelPlan().validate(mode="train").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(20), "cpu",
+                      torch.float32)
+    rng = np.random.default_rng(20)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 257)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][0, -9:] = -1
+    res = {}
+    for d in ("cpu", dev):
+        reset_launches()
+        live = tree_map(lambda t: t.detach().to(d).requires_grad_(), cpu)
+        (loss, met), drops = routed_and_dropped(lambda: transformer.forward(
+            cfg, layout, live, {k: v.to(d) for k, v in batch.items()},
+            mode="train"))
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        launches = read_launches()
+        res[str(d)] = (loss.item(), met["aux"].item(),
+                       [g.cpu() for g in grads], drops, launches)
+        del live, grads
+    (l_cpu, a_cpu, g_cpu, d_cpu, n_cpu), (l_dev, a_dev, g_dev, d_dev, n_dev) \
+        = res["cpu"], res[str(dev)]
+    names = [".".join(p) for p in _paths(cpu)]
+    errs = {n: (leaf_err(a, b), b.abs().max().item())
+            for n, a, b in zip(names, g_dev, g_cpu)}
+    worst = max(e for e, _ in errs.values())
+    tol = 1e-4
+    # K1: 7 linears a layer (q, k, v, o and the dense MLP's or the shared
+    # experts' 3) twice (forward, recompute) and the head's 4 chunks
+    # twice; K2 twice forward, once backward; K3 4 norms twice and ln_f,
+    # backward once each
+    want = {"K1": 2 * 14 + 2 * 4, "K2": 4, "K2 bwd": 2, "K3": 9,
+            "K3 bwd": 5, "K4": 0, "K4 combine": 0, "K5": 0, "K5 bwd": 0}
+    print(f"[20] Moonlight [dense, moe] full width f32 train step (1x256, "
+          f"capacity 30): loss cpu {l_cpu:.6f} card {l_dev:.6f}, aux cpu "
+          f"{a_cpu:.6e} card {a_dev:.6e}; (routed, dropped) choices per MoE "
+          f"call cpu {d_cpu} card {d_dev}; gradient max |card - cpu| / max "
+          f"|cpu| per leaf, worst first (max |cpu| in brackets): "
+          + ", ".join(f"{k} {e:.1e} [{g:.1e}]" for k, (e, g) in sorted(
+              errs.items(), key=lambda kv: -kv[1][0])[:8])
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e}); "
+          f"launches on the card {n_dev}")
+    check(all(v == 0 for v in n_cpu.values()),
+          f"Moonlight two-layer: kernels launched for CPU tensors {n_cpu}")
+    check(n_dev == want, f"Moonlight two-layer launches {n_dev} != {want}")
+    check(d_cpu == d_dev and d_dev and d_dev[0][1] > 0,
+          f"Moonlight two-layer drops: cpu {d_cpu}, card {d_dev}")
+    check(abs(l_cpu - l_dev) <= tol * (1 + abs(l_cpu))
+          and math.isfinite(l_dev),
+          f"Moonlight two-layer train loss: {l_cpu} vs {l_dev}")
+    check(abs(a_cpu - a_dev) <= tol * (1 + abs(a_cpu)) and a_dev > 0,
+          f"Moonlight two-layer aux: {a_cpu} vs {a_dev}")
+    check(worst <= tol, f"Moonlight two-layer train gradients: {worst}")
+
+
+def phase_two_layer_moe_serve(dev):
+    """Phase 20's model (the same seeded weights) through the engine's
+    paged path: 2 requests of 16 prompt tokens in 2 slots, one chunked
+    prefill and 8 greedy fused decode steps (max_len 64, block 16), CPU
+    (plain versions) against the card (kernels): the logits of every step
+    within 1e-4 of 1 + max, the same tokens, and on the card K1, K2, K3
+    and K4 launched as the plan says."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import init_params, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    from repro_torch.serve import Engine, Request
+    cfg = moon_two_layer_cfg()
+    layout = ParallelPlan().validate(mode="serve").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(20), "cpu",
+                      torch.float32)
+    prompts = np.random.default_rng(21).integers(0, cfg.vocab, (2, 16))
+    res = {}
+    for d in ("cpu", dev):
+        eng = Engine(cfg, layout, tree_map(lambda t: t.to(d), cpu),
+                     batch_size=2, max_len=64, block_size=16)
+        logs, sample = [], eng._sample
+
+        def recording(logits, sample=sample, logs=logs):
+            logs.append(logits.detach().float().cpu())
+            return sample(logits)
+        eng._sample = recording
+        reqs = [Request(uid=i, prompt=[int(t) for t in p], max_new=9)
+                for i, p in enumerate(prompts)]
+        reset_launches()
+        stats = eng.run(reqs)
+        res[str(d)] = (torch.stack(logs), [r.out for r in reqs],
+                       read_launches(), stats)
+        del eng
+    (l_cpu, t_cpu, n_cpu, s_cpu), (l_dev, t_dev, n_dev, s_dev) = \
+        res["cpu"], res[str(dev)]
+    err = ((l_dev - l_cpu).abs().amax(dim=(1, 2))
+           / (1 + l_cpu.abs().amax(dim=(1, 2))))
+    steps = s_dev["prefill_steps"] + s_dev["decode_steps"]
+    # per step K1: 14 linears and the head, K3: 4 norms and ln_f; K2 per
+    # prefill layer, K4 per decode layer (f32: simt, no combine pass)
+    want = {"K1": 15 * steps, "K2": 2 * s_dev["prefill_steps"], "K2 bwd": 0,
+            "K3": 5 * steps, "K3 bwd": 0, "K4": 2 * s_dev["decode_steps"],
+            "K4 combine": 0, "K5": 0, "K5 bwd": 0}
+    print(f"[20s] Moonlight [dense, moe] full width f32 through the paged "
+          f"engine (2 slots, 16 prompt tokens, 1 prefill + "
+          f"{s_dev['decode_steps']} decode steps): logits max |card - cpu| "
+          f"/ (1 + max |cpu|) per step, worst {err.max().item():.1e} (tol "
+          f"1e-4); greedy tokens equal {t_cpu == t_dev}; launches on the "
+          f"card {n_dev} (expected {want})")
+    check(all(v == 0 for v in n_cpu.values()),
+          f"Moonlight decode path: kernels launched on the CPU {n_cpu}")
+    check(s_dev["prefill_steps"] == 1 and s_dev["decode_steps"] == 8
+          and n_dev == want, f"Moonlight decode path launches {n_dev} "
+          f"over {s_dev} != {want}")
+    check(err.max().item() <= 1e-4 and torch.isfinite(l_dev).all(),
+          f"Moonlight decode path logits: {err.tolist()}")
+    check(t_cpu == t_dev, f"Moonlight decode path tokens: {t_cpu} vs "
+          f"{t_dev}")
+
+
+def mixtral_step_bytes(prompts, max_new, layers=MIX_SERVE_LAYERS, block=16,
+                       L=512):
+    """(bytes of one decode step on average, steps, parts) of 7m's decode
+    steps, each input read once and each output written once: every
+    weight of the cut model (every expert runs its capacity buffer every
+    step, so all 8 are read; of the embedding only the slots' rows), and
+    in each layer the kv entries K4 attends for each slot (as
+    ``k4_bound`` counts them: q in and out, the valid K and V, the
+    positions of the table's columns, the table and cur, and the step's
+    own entry folded in and written).  After the one prefill step every
+    slot decodes in lockstep: decode step j of a slot of prompt p attends
+    p + j entries and its own."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get("mixtral-8x7b"), n_layers=layers)
+    params = transformer.abstract_params(cfg)
+    weights = param_bytes(params) - param_bytes({"e": params["embed"]})
+    entry = MIX_NKV * MIX_DH * 2 * 2             # one position's K and V
+    steps = max_new - 1
+    kv = layers * sum(
+        MIX_NQ * MIX_DH * 2 * 2 + (p + j) * entry + 2 * entry
+        + (L // block) * (block + 1) * 4 + 4
+        for p in prompts for j in range(steps))
+    parts = {"weights": steps * weights,
+             "embed rows": steps * len(prompts) * MIX_D * 2, "kv": kv}
+    return sum(parts.values()) / steps, steps, {
+        k: v / steps for k, v in parts.items()}
+
+
+def phase_serve_mixtral(card):
+    """``repro_torch.launch.serve`` serves mixtral-8x7b cut to 16 layers at
+    full width in bf16, weights from a seed drawn on the card, with phase
+    7's traffic: 8 requests in batch 8, a shared 256-token prefix and 3-7
+    more, 32 new tokens each, max_len 512, block 16, greedy.  The launch
+    counters reset just before and read just after: launches per step
+    exact, no bf16 GEMM, prefill attention or decode attention on simt.
+    Then the share of routed choices dropped at capacity per step (decode
+    steps have 8 tokens: ceil(8 * 2 * 1.25 / 8) = 3 a expert), TTFT, TPOT
+    and tok/s beside a decode step's bytes bound."""
+    import torch
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stats, drops = routed_and_dropped(lambda: serve.main([
+        "--arch", "mixtral-8x7b", "--layers", str(MIX_SERVE_LAYERS),
+        "--device", "cuda", "--requests", "8", "--batch-size", "8",
+        "--shared-prefix", "256", "--max-new", "32", "--max-len", "512",
+        "--block-size", "16"]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pre, dec = stats["prefill_steps"], stats["decode_steps"]
+    L = MIX_SERVE_LAYERS
+    want = {k: n * (pre + dec) for k, n in MIX_SERVE_STEP.items()}
+    want.update({"K2": L * pre, "K4": L * dec, "K4 combine": L * dec})
+    print(f"[7m] launches in the mixtral serving run: {launches} over {pre} "
+          f"prefill + {dec} decode steps (expected {want})")
+    check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
+          f"mixtral serving run: {stats['tokens']} tokens, "
+          f"{stats['completed']} done")
+    check(stats["nonfinite_rows"] == 0,
+          f"mixtral serving run: {stats['nonfinite_rows']} non-finite rows")
+    check(launches == want, f"mixtral serving run launches {launches} != "
+          f"{want}")
+    routes = check_k1_routes(launches, "7m", "mixtral serving run")
+    k2_routes = check_k2_routes(launches, "7m", "mixtral serving run")
+    k4_routes = check_k4_routes(launches, "mixtral serving run", tag="7m")
+    check(len(drops) == L * (pre + dec), f"mixtral serving run: "
+          f"{len(drops)} MoE calls for {pre + dec} steps of {L} layers")
+    share = [sum(dr for _, dr in drops[i * L:(i + 1) * L])
+             / sum(r for r, _ in drops[i * L:(i + 1) * L])
+             for i in range(pre + dec)]
+    step_bytes, want_steps, parts = mixtral_step_bytes(
+        [len(r.prompt) for r in serve_requests(8)], 32)
+    check(pre == 1 and dec == want_steps, f"mixtral serving run: {pre} "
+          f"prefill + {dec} decode steps, the bound counts 1 + {want_steps}")
+    bound = step_bytes / H100_BYTES_PER_S * 1e3
+    tpot = stats["tpot_p50_s"] * 1e3
+    print(f"[7m] routed choices dropped at capacity: prefill "
+          f"{share[0]:.4f}, decode steps mean "
+          f"{sum(share[1:]) / max(1, dec):.4f}, max {max(share[1:]):.4f}, "
+          f"per step " + " ".join(f"{x:.3f}" for x in share))
+    print(f"[7m] serving mixtral-8x7b cut to {L} layers, bf16, 8 requests x "
+          f"32 new tokens on {card}: TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 {tpot:.2f} ms, p95 "
+          f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} "
+          f"tok/s; a decode step's bound {bound:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
+          + f" a step, at 3.35 TB/s), TPOT / bound {tpot / bound:.2f}x; "
+          f"peak memory {peak:.2f} GiB")
+    return launches, routes, k2_routes, k4_routes, {
+        "layers": L, "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
+        "tpot_p50_ms": tpot, "tok_per_s": stats["tok_per_s"],
+        "step_bound_ms": bound, "drop_share_prefill": share[0],
+        "drop_share_decode_mean": sum(share[1:]) / max(1, dec),
+        "drop_share_decode_max": max(share[1:]), "mem_peak_gib": peak}
+
+
+# ops whose kernels move tokens between the batch and the expert buffers:
+# the router's sorts, the dispatch's and combine's index and scatter ops
+# (and their backward's); the embedding's row gather is an index too
+MOE_DISPATCH_OPS = ("sort", "searchsorted", "index", "scatter", "one_hot")
+
+
+def moe_op_group(op):
+    """The part of a MoE training step a CPU op belongs to, by the op and
+    its callers (torch.profiler links each kernel to the op that launched
+    it): the optimizer (the train step's "optimizer" range), the experts'
+    batched products (``aten::bmm``), the dispatch and combine (sorts,
+    index and scatter ops); None for the rest, which keeps its kernels'
+    ``kernel_group``."""
+    chain = []
+    while op is not None:
+        chain.append(op.name)
+        op = op.cpu_parent
+    if "optimizer" in chain:
+        return "AdamW (the optimizer range)"
+    if chain[0] == "aten::bmm":
+        return "experts' torch.matmul (bmm)"
+    if any(k in n for n in chain[:3] for k in MOE_DISPATCH_OPS):
+        return "MoE dispatch and combine (sorts, index, scatter)"
+    return None
+
+
 def main():
+    import gc
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3115,12 +3549,32 @@ def main():
     xlstm_numbers["block_share"] = timed(phase_xlstm_blocks, dev, card,
                                          xlstm_tel["t_step_s"])
     xlstm_numbers["checkpoint"] = timed(phase_ckpt_roundtrip, card)
+    timed(phase_two_layer_moe, dev)
+    timed(phase_two_layer_moe_serve, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mserve_launches, mserve_routes, mserve_k2, mserve_k4, moe_numbers = \
+        timed(phase_serve_mixtral, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mix_launches, mix_routes, mix_k2, mix_tel = timed(
+        phase_train, card, "mixtral-8x7b", MIX_STEPS, MIX_LAUNCHES,
+        tag="21", layers=MIX_TRAIN_LAYERS)
+    moe_numbers = {"serve_mixtral": moe_numbers, "train_mixtral": {
+        "layers": MIX_TRAIN_LAYERS, "t_step_s": mix_tel["t_step_s"],
+        "tokens_per_s": mix_tel["tokens_per_s"], "mfu": mix_tel["mfu"],
+        "mem_peak_gib": mix_tel["mem_peak_bytes"] / 2 ** 30}}
+    moe_numbers["train_mixtral"]["breakdown"] = timed(
+        phase_breakdown, dev, card, "mixtral-8x7b", tag="22",
+        layers=MIX_TRAIN_LAYERS, op_group=moe_op_group)
 
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
              ("serve_zamba2", zserve_launches),
              ("train_xlstm", xlstm_launches),
-             ("serve_xlstm", xserve_launches))
+             ("serve_xlstm", xserve_launches),
+             ("serve_mixtral", mserve_launches),
+             ("train_mixtral", mix_launches))
 
     def launched(*names, **more):
         by = {path: sum(counts[n] for n in names) for path, counts in paths}
@@ -3133,12 +3587,14 @@ def main():
     k1_paths = (("serve", serve_routes), ("train", train_routes),
                 ("train_zamba2", zamba_routes),
                 ("serve_zamba2", zserve_routes),
-                ("train_xlstm", xlstm_routes), ("serve_xlstm", xserve_routes))
+                ("train_xlstm", xlstm_routes), ("serve_xlstm", xserve_routes),
+                ("serve_mixtral", mserve_routes),
+                ("train_mixtral", mix_routes))
     by_route = {r: sum(routes[r] for _, routes in k1_paths)
                 for r in serve_routes}
-    k2_by_route = {key: {r: sum(p[key][r] for p in (serve_k2, train_k2,
-                                                    zamba_k2, xlstm_k2))
-                         for r in serve_k2[key]} for key in serve_k2}
+    k2_by_route = {key: {r: sum(p[key][r] for p in (
+        serve_k2, train_k2, zamba_k2, xlstm_k2, mserve_k2, mix_k2))
+        for r in serve_k2[key]} for key in serve_k2}
 
     def k1_launched(route):
         by = {path: routes[route] for path, routes in k1_paths}
@@ -3181,11 +3637,13 @@ def main():
              replaces="src/repro/kernels/paged_decode.py:72",
              **launched("K4", spec_draft=spec_k4,
                         serve_gather_view=gather_numbers["k4"]),
-             launches_by_route={r: serve_k4[r] + zserve_k4[r] + (
+             launches_by_route={r: serve_k4[r] + zserve_k4[r]
+                                + mserve_k4[r] + (
                  spec_k4 + gather_numbers["k4"] if r == "split" else 0)
                  for r in serve_k4},
              launches_combine=(serve_launches["K4 combine"]
-                               + zserve_launches["K4 combine"] + spec_k4
+                               + zserve_launches["K4 combine"]
+                               + mserve_launches["K4 combine"] + spec_k4
                                + gather_numbers["k4"]),
              **k4_numbers),
         dict(name="K5 ssd_scan", route="cuda",
@@ -3204,7 +3662,8 @@ def main():
              "bwd_kernels_ms", "library_bwd_ms", "norm_err", "kernels_ms",
              "shapes", "launch_floor_ms", "launches_combine",
              "decode_layer_kernels", "contiguous_layer_kernels") + tuple(
-                 f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2")
+                 f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2",
+                                                  "mixtral", "moonlight")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))
     print("serving paths: " + json.dumps({
@@ -3212,6 +3671,7 @@ def main():
         "speculative": spec_numbers,
         "serve_zamba2": zserve_numbers, "serve_xlstm": xserve_numbers}))
     print("xlstm training: " + json.dumps(xlstm_numbers))
+    print("moe: " + json.dumps(moe_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

@@ -15,6 +15,9 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+# leaves of more values than this are drawn a leading slice at a time
+DRAW_SLICE = 1 << 30
+
 
 @dataclasses.dataclass(frozen=True)
 class Param:
@@ -45,7 +48,9 @@ def init_params(abstract, generator: torch.Generator, device,
     (which must live on ``device``; None for a tree of constants, such as
     a decode cache): N(0, scale) for embeddings, N(0, scale / sqrt(fan_in))
     for weights, ones and zeros for norms, -1 for cache positions.  Leaves
-    are in ``dtype`` except those whose Param pins its own."""
+    are in ``dtype`` except those whose Param pins its own.  A leaf of more
+    than ``DRAW_SLICE`` values is drawn one slice of its first dim at a
+    time."""
     def one(p: Param) -> torch.Tensor:
         dt = p.dtype or dtype
         if p.init == "zeros":
@@ -57,7 +62,17 @@ def init_params(abstract, generator: torch.Generator, device,
         std = p.scale
         if p.init == "fan_in":
             std = p.scale / math.sqrt(max(p.shape[p.fan_axis], 1))
-        x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (x * std).to(dt)
+        if math.prod(p.shape) <= DRAW_SLICE or len(p.shape) < 2:
+            x = torch.randn(p.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            return (x * std).to(dt)
+        # a large stacked leaf is drawn one leading slice at a time, so the
+        # f32 draw never holds more than a slice (mixtral's 16-layer w1 is
+        # 7.5G values: 30 GB in f32 at once)
+        out = torch.empty(p.shape, dtype=dt, device=device)
+        for i in range(p.shape[0]):
+            x = torch.randn(p.shape[1:], generator=generator,
+                            dtype=torch.float32, device=device)
+            out[i] = (x * std).to(dt)
+        return out
     return tree_map(one, abstract)

@@ -6,8 +6,8 @@ seed: the synthetic stream is the same numpy Zipf generator, and the
 {"tokens": (B, S), "labels": (B, S)} (labels are the tokens shifted by one)
 and land on the stream's device as int64 through ``to_device``, in place of
 the reference's ``shard_batch``.  The port trains the text families (dense,
-hybrid and SSM), so the modality stubs of the VLM and audio families are
-not drawn.
+MoE, hybrid and SSM), so the modality stubs of the VLM and audio families
+are not drawn.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class TokenStream:
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  data: Optional[DataConfig] = None, device="cpu"):
-        if cfg.family not in (Family.DENSE, Family.HYBRID, Family.SSM):
+        if cfg.family in (Family.VLM, Family.AUDIO):
             raise NotImplementedError(
                 f"{cfg.arch}: family {cfg.family.value!r} is not ported yet "
                 "(ROADMAP.md, Queue 1 item 10)")

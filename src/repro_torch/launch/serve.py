@@ -1,15 +1,16 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8``
 builds the continuous-batching engine on one device (the paged KV cache
-with chunked prefill for the dense family, the per-slot recurrent state
-with sequential prefill for zamba2 and xlstm), submits synthetic requests and
-reports the serving metrics (TTFT / TPOT p50/p95, tok/s, prefix hits,
-accepted drafts).  Same flags as ``repro.launch.serve`` for the paths the
-port has (``--prefix-cache``, ``--draft ARCH --spec-tokens N``,
-``--no-fused-decode``), plus ``--device {cuda,cpu}`` (default cuda: raises
-when no GPU is present unless ``--device cpu``).  Weights are drawn from
-``--seed`` at the config's published shapes, a draft's too (so a draft of
-the target's own arch is the target itself, as in the reference);
+with chunked prefill for the dense and MoE families, the per-slot
+recurrent state with sequential prefill for zamba2 and xlstm), submits
+synthetic requests and reports the serving metrics (TTFT / TPOT p50/p95,
+tok/s, prefix hits, accepted drafts).  Same flags as ``repro.launch.serve``
+for the paths the port has (``--prefix-cache``, ``--draft ARCH
+--spec-tokens N``, ``--no-fused-decode``), plus ``--device {cuda,cpu}``
+(default cuda: raises when no GPU is present unless ``--device cpu``) and
+``--layers N``, which cuts the depth.  Weights are drawn from ``--seed``
+at the config's published shapes, a draft's too (so a draft of the
+target's own arch is the target itself, as in the reference);
 ``--ckpt-dir`` then restores the target's parameters from the latest step
 saved there by either package's train launcher (reference
 ``repro/launch/serve.py:108-114``).  Exits nonzero when no tokens were
@@ -25,6 +26,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (mixtral-8x7b "
+                         "holds 16 of its 32 on an 80 GB card)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
@@ -101,6 +105,8 @@ def main(argv=None) -> dict:
     cfg = get(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
                         strategy=args.strategy)
     plan.validate(n_layers=cfg.n_layers, model=cfg, mode="serve")

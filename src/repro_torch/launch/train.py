@@ -3,12 +3,13 @@
 
 The flags of ``repro.launch.train`` plus ``--device {cuda,cpu}`` (default
 cuda; with no card it exits with a message and never falls back to the
-CPU).  It trains the dense, hybrid (zamba2) and SSM (xlstm) families on
-one device, the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW; the
-flags of what the port does not carry (more than one device, the 1-D/2-D
-baselines, overlap, ZeRO, Adafactor, the moe/vlm/audio families) raise
-with a pointer to ROADMAP.md.  Weights are drawn from seed 0 at the
-config's published shapes.  It prints the reference launcher's lines
+CPU).  It trains the dense, MoE (mixtral, Moonlight), hybrid (zamba2) and
+SSM (xlstm) families on one device, the cube (1, 1, 1) at pp = 1 and
+dp = 1, with AdamW; the flags of what the port does not carry (more than
+one device, the 1-D/2-D baselines, overlap, ZeRO, Adafactor, MLA and the
+mtp head, the vlm/audio families) raise with a pointer to ROADMAP.md.
+Weights are drawn from seed 0 at the config's published shapes (``--layers``
+and ``--d-model`` cut them).  It prints the reference launcher's lines
 (``arch=... plan=...``, ``params: ...M``, ``step N loss=... xent=...
 lr=... gnorm=... s/step``, ``done: first loss ...``) and returns
 {"losses", "telemetry", "start"}.
@@ -34,7 +35,7 @@ TODO = "not ported yet: see ROADMAP.md, Queue 1"
 
 def _refuse(args, cfg):
     """NotImplementedError for every flag this slice does not carry."""
-    from repro_torch.models.registry import PORTED
+    from repro_torch.models.registry import unported_reason
     bad = []
     if args.dp > 1 or args.model > 1 or args.pp > 1 or args.host_devices:
         bad.append("more than one device (--dp/--model/--pp/--host-devices;"
@@ -48,8 +49,9 @@ def _refuse(args, cfg):
         bad.append(f"--zero {args.zero} (ZeRO over dp, item 6)")
     if args.optimizer != "adamw":
         bad.append(f"--optimizer {args.optimizer} (Adafactor, item 6)")
-    if cfg.family not in PORTED:
-        bad.append(f"family {cfg.family.value!r} (item 10)")
+    reason = unported_reason(cfg)
+    if reason:
+        bad.append(reason)
     if bad:
         raise NotImplementedError(f"{'; '.join(bad)}: {TODO}")
 

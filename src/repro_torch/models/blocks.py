@@ -48,20 +48,35 @@ def norm_params(cfg: ModelConfig, d: int):
     return p
 
 
-def dense_block_params(cfg: ModelConfig):
-    """One dense attention + MLP block (reference
-    ``blocks.py:dense_block_params``)."""
+def attn_params(cfg: ModelConfig):
+    """One attention sub-block (reference ``blocks.py:attn_params``)."""
     d, nh, nkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     attn = {"wq": Param((d, nh * dh)), "wk": Param((d, nkv * dh)),
             "wv": Param((d, nkv * dh)), "wo": Param((nh * dh, d))}
     if cfg.qk_norm:
         attn["q_norm"] = Param((dh,), init="ones")
         attn["k_norm"] = Param((dh,), init="ones")
-    mlp = {"w_up": Param((d, cfg.d_ff)), "w_down": Param((cfg.d_ff, d))}
+    return attn
+
+
+def mlp_params(cfg: ModelConfig, d_ff: int = 0):
+    """One MLP of width ``d_ff or cfg.d_ff`` (reference
+    ``blocks.py:594-600``)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    mlp = {"w_up": Param((d, f)), "w_down": Param((f, d))}
     if cfg.act in ("silu", "gelu"):
-        mlp["w_gate"] = Param((d, cfg.d_ff))
-    return {"ln1": norm_params(cfg, d), "attn": attn,
-            "ln2": norm_params(cfg, d), "mlp": mlp}
+        mlp["w_gate"] = Param((d, f))
+    return mlp
+
+
+def dense_block_params(cfg: ModelConfig, d_ff: int = 0):
+    """One dense attention + MLP block (reference
+    ``blocks.py:dense_block_params``); ``d_ff`` overrides the MLP's width,
+    as the MoE family's leading dense layers take ``moe.dense_ff``
+    (reference ``registry.py:281-283``)."""
+    d = cfg.d_model
+    return {"ln1": norm_params(cfg, d), "attn": attn_params(cfg),
+            "ln2": norm_params(cfg, d), "mlp": mlp_params(cfg, d_ff)}
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, length: int):

@@ -1,11 +1,13 @@
 """The hooks of ``repro/models/registry.py`` that the port's paths need,
-for the dense, hybrid and SSM (xLSTM) families: the layer plan and its
+for the dense, MoE, hybrid and SSM (xLSTM) families: the layer plan and its
 segments, the
 decode-cache tree (``stack_cache``), the loss labels and mask, the
 microbatch weight, and the train-FLOPs estimate that is the MFU numerator
 (``obs/telemetry.py``).  The reference module
-imports jax, so the port keeps its own copies; ``tests/test_torch_train.py``
-and ``tests/test_torch_ssm.py`` hold them equal to the originals.
+imports jax, so the port keeps its own copies; ``tests/test_torch_train.py``,
+``tests/test_torch_ssm.py`` and ``tests/test_torch_moe.py`` hold them equal
+to the originals.  Of the MoE family, MLA attention and the
+multi-token-prediction head (deepseek-v3-671b) are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +21,19 @@ from .blocks import kv_cache_init
 from .mamba2 import mamba_cache_init
 from .xlstm import mlstm_cache_init, slstm_cache_init
 
-PORTED = (Family.DENSE, Family.HYBRID, Family.SSM)
+PORTED = (Family.DENSE, Family.MOE, Family.HYBRID, Family.SSM)
+
+
+def unported_reason(cfg: ModelConfig):
+    """Why the port cannot run ``cfg`` yet, or None."""
+    if cfg.family not in PORTED:
+        return (f"{cfg.arch}: family {cfg.family.value!r} is not ported yet; "
+                "the port runs the dense, MoE, hybrid and SSM families "
+                "(ROADMAP.md, Queue 1 item 10)")
+    if cfg.mla is not None or cfg.mtp:
+        return (f"{cfg.arch}: MLA attention and the multi-token-prediction "
+                "head are not ported yet (ROADMAP.md, Queue 1 item 10)")
+    return None
 
 
 def _plan_xlstm(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -41,19 +55,21 @@ def _plan_xlstm(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
     """The block kind of each layer in order (reference ``_plan_dense``,
-    ``_plan_hybrid`` and ``_plan_xlstm``, ``registry.py:374-411``): zamba2
-    runs the one shared attention block ("attn") after every full
-    ``attn_every`` Mamba layers; xlstm-350m is 21 mLSTM and 3 sLSTM
-    layers."""
+    ``_plan_moe``, ``_plan_hybrid`` and ``_plan_xlstm``,
+    ``registry.py:374-411``): the MoE family runs ``first_k_dense`` dense
+    layers, then MoE layers; zamba2 runs the one shared attention block
+    ("attn") after every full ``attn_every`` Mamba layers; xlstm-350m is 21
+    mLSTM and 3 sLSTM layers."""
+    reason = unported_reason(cfg)
+    if reason:
+        raise NotImplementedError(reason)
     if cfg.family == Family.DENSE:
         return ("dense",) * cfg.n_layers
+    if cfg.family == Family.MOE:
+        fk = cfg.moe.first_k_dense
+        return ("dense",) * fk + ("moe",) * (cfg.n_layers - fk)
     if cfg.family == Family.SSM:
         return _plan_xlstm(cfg)
-    if cfg.family != Family.HYBRID:
-        raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family.value!r} is not ported yet; "
-            "the port runs the dense, hybrid and SSM families (ROADMAP.md, "
-            "Queue 1 item 10)")
     every = cfg.ssm.attn_every or (cfg.n_layers + 1)
     plan, done = [], 0
     while done < cfg.n_layers:
@@ -69,6 +85,9 @@ def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
 # reads params["shared"]["attn"] (reference registry.py:323-329, a
 # BlockKind with params=None).
 SHARED_KINDS = ("attn",)
+# the kinds whose blocks attend through a kv cache that prefill and extend
+# fill, in the paged pool and in the contiguous caches alike
+KV_KINDS = ("dense", "moe")
 
 
 def segments(plan) -> Tuple[Tuple[str, int], ...]:
@@ -92,7 +111,7 @@ def _attn_cache(cfg: ModelConfig, batch: int, length: int):
 
 # the decode cache of one layer of each kind (reference registry.py:
 # BlockKind.cache); zamba2's shared block has one per use
-KIND_CACHES = {"dense": _attn_cache, "attn": _attn_cache,
+KIND_CACHES = {"dense": _attn_cache, "moe": _attn_cache, "attn": _attn_cache,
                "mamba": lambda cfg, batch, length:
                    mamba_cache_init(cfg, batch),
                "mlstm": lambda cfg, batch, length:
@@ -148,16 +167,17 @@ def train_flops_per_token(cfg: ModelConfig, s: int) -> float:
     estimate of its own, so zamba2 takes ``attn_step_flops`` too, which
     counts its 38 layers as dense attention + MLP layers (``n_params``):
     2.68B parameters against the 1.18B of its real tree, so its MFU reads
-    about 2.3x high.  The SSM family takes ``ssm_step_flops``, whose
+    about 2.3x high.  The MoE family takes ``attn_step_flops`` with
+    ``n_active_params``, which counts only the top-k experts of each MoE
+    layer.  The SSM family takes ``ssm_step_flops``, whose
     ``n_active_params`` counts xlstm-350m's 24 layers as attention blocks
     with no MLP (d_ff 0): 0.204B parameters against the 0.342B of its real
     tree, and none of the mLSTM's chunk products, so its MFU reads low, at
     most 0.60x of what the tree's parameters give.  Both copied as they
     are."""
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.arch}: family {cfg.family.value!r} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
+    reason = unported_reason(cfg)
+    if reason:
+        raise NotImplementedError(reason)
     if cfg.family == Family.SSM:
         return float(ssm_step_flops(cfg, s))
     return float(attn_step_flops(cfg, s))

@@ -1,5 +1,5 @@
 """Model assembly (port of ``repro/models/transformer.py`` and the dense,
-hybrid and SSM parts of ``repro/models/registry.py``).
+MoE, hybrid and SSM parts of ``repro/models/registry.py``).
 
 ``abstract_params(cfg)`` is the parameter tree, with the same nested names,
 shapes and dtypes as the reference's ``transformer.abstract_params`` at
@@ -12,7 +12,11 @@ one device and pp = 1.  The dense family's:
     head                                                    (d, vocab)
 
 (plus ``ln*.b`` for LayerNorm configs, ``attn.{q,k}_norm`` with qk-norm, and
-no ``w_gate`` for a plain GELU MLP).  The hybrid family (zamba2) has
+no ``w_gate`` for a plain GELU MLP).  The MoE family has
+``stack.moe.{ln1.g, ln2.g, moe.{w_router, w1, w2, w3, shared.{w_up,
+w_down, w_gate}}, attn.{...}}`` (L - first_k_dense, ...), the router in
+f32, and its ``first_k_dense`` leading layers as ``stack.dense`` with the
+MLP ``moe.dense_ff`` wide.  The hybrid family (zamba2) has
 ``shared.attn``, one unstacked dense block, and ``stack.mamba.{ln, w_x,
 w_z, w_bc, w_dt, dt_bias, A_log, D, conv_x, conv_x_b, conv_bc, conv_bc_b,
 gate_ln, w_out}`` (L, ...) instead of ``stack.dense``; the SSM family
@@ -23,10 +27,11 @@ no transposes.
 
 ``forward(mode="train")`` returns the loss of a batch of token sequences,
 differentiable in every parameter: embedding, the layer plan (dense
-blocks, zamba2's Mamba2 blocks and its shared attention block, or
-xlstm's mLSTM and sLSTM blocks; each block recomputed in the backward
-when ``cfg.remat``), ``ln_f`` and the chunked vocab-parallel head and
-cross-entropy.  Serving: ``prefill`` runs
+blocks, MoE blocks, zamba2's Mamba2 blocks and its shared attention
+block, or xlstm's mLSTM and sLSTM blocks; each block recomputed in the
+backward when ``cfg.remat``), ``ln_f`` and the chunked vocab-parallel head
+and cross-entropy, plus the MoE blocks' router losses (``aux``).  Serving:
+``prefill`` runs
 whole right-padded prompts and hands their rope'd (k, v) to the paged
 pool; ``forward(mode="decode")`` advances every slot by one token, against
 that pool (``page=...``) or against a contiguous per-slot cache tree
@@ -53,14 +58,21 @@ from ..core.linear3d import embed_lookup, plinear
 from ..core.params import Param, tree_map
 from ..core.topology import Dirs, Layout
 from . import blocks as B
-from . import mamba2, xlstm
-from .registry import (SHARED_KINDS, layer_plan, segments, stack_cache,
-                       text_labels)
+from . import mamba2, moe, xlstm
+from .registry import (KV_KINDS, SHARED_KINDS, layer_plan, segments,
+                       stack_cache, text_labels)
+
+
+def _dense_params(cfg: ModelConfig):
+    """The MoE family's leading dense layers take ``dense_ff`` (reference
+    ``registry.py:281-283``)."""
+    return B.dense_block_params(
+        cfg, cfg.moe.dense_ff if cfg.family == Family.MOE else 0)
 
 
 # block kinds with per-layer (stacked) parameters; "attn" reads the one
 # shared block (reference registry.py:323-329, BlockKind(params=None))
-STACKED_KINDS = {"dense": B.dense_block_params,
+STACKED_KINDS = {"dense": _dense_params, "moe": moe.moe_block_params,
                  "mamba": mamba2.mamba_block_params,
                  "mlstm": xlstm.mlstm_params, "slstm": xlstm.slstm_params}
 # the recurrent kinds' one-token decode, (x, p, cache) -> (x, new leaves)
@@ -78,8 +90,8 @@ def _stacked(block, n: int):
 
 
 def abstract_params(cfg: ModelConfig):
-    """Param tree of a dense-, hybrid- or SSM-family model (see the module
-    docstring; reference ``transformer.py:47-73``)."""
+    """Param tree of a dense-, MoE-, hybrid- or SSM-family model (see the
+    module docstring; reference ``transformer.py:47-73``)."""
     plan = layer_plan(cfg)
     d = cfg.d_model
     tree = {"embed": Param((cfg.vocab, d), init="embed")}
@@ -121,6 +133,15 @@ def _layers(tree, n: int):
     return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
 
 
+def _kv_block(kind, layout, cfg, dirs, x, p, positions, **kw):
+    """(x, new_cache, aux) of a block that attends through a kv cache: the
+    MoE block's router losses, or None for a dense block."""
+    if kind == "moe":
+        return moe.moe_block_apply(layout, cfg, dirs, x, p, positions, **kw)
+    return (*B.dense_block_apply(layout, cfg, dirs, x, p, positions, **kw),
+            None)
+
+
 def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
               positions, *, mode: str, cache=None, page=None,
               collect_kv: bool = False, remat: bool = False):
@@ -131,16 +152,18 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
     ``remat`` each block is recomputed in the backward (``jax.checkpoint``
     of the scan body and of the shared block there).
 
-    Returns (x, new_cache): paged decode (``page``) -> {"dense": {"k", "v",
-    "pos"}}, each layer's new entries stacked; contiguous decode -> the
+    Returns (x, new_cache, aux), ``aux`` the f32 sum of the MoE blocks'
+    router losses (None when the plan has none).  ``new_cache``: paged decode
+    (``page``) -> {kind: {"k", "v", "pos"}} for each kv kind ("dense",
+    "moe"), each layer's new entries stacked; contiguous decode -> the
     ``cache`` tree itself, written in place (attention entries, Mamba
     state and conv tails; the shared kind's slab holds one cache per use);
-    prefill or extend with ``collect_kv`` -> {"dense": (k, v)} stacked
-    (n_layers, B, S, nkv, d).  Prefill and extend take the dense family
-    only: a recurrent state has no chunked form, so the hybrid and SSM
-    families prefill one token a step through decode."""
+    prefill or extend with ``collect_kv`` -> {kind: (k, v)} stacked
+    (n_layers of the kind, B, S, nkv, d).  Prefill and extend take the
+    dense and MoE families only: a recurrent state has no chunked form, so
+    the hybrid and SSM families prefill one token a step through decode."""
     plan = layer_plan(cfg)
-    if mode in ("prefill", "extend") and cfg.family != Family.DENSE:
+    if mode in ("prefill", "extend") and serve_cache_mode(cfg) != "paged":
         raise NotImplementedError(
             f"{cfg.arch}: the {cfg.family.value!r} family serves with "
             f"recurrent state, which has no {mode} form: it prefills one "
@@ -152,22 +175,24 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
 
     def block(kind, xx, p):
         if kind == "mamba":
-            return mamba2.mamba_apply(layout, cfg, dirs, xx, p)
+            return mamba2.mamba_apply(layout, cfg, dirs, xx, p), None
         if kind == "mlstm":
-            return xlstm.mlstm_apply(layout, cfg, dirs, xx, p)[0]
+            return xlstm.mlstm_apply(layout, cfg, dirs, xx, p)[0], None
         if kind == "slstm":
-            return xlstm.slstm_apply(layout, cfg, dirs, xx, p)[0]
-        return B.dense_block_apply(layout, cfg, dirs, xx, p, positions)[0]
+            return xlstm.slstm_apply(layout, cfg, dirs, xx, p)[0], None
+        xx, _, a = _kv_block(kind, layout, cfg, dirs, xx, p, positions)
+        return xx, a
 
-    outs, offs = [], {}
+    outs, offs, auxes = {}, {}, []
     for kind, n in segments(plan):
         off = offs.get(kind, 0)
         offs[kind] = off + n
         for i in range(off, off + n):
             p = params["shared"][kind] if kind in SHARED_KINDS \
                 else stacks[kind][i]
+            a = None
             if remat:
-                x = checkpoint(block, kind, x, p, use_reentrant=False)
+                x, a = checkpoint(block, kind, x, p, use_reentrant=False)
             elif contiguous:
                 c = _layer(cache[kind], i)
                 if kind in RECURRENT_DECODE:
@@ -175,28 +200,29 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
                     for name, t in nc.items():
                         c[name].copy_(t)
                 else:
-                    x, _ = B.dense_block_apply(layout, cfg, dirs, x, p,
-                                               positions, decode=True,
-                                               cache=c)
-            elif kind != "dense":
-                x = block(kind, x, p)
+                    x, _, a = _kv_block(kind, layout, cfg, dirs, x, p,
+                                        positions, decode=True, cache=c)
+            elif kind not in KV_KINDS:
+                x, a = block(kind, x, p)
             else:
-                c = (_layer(cache["dense"], i)
+                c = (_layer(cache[kind], i)
                      if decode or mode == "extend" else None)
-                x, nc = B.dense_block_apply(layout, cfg, dirs, x, p,
-                                            positions, decode=decode, cache=c,
-                                            return_kv=collect_kv, page=page)
+                x, nc, a = _kv_block(kind, layout, cfg, dirs, x, p,
+                                     positions, decode=decode, cache=c,
+                                     return_kv=collect_kv, page=page)
                 if nc is not None:
-                    outs.append(nc)
+                    outs.setdefault(kind, []).append(nc)
+            if a is not None:
+                auxes.append(a)
+    aux = torch.stack(auxes).sum() if auxes else None
     if contiguous:
-        return x, cache
-    if not outs:
-        return x, {}
+        return x, cache, aux
     if decode:
-        return x, {"dense": {k: torch.stack([o[k] for o in outs])
-                             for k in outs[0]}}
-    return x, {"dense": (torch.stack([o[0] for o in outs]),
-                         torch.stack([o[1] for o in outs]))}
+        return x, {kind: {k: torch.stack([o[k] for o in os]) for k in os[0]}
+                   for kind, os in outs.items()}, aux
+    return x, {kind: (torch.stack([o[0] for o in os]),
+                      torch.stack([o[1] for o in os]))
+               for kind, os in outs.items()}, aux
 
 
 def head_loss_chunks(cfg: ModelConfig, layout: Layout, S: int) -> int:
@@ -261,8 +287,8 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
     dirs = entry_dirs()
     x = embed(layout, cfg, dirs, params, batch["token"], decode=True)
     positions = batch["pos"][:, None]                      # (B, 1)
-    x, new_cache = run_stack(layout, cfg, dirs, x, params, positions,
-                             mode="decode", cache=cache, page=page)
+    x, new_cache, _ = run_stack(layout, cfg, dirs, x, params, positions,
+                                mode="decode", cache=cache, page=page)
     x = B.apply_norm(cfg, x, params["ln_f"])
     logits, _ = plinear(layout, dirs, x, params["head"], kind="first",
                         decode=True)
@@ -279,13 +305,14 @@ def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
     x = embed(layout, cfg, dirs, params, tokens)
     b, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(b, S)
-    x, _ = run_stack(layout, cfg, dirs, x, params, positions, mode="train",
-                     remat=cfg.remat)
+    x, _, aux = run_stack(layout, cfg, dirs, x, params, positions,
+                          mode="train", remat=cfg.remat)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = B.apply_norm(cfg, x, params["ln_f"])
     labels, mask = text_labels(batch)
     xent = chunked_head_loss(cfg, layout, dirs, x, labels.clamp_min(0).long(),
                              mask, params["head"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return xent + aux, {"xent": xent, "aux": aux}
 
 
@@ -301,8 +328,8 @@ def prefill(cfg: ModelConfig, layout: Layout, params, batch):
     x = embed(layout, cfg, dirs, params, tokens)
     b, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(b, S)
-    x, kv = run_stack(layout, cfg, dirs, x, params, positions,
-                      mode="prefill", collect_kv=True)
+    x, kv, _ = run_stack(layout, cfg, dirs, x, params, positions,
+                         mode="prefill", collect_kv=True)
     x = B.apply_norm(cfg, x, params["ln_f"])
     idx = (batch["length"].long() - 1).clamp(0, S - 1)
     last = x[torch.arange(b, device=x.device), idx][:, None]    # (B, 1, H)
@@ -317,7 +344,7 @@ def extend(cfg: ModelConfig, layout: Layout, params, batch, view):
     speculative verify.  ``batch``: {"tokens": (B, S) right-padded fresh
     tokens, "offset": (B,) int32 position of each row's first fresh token,
     "length": (B,) int32 valid fresh tokens (0 = inactive row)}; ``view``:
-    a gathered cache tree {"dense": {"k", "v", "pos"}} with leaves
+    a gathered cache tree {kind: {"k", "v", "pos"}} with leaves
     (n_layers, B, L, ...).  Returns (logits (B, S, V) at every fresh
     position, the collected (k, v) for ``pack_prefill_cache``, positions
     (B, S) int32 with -1 on padding)."""
@@ -332,8 +359,8 @@ def extend(cfg: ModelConfig, layout: Layout, params, batch, view):
     i = torch.arange(S, dtype=torch.int32, device=tokens.device)
     positions = torch.where(i[None, :] < batch["length"][:, None],
                             batch["offset"][:, None] + i[None, :], -1)
-    x, kv = run_stack(layout, cfg, dirs, x, params, positions, mode="extend",
-                      cache=view, collect_kv=True)
+    x, kv, _ = run_stack(layout, cfg, dirs, x, params, positions,
+                         mode="extend", cache=view, collect_kv=True)
     x = B.apply_norm(cfg, x, params["ln_f"])
     logits, _ = plinear(layout, dirs, x, params["head"], kind="first")
     return logits, kv, positions

@@ -3,9 +3,9 @@
   * ``scheduler.Scheduler``  — FIFO + priority queues, admission control,
     slot refill, prefill grouping (host-side policy).
   * ``kvcache.PagedKVCache`` — block-table paged KV pool for the 'paged'
-    family (dense attention), with the shared-prefix index; the 'state'
-    families (zamba2's and xlstm's recurrent state) keep contiguous
-    per-slot caches.
+    families (the dense and MoE families' attention), with the
+    shared-prefix index; the 'state' families (zamba2's and xlstm's
+    recurrent state) keep contiguous per-slot caches.
   * ``sampling.make_sampler`` — greedy / temperature / top-k / top-p under
     one engine-owned, seeded ``torch.Generator``.
   * ``speculate.DraftSpec`` — the optional draft model of speculative
@@ -34,9 +34,11 @@ at 1, so xlstm's first decode steps differ from its forward; the port
 keeps the reference's wipe, so that its tokens equal the JAX engine's
 (ROADMAP.md, Queue 3).
 
-The engine runs on the device its parameters lie on.  Not in the port yet
-(each raises ValueError): the families other than dense, hybrid and SSM
-(MoE, MLA, encoder-decoder, vision-language).
+The engine runs on the device its parameters lie on.  A MoE model's
+padding rows and idle slots take expert capacity, as in the reference, so
+its tokens depend on the batches, which copy the reference's.  Not in the
+port yet (each raises ValueError): MLA attention (deepseek-v3-671b) and
+the encoder-decoder and vision-language families.
 """
 from __future__ import annotations
 
@@ -52,13 +54,13 @@ from ..core.params import init_params
 from ..core.topology import Layout
 from ..models import blocks as B
 from ..models import transformer
-from ..models.registry import PORTED
+from ..models.registry import unported_reason
 from ..obs.trace import NULL
 from . import kvcache, sampling, speculate
 from .metrics import ServeMetrics
 from .scheduler import Scheduler, pad_bucket
 
-LATER = "arrives with a later serving slice of the port (ROADMAP.md)"
+LATER = "it arrives with a later serving slice of the port"
 
 
 @dataclasses.dataclass
@@ -87,8 +89,9 @@ class Engine:
                  fused_decode: Optional[bool] = None,
                  prefix_cache: bool = False,
                  draft: Optional[speculate.DraftSpec] = None, tracer=None):
-        if cfg.family not in PORTED or cfg.mla is not None:
-            raise ValueError(f"{cfg.arch}: family {cfg.family.value!r} {LATER}")
+        reason = unported_reason(cfg)
+        if reason:
+            raise ValueError(f"{reason}; {LATER}")
         self.cfg, self.layout, self.params = cfg, layout, params
         # observability: per-request lifecycle spans come from the metrics
         # hooks; the engine adds one span per device tick on the "engine"

@@ -2,9 +2,11 @@
 allocation, eviction on request completion, and the shared-prefix index
 with copy-on-write (port of ``repro/serve/kvcache.py``).
 
-The *pool* is the single device-resident store of the dense family's decode
-cache: per layer, keys and values ``(n_blocks * block, nkv, d)`` and the
-logical position of every entry ``(n_blocks * block,)`` (-1 = invalid).
+The *pool* is the single device-resident store of the paged families'
+decode cache: one slab per block kind with attention ("dense", and "moe"
+for the MoE family, as the reference's per-kind cache tree), and per layer
+keys and values ``(n_blocks * block, nkv, d)`` and the logical position of
+every entry ``(n_blocks * block,)`` (-1 = invalid).
 Which physical block holds which ``(slot, logical position)`` pair is
 host-side bookkeeping (``PagedKVCache``: a ref-counted allocator plus one
 block table per engine slot).  The device functions below update the pool
@@ -43,6 +45,7 @@ import torch
 
 from ..config import ModelConfig
 from ..core.params import Param, tree_map
+from ..models.registry import KV_KINDS, layer_plan
 
 RESERVED = 2                      # block 0 = null (reads), block 1 = trash (writes)
 
@@ -393,16 +396,25 @@ class PagedKVCache:
         self.tokens_reused = 0
 
     def init_pool(self, device):
-        """The zeroed pool on ``device`` (positions start at -1: every
-        block, the null block included, is invalid until written)."""
+        """The zeroed pool on ``device``, {kind: {"k", "v", "pos"}} with
+        leaves (layers of the kind, phys, ...) in plan order (positions
+        start at -1: every block, the null block included, is invalid
+        until written)."""
         cfg = self.cfg
         phys = self.n_blocks * self.block
-        shape = (cfg.n_layers, phys, cfg.n_kv, cfg.head_dim)
-        return {"dense": {
-            "k": torch.zeros(shape, dtype=self.dtype, device=device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=device),
-            "pos": torch.full((cfg.n_layers, phys), -1, dtype=torch.int32,
-                              device=device)}}
+        plan = layer_plan(cfg)
+        pool = {}
+        for kind in dict.fromkeys(plan):
+            if kind not in KV_KINDS:
+                continue
+            n = plan.count(kind)
+            shape = (n, phys, cfg.n_kv, cfg.head_dim)
+            pool[kind] = {
+                "k": torch.zeros(shape, dtype=self.dtype, device=device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=device),
+                "pos": torch.full((n, phys), -1, dtype=torch.int32,
+                                  device=device)}
+        return pool
 
     # ---- admission / eviction -------------------------------------------
     def blocks_needed(self, n_tokens: int) -> int:

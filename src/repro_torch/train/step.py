@@ -5,7 +5,8 @@ pp = 1): one optimizer step per call,
   * microbatches  > 1: f32 gradient accumulation over equal microbatches,
     each weighted by its valid-token count (``registry.text_mb_weight``),
     so the loss and gradient equal the single-shot path's global token
-    mean.
+    mean; the metrics too, the MoE router losses (``aux``) among them, as
+    the reference weights them (``step.py:87-112``).
 
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
 the parameters are updated in place.  The gradient of every leaf comes from
@@ -74,8 +75,11 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
             metrics = {k: v / wsum for k, v in macc.items()}
             grads = [(g / wsum).to(p.dtype)
                      for g, p in zip(gacc, tree_leaves(params))]
-        params, opt_state, opt_metrics = update(
-            params, _unflatten(params, grads), opt_state)
+        # a profiler range, so that a trace tells the update's kernels
+        # from the backward's (chip_smoke.py phase 22)
+        with torch.profiler.record_function("optimizer"):
+            params, opt_state, opt_metrics = update(
+                params, _unflatten(params, grads), opt_state)
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1 matmul (each route, xlstm's GEMMs with w_if's N = 8 among them), K2
-flash attention (each route) and K3 RMSNorm (forward and backward, xlstm's
-widths among them), K4 paged decode (each route), K5 SSD scan (forward and
-backward).
+K1 matmul (each route, xlstm's GEMMs with w_if's N = 8 among them and the
+MoE family's), K2 flash attention (each route, the MoE family's d 128
+training layers among them) and K3 RMSNorm (forward and backward, xlstm's
+widths among them), K4 paged decode (each route, mixtral's and
+Moonlight's serve steps among them), K5 SSD scan (forward and backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -131,6 +132,14 @@ XLSTM_GEMMS = [(1024, 2048), (1024, 8), (1024, 4096), (1024, 1024),
                (2048, 1024), (1024, 50304)]
 
 
+# the MoE family's K1 GEMMs (K, N): mixtral's attention and head, and
+# Moonlight's attention, dense layer (11264), shared experts (2816) and
+# head (163840); the experts' own products are torch.matmul
+MOE_GEMMS = [(4096, 4096), (4096, 1024), (4096, 32000), (2048, 2048),
+             (2048, 11264), (11264, 2048), (2048, 2816), (2816, 2048),
+             (2048, 163840)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", XLSTM_GEMMS)
 @pytest.mark.parametrize("m", [8, 8192])
@@ -139,6 +148,19 @@ def test_k1_xlstm_shapes_match_plain_on_card(cuda, m, k, n):
     the route ``route`` picks and, at M = 8, the other bf16 route, every
     activation, with and without bias; w_if's N = 8 (narrower than one
     64-column tile or TMA box) also on the simt route in f32."""
+    _check_k1_shape(cuda, m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", MOE_GEMMS)
+@pytest.mark.parametrize("m", [8, 8192])
+def test_k1_moe_shapes_match_plain_on_card(cuda, m, k, n):
+    """The MoE family's GEMMs at a decode step's M and a training step's,
+    as xlstm's."""
+    _check_k1_shape(cuda, m, k, n)
+
+
+def _check_k1_shape(cuda, m, k, n):
     x, w, b = _bf16_case(cuda, m, k, n, seed=m + n + k)
     path = k1.route_for(x, w)
     assert path == ("decode" if m <= k1.DECODE_MAX_M else "tc")
@@ -284,6 +306,9 @@ def _k4_check(got, want):
     (32, 64, 8, 8, [900, 31, 1500], 64),                  # block 32, MHA
     (32, 128, 8, 4, [2000, 1], 80),                       # 1 an SM, group 2
     (16, 64, 16, 4, [3000], 200),                         # one slot: 50 splits
+    # mixtral's serve step (32/8 heads of 128) and Moonlight's (16/16)
+    (16, 128, 32, 8, [275, 276, 277, 278, 279, 275, 276, 277], 32),
+    (16, 128, 16, 16, [16, 17, 20, 24], 4),
 ])
 @pytest.mark.parametrize("kind", ["out", "residuals", "step"])
 def test_k4_split_route_matches_plain_on_card(cuda, block, d, nq, nkv, lens,
@@ -595,7 +620,11 @@ def _k2_case(cuda, b, sq, sk, nq, nkv, d, off, seed=9):
     (2, 256, 256, 16, 2, 64, True, 0, 0),
     (1, 50, 90, 6, 3, 128, False, 0, 0),
     (2, 100, 100, 8, 2, 128, True, 0, 0),
-    (1, 200, 200, 8, 1, 128, True, 50, 0)])
+    (1, 200, 200, 8, 1, 128, True, 50, 0),
+    # the MoE family's training layers: mixtral (32/8, window 4096) and
+    # Moonlight (16/16), 4 x 2048 at d 128
+    (4, 2048, 2048, 32, 8, 128, True, 4096, 0),
+    (4, 2048, 2048, 16, 16, 128, True, 0, 0)])
 def test_k2_tc_route_matches_plain_on_card(cuda, case):
     """The tc route (wgmma + TMA) against the plain version in bf16, with
     the limits of the simt route's bf16 test and ``K2_NORM_TOL``, and its

@@ -439,7 +439,7 @@ def test_sampling_filters_match_reference():
 # port has not reached, and the refusals the reference itself makes
 REFUSALS = {
     "state": ("whisper-medium", {}, "later serving slice"),
-    "moe": ("mixtral-8x7b", {}, "later serving slice"),
+    "moe": ("deepseek-v3-671b", {}, "later serving slice"),
     "prefix-sequential": ("tinyllama-1.1b",
                           {"prefix_cache": True, "chunked_prefill": False},
                           "prefix_cache requires a paged family with "
@@ -508,7 +508,13 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan",
         "import repro_torch.serve.speculate, repro_torch.serve.kvcache",
         "import repro_torch.models.xlstm, repro_torch.checkpoint.store",
+        "import repro_torch.models.moe",
+        "out = train(['--arch', 'mixtral-8x7b', '--reduced', '--device',",
+        "             'cpu', '--steps', '1', '--batch', '2', '--seq', '32'])",
+        "assert len(out['losses']) == 1, out",
         "for extra in (['--arch', 'zamba2-1.2b'], ['--arch', 'xlstm-350m'],",
+        "              ['--arch', 'mixtral-8x7b'],",
+        "              ['--arch', 'moonshot-v1-16b-a3b'],",
         "              ['--prefix-cache',",
         "              '--shared-prefix', '20'], ['--draft',",
         "              'tinyllama-1.1b'], ['--no-fused-decode']):",

@@ -277,8 +277,8 @@ def test_zamba2_decode_matches_full_forward(zamba, tlayout):
     dirs = transformer.entry_dirs()
     x = transformer.embed(tlayout, tcfg, dirs, tp, toks)
     pos = torch.arange(T).expand(2, T)
-    x, _ = transformer.run_stack(tlayout, tcfg, dirs, x, tp, pos,
-                                 mode="train")
+    x, _, _ = transformer.run_stack(tlayout, tcfg, dirs, x, tp, pos,
+                                    mode="train")
     x = blocks.apply_norm(tcfg, x, tp["ln_f"])
     full = x @ tp["head"]
     assert _maxerr(dec, full) <= 1e-4

@@ -309,8 +309,7 @@ def test_layer_plan_and_segments_match_reference():
             c, jc = get(arch), jget(arch)
             if red:
                 c, jc = config.reduced(c), jconfig.reduced(jc)
-            if c.family not in (config.Family.DENSE, config.Family.HYBRID,
-                                config.Family.SSM):
+            if registry.unported_reason(c):
                 with pytest.raises(NotImplementedError, match="ROADMAP"):
                     registry.layer_plan(c)
                 continue

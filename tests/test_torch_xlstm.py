@@ -451,8 +451,8 @@ def _full_logits(tcfg, tlayout, tp, toks):
     dirs = transformer.entry_dirs()
     x = transformer.embed(tlayout, tcfg, dirs, tp, toks)
     pos = torch.arange(toks.shape[1]).expand(*toks.shape)
-    x, _ = transformer.run_stack(tlayout, tcfg, dirs, x, tp, pos,
-                                 mode="train")
+    x, _, _ = transformer.run_stack(tlayout, tcfg, dirs, x, tp, pos,
+                                    mode="train")
     x = blocks.apply_norm(tcfg, x, tp["ln_f"])
     return x @ tp["head"]
 
