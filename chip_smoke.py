@@ -19,7 +19,10 @@ Phases, in order (any failure raises and exits nonzero):
      and every GEMM of xlstm-350m (``X_GEMMS``, w_if's N = 8 among them)
      at M = 8 (decode route) and M = 8192 (tc route), and every K1 GEMM
      of mixtral-8x7b and Moonlight (``MIX_GEMMS``, ``MOON_GEMMS``) at M =
-     8 through the decode route;
+     8 through the decode route, and deepseek-v3's serving GEMMs at its
+     decode step's M = 8 (``DS_DECODE_GEMMS``, decode route) and its
+     prefill's M = 4096 (``DS_PREFILL_GEMMS``, tc route; w_dkv's N = 576
+     among them);
  2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
@@ -47,10 +50,19 @@ Phases, in order (any failure raises and exits nonzero):
      with the position mask, which computes the same function there; and,
      under torch.profiler, that a contiguous decode layer's attention
      launches K4's two passes and no PyTorch attention;
+ 3d. K4 on MLA's latent decode (``K4_LATENT``): 128 query rows in f32
+     over one kv head of 576 (v 512) in bf16, block 16, at the serve shape
+     (B 8, contexts 275-279) and 64 slots of 1024-2048, through the simt
+     route against the plain version, the residuals and the fold of the
+     current token, to ``K4_NORM_TOL["float32"]``; device times beside the
+     bytes bound and the f32 operations bound (``k4_latent_bound``), the
+     plain version and SDPA over
+     contiguous K/V;
   4. K3 RMSNorm forward and backward against their plain versions at the
      training shape (8192 rows x 2048), bf16 and f32, with and without a
      zero-centred gain, and at 1024 (xlstm's ln), 3072 and 4096 (zamba2's
-     gate_ln) in bf16:
+     gate_ln) in bf16, and at deepseek-v3's 2048 rows of 512 (kv_ln), 1536
+     (q_ln) and 7168 (d_model) in bf16:
      within 1e-4 (f32) or 3e-2 (bf16) of 1 + max and within
      ``K3_NORM_TOL`` of the plain version's norm, dg repeating bit for
      bit; then device times at each width beside ``F.rms_norm``'s forward
@@ -73,6 +85,10 @@ Phases, in order (any failure raises and exits nonzero):
      the paper's model, 4 x 512, 64/64 heads of 48, and gemma-2b, 4 x
      2048, 8/1 heads of 256, f32 and bf16 (bf16 also to ``K2_NORM_TOL``),
      timed beside SDPA and the bound;
+ 5d. K2 at deepseek-v3's training attention: 1 x 2048, 128 heads, q and k
+     at 192, v at 128, through the simt route, f32 (to
+     ``K2_F32_NORM_TOL``) and bf16 (to ``K2_NORM_TOL``), timed beside SDPA
+     and the bound;
   6. full-width two-layer tinyllama in f32 (K1's simt route) and in bf16
      (its tc and decode routes): CPU (plain versions) against the card
      (kernels), serving prefill and the first fused decode step's logits,
@@ -122,7 +138,9 @@ Phases, in order (any failure raises and exits nonzero):
      every GEMM shape of a tinyllama, a zamba2, a mixtral (2 layers) and
      a Moonlight ([dense, moe]) training step (Moonlight's 11264-wide
      dense layer, its 2816-wide shared experts and its 163840-word head
-     among them), then the route, the simt kernel, the plain version and
+     among them) and a deepseek-v3 ([dense, moe] with the mtp head, 1 x
+     2048: ``DS_TRAIN_GEMMS`` and its 129280-word head in chunks of 512),
+     then the route, the simt kernel, the plain version and
      ``torch.matmul`` summed over the GEMMs of one step of each;
  11. K5 SSD scan forward and backward against their plain versions at
      zamba2's training shape (4 x 2048, 64 heads of 64, 2 groups, d_state
@@ -191,17 +209,46 @@ Phases, in order (any failure raises and exits nonzero):
      K3, the experts' ``torch.matmul`` (the kernels ``aten::bmm``
      launched), the other ``torch.matmul``, the dispatch and combine
      (sorts, index and scatter ops), AdamW (the train step's "optimizer"
-     range), the rest, and the device's idle share.
+     range), the rest, and the device's idle share;
+ 23. full-width deepseek-v3-671b cut to [dense, moe] with 16 routed
+     experts (top 8, the shared one, MLA, the mtp head) in f32: one
+     training step at 1 x 128, the kernels against their plain versions
+     on the card (``plain_kernels``): loss, xent, aux, mtp and every
+     gradient leaf within 1e-4, the same choices dropped, launches exact
+     (``DS_LAUNCHES``);
+ 23s. the same model through the paged engine: a 16-token chunked
+     prefill and 8 greedy fused decode steps of 2 slots (K4 simt on the
+     latent pool), the logits within 1e-4 of 1 + max at every step and
+     the same tokens, kernels against plain versions; the gather-view
+     decode's tokens equal;
+ 7d. deepseek-v3-671b served through ``repro_torch.launch.serve`` at full
+     width in bf16, cut to its 3 dense layers and one MoE layer of 256
+     experts, with phase 7's traffic: launches per step exact (K1 tc and
+     decode, K2 and K4 simt), the routed choices dropped, TTFT, TPOT and
+     tok/s beside a decode step's bytes bound (``deepseek_step_bytes``),
+     peak memory; one decode step of that run under torch.profiler by
+     group (K1, K3, K4, the absorbed einsums, the experts' bmm, dispatch
+     and combine) with the idle share; and the gather-view decode's share
+     of equal tokens;
+ 24. the deepseek training run: ``repro_torch.launch.train`` at full
+     width cut to [dense, moe] with 16 routed experts and the mtp head,
+     bf16, 1 x 2048, remat, AdamW, 3 steps: launches exact, xent, aux and
+     mtp by step, step time, tok/s, MFU and peak memory;
+ 25. one such step under torch.profiler, device time by group (as 22;
+     each kernel in exactly one group).
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
-19), one of the MoE family's (7m, 21, 22), one of per-kernel numbers and
+19), one of the MoE family's (7m, 21, 22), one of deepseek's (7d, 24,
+25), one of per-kernel numbers and
 the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/repro_torch`` beside this file, it exits nonzero and
 prints no result.
 """
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -660,6 +707,23 @@ def phase_k1(dev):
                   f"max abs err {worst_abs:.2e}")
             check(worst <= 1e-2, f"K1 {arch} {name} bf16 decode: {worst}")
             path_err["decode"] = max(path_err["decode"], worst_abs)
+            del x, w, b
+    # deepseek-v3's serving path (phase 7d): its decode step's GEMMs and
+    # its prefill's, each on the route it must take there
+    for m, want, gemms in ((DECODE_M, "decode", DS_DECODE_GEMMS),
+                           (PREFILL_M, "tc", DS_PREFILL_GEMMS)):
+        for name, k, n in gemms:
+            path = k1.route(m, n, k, torch.bfloat16, True)
+            check(path == want, f"K1 deepseek {name} ({m},{k},{n}) would "
+                  f"take {path}, not {want}")
+            x, w, b = k1_inputs(gen, dev, m, k, n, torch.bfloat16)
+            worst, worst_abs = k1_check(k1, x, w, b, path)
+            print(f"[2] K1 deepseek {name:18s} ({m},{k})@({k},{n}) bfloat16 "
+                  f"{path:6s} max rel err {worst:.2e} (tol 1e-02), max abs "
+                  f"err {worst_abs:.2e}")
+            check(worst <= 1e-2, f"K1 deepseek {name} ({m}) bf16 {path}: "
+                  f"{worst}")
+            path_err[path] = max(path_err[path], worst_abs)
             del x, w, b
     step["max_abs_err"] = path_err["decode"]
     prefill["max_abs_err"] = path_err["tc"]
@@ -1181,6 +1245,9 @@ K3_NORM_TOL = {"float32": {"y": 3e-7, "dx": 3e-7, "dg": 1.5e-6},
 # zamba2's gate_ln over d_inner (4096), the 3072 instance, and xlstm's
 # ln and ln_f (1024, a block per row; its out_ln is 2048)
 K3_WIDTHS = (1024, 2048, 3072, 4096)
+# deepseek-v3's, at its training step's 2048 rows: kv_ln (512), q_ln
+# (1536) and every norm over d_model (7168), each its own instance
+K3_DS_WIDTHS = (512, 1536, 7168)
 
 
 def kernels_by_name(fn, reps):
@@ -1253,8 +1320,10 @@ def k3_case(k3, dev, gen, m, h, dtype, zc, tag="[4]"):
 def phase_k3(dev):
     """K3 at the training shape: every norm of a step sees 8192 rows, of
     2048 (tinyllama, zamba2, xlstm's out_ln), 4096 (zamba2's gate_ln) or
-    1024 (xlstm's ln and ln_f); the 3072 instance too.  Checked in f32 and bf16, with and without zero-centring at 2048;
-    then the device times of the kernels, the plain versions and
+    1024 (xlstm's ln and ln_f); the 3072 instance too; and deepseek-v3's
+    step 2048 rows of 512, 1536 and 7168 (``K3_DS_WIDTHS``).  Checked in
+    f32 and bf16, with and without zero-centring at 2048, in bf16 at the
+    other widths; then the device times of the kernels, the plain versions and
     ``F.rms_norm``'s forward and backward at each width in bf16.  Returns
     the 2048 case's numbers (bf16, no zero-centring), the kernel's time
     as forward + backward of one norm (device time), the other widths
@@ -1262,13 +1331,16 @@ def phase_k3(dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as k3
-    m = TRAIN_B * TRAIN_S
     gen = torch.Generator(device=dev).manual_seed(3)
-    cases = [(D, dtype, zc) for dtype in (torch.float32, torch.bfloat16)
+    cases = [(TRAIN_B * TRAIN_S, D, dtype, zc)
+             for dtype in (torch.float32, torch.bfloat16)
              for zc in (False, True)]
-    cases += [(h, torch.bfloat16, False) for h in K3_WIDTHS if h != D]
+    cases += [(TRAIN_B * TRAIN_S, h, torch.bfloat16, False)
+              for h in K3_WIDTHS if h != D]
+    cases += [(DS_TRAIN_B * TRAIN_S, h, torch.bfloat16, False)
+              for h in K3_DS_WIDTHS]
     out = {}
-    for h, dtype, zc in cases:
+    for m, h, dtype, zc in cases:
         (x, g, dy), rstd, worst, norms = k3_case(k3, dev, gen, m, h, dtype,
                                                  zc)
         if dtype != torch.bfloat16 or zc:
@@ -1317,9 +1389,10 @@ def phase_k3(dev):
               + f"); called from the host {t['fwd_host_ms']:.4f} + "
               f"{t['bwd_host_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} + "
               f"{t['plain_bwd_ms']:.4f} ms")
-        out[h] = t
+        out[(m, h)] = t
         del xr, gr, lib_out
-    return dict(out[D], shapes={f"{m}x{h}": t for h, t in out.items()})
+    return dict(out[(TRAIN_B * TRAIN_S, D)],
+                shapes={f"{m}x{h}": t for (m, h), t in out.items()})
 
 
 # the attention shapes of the main paths (phase 5): (label, batch, seq, q
@@ -1338,22 +1411,25 @@ K2_WIDE_SHAPES = [("paper d48", 4, 512, 64, 64, 48),
                   ("gemma d256", 4, 2048, 8, 1, 256)]
 
 
-def k2_work(q_pos, k_pos, b, nq, nkv, d, elt, window=0):
+def k2_work(q_pos, k_pos, b, nq, nkv, d, elt, window=0, dv=None):
     """(fwd bytes, fwd flops, bwd bytes, bwd flops) of one attention call,
     causal, the flops counted over the allowed (query, key) pairs of these
-    positions: 2 products of 2*d flops a pair forward, 5 backward."""
+    positions: 2 products a pair forward (QK over d, PV over dv), 5
+    backward (S and dQ and dK over d, dP and dV over dv); q and k of d, v
+    and out of ``dv`` (d when None)."""
+    dv = dv or d
     qp, kp = q_pos[:, :, None], k_pos[None, None, :]
     allowed = (kp >= 0) & (qp >= kp)
     if window:
         allowed &= qp - kp < window
     pairs = int(allowed.sum().item()) * nq
     sq, sk = q_pos.shape[1], k_pos.shape[0]
-    q_bytes = b * sq * nq * d * elt
-    kv_bytes = 2 * b * sk * nkv * d * elt
+    q_bytes = b * sq * nq * (d + dv) * elt          # q in, out (or dq, dout)
+    kv_bytes = b * sk * nkv * (d + dv) * elt
     lse = b * nq * sq * 4
     pos = (b * sq + sk) * 4
-    fwd = (2 * q_bytes + kv_bytes + lse + pos, 4 * d * pairs)
-    bwd = (4 * q_bytes + 2 * kv_bytes + lse + pos, 10 * d * pairs)
+    fwd = (q_bytes + kv_bytes + lse + pos, 2 * (d + dv) * pairs)
+    bwd = (2 * q_bytes + 2 * kv_bytes + lse + pos, (6 * d + 4 * dv) * pairs)
     return (*fwd, *bwd)
 
 
@@ -1380,10 +1456,10 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
     import torch
     f32 = torch.float32
     b, sq, nq, d = q.shape
-    nkv = k.shape[2]
+    nkv, dv = k.shape[2], v.shape[-1]
     g, scale = nq // nkv, d ** -0.5
     qf = (q.to(f32) * scale).reshape(b, sq, nkv, g, d)
-    dof = dout.to(f32).reshape(b, sq, nkv, g, d)
+    dof = dout.to(f32).reshape(b, sq, nkv, g, dv)
     qp = q_pos[:, None, None, :, None]
     allowed = (k_pos >= 0) & (qp >= k_pos)
     if window:
@@ -1391,7 +1467,7 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32))
     p = torch.where(allowed, torch.exp(s - lse.reshape(b, nkv, g, sq, 1)),
                     0.0)
-    delta = (dof * out.to(f32).reshape(b, sq, nkv, g, d)).sum(-1)
+    delta = (dof * out.to(f32).reshape(b, sq, nkv, g, dv)).sum(-1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.to(f32))
     ds = (p * (dp - delta.permute(0, 2, 3, 1)[..., None])).to(q.dtype)
     del s, p, dp
@@ -1401,7 +1477,7 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
 
 
 def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
-            d=DH):
+            d=DH, dv=None, tag="5", f32_tol=None):
     """K2's routes against the plain version at one shape: out, lse, dq,
     dk and dv, and two backward runs of each route that must give the same
     bits.  In bf16 each of out, dq, dk and dv is also held to
@@ -1409,15 +1485,17 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     what the tc kernels' rounding of dS costs by itself.  Returns the
     inputs, the path route's (out, lse), its worst absolute error (lse
     apart) and each route's norm errors (with ``"dS in bf16"``: the
-    rounded plain backward's)."""
+    rounded plain backward's).  ``dv``: v's head dim (d when None);
+    ``f32_tol``: norm limits for f32 too."""
     import torch
+    dv = dv or d
     q_pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
         .contiguous()
     k_pos = torch.arange(s, dtype=torch.int32, device=dev)
     q = torch.randn(b, s, nq, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, s, nkv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, nkv, d, generator=gen, device=dev).to(dtype)
-    dout = torch.randn(b, s, nq, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, nkv, dv, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(b, s, nq, dv, generator=gen, device=dev).to(dtype)
     kw = dict(window=window)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     lse_tol = 1e-4 if dtype == torch.float32 else 1e-5
@@ -1425,7 +1503,9 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
     path = k2.route_for(q, k, v, out2)
     worst, kept, norms = 0.0, None, {}
-    tag = (f"[5] K2 {label} ({b},{s},{nq}/{nkv},{d}) causal"
+    norm_tol = K2_NORM_TOL if bf16 else f32_tol
+    tag = (f"[{tag}] K2 {label} ({b},{s},{nq}/{nkv},"
+           f"{d if dv == d else f'{d}/{dv}'}) causal"
            f"{f' window {window}' if window else ''} {str(dtype)[6:]:8s}")
     for r in routes:
         out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force=r,
@@ -1447,13 +1527,13 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
               "||error|| / ||plain|| "
               + ", ".join(f"{n} {e:.2e}" for n, e in norms[r].items())
               + (" (tol " + ", ".join(f"{n} {e:.1e}" for n, e in
-                                      K2_NORM_TOL.items()) + ")"
-                 if bf16 else "")
+                                      norm_tol.items()) + ")"
+                 if norm_tol else "")
               + f"; backward repeats bit for bit: {same}")
         check(errs["lse"] <= lse_tol and max(errs.values()) <= tol,
               f"K2 {label} {dtype} {r}: {errs}")
-        check(not bf16 or all(norms[r][n] <= K2_NORM_TOL[n]
-                              for n in K2_NORM_TOL),
+        check(not norm_tol or all(norms[r][n] <= norm_tol[n]
+                                  for n in norm_tol),
               f"K2 {label} {dtype} {r}: ||error|| / ||plain|| {norms[r]}")
         check(same, f"K2 {label} {dtype} {r}: the backward does not repeat")
         if r == path:
@@ -1572,17 +1652,21 @@ def phase_k2(dev):
     return dict(t_all["train"], shapes=t_all, max_abs_err=worst_path_err)
 
 
-def k2_wide(k2, dev, gen, b, s, nq, nkv, d, label):
+def k2_wide(k2, dev, gen, b, s, nq, nkv, d, label, dv=None, tag="5",
+            f32_tol=None):
     """K2 at a head dim only the simt route takes: f32 and bf16 against
-    the plain version (bf16 also to ``K2_NORM_TOL``), then the simt
-    route's, the plain version's and SDPA's times in bf16 beside the
-    bound."""
+    the plain version (bf16 also to ``K2_NORM_TOL``, f32 to ``f32_tol``),
+    then the simt route's, the plain version's and SDPA's times in bf16
+    beside the bound."""
     import torch
     import torch.nn.functional as F
-    k2_case(k2, dev, gen, b, s, nq, nkv, 0, torch.float32, ["simt"], label,
-            d=d)
+    kw = dict(d=d, dv=dv, tag=tag)
+    *_, f32_norms = k2_case(k2, dev, gen, b, s, nq, nkv, 0, torch.float32,
+                            ["simt"], label, f32_tol=f32_tol, **kw)
     (q, k, v, dout, q_pos, k_pos), (out, lse), worst, norms = k2_case(
-        k2, dev, gen, b, s, nq, nkv, 0, torch.bfloat16, ["simt"], label, d=d)
+        k2, dev, gen, b, s, nq, nkv, 0, torch.bfloat16, ["simt"], label,
+        **kw)
+    norms["float32"] = f32_norms["simt"]
     check(k2.route_for(q, k, v, out, dout) == "simt",
           f"K2 {label}: the bf16 path does not take the simt route")
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -1606,12 +1690,13 @@ def k2_wide(k2, dev, gen, b, s, nq, nkv, d, label):
          "norm_err": norms, "max_abs_err": worst}
     t["ms"] = t["fwd_ms"] + t["bwd_ms"]
     t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
-    fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, d, 2)
+    fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, d, 2, dv=dv)
     fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
     bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
     t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
              bound_by=fo if fo == bo else "bytes and operations")
-    print(f"[5] K2 bf16 {label} ({b},{s},{nq}/{nkv},{d}) causal, simt route:"
+    print(f"[{tag}] K2 bf16 {label} ({b},{s},{nq}/{nkv},"
+          f"{f'{d}/{dv}' if dv else d}) causal, simt route:"
           f" forward {t['fwd_ms']:.3f} ms ({ffl / t['fwd_ms'] / 1e9:.1f} "
           f"TFLOP/s), backward {t['bwd_ms']:.3f} ms "
           f"({bfl / t['bwd_ms'] / 1e9:.1f} TFLOP/s); plain "
@@ -1774,7 +1859,9 @@ def phase_k1_train(dev):
     """K1 at the training shapes: every GEMM of one training step of
     tinyllama, zamba2, mixtral cut to 2 layers and Moonlight cut to
     [dense, moe] (M = 4 x 2048 rows; the head's chunks 4 x 1024, or 4 x
-    512 for Moonlight's 4) through the route the step takes (tc), held
+    512 for Moonlight's 4), and of deepseek-v3 cut to [dense, moe] with
+    the mtp head (M = 1 x 2048; the head's chunks 512 rows), through the
+    route the step takes (tc), held
     against the plain version in bf16 with every activation, with and
     without bias; then timed as that route, the simt kernel (the first K1
     design), the plain version and ``torch.matmul``, each times its
@@ -1787,18 +1874,21 @@ def phase_k1_train(dev):
            MIX_GEMMS if name != "head"]
     moon = [(name, k, n, 2 * per) for name, k, n, per in MOON_GEMMS
             if name != "head"]
-    # (arch, GEMMs, the head's (K, N, launches a step, rows))
-    archs = (("tinyllama", TRAIN_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
-             ("zamba2", Z_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
-             ("mixtral", mix, (MIX_D, MIX_VOCAB, 2 * 2, m // 2)),
-             ("moonlight", moon, (MOON_D, MOON_VOCAB, 2 * 4, m // 4)))
+    ds_m = DS_TRAIN_B * TRAIN_S
+    # (arch, rows, GEMMs, the head's (K, N, launches a step, rows))
+    archs = (("tinyllama", m, TRAIN_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
+             ("zamba2", m, Z_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
+             ("mixtral", m, mix, (MIX_D, MIX_VOCAB, 2 * 2, m // 2)),
+             ("moonlight", m, moon, (MOON_D, MOON_VOCAB, 2 * 4, m // 4)),
+             ("deepseek", ds_m, DS_TRAIN_GEMMS,
+              (DS_D, DS_VOCAB, 2 * 2 * 4, ds_m // 4)))
     seen, out, worst_err = {}, {}, 0.0
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms")
-    for arch, gemms, (hk, hn, hper, hrows) in archs:
+    for arch, arch_m, gemms, (hk, hn, hper, hrows) in archs:
         tot = dict.fromkeys(keys, 0.0)
         launches = flops = 0
         for name, k, n, per_step in gemms + [("head", hk, hn, hper)]:
-            rows = hrows if name == "head" else m
+            rows = hrows if name == "head" else arch_m
             key = (rows, k, n)
             if key not in seen:
                 path = k1.route(rows, n, k, torch.bfloat16, True)
@@ -1822,6 +1912,9 @@ def phase_k1_train(dev):
                 tot[key2] += per_step * seen[key][key2]
             launches += per_step
             flops += per_step * 2 * rows * k * n
+        check(arch != "deepseek" or launches == DS_LAUNCHES["K1"],
+              f"K1 deepseek train GEMMs: {launches} a step, not "
+              f"{DS_LAUNCHES['K1']}")
         print(f"[10] K1 per {arch} training step ({launches} GEMMs, bf16): "
               f"kernel {tot['ms']:.1f} ms ({flops / tot['ms'] / 1e9:.1f} "
               f"TFLOP/s), {tot['ms'] / tot['library_ms']:.2f}x torch.matmul "
@@ -2064,17 +2157,18 @@ def reset_launches():
     k2.launches_bwd_by_route = dict.fromkeys(k2.ROUTES, 0)
 
 
-def check_k2_routes(launches, tag, label):
+def check_k2_routes(launches, tag, label, route="tc"):
     """The K2 launches of a main-path run by route, forward and backward:
-    every bf16 attention takes tc, none simt, and the routes add up to the
-    totals."""
+    every bf16 attention takes ``route`` (tc; simt at MLA's dk 192 / dv
+    128), and the routes add up to the totals."""
     from repro_torch.kernels import flash_attention as k2
     routes = {"K2": dict(k2.launches_by_route),
               "K2 bwd": dict(k2.launches_bwd_by_route)}
     print(f"[{tag}] K2 launches by route in the {label}: {routes}")
     for key, by in routes.items():
-        check(by["simt"] == 0, f"{label}: {by['simt']} bf16 {key} launches "
-              "took the simt route")
+        other = sum(n for r, n in by.items() if r != route)
+        check(other == 0, f"{label}: {other} bf16 {key} launches took "
+              f"another route than {route}")
         check(sum(by.values()) == launches[key],
               f"{label}: {key} routes {by} != total {launches[key]}")
     return routes
@@ -2105,16 +2199,20 @@ def read_launches():
             "K5 bwd": k5.launches_bwd}
 
 
-def check_k4_routes(launches, label, tag="7"):
+def check_k4_routes(launches, label, tag="7", route="split"):
     """The K4 launches of a serving run by route: every bf16 decode step
-    takes split, none simt, each with its combine pass."""
+    takes ``route``: split, each with its combine pass, or (MLA's latent
+    decode, q in f32) simt, with none."""
     from repro_torch.kernels import paged_decode as k4
     routes = dict(k4.launches_by_route)
     print(f"[{tag}] K4 launches by route in the {label}: {routes}, combine "
           f"passes {launches['K4 combine']}")
-    check(routes["simt"] == 0, f"{label}: {routes['simt']} bf16 K4 "
-          "launches took the simt route")
-    check(routes["split"] == launches["K4"] == launches["K4 combine"],
+    other = sum(n for r, n in routes.items() if r != route)
+    check(other == 0, f"{label}: {other} K4 launches took another route "
+          f"than {route}")
+    combines = launches["K4"] if route == "split" else 0
+    check(routes[route] == launches["K4"]
+          and launches["K4 combine"] == combines,
           f"{label}: K4 routes {routes} != total {launches['K4']}")
     return routes
 
@@ -2599,22 +2697,24 @@ def phase_spec(bf16, f32, card):
 
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
-                per_step=TRAIN_LAUNCHES, tag="8", layers=0):
+                per_step=TRAIN_LAUNCHES, tag="8", layers=0, batch=TRAIN_B,
+                cut=(), k2_route="tc"):
     """``repro_torch.launch.train`` at full width in bf16 (full depth, or
-    cut to ``layers``), batch 4 x 2048, remat, AdamW, synthetic tokens
-    from seed 0; the launch counters reset just before and read just
-    after.  Returns the launches, the K1 and K2 routes and the telemetry
-    summary."""
+    cut to ``layers`` and by the launcher flags ``cut``), batch ``batch``
+    x 2048, remat, AdamW, synthetic tokens from seed 0; the launch
+    counters reset just before and read just after.  Returns the launches,
+    the K1 and K2 routes and the telemetry summary."""
     import torch
     from repro_torch.launch import train
     tel_path = ROOT / "build" / f"chip_smoke_train_{arch}_telemetry.json"
     tel_path.parent.mkdir(parents=True, exist_ok=True)
     reset_launches()
     out = train.main(["--arch", arch, "--device", "cuda",
-                      "--steps", str(steps), "--batch", str(TRAIN_B),
+                      "--steps", str(steps), "--batch", str(batch),
                       "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
                       "--log-every", "1", "--telemetry", str(tel_path)]
-                     + (["--layers", str(layers)] if layers else []))
+                     + (["--layers", str(layers)] if layers else [])
+                     + list(cut))
     torch.cuda.synchronize()
     launches = read_launches()
     want = {k: steps * n for k, n in per_step.items()}
@@ -2631,12 +2731,14 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     routes = check_k1_routes(launches, tag, f"{arch} training run")
     check(routes["tc"] == launches["K1"],
           f"{arch} training run: K1 routes {routes}")
-    k2_routes = check_k2_routes(launches, tag, f"{arch} training run")
+    k2_routes = check_k2_routes(launches, tag, f"{arch} training run",
+                                k2_route)
     mfu = (f"MFU {tel['mfu'] * 100:.3f}% of {tel['peak_flops']:.3g} FLOP/s"
            if tel["mfu"] is not None else "MFU not reported")
     print(f"[{tag}] training {arch}"
-          f"{f' cut to {layers} layers' if layers else ''} bf16, batch "
-          f"{TRAIN_B} x {TRAIN_S}, remat, AdamW on {card}: losses "
+          f"{f' cut to {layers} layers' if layers else ''}"
+          f"{' ' + ' '.join(cut) if cut else ''} bf16, batch "
+          f"{batch} x {TRAIN_S}, remat, AdamW on {card}: losses "
           + " ".join(f"{x:.4f}" for x in losses)
           + f"; step times " + " ".join(f"{x:.3f}" for x in
                                         tel["series"]["t_step"])
@@ -2675,14 +2777,16 @@ def kernel_group(name: str) -> str:
 
 
 def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
-                    seq=TRAIN_S, layers=0, op_group=None):
+                    seq=TRAIN_S, layers=0, op_group=None, rows=TRAIN_B,
+                    change=None):
     """Where the time of one training step goes: torch.profiler over the
     second step of the phase 8 (or 13, 17, 21) configuration, at ``seq``
     tokens a row (cut to ``layers``), device time summed by kernel group
     (``kernel_group``, then moved by ``op_group`` where it names the
     launching op's part) against the step's wall time (host clock,
-    synchronised).  A profiler that sees no device kernel leaves the
-    breakdown unmeasured; it does not fail the run."""
+    synchronised), ``rows`` a batch, the config changed by ``change``.  A
+    profiler that sees no device kernel leaves the breakdown unmeasured;
+    it does not fail the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import OptimConfig, ShapeConfig
@@ -2696,6 +2800,8 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
     cfg = get(arch)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    if change:
+        cfg = change(cfg)
     layout = ParallelPlan().validate(mode="train").build()
     params = init_params(transformer.abstract_params(cfg),
                          torch.Generator(device=dev).manual_seed(0),
@@ -2703,7 +2809,7 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
     state = adamw_init(params)
     step = make_train_step(cfg, layout, OptimConfig(
         lr=3e-4, warmup=20, total_steps=TRAIN_STEPS))
-    data = TokenStream(cfg, ShapeConfig("smoke", seq, TRAIN_B, "train"),
+    data = TokenStream(cfg, ShapeConfig("smoke", seq, rows, "train"),
                        DataConfig(seed=0), dev)
     sync = (torch.cuda.synchronize if torch.device(dev).type == "cuda"
             else lambda: None)
@@ -2719,7 +2825,7 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
     check(math.isfinite(met["loss"].item()), "breakdown step: loss")
     cut = f" cut to {layers} layers" if layers else ""
     return report_breakdown(prof, wall_ms, tag, f"one {arch}{cut} training "
-                            f"step (batch {TRAIN_B} x {seq})", card, op_group)
+                            f"step (batch {rows} x {seq})", card, op_group)
 
 
 # record_function ranges of the port, which torch.profiler also lists on
@@ -2741,31 +2847,33 @@ def report_breakdown(prof, wall_ms, tag, what, card, op_group=None):
         print(f"[{tag}] torch.profiler saw no device kernels on {card}: "
               f"{what}'s breakdown is not measured")
         return None
-    groups, spans, names = {}, [], {}
-    for e in kernels:
-        g = kernel_group(e.name)
-        n, ms = groups.get(g, (0, 0.0))
-        groups[g] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
-        spans.append((e.time_range.start, e.time_range.end))
-        if g.startswith("other"):
-            names[e.name] = names.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    moved = 0
+    # the ops' groups for their kernels, by (name, duration); torch.profiler
+    # may list one kernel under more than one CPU op, so each (name,
+    # duration) takes at most as many op groups as it ran, and each of the
+    # device's kernels below lands in exactly one group
+    left = collections.Counter(
+        (e.name, e.time_range.elapsed_us()) for e in kernels)
+    to = collections.defaultdict(list)
     for op in events if op_group else ():
         kerns = getattr(op, "kernels", None) if \
             op.device_type == DeviceType.CPU else None
         g = op_group(op) if kerns else None
         for kn in kerns if g else ():
-            src = kernel_group(kn.name)
-            if src.startswith("K") or src not in groups:
-                continue
-            n, ms = groups[src]
-            groups[src] = (n - 1, ms - kn.duration / 1e3)
-            if kn.name in names:
-                names[kn.name] -= kn.duration / 1e3
-            n, ms = groups.get(g, (0, 0.0))
-            groups[g] = (n + 1, ms + kn.duration / 1e3)
-            moved += 1
+            key = (kn.name, kn.duration)
+            if left[key] and not kernel_group(kn.name).startswith("K"):
+                left[key] -= 1
+                to[key].append(g)
+    groups, spans, names, moved = {}, [], {}, 0
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        g = to[(e.name, us)].pop() if to.get((e.name, us)) else None
+        moved += g is not None
+        g = g or kernel_group(e.name)
+        n, ms = groups.get(g, (0, 0.0))
+        groups[g] = (n + 1, ms + us / 1e3)
+        spans.append((e.time_range.start, e.time_range.end))
+        if g.startswith("other"):
+            names[e.name] = names.get(e.name, 0.0) + us / 1e3
     if op_group:
         print(f"[{tag}] {moved} kernels regrouped by the op that launched "
               "them")
@@ -3462,6 +3570,544 @@ def moe_op_group(op):
     return None
 
 
+# deepseek-v3-671b (configs/deepseek_v3_671b.py, arXiv:2412.19437): d_model
+# 7168, 128 heads of MLA (q_lora 1536, kv_lora 512; q and k of 128 + 64
+# rope dims, v of 128), 3 dense layers of 18432, then 256 routed experts
+# (top 8) of 2048 and one shared, vocab 129280, the mtp head.  It serves
+# cut to DS_SERVE_LAYERS (the 3 dense layers and one MoE layer of all 256
+# experts: 15.8B parameters, 31.6 GB in bf16, phase 7d) and trains cut to
+# [dense, moe] with DS_TRAIN_EXPERTS routed experts (4.06B parameters,
+# phases 23 and 24)
+DS_NH, DS_DK, DS_DV, DS_R, DS_DR = 128, 192, 128, 512, 64
+DS_D, DS_QL, DS_DENSE_FF, DS_EXPERT_FF, DS_VOCAB = 7168, 1536, 18432, 2048, \
+    129280
+DS_SERVE_LAYERS, DS_STEPS, DS_TRAIN_B = 4, 3, 1
+DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS = 2, 16
+DS_TRAIN_CUT = ("--dense-layers", "1", "--experts", str(DS_TRAIN_EXPERTS))
+# launches per deepseek training step (phase 24, [dense, moe]), as
+# TRAIN_LAUNCHES counts them: K1 the 8 linears of each layer (MLA's w_dq,
+# w_uq, w_dkv, w_ukv and w_o, the dense MLP's or the shared expert's 3)
+# twice (forward, recompute) and the head's 4 chunks twice, then the mtp
+# head's proj and its block's 8 linears once and its head's 4 chunks
+# twice; K2 each layer twice and the mtp block once forward, each once
+# backward; K3 the 4 norms of each layer (ln1, ln2, q_ln, kv_ln) twice
+# and once backward, ln_f, and the mtp head's 7 (ln_h, ln_e, its block's
+# 4, ln_f again) once forward and once backward
+DS_LAUNCHES = {"K1": 2 * 8 * 2 + 2 * 4 + 9 + 2 * 4, "K2": 2 * 2 + 1,
+               "K2 bwd": 3, "K3": 2 * 4 * 2 + 1 + 7,
+               "K3 bwd": 4 * 2 + 1 + 7, "K5": 0, "K5 bwd": 0}
+# its K1 GEMMs (name, K, N): MLA's down projections (w_dkv's N = 576 ends
+# inside the tc route's last column tile), its up projections and w_o, the
+# dense MLP (the dense layers and the mtp block), the shared expert, the
+# mtp head's proj and the head; the routed experts, the router and the
+# absorbed decode's w_uk and w_uv are torch.matmul and einsums
+DS_MLA_GEMMS = [("w_dq", DS_D, DS_QL), ("w_uq", DS_QL, DS_NH * DS_DK),
+                ("w_dkv", DS_D, DS_R + DS_DR),
+                ("w_ukv", DS_R, DS_NH * (DS_DK - DS_DR + DS_DV)),
+                ("w_o", DS_NH * DS_DV, DS_D)]
+DS_MLP_GEMMS = [("dense w_up,w_gate", DS_D, DS_DENSE_FF),
+                ("dense w_down", DS_DENSE_FF, DS_D),
+                ("shared w_up,w_gate", DS_D, DS_EXPERT_FF),
+                ("shared w_down", DS_EXPERT_FF, DS_D)]
+# the serving path's (phase 7d): a decode step (M = 8) runs every MLA GEMM
+# but w_ukv (absorbed), the MLPs and the head; the prefill (8 x 512 =
+# 4096 rows) the five MLA GEMMs and the MLPs, its head at the 8 last
+# positions (M = 8)
+DS_DECODE_GEMMS = [g for g in DS_MLA_GEMMS if g[0] != "w_ukv"] + \
+    DS_MLP_GEMMS + [("head", DS_D, DS_VOCAB)]
+DS_PREFILL_GEMMS = DS_MLA_GEMMS + DS_MLP_GEMMS
+# the training path's (phase 24), launches a step as DS_LAUNCHES counts
+# them: MLA's five GEMMs twice in each of the 2 layers and once in the mtp
+# block, the dense MLP twice in the dense layer and once in the mtp block,
+# the shared expert twice, the mtp proj once; the head (its 4 chunks of
+# 512 rows twice, for the main loss and for mtp's) apart
+DS_TRAIN_GEMMS = [(name, k, n, 2 * DS_TRAIN_LAYERS + 1)
+                  for name, k, n in DS_MLA_GEMMS] + [
+    ("dense w_up,w_gate", DS_D, DS_DENSE_FF, 2 * 2 + 2),
+    ("dense w_down", DS_DENSE_FF, DS_D, 2 + 1),
+    ("shared w_up,w_gate", DS_D, DS_EXPERT_FF, 2 * 2),
+    ("shared w_down", DS_EXPERT_FF, DS_D, 2),
+    ("mtp proj", 2 * DS_D, DS_D, 1)]
+# K2 in f32 at MLA's pair (phase 5d): the limits on ||got - want|| /
+# ||want|| against the plain version, 3-6x the readings on an H100 (out
+# 3.1e-7, dq 8.0e-8, dk 9.6e-8; dv 0, the kernel's sum over q in the
+# order cuBLAS takes); tools/k2_planted_faults.py --mla's faults read
+# far above them
+K2_F32_NORM_TOL = {"out": 1.5e-6, "dq": 5e-7, "dk": 5e-7, "dv": 5e-7}
+# K4 on the latent decode (phase 3d): (label, contexts, table columns),
+# 128 query rows over one kv head of 576 (v 512), q f32, pools bf16
+K4_LATENT = [("latent serve step", K4_SERVE, 32),
+             ("latent long", K4_LONG, 128)]
+
+
+def ds_cfg(layers, experts=0, dense=None, dtype="bfloat16"):
+    """deepseek-v3-671b at full width cut to ``layers`` (the first
+    ``dense`` of them dense, ``experts`` routed experts), in ``dtype``."""
+    from repro_torch.configs.registry import get
+    cfg = get("deepseek-v3-671b")
+    moe = dataclasses.replace(
+        cfg.moe, n_experts=experts or cfg.moe.n_experts,
+        first_k_dense=cfg.moe.first_k_dense if dense is None else dense)
+    return dataclasses.replace(cfg, n_layers=layers, moe=moe, dtype=dtype)
+
+
+def ds_train_cfg(dtype="bfloat16"):
+    return ds_cfg(DS_TRAIN_LAYERS, DS_TRAIN_EXPERTS, 1, dtype)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper runs its plain version, on the card's tensors
+    too: the reference run of phases 23 and 23s, whose model is too large
+    for a CPU run within the script's time.  The launch counters do not
+    move in it."""
+    from repro_torch.kernels import _build
+    real = _build.on_cuda
+    _build.on_cuda = lambda kernel, *tensors: False
+    try:
+        yield
+    finally:
+        _build.on_cuda = real
+
+
+def ds_op_group(op):
+    """``moe_op_group``, and MLA's absorbed decode einsums (``w_uk`` into
+    q, ``w_uv`` out of the latent) apart: an ``aten::einsum`` among the
+    kernel's first three callers (its bmm, the einsum, the caller)."""
+    chain, o = [], op
+    while o is not None and len(chain) < 3:
+        chain.append(o.name)
+        o = o.cpu_parent
+    if "aten::einsum" in chain:
+        return "MLA's absorbed einsums"
+    return moe_op_group(op)
+
+
+def phase_k2_mla(dev):
+    """K2 at deepseek-v3's training attention: 1 x 2048, 128 heads, q and
+    k at 192, v at 128, causal, through the simt route, f32 (to
+    ``K2_F32_NORM_TOL``) and bf16 (to ``K2_NORM_TOL``) against the plain
+    version, then times beside SDPA and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as k2
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return k2_wide(k2, dev, gen, DS_TRAIN_B, TRAIN_S, DS_NH, DS_NH, DS_DK,
+                   "mla", dv=DS_DV, tag="5d", f32_tol=K2_F32_NORM_TOL)
+
+
+def k4_latent_case(dev, lens, nb, seed):
+    """``k4_case`` on MLA's latent shape: q (B, 128, 576) f32, the k pool
+    (c_kv, k_rope) 576 wide and the v pool c_kv (its first 512) in bf16,
+    one kv head; the step's own latent entry in f32."""
+    import torch
+    (q, k_pool, _, pos, tables, cur), (k_new, _) = k4_case(
+        dev, lens, nb, torch.float32, seed, d=DS_R + DS_DR, nq=DS_NH, nkv=1)
+    k_pool = k_pool.bfloat16()
+    return ((q, k_pool, k_pool[:, :, :DS_R].contiguous(), pos, tables, cur),
+            (k_new, k_new[:, :, :DS_R].contiguous()))
+
+
+def k4_latent_bound(lens, nb, block=16):
+    """The bounds of one latent K4 call with its fold, in ms: the bytes
+    bound (q in, f32; the residuals out, f32; each valid latent entry read
+    once, c_kv and k_rope in bf16, 1152 B, v being k's first 512; the
+    positions of the table's columns, the tables and cur; the step's own
+    entry), the operations bound of the QK (576) and PV (512) products at
+    the f32 rate outside the tensor cores (q is f32, as the reference
+    computes it), and their larger with its name."""
+    B, nq, dk = len(lens), DS_NH, DS_R + DS_DR
+    nbytes = (B * nq * dk * 4 + B * nq * (DS_R + 2) * 4
+              + (sum(lens) + B) * dk * 2 + B * nb * (block + 1) * 4 + B * 4)
+    flops = sum(n + 1 for n in lens) * nq * 2 * (dk + DS_R)
+    bound, by = bound_ms(nbytes, flops, H100_F32_FLOPS)
+    return {"bound_ms": bound, "bound_by": by,
+            "bytes_bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+            "ops_bound_ms": flops / H100_F32_FLOPS * 1e3}
+
+
+def phase_k4_latent(dev):
+    """K4 on MLA's latent decode (``K4_LATENT``): B 8 at contexts 275-279
+    and 64 slots of 1024-2048, block 16, through the simt route (q in
+    f32, never cast to bf16) against the plain version, the residuals and
+    the current token folded in, to ``K4_NORM_TOL["float32"]``; then
+    device times (CUDA graph) of the kernel and of the step with its fold,
+    the plain version and SDPA over contiguous bf16 K/V of the same
+    lengths (not the same function), beside the bytes bound and the f32
+    operations bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_decode as k4
+    tol = K4_NORM_TOL["float32"]
+    out = {}
+    for label, lens, nb in K4_LATENT:
+        args, new = k4_latent_case(dev, lens, nb, seed=len(label))
+        check(args[0].dtype == torch.float32
+              and k4.route_for(*args[:4], 16) == "simt",
+              f"K4 {label}: not the simt route with q in f32")
+
+        def kern(fn=k4.paged_flash_decode, args=args):
+            return fn(*args, block=16, return_residuals=True)
+
+        def step(fn=k4.paged_flash_decode, args=args, new=new):
+            return k4.fold_current_token(args[0], *new, *kern(fn, args))
+        got = dict(zip(("acc", "m", "l"), kern()), out=step())
+        want = dict(zip(("acc", "m", "l"), kern(k4.paged_flash_decode_plain)),
+                    out=step(k4.paged_flash_decode_plain))
+        torch.cuda.synchronize()
+        errs = k4_errs(got, want)
+        absd = max(abs_err(got[n], want[n]) for n in want)
+        print(f"[3d] K4 {label} (B {len(lens)}, {DS_NH} q f32 over 1 kv head "
+              f"of {DS_R + DS_DR}/{DS_R} bf16) simt "
+              + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (max abs {absd:.2e}; tol {tol})")
+        check(all(e <= tol[n] for n, e in errs.items()),
+              f"K4 {label}: {errs} above {tol}")
+        # SDPA with the 128 heads as the query length of one head, which
+        # is MQA over the one latent kv head without repeating it
+        B, L = len(lens), max(lens)
+        qs = torch.randn(B, 1, DS_NH, DS_R + DS_DR, device=dev,
+                         dtype=torch.bfloat16)
+        ks = torch.randn(B, 1, L, DS_R + DS_DR, device=dev,
+                         dtype=torch.bfloat16)
+        vs = ks[..., :DS_R]
+        mask = (torch.arange(L, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])[:, None, None, :]
+        bounds = k4_latent_bound(lens, nb)
+        t = {"ms": graph_ms(kern, 10), "step_ms": graph_ms(step, 10),
+             "plain_ms": time_ms(lambda: kern(k4.paged_flash_decode_plain),
+                                 3),
+             "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
+                 qs, ks, vs, attn_mask=mask), 10),
+             **bounds, "norm_err": errs, "max_abs_err": absd}
+        print(f"[3d] K4 {label} device time: simt {t['ms']:.4f} ms, with "
+              f"the fold {t['step_ms']:.4f}; plain {t['plain_ms']:.3f}; sdpa "
+              f"over contiguous bf16 K/V {t['library_ms']:.4f}; bytes bound "
+              f"{t['bytes_bound_ms']:.4f} ms (1152 B a token and q): "
+              f"{t['bytes_bound_ms'] / t['ms'] * 100:.2f}% of it; f32 "
+              f"operations bound {t['ops_bound_ms']:.4f} ms: "
+              f"{t['ops_bound_ms'] / t['ms'] * 100:.2f}%; bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']})")
+        out[label] = t
+        del args, new, got, want, qs, ks, vs
+    return out
+
+
+def phase_two_layer_deepseek(dev):
+    """One training step of deepseek-v3 at full width cut to [dense, moe]
+    with 16 routed experts (top 8, the shared one, the mtp head), f32,
+    1 x 128, remat on: the kernels against their plain versions on the
+    card (``plain_kernels``; a CPU run of the 16 GB of f32 weights and
+    their gradients would not fit the script's time), the same seeded
+    weights and tokens: loss, xent, aux, mtp and every gradient leaf
+    within 1e-4 (of 1 + |loss|, of each leaf's max), the same choices
+    dropped, the kernels launched by the kernel run only and as the plan
+    says (``DS_LAUNCHES``; K1 on simt in f32, K2 on simt)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    cfg = ds_train_cfg("float32")
+    layout = ParallelPlan().validate(mode="train").build()
+    params = init_params(transformer.abstract_params(cfg),
+                         torch.Generator(device=dev).manual_seed(23), dev,
+                         torch.float32)
+    rng = np.random.default_rng(23)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129))).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone()}
+    batch["labels"][0, -9:] = -1
+    res = {}
+    for name, ctx in (("card", contextlib.nullcontext()),
+                      ("plain", plain_kernels())):
+        reset_launches()
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with ctx:
+            (loss, met), drops = routed_and_dropped(
+                lambda: transformer.forward(cfg, layout, live, batch,
+                                            mode="train"))
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+        torch.cuda.synchronize()
+        res[name] = ({k: v.item() for k, v in dict(met, loss=loss).items()},
+                     grads, drops, read_launches())
+        del live, loss, met
+    (m_dev, g_dev, d_dev, n_dev), (m_pl, g_pl, d_pl, n_pl) = \
+        res["card"], res["plain"]
+    names = [".".join(p) for p in _paths(params)]
+    errs = {n: (leaf_err(a, b), b.abs().max().item())
+            for n, a, b in zip(names, g_dev, g_pl)}
+    worst = max(e for e, _ in errs.values())
+    tol = 1e-4
+    want = dict(DS_LAUNCHES, **{"K4": 0, "K4 combine": 0})
+    print(f"[23] deepseek-v3 [dense, moe] full width, {DS_TRAIN_EXPERTS} "
+          f"experts, the mtp head, f32 train step (1x128), kernels against "
+          f"their plain versions on the card: "
+          + ", ".join(f"{k} {m_dev[k]:.6f} / {m_pl[k]:.6f}"
+                      for k in ("loss", "xent", "aux", "mtp"))
+          + f"; (routed, dropped) per MoE call {d_dev} / {d_pl}; gradient "
+          f"max |kernels - plain| / max |plain| per leaf, worst first: "
+          + ", ".join(f"{k} {e:.1e} [{g:.1e}]" for k, (e, g) in sorted(
+              errs.items(), key=lambda kv: -kv[1][0])[:8])
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e}); "
+          f"launches {n_dev} (the plain run {n_pl})")
+    check(all(v == 0 for v in n_pl.values()),
+          f"deepseek two-layer: the plain run launched kernels {n_pl}")
+    check(n_dev == want, f"deepseek two-layer launches {n_dev} != {want}")
+    check(d_dev == d_pl and d_dev, f"deepseek two-layer drops: {d_dev} vs "
+          f"{d_pl}")
+    for k in ("loss", "xent", "aux", "mtp"):
+        check(abs(m_dev[k] - m_pl[k]) <= tol * (1 + abs(m_pl[k]))
+              and math.isfinite(m_dev[k]),
+              f"deepseek two-layer {k}: {m_dev[k]} vs {m_pl[k]}")
+    check(worst <= tol, f"deepseek two-layer train gradients: {worst}")
+    del res, g_dev, g_pl
+    return cfg, params
+
+
+def phase_two_layer_deepseek_serve(dev, model):
+    """Phase 23's model (the same f32 weights) through the engine's paged
+    path: 2 requests of 16 prompt tokens in 2 slots, one chunked prefill
+    and 8 greedy fused decode steps (max_len 64, block 16), the kernels
+    against their plain versions on the card: the logits of every step
+    within 1e-4 of 1 + max, the same tokens, and the kernels launched as
+    the plan says (K2 and K4 on simt); then the gather-view decode's
+    tokens, equal to the fused decode's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.kernels import paged_decode as k4
+    from repro_torch.serve import Engine, Request
+    cfg, params = model
+    layout = ParallelPlan().validate(mode="serve").build()
+    prompts = np.random.default_rng(24).integers(0, cfg.vocab, (2, 16))
+    res = {}
+    for name, ctx, kw in (("card", contextlib.nullcontext(), {}),
+                          ("plain", plain_kernels(), {}),
+                          ("gather", contextlib.nullcontext(),
+                           {"fused_decode": False})):
+        eng = Engine(cfg, layout, params, batch_size=2, max_len=64,
+                     block_size=16, **kw)
+        logs, sample = [], eng._sample
+
+        def recording(logits, sample=sample, logs=logs):
+            logs.append(logits.detach().float())
+            return sample(logits)
+        eng._sample = recording
+        reqs = [Request(uid=i, prompt=[int(t) for t in p], max_new=9)
+                for i, p in enumerate(prompts)]
+        reset_launches()
+        with ctx:
+            stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        res[name] = (torch.stack(logs), [r.out for r in reqs],
+                     read_launches(), dict(k4.launches_by_route), stats)
+        del eng
+    (l_dev, t_dev, n_dev, r_dev, s_dev), (l_pl, t_pl, n_pl, _, _), \
+        (l_ga, t_ga, n_ga, r_ga, _) = res["card"], res["plain"], res["gather"]
+    err = ((l_dev - l_pl).abs().amax(dim=(1, 2))
+           / (1 + l_pl.abs().amax(dim=(1, 2))))
+    pre, dec = s_dev["prefill_steps"], s_dev["decode_steps"]
+    L = DS_TRAIN_LAYERS
+    # per step K3 the 4 norms of each layer and ln_f; K1 the prefill's 8
+    # linears a layer and the head, a decode step's 7 (w_ukv is absorbed)
+    # and the head; K2 per prefill layer, K4 per decode layer, both simt
+    want = {"K1": (8 * L + 1) * pre + (7 * L + 1) * dec, "K2": L * pre,
+            "K2 bwd": 0, "K3": (4 * L + 1) * (pre + dec), "K3 bwd": 0,
+            "K4": L * dec, "K4 combine": 0, "K5": 0, "K5 bwd": 0}
+    print(f"[23s] deepseek-v3 [dense, moe] full width f32 through the paged "
+          f"engine (2 slots, 16 prompt tokens, {pre} prefill + {dec} decode "
+          f"steps), kernels against plain versions on the card: logits max "
+          f"|kernels - plain| / (1 + max |plain|) per step, worst "
+          f"{err.max().item():.1e} (tol 1e-4); greedy tokens equal "
+          f"{t_dev == t_pl}; the gather-view decode's equal {t_ga == t_dev}; "
+          f"launches {n_dev} (expected {want}), K4 by route {r_dev}; gather "
+          f"view {n_ga}, K4 by route {r_ga}")
+    check(all(v == 0 for v in n_pl.values()),
+          f"deepseek decode path: the plain run launched kernels {n_pl}")
+    check(pre == 1 and dec == 8 and n_dev == want,
+          f"deepseek decode path launches {n_dev} over {s_dev} != {want}")
+    check(r_dev["simt"] == L * dec and r_ga["simt"] == L * dec
+          and n_ga["K4"] == L * dec,
+          f"deepseek decode path: K4 routes {r_dev}, gather view {r_ga}")
+    check(err.max().item() <= 1e-4 and torch.isfinite(l_dev).all(),
+          f"deepseek decode path logits: {err.tolist()}")
+    check(t_dev == t_pl, f"deepseek decode path tokens: {t_dev} vs {t_pl}")
+    check(t_ga == t_dev, f"deepseek gather-view tokens: {t_ga} vs {t_dev}")
+
+
+def deepseek_step_bytes(prompts, max_new, layers=DS_SERVE_LAYERS, block=16,
+                        L=512):
+    """(bytes of one decode step on average, steps, parts) of 7d's decode
+    steps, each input read once and each output written once: every
+    weight of the cut model but the mtp head's (every routed expert runs
+    its capacity buffer every step, so all 256 are read; of the embedding
+    only the slots' rows), and in each layer what K4 reads and writes for
+    each slot (``k4_latent_bound``: q and the residuals in f32, each
+    valid latent entry's 1152 bytes, the positions and tables) and the
+    step's own latent entry written back."""
+    from repro_torch.models import transformer
+    cfg = ds_cfg(layers)
+    params = transformer.abstract_params(cfg)
+    weights = param_bytes(params) - param_bytes(
+        {"e": params["embed"], "m": params["mtp"]})
+    dk = DS_R + DS_DR
+    steps = max_new - 1
+    kv = layers * sum(
+        DS_NH * dk * 4 + DS_NH * (DS_R + 2) * 4 + (p + j + 1) * dk * 2
+        + (L // block) * (block + 1) * 4 + 4 + dk * 2
+        for p in prompts for j in range(steps))
+    parts = {"weights": steps * weights,
+             "embed rows": steps * len(prompts) * cfg.d_model * 2, "kv": kv}
+    return sum(parts.values()) / steps, steps, {
+        k: v / steps for k, v in parts.items()}
+
+
+def phase_serve_deepseek(card):
+    """``repro_torch.launch.serve`` serves deepseek-v3-671b cut to its 3
+    dense layers and one MoE layer of 256 experts, at full width in bf16,
+    weights from a seed drawn on the card, with phase 7's traffic: 8
+    requests in batch 8, a shared 256-token prefix and 3-7 more, 32 new
+    tokens each, max_len 512, block 16, greedy.  The launch counters reset
+    just before and read just after: launches per step exact, K1 on tc and
+    decode, K2 (dk 192 / dv 128) and K4 (the latent decode) on simt.  Then
+    the share of routed choices dropped at capacity in the prefill and per
+    decode step, TTFT, TPOT and tok/s beside a decode step's bytes bound,
+    peak memory; last, the same requests through the gather-view decode
+    (``--no-fused-decode``) and the share of its tokens equal to the fused
+    run's."""
+    import gc
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serve import Engine
+    argv = ["--arch", "deepseek-v3-671b", "--layers", str(DS_SERVE_LAYERS),
+            "--device", "cuda", "--requests", "8", "--batch-size", "8",
+            "--shared-prefix", "256", "--max-new", "32", "--max-len", "512",
+            "--block-size", "16"]
+    built, run = [], Engine.run
+
+    def keep(self, *args, **kw):                 # the launcher's engine
+        built.append(self)
+        return run(self, *args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    Engine.run = keep
+    reset_launches()
+    try:
+        stats, drops = routed_and_dropped(lambda: serve.main(argv))
+        torch.cuda.synchronize()
+    finally:
+        Engine.run = run
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pre, dec = stats["prefill_steps"], stats["decode_steps"]
+    L = DS_SERVE_LAYERS
+    want = {"K1": (8 * L + 1) * pre + (7 * L + 1) * dec, "K2": L * pre,
+            "K2 bwd": 0, "K3": (4 * L + 1) * (pre + dec), "K3 bwd": 0,
+            "K4": L * dec, "K4 combine": 0, "K5": 0, "K5 bwd": 0}
+    print(f"[7d] launches in the deepseek serving run: {launches} over {pre} "
+          f"prefill + {dec} decode steps (expected {want})")
+    check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
+          f"deepseek serving run: {stats['tokens']} tokens, "
+          f"{stats['completed']} done")
+    check(stats["nonfinite_rows"] == 0,
+          f"deepseek serving run: {stats['nonfinite_rows']} non-finite rows")
+    check(launches == want, f"deepseek serving run launches {launches} != "
+          f"{want}")
+    routes = check_k1_routes(launches, "7d", "deepseek serving run")
+    k2_routes = check_k2_routes(launches, "7d", "deepseek serving run",
+                                route="simt")
+    k4_routes = check_k4_routes(launches, "deepseek serving run", tag="7d",
+                                route="simt")
+    from repro_torch.models.registry import layer_plan
+    moe_layers = layer_plan(ds_cfg(L)).count("moe")
+    check(len(drops) == moe_layers * (pre + dec), f"deepseek serving run: "
+          f"{len(drops)} MoE calls for {pre + dec} steps")
+    share = [sum(dr for _, dr in drops[i * moe_layers:(i + 1) * moe_layers])
+             / sum(r for r, _ in drops[i * moe_layers:(i + 1) * moe_layers])
+             for i in range(pre + dec)]
+    step_bytes, want_steps, parts = deepseek_step_bytes(
+        [len(r.prompt) for r in serve_requests(8)], 32)
+    check(pre == 1 and dec == want_steps, f"deepseek serving run: {pre} "
+          f"prefill + {dec} decode steps, the bound counts 1 + {want_steps}")
+    bound = step_bytes / H100_BYTES_PER_S * 1e3
+    tpot = stats["tpot_p50_s"] * 1e3
+    print(f"[7d] routed choices dropped at capacity: prefill "
+          f"{share[0]:.4f}, decode steps mean "
+          f"{sum(share[1:]) / max(1, dec):.4f}, max {max(share[1:]):.4f}")
+    print(f"[7d] serving deepseek-v3-671b cut to {L} layers (3 dense, 1 MoE "
+          f"of 256 experts), bf16, 8 requests x 32 new tokens on {card}: "
+          f"TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 {tpot:.2f} ms, p95 "
+          f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} "
+          f"tok/s; a decode step's bound {bound:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
+          + f" a step, at 3.35 TB/s), TPOT / bound {tpot / bound:.2f}x; "
+          f"peak memory {peak:.2f} GiB")
+    fused = stats["outputs"]
+    breakdown = phase_decode_breakdown_deepseek(built.pop(), card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    gstats = serve.main(argv + ["--no-fused-decode"])
+    torch.cuda.synchronize()
+    glaunch = read_launches()
+    gshare = equal_share(gstats["outputs"], fused)
+    print(f"[7d] the gather-view decode: TPOT p50 "
+          f"{gstats['tpot_p50_s'] * 1e3:.2f} ms, {gstats['tok_per_s']:.1f} "
+          f"tok/s, bf16 tokens equal to the fused run's: "
+          f"{gshare * 100:.1f}%; K4 launches {glaunch['K4']}")
+    check(gstats["tokens"] == 8 * 32 and gstats["nonfinite_rows"] == 0
+          and glaunch["K4"] == L * gstats["decode_steps"],
+          f"deepseek gather-view run: {gstats['tokens']} tokens, "
+          f"{glaunch}")
+    return launches, routes, k2_routes, k4_routes, {
+        "layers": L, "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
+        "tpot_p50_ms": tpot, "tpot_p95_ms": stats["tpot_p95_s"] * 1e3,
+        "tok_per_s": stats["tok_per_s"], "step_bound_ms": bound,
+        "step_bytes": step_bytes, "drop_share_prefill": share[0],
+        "drop_share_decode_mean": sum(share[1:]) / max(1, dec),
+        "drop_share_decode_max": max(share[1:]), "mem_peak_gib": peak,
+        "gather_view_tpot_p50_ms": gstats["tpot_p50_s"] * 1e3,
+        "gather_view_equal_share": gshare, "decode_breakdown": breakdown}
+
+
+def phase_decode_breakdown_deepseek(eng, card, at=16):
+    """Where the time of one of 7d's fused decode steps goes: 7d's engine
+    (its weights and pool) serves the same 8 requests again, and its
+    ``at``-th decode step runs under torch.profiler: device time by
+    kernel group, the absorbed einsums, the experts' bmm and the dispatch
+    regrouped by the op that launched them (``ds_op_group``), against the
+    step's synchronised wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    real, calls, out = eng._decode_step, [0], {}
+
+    def step(*args):
+        calls[0] += 1
+        if calls[0] != at:
+            return real(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = real(*args)
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prof"] = prof
+        return res
+    eng._decode_step = step
+    try:
+        stats = eng.run(serve_requests(8))
+    finally:
+        del eng._decode_step
+    check(stats["tokens"] == 8 * 32 and "prof" in out,
+          f"deepseek decode breakdown: {stats['tokens']} tokens, "
+          f"{calls[0]} decode steps")
+    return report_breakdown(out["prof"], out["wall_ms"], "7d",
+                            f"deepseek-v3's decode step {at} of "
+                            f"{calls[0]} (8 slots, fused)", card,
+                            op_group=ds_op_group)
+
+
 def main():
     import gc
 
@@ -3497,8 +4143,10 @@ def main():
     k1_numbers["decode"]["decode_max_m_measured"] = timed(
         phase_k1_threshold, dev)
     k4_numbers = timed(phase_k4, dev)
+    k4_numbers["shapes"].update(timed(phase_k4_latent, dev))
     k3_numbers = timed(phase_k3, dev)
     k2_numbers = timed(phase_k2, dev)
+    k2_numbers["shapes"]["mla"] = timed(phase_k2_mla, dev)
     timed(phase_two_layer, dev)
     timed(phase_two_layer, dev, "bfloat16")
     timed(phase_two_layer_train, dev)
@@ -3567,6 +4215,38 @@ def main():
     moe_numbers["train_mixtral"]["breakdown"] = timed(
         phase_breakdown, dev, card, "mixtral-8x7b", tag="22",
         layers=MIX_TRAIN_LAYERS, op_group=moe_op_group)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_model = timed(phase_two_layer_deepseek, dev)
+    timed(phase_two_layer_deepseek_serve, dev, ds_model)
+    del ds_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dserve_launches, dserve_routes, dserve_k2, dserve_k4, ds_numbers = \
+        timed(phase_serve_deepseek, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_launches, ds_routes, ds_k2, ds_tel = timed(
+        phase_train, card, "deepseek-v3-671b", DS_STEPS, DS_LAUNCHES,
+        tag="24", layers=DS_TRAIN_LAYERS, batch=DS_TRAIN_B, cut=DS_TRAIN_CUT,
+        k2_route="simt")
+    series = ds_tel["series"]
+    print("[24] deepseek-v3 training losses by step: " + "; ".join(
+        f"step {i + 1} xent {series['xent'][i]:.4f} aux "
+        f"{series['aux'][i]:.5f} mtp {series['mtp'][i]:.4f}"
+        for i in range(DS_STEPS)))
+    ds_numbers = {"serve_deepseek": ds_numbers, "train_deepseek": {
+        "layers": DS_TRAIN_LAYERS, "experts": DS_TRAIN_EXPERTS,
+        "batch": [DS_TRAIN_B, TRAIN_S], "t_step_s": ds_tel["t_step_s"],
+        "tokens_per_s": ds_tel["tokens_per_s"], "mfu": ds_tel["mfu"],
+        "mem_peak_gib": ds_tel["mem_peak_bytes"] / 2 ** 30,
+        **{k: series[k] for k in ("loss", "xent", "aux", "mtp", "t_step")}}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_numbers["train_deepseek"]["breakdown"] = timed(
+        phase_breakdown, dev, card, "deepseek-v3-671b", tag="25",
+        layers=DS_TRAIN_LAYERS, rows=DS_TRAIN_B, op_group=ds_op_group,
+        change=lambda cfg: ds_train_cfg())
 
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
@@ -3574,7 +4254,9 @@ def main():
              ("train_xlstm", xlstm_launches),
              ("serve_xlstm", xserve_launches),
              ("serve_mixtral", mserve_launches),
-             ("train_mixtral", mix_launches))
+             ("train_mixtral", mix_launches),
+             ("serve_deepseek", dserve_launches),
+             ("train_deepseek", ds_launches))
 
     def launched(*names, **more):
         by = {path: sum(counts[n] for n in names) for path, counts in paths}
@@ -3589,11 +4271,14 @@ def main():
                 ("serve_zamba2", zserve_routes),
                 ("train_xlstm", xlstm_routes), ("serve_xlstm", xserve_routes),
                 ("serve_mixtral", mserve_routes),
-                ("train_mixtral", mix_routes))
+                ("train_mixtral", mix_routes),
+                ("serve_deepseek", dserve_routes),
+                ("train_deepseek", ds_routes))
     by_route = {r: sum(routes[r] for _, routes in k1_paths)
                 for r in serve_routes}
     k2_by_route = {key: {r: sum(p[key][r] for p in (
-        serve_k2, train_k2, zamba_k2, xlstm_k2, mserve_k2, mix_k2))
+        serve_k2, train_k2, zamba_k2, xlstm_k2, mserve_k2, mix_k2,
+        dserve_k2, ds_k2))
         for r in serve_k2[key]} for key in serve_k2}
 
     def k1_launched(route):
@@ -3638,7 +4323,7 @@ def main():
              **launched("K4", spec_draft=spec_k4,
                         serve_gather_view=gather_numbers["k4"]),
              launches_by_route={r: serve_k4[r] + zserve_k4[r]
-                                + mserve_k4[r] + (
+                                + mserve_k4[r] + dserve_k4[r] + (
                  spec_k4 + gather_numbers["k4"] if r == "split" else 0)
                  for r in serve_k4},
              launches_combine=(serve_launches["K4 combine"]
@@ -3663,7 +4348,8 @@ def main():
              "shapes", "launch_floor_ms", "launches_combine",
              "decode_layer_kernels", "contiguous_layer_kernels") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2",
-                                                  "mixtral", "moonlight")
+                                                  "mixtral", "moonlight",
+                                                  "deepseek")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))
     print("serving paths: " + json.dumps({
@@ -3672,6 +4358,7 @@ def main():
         "serve_zamba2": zserve_numbers, "serve_xlstm": xserve_numbers}))
     print("xlstm training: " + json.dumps(xlstm_numbers))
     print("moe: " + json.dumps(moe_numbers))
+    print("deepseek: " + json.dumps(ds_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

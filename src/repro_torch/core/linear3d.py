@@ -22,7 +22,7 @@ def plinear(layout: Layout, dirs: Dirs, x, w, b=None, *, kind: str = "first",
     if layout.strategy != "3d":
         raise NotImplementedError(
             f"strategy {layout.strategy!r}: the 1-D and 2-D baselines are "
-            "not ported yet (ROADMAP.md, Queue 1 item 3)")
+            "not ported yet (ROADMAP.md, Queue 1 item 4)")
     if decode:
         y = ops3d.matmul3d_decode(layout, dirs.in_ax, dirs.out_ax, x, w,
                                   shard_f)

@@ -8,7 +8,12 @@ Layouts of the local shards (paper §3.1.1):
     y  : (B, S, F)   split (batch, out_ax, in_ax)     directions exchanged
 
 Algorithm 1: all-gather x along in_ax, all-gather w along 'x', local
-matmul, reduce-scatter along out_ax.  The local matmul ``_mm`` is the K1
+matmul, reduce-scatter along out_ax.  MLA's low-rank projections use the
+two variants of ``ops3d.py:440-558``: ``matmul3d_noswap`` (the down
+projections and the mtp head's: contraction psum over out_ax, output
+features replicated, no direction swap) and ``matmul3d_repc`` (the up
+projections: the contraction replicated, so the local product is exact and
+the reduce-scatter is a sequence slice), with ``matmul3d_repc_decode``.  The local matmul ``_mm`` is the K1
 kernel.  Algorithm 2, the backward, is the reference's fused island
 (``ops3d.py:276-336``): one gather of dc shared by ``dx = dc w^T`` and
 ``dw = x^T dc``, both products with f32 accumulation.  These two are einsums
@@ -72,6 +77,91 @@ class _MatMul3D(torch.autograd.Function):
         if sync:
             dw = comm.psum(layout, dw, sync)
         return dx.to(x.dtype), dw.to(w.dtype), None, None, None, None
+
+
+class _MatMul3DNoSwap(torch.autograd.Function):
+    """``matmul3d_noswap`` (reference ``ops3d.py:446-484``): x (B, S, H)
+    split (batch, in_ax, out_ax) @ w (H, F) split (out_ax, -) -> (B, S, F)
+    split (batch, in_ax, -); the backward's dx is local, dw sums over 'x',
+    in_ax and the data axes."""
+
+    @staticmethod
+    def forward(ctx, x, w, layout, in_ax, out_ax):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (layout, in_ax)
+        return comm.psum(layout, _mm(x, w), out_ax)
+
+    @staticmethod
+    def backward(ctx, dc):
+        x, w = ctx.saved_tensors
+        layout, in_ax = ctx.cfg
+        b, s, f = dc.shape
+        dc2 = dc.reshape(b * s, f)
+        dx = torch.matmul(dc2, w.t()).reshape(b, s, -1).to(dc.dtype)
+        dw = torch.matmul(x.reshape(b * s, -1).t(), dc2)
+        red = tuple(a for a in ("x", in_ax, *grad_sync_axes(layout))
+                    if layout.size(a) > 1)
+        if red:
+            dw = comm.psum(layout, dw, red)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
+
+
+class _MatMul3DRepC(torch.autograd.Function):
+    """``matmul3d_repc`` (reference ``ops3d.py:487-555``): x (B, S, R)
+    split (batch, in_ax, -) @ w (R, F) split (-, (in_ax, x)) -> (B, S, F)
+    split (batch, out_ax, in_ax).  R is replicated, so the local product
+    is exact and the output's sequence split is a slice."""
+
+    @staticmethod
+    def forward(ctx, x, w, layout, in_ax, out_ax):
+        xg = comm.all_gather(layout, x, in_ax, dim=1)       # (b, S', R)
+        wg = comm.all_gather(layout, w, "x", dim=1)         # (R, f/si)
+        c = _mm(xg, wg)
+        s_loc = c.shape[1] // layout.size(out_ax)
+        i0 = comm.axis_index(layout, out_ax) * s_loc
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (layout, in_ax, out_ax)
+        return c[:, i0:i0 + s_loc]
+
+    @staticmethod
+    def backward(ctx, dc):
+        x, w = ctx.saved_tensors
+        layout, in_ax, out_ax = ctx.cfg
+        dcg = comm.all_gather(layout, dc, out_ax, dim=1)    # (b, S', f/si)
+        wg = comm.all_gather(layout, w, "x", dim=1)
+        b, s, f = dcg.shape
+        dc2 = dcg.reshape(b * s, f)
+        dxp = torch.matmul(dc2, wg.t()).reshape(b, s, -1).to(dc.dtype)
+        dx = comm.psum_scatter(layout, dxp, in_ax, dim=1)
+        xg = comm.all_gather(layout, x, in_ax, dim=1)
+        dwp = torch.matmul(xg.reshape(b * s, -1).t(), dc2)
+        dw = comm.psum_scatter(layout, dwp, "x", dim=1)
+        sync = grad_sync_axes(layout)
+        if sync:
+            dw = comm.psum(layout, dw, sync)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
+
+
+def matmul3d_noswap(layout: Layout, in_ax: str, out_ax: str, x, w):
+    """The no-swap 3-D linear of MLA's down projections and the mtp head's
+    projection (``_MatMul3DNoSwap``), differentiable; the local product
+    through K1."""
+    return _MatMul3DNoSwap.apply(x, w, layout, in_ax, out_ax)
+
+
+def matmul3d_repc(layout: Layout, in_ax: str, out_ax: str, x, w):
+    """The replicated-contraction 3-D linear of MLA's up projections
+    (``_MatMul3DRepC``), differentiable; the local product through K1."""
+    return _MatMul3DRepC.apply(x, w, layout, in_ax, out_ax)
+
+
+def matmul3d_repc_decode(layout: Layout, in_ax: str, out_ax: str, x, w):
+    """Decode variant of ``matmul3d_repc`` (reference ``ops3d.py:517-529``):
+    x (B, 1, R) replicated -> (B, 1, F) split over in_ax; w gathered along
+    'x' unless the layout keeps it x-replicated (``inference_opt``)."""
+    wg = w if layout.inference_opt else comm.all_gather(layout, w, "x",
+                                                        dim=1)
+    return _mm(x, wg)
 
 
 def grad_sync_axes(layout: Layout):

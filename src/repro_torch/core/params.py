@@ -62,17 +62,20 @@ def init_params(abstract, generator: torch.Generator, device,
         std = p.scale
         if p.init == "fan_in":
             std = p.scale / math.sqrt(max(p.shape[p.fan_axis], 1))
-        if math.prod(p.shape) <= DRAW_SLICE or len(p.shape) < 2:
-            x = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            return (x * std).to(dt)
-        # a large stacked leaf is drawn one leading slice at a time, so the
-        # f32 draw never holds more than a slice (mixtral's 16-layer w1 is
-        # 7.5G values: 30 GB in f32 at once)
-        out = torch.empty(p.shape, dtype=dt, device=device)
-        for i in range(p.shape[0]):
-            x = torch.randn(p.shape[1:], generator=generator,
-                            dtype=torch.float32, device=device)
-            out[i] = (x * std).to(dt)
-        return out
+        return _draw(p.shape, std, dt, generator, device)
     return tree_map(one, abstract)
+
+
+def _draw(shape, std: float, dt, generator, device):
+    """N(0, std) of ``shape`` in ``dt``: a leaf of more than ``DRAW_SLICE``
+    values is drawn one leading slice at a time, recursively, so the f32
+    draw never holds more than a slice (mixtral's 16-layer w1 is 7.5G
+    values, 30 GB in f32 at once; one deepseek-v3 MoE layer's is 3.76G)."""
+    if math.prod(shape) <= DRAW_SLICE or len(shape) < 2:
+        x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * std).to(dt)
+    out = torch.empty(shape, dtype=dt, device=device)
+    for i in range(shape[0]):
+        out[i] = _draw(shape[1:], std, dt, generator, device)
+    return out

@@ -5,13 +5,15 @@
 // _flash_kernel (wrapper kernels/ops.py:pallas_flash), forward only on the
 // TPU; the backward here computes what jax.grad of flash_attention_jnp does.
 //
-//   q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), Hq = Hkv * group, query head
+//   q and k (B, S, H, DK), v (B, Sk, Hkv, DV), Hq = Hkv * group, query head
 //   h reads kv head h / group (the Pallas kernel's group-major fold);
 //   q_pos (B, Sq) and k_pos (Sk,) int32.  Key k is allowed for query row i
 //   iff k_pos >= 0 and, when causal, q_pos >= k_pos (and q_pos - k_pos <
 //   window when a window is set).  Logits are (q * scale) . k in f32; the
 //   probabilities enter the PV product rounded to v's dtype, with f32
-//   accumulation.  out in q's dtype; lse (B, Hq, Sq) f32 = m + log(l).
+//   accumulation.  out (B, Sq, Hq, DV) in q's dtype; lse (B, Hq, Sq) f32 =
+//   m + log(l).  DK = DV, or (DK, DV) = (192, 128): MLA's training
+//   attention (q and k of 128 + 64 rope dims, v of 128).
 //
 // Backward (FlashAttention-2 with P recomputed from lse):
 //   delta_i = rowsum(dout_i * out_i), P = exp(S - lse) (0 where masked),
@@ -29,8 +31,12 @@
 // (4 * 64 * 257 + 64 * 65) * 4 = 279,808 bytes of shared memory, above an
 // H100's 232,448: at BT = 32 the backward takes (4 * 32 * 257 + 32 * 33) * 4
 // = 135,808 bytes and the forward 102,912.  d = 48 runs at BT = 64 with
-// three 16-column register tiles per row.  The TPU grid carries the
-// online softmax from one kv block to the next; here one block per (q tile,
+// three 16-column register tiles per row.  With DK != DV the QK and dK
+// products run over DK and the PV, dP = dO V^T, dV and delta ones over DV;
+// at (192, 128) BT is 32 (tile_rows of the wider), the forward takes
+// (2 * 32 * 193 + 32 * 129 + 32 * 33) * 4 = 70,144 bytes and the backward
+// (2 * 32 * 193 + 2 * 32 * 129 + 32 * 33) * 4 = 86,656.  The TPU grid
+// carries the online softmax from one kv block to the next; here one block per (q tile,
 // q head, batch) loops over the k tiles itself.  A (q tile, k tile) pair with
 // no allowed entry is skipped before its K and V (backward: Q and dO) are
 // read.  The backward runs two kernels and uses no atomics, so dq, dk and dv
@@ -131,15 +137,16 @@ template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f(from_f<T>(v)); }
 
 // ---------------------------------------------------------------- forward
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
-  constexpr int DP = D + 1, NJ = D / 16;
-  constexpr int BQ = tile_rows(D), BK = BQ, KP = BK + 1, R = BQ / 16;
+  constexpr int KDP = DK + 1, VDP = DV + 1, NJ = DV / 16;
+  constexpr int BQ = tile_rows(DK > DV ? DK : DV), BK = BQ, KP = BK + 1;
+  constexpr int R = BQ / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + BQ * DP;
-  float* Vs = Ks + BK * DP;
-  float* Ps = Vs + BK * DP;
+  float* Ks = Qs + BQ * KDP;
+  float* Vs = Ks + BK * KDP;
+  float* Ps = Vs + BK * VDP;
   __shared__ int qpos[BQ], kpos[BK];
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / a.group;
@@ -148,7 +155,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
 
-  load_tile<T, D, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
+  load_tile<T, DK, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
   if (threadIdx.x < BQ)
     qpos[threadIdx.x] = q0 + (int)threadIdx.x < a.Sq
         ? a.q_pos[(int64_t)b * a.Sq + q0 + threadIdx.x] : 0;
@@ -182,11 +189,11 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
         any |= ok[i][j];
       }
     if (!__syncthreads_or(any)) continue;  // skipped before K/V are read
-    load_tile<T, D, BQ>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
-    load_tile<T, D, BQ>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, DK, BQ>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, DV, BQ>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
     __syncthreads();
     float s[R][R] = {};
-    mm<D, R, R, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
+    mm<DK, R, R, KDP, 1, KDP, 1>(s, Qs, Ks, ty, tx);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       float mx = NEG_INF;
@@ -210,7 +217,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
       for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
-    mm<BK, R, NJ, KP, 1, 1, DP>(acc, Ps, Vs, ty, tx);
+    mm<BK, R, NJ, KP, 1, 1, VDP>(acc, Ps, Vs, ty, tx);
   }
 
   T* out = static_cast<T*>(a.o);
@@ -219,7 +226,7 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
     if (!qok[i]) continue;
     const int row = q0 + ty + 16 * i;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = out + (((int64_t)b * a.Sq + row) * a.Hq + h) * D;
+    T* orow = out + (((int64_t)b * a.Sq + row) * a.Hq + h) * DV;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / lc);
     if (tx == 0)
@@ -228,16 +235,17 @@ __global__ void __launch_bounds__(THREADS) fa_fwd(Args a) {
 }
 
 // ------------------------------------------------------------- backward dq
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
-  constexpr int DP = D + 1, NJ = D / 16;
-  constexpr int BQ = tile_rows(D), BK = BQ, KP = BK + 1, R = BQ / 16;
+  constexpr int KDP = DK + 1, VDP = DV + 1, NJ = DK / 16;
+  constexpr int BQ = tile_rows(DK > DV ? DK : DV), BK = BQ, KP = BK + 1;
+  constexpr int R = BQ / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* dOs = Qs + BQ * DP;
-  float* Ks = dOs + BQ * DP;
-  float* Vs = Ks + BK * DP;
-  float* Ps = Vs + BK * DP;
+  float* dOs = Qs + BQ * KDP;
+  float* Ks = dOs + BQ * VDP;
+  float* Vs = Ks + BK * KDP;
+  float* Ps = Vs + BK * VDP;
   __shared__ int qpos[BQ], kpos[BK];
   __shared__ float lse_s[BQ], delta_s[BQ];
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -250,21 +258,21 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
   const T* out = static_cast<const T*>(a.out);
   const int64_t row0 = ((int64_t)b * a.Hq + h) * a.Sq;
 
-  load_tile<T, D, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
-  load_tile<T, D, BQ>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.Hq, h,
-                  1.0f);
+  load_tile<T, DK, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
+  load_tile<T, DV, BQ>(dOs, static_cast<const T*>(a.dout), b, q0, a.Sq, a.Hq,
+                       h, 1.0f);
   if (threadIdx.x < BQ) {
     const bool in = q0 + (int)threadIdx.x < a.Sq;
     qpos[threadIdx.x] = in ? a.q_pos[(int64_t)b * a.Sq + q0 + threadIdx.x] : 0;
     lse_s[threadIdx.x] = in ? a.lse[row0 + q0 + threadIdx.x] : 0.0f;
   }
   __syncthreads();
-  // delta = rowsum(dout * out), one warp per row
+  // delta = rowsum(dout * out) over DV, one warp per row
   for (int r = warp; r < BQ; r += THREADS / 32) {
     float d = 0.0f;
     if (q0 + r < a.Sq) {
-      const T* orow = out + (((int64_t)b * a.Sq + q0 + r) * a.Hq + h) * D;
-      for (int c = lane; c < D; c += 32) d += dOs[r * DP + c] * to_f(orow[c]);
+      const T* orow = out + (((int64_t)b * a.Sq + q0 + r) * a.Hq + h) * DV;
+      for (int c = lane; c < DV; c += 32) d += dOs[r * VDP + c] * to_f(orow[c]);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
@@ -304,12 +312,12 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
         any |= ok[i][j];
       }
     if (!__syncthreads_or(any)) continue;
-    load_tile<T, D, BQ>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
-    load_tile<T, D, BQ>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, DK, BQ>(Ks, k, b, k0, a.Sk, a.Hkv, kh, 1.0f);
+    load_tile<T, DV, BQ>(Vs, v, b, k0, a.Sk, a.Hkv, kh, 1.0f);
     __syncthreads();
     float s[R][R] = {}, dp[R][R] = {};
-    mm<D, R, R, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
-    mm<D, R, R, DP, 1, DP, 1>(dp, dOs, Vs, ty, tx);
+    mm<DK, R, R, KDP, 1, KDP, 1>(s, Qs, Ks, ty, tx);
+    mm<DV, R, R, VDP, 1, VDP, 1>(dp, dOs, Vs, ty, tx);
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -318,30 +326,31 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dq(Args a) {
         Ps[(ty + 16 * i) * KP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
       }
     __syncthreads();
-    mm<BK, R, NJ, KP, 1, 1, DP>(dq, Ps, Ks, ty, tx);
+    mm<BK, R, NJ, KP, 1, 1, KDP>(dq, Ps, Ks, ty, tx);
   }
 
   T* dqo = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     if (!qok[i]) continue;
-    T* row = dqo + (((int64_t)b * a.Sq + q0 + ty + 16 * i) * a.Hq + h) * D;
+    T* row = dqo + (((int64_t)b * a.Sq + q0 + ty + 16 * i) * a.Hq + h) * DK;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f<T>(dq[i][j] * a.scale);
   }
 }
 
 // ----------------------------------------------------------- backward dk/dv
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
-  constexpr int DP = D + 1, NJ = D / 16;
-  constexpr int BQ = tile_rows(D), BK = BQ, KP = BK + 1, R = BQ / 16;
+  constexpr int KDP = DK + 1, VDP = DV + 1, NK = DK / 16, NV = DV / 16;
+  constexpr int BQ = tile_rows(DK > DV ? DK : DV), BK = BQ, KP = BK + 1;
+  constexpr int R = BQ / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * DP;
-  float* Qs = Vs + BK * DP;
-  float* dOs = Qs + BQ * DP;
-  float* Ps = dOs + BQ * DP;
+  float* Vs = Ks + BK * KDP;
+  float* Qs = Vs + BK * VDP;
+  float* dOs = Qs + BQ * KDP;
+  float* Ps = dOs + BQ * VDP;
   __shared__ int qpos[BQ], kpos[BK];
   __shared__ float lse_s[BQ], delta_s[BQ];
   const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
@@ -349,20 +358,25 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
   const T* q = static_cast<const T*>(a.q);
   const T* dout = static_cast<const T*>(a.dout);
 
-  load_tile<T, D, BQ>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.Hkv, kh, 1.0f);
-  load_tile<T, D, BQ>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.Hkv, kh, 1.0f);
+  load_tile<T, DK, BQ>(Ks, static_cast<const T*>(a.k), b, k0, a.Sk, a.Hkv, kh,
+                       1.0f);
+  load_tile<T, DV, BQ>(Vs, static_cast<const T*>(a.v), b, k0, a.Sk, a.Hkv, kh,
+                       1.0f);
   if (threadIdx.x < BK)
     kpos[threadIdx.x] = k0 + (int)threadIdx.x < a.Sk
         ? a.k_pos[k0 + threadIdx.x] : -1;
   __syncthreads();
   int kp[R];
-  float dk[R][NJ], dv[R][NJ];
+  float dk[R][NK], dv[R][NV];
 #pragma unroll
   for (int j = 0; j < R; ++j) kp[j] = kpos[tx + 16 * j];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.0f;
+    for (int j = 0; j < NK; ++j) dk[i][j] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dv[i][j] = 0.0f;
+  }
 
   for (int g = 0; g < a.group; ++g) {
     const int h = kh * a.group + g;
@@ -388,11 +402,11 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
           any |= ok[i][j];
         }
       if (!__syncthreads_or(any)) continue;  // skipped before Q/dO are read
-      load_tile<T, D, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
-      load_tile<T, D, BQ>(dOs, dout, b, q0, a.Sq, a.Hq, h, 1.0f);
+      load_tile<T, DK, BQ>(Qs, q, b, q0, a.Sq, a.Hq, h, a.scale);
+      load_tile<T, DV, BQ>(dOs, dout, b, q0, a.Sq, a.Hq, h, 1.0f);
       __syncthreads();
       float s[R][R] = {}, p[R][R];
-      mm<D, R, R, DP, 1, DP, 1>(s, Qs, Ks, ty, tx);
+      mm<DK, R, R, KDP, 1, KDP, 1>(s, Qs, Ks, ty, tx);
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -401,9 +415,9 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
           Ps[(ty + 16 * i) * KP + tx + 16 * j] = round_to<T>(p[i][j]);
         }
       __syncthreads();
-      mm<BQ, R, NJ, 1, KP, 1, DP>(dv, Ps, dOs, ty, tx);     // dV += P^T dO
+      mm<BQ, R, NV, 1, KP, 1, VDP>(dv, Ps, dOs, ty, tx);    // dV += P^T dO
       float dp[R][R] = {};
-      mm<D, R, R, DP, 1, DP, 1>(dp, dOs, Vs, ty, tx);        // dP = dO V^T
+      mm<DV, R, R, VDP, 1, VDP, 1>(dp, dOs, Vs, ty, tx);    // dP = dO V^T
       __syncthreads();                                    // P is consumed
 #pragma unroll
       for (int i = 0; i < R; ++i)
@@ -412,7 +426,7 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
           Ps[(ty + 16 * i) * KP + tx + 16 * j] =
               p[i][j] * (dp[i][j] - delta_s[ty + 16 * i]);
       __syncthreads();
-      mm<BQ, R, NJ, 1, KP, 1, DP>(dk, Ps, Qs, ty, tx);      // dK += dS^T (scale q)
+      mm<BQ, R, NK, 1, KP, 1, KDP>(dk, Ps, Qs, ty, tx);     // dK += dS^T (scale q)
     }
   }
 
@@ -422,12 +436,11 @@ __global__ void __launch_bounds__(THREADS) fa_bwd_dkdv(Args a) {
   for (int i = 0; i < R; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= a.Sk) continue;
-    const int64_t off = (((int64_t)b * a.Sk + r) * a.Hkv + kh) * D;
+    const int64_t row = ((int64_t)b * a.Sk + r) * a.Hkv + kh;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dko[off + tx + 16 * j] = from_f<T>(dk[i][j]);
-      dvo[off + tx + 16 * j] = from_f<T>(dv[i][j]);
-    }
+    for (int j = 0; j < NK; ++j) dko[row * DK + tx + 16 * j] = from_f<T>(dk[i][j]);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dvo[row * DV + tx + 16 * j] = from_f<T>(dv[i][j]);
   }
 }
 
@@ -440,46 +453,56 @@ int launch(K kernel, dim3 grid, size_t smem, cudaStream_t s, const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dynamic shared memory of a pass holding `tiles` (BT, D + 1) f32 tiles
-// and the (BT, BT + 1) P tile
-constexpr size_t smem_bytes(int D, int tiles) {
-  return (size_t)(tiles * tile_rows(D) * (D + 1)
-                  + tile_rows(D) * (tile_rows(D) + 1)) * sizeof(float);
+// dynamic shared memory of a pass holding `kt` (BT, DK + 1) and `vt`
+// (BT, DV + 1) f32 tiles and the (BT, BT + 1) P tile
+constexpr size_t smem_bytes(int DK, int DV, int kt, int vt) {
+  return (size_t)(tile_rows(DK > DV ? DK : DV)
+                  * (kt * (DK + 1) + vt * (DV + 1)
+                     + tile_rows(DK > DV ? DK : DV) + 1)) * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int fwd(const Args& a, cudaStream_t s) {
-  constexpr int BT = tile_rows(D);
-  return launch(fa_fwd<T, D>, dim3((a.Sq + BT - 1) / BT, a.Hq, a.B),
-                smem_bytes(D, 3), s, a);
+  constexpr int BT = tile_rows(DK > DV ? DK : DV);
+  return launch(fa_fwd<T, DK, DV>, dim3((a.Sq + BT - 1) / BT, a.Hq, a.B),
+                smem_bytes(DK, DV, 2, 1), s, a);
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 int bwd(const Args& a, cudaStream_t s) {
-  constexpr int BT = tile_rows(D);
-  int err = launch(fa_bwd_dq<T, D>, dim3((a.Sq + BT - 1) / BT, a.Hq, a.B),
-                   smem_bytes(D, 4), s, a);
+  constexpr int BT = tile_rows(DK > DV ? DK : DV);
+  int err = launch(fa_bwd_dq<T, DK, DV>,
+                   dim3((a.Sq + BT - 1) / BT, a.Hq, a.B),
+                   smem_bytes(DK, DV, 2, 2), s, a);
   if (err != 0) return err;
-  return launch(fa_bwd_dkdv<T, D>, dim3((a.Sk + BT - 1) / BT, a.Hkv, a.B),
-                smem_bytes(D, 4), s, a);
+  return launch(fa_bwd_dkdv<T, DK, DV>,
+                dim3((a.Sk + BT - 1) / BT, a.Hkv, a.B),
+                smem_bytes(DK, DV, 2, 2), s, a);
 }
 
-template <int D>
+template <int DK, int DV>
 int dispatch(bool backward, int dtype, const Args& a, cudaStream_t s) {
-  if (dtype == 0) return backward ? bwd<float, D>(a, s) : fwd<float, D>(a, s);
+  if (dtype == 0)
+    return backward ? bwd<float, DK, DV>(a, s) : fwd<float, DK, DV>(a, s);
   if (dtype == 1)
-    return backward ? bwd<__nv_bfloat16, D>(a, s) : fwd<__nv_bfloat16, D>(a, s);
+    return backward ? bwd<__nv_bfloat16, DK, DV>(a, s)
+                    : fwd<__nv_bfloat16, DK, DV>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int run(bool backward, int D, int dtype, const Args& a, cudaStream_t s) {
-  switch (D) {
-    case 16: return dispatch<16>(backward, dtype, a, s);
-    case 32: return dispatch<32>(backward, dtype, a, s);
-    case 48: return dispatch<48>(backward, dtype, a, s);
-    case 64: return dispatch<64>(backward, dtype, a, s);
-    case 128: return dispatch<128>(backward, dtype, a, s);
-    case 256: return dispatch<256>(backward, dtype, a, s);
+int run(bool backward, int DK, int DV, int dtype, const Args& a,
+        cudaStream_t s) {
+  if (DK != DV) {
+    if (DK == 192 && DV == 128) return dispatch<192, 128>(backward, dtype, a, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (DK) {
+    case 16: return dispatch<16, 16>(backward, dtype, a, s);
+    case 32: return dispatch<32, 32>(backward, dtype, a, s);
+    case 48: return dispatch<48, 48>(backward, dtype, a, s);
+    case 64: return dispatch<64, 64>(backward, dtype, a, s);
+    case 128: return dispatch<128, 128>(backward, dtype, a, s);
+    case 256: return dispatch<256, 256>(backward, dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -487,12 +510,13 @@ int run(bool backward, int D, int dtype, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, out and the gradients share it);
-// D in {16, 32, 48, 64, 128, 256}.  Returns cudaGetLastError() after the launch.
+// (DK, DV) = (d, d) for d in {16, 32, 48, 64, 128, 256}, or (192, 128).
+// Returns cudaGetLastError() after the launch.
 extern "C" int k2_flash_fwd(const void* q, const void* k, const void* v,
                             const void* q_pos, const void* k_pos, void* out,
                             void* lse, int B, int Sq, int Sk, int Hq, int Hkv,
-                            int D, int causal, int window, float scale,
-                            int dtype, void* stream) {
+                            int DK, int DV, int causal, int window,
+                            float scale, int dtype, void* stream) {
   Args a = {};
   a.q = q; a.k = k; a.v = v;
   a.q_pos = static_cast<const int*>(q_pos);
@@ -500,7 +524,7 @@ extern "C" int k2_flash_fwd(const void* q, const void* k, const void* v,
   a.o = out; a.lse = static_cast<float*>(lse);
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv; a.group = Hq / Hkv;
   a.causal = causal; a.window = window; a.scale = scale;
-  return run(false, D, dtype, a, static_cast<cudaStream_t>(stream));
+  return run(false, DK, DV, dtype, a, static_cast<cudaStream_t>(stream));
 }
 
 // delta: float32 (B, Hq, Sq) scratch, written by the dq kernel and read by
@@ -510,7 +534,7 @@ extern "C" int k2_flash_bwd(const void* q, const void* k, const void* v,
                             const void* lse, const void* q_pos,
                             const void* k_pos, void* delta, void* dq,
                             void* dk, void* dv, int B, int Sq, int Sk, int Hq,
-                            int Hkv, int D, int causal, int window,
+                            int Hkv, int DK, int DV, int causal, int window,
                             float scale, int dtype, void* stream) {
   Args a = {};
   a.q = q; a.k = k; a.v = v; a.out = out; a.dout = dout;
@@ -521,5 +545,5 @@ extern "C" int k2_flash_bwd(const void* q, const void* k, const void* v,
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.Sq = Sq; a.Sk = Sk; a.Hq = Hq; a.Hkv = Hkv; a.group = Hq / Hkv;
   a.causal = causal; a.window = window; a.scale = scale;
-  return run(true, D, dtype, a, static_cast<cudaStream_t>(stream));
+  return run(true, DK, DV, dtype, a, static_cast<cudaStream_t>(stream));
 }

@@ -12,22 +12,31 @@
 // 0 <= pos <= cur (and cur - pos < window when windowed).  The running max
 // starts at -1e30, and p is masked again after the exponent so that a block
 // with no valid entry adds nothing.  Query rows group as q.reshape(B,nkv,g,dk).
-// Output (B,nq,dv) in q's dtype, or f32 (acc, m, l) with residuals.
+// q and the pools may differ in type: q f32 over bf16 pools is MLA's latent
+// decode (q = (absorbed q_nope, q_rope), 576 wide; k = (c_kv, k_rope), v =
+// c_kv, 512 wide; one kv head, g = the heads), which the reference computes
+// with every operand cast to f32.  All arithmetic is f32 here too.  Output
+// (B,nq,dv) in q's type, or f32 (acc, m, l) with residuals.
 //
 // Bound on an H100: bytes.  Each step reads every valid K/V entry once and
 // does 4*g flops per element read (QK and PV), far below the compute line.
 //
 // Design: the TPU grid walks table columns in order and carries (m, l, acc)
 // in VMEM between grid steps; Hopper blocks run in parallel with nothing
-// carried between them.  So one block per (slot, kv head) walks that slot's
-// table columns in a loop, reads tables[b, j] itself, stages the (block, dk)
-// K tile and (block, dv) V tile in shared memory as f32, and keeps (m, l,
-// acc) of its g query rows in shared memory across the loop.  Pool offsets
-// are 64-bit.  A column whose positions are all masked (the null block,
-// unwritten tails) is skipped before its K/V are read: in the online softmax
-// it would change nothing.  An id outside the pool is treated as masked.
-// B*nkv blocks (32 at B = 8 on tinyllama) on 132 SMs, one column at a time:
-// the split route spreads the columns over the card instead.
+// carried between them.  So one block per (slot, kv head, tile of at most
+// ROWS query rows) walks that slot's table columns in a loop, reads
+// tables[b, j] itself, stages the (block, dk) K tile and (block, dv) V tile
+// in shared memory as f32, and keeps (m, l, acc) of its rows in shared
+// memory across the loop.  The row tile bounds the shared memory, g * (dk +
+// dv) floats of q and acc, which at MLA's g = 128 would be 557 KB: at ROWS
+// = 8, dk 576, dv 512 and block 16 a block takes 105 KB (opted in above 48
+// KB), and MLA's 128 heads spread over 16 blocks a slot; each block writes
+// the (acc, m, l) of its own rows.  Pool offsets are 64-bit.  A column whose
+// positions are all masked (the null block, unwritten tails) is skipped
+// before its K/V are read: in the online softmax it would change nothing.
+// An id outside the pool is treated as masked.  B*nkv*ceil(g/ROWS) blocks
+// (32 at B = 8 on tinyllama) on 132 SMs, one column at a time: the split
+// route spreads the columns over the card instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +45,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
+constexpr int ROWS = 8;  // query rows of one kv head a block takes at most
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -46,33 +56,34 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
+                    const TP* __restrict__ v_pool,
                     const int* __restrict__ pos_pool,
                     const int* __restrict__ tables, const int* __restrict__ cur,
                     void* __restrict__ out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int nq, int nkv, int dk, int dv,
                     int block, int nb, int n_blocks, int window, float scale,
-                    int residuals) {
+                    int residuals, int rows) {
   const int b = blockIdx.x, h = blockIdx.y;
-  const int g = nq / nkv;
+  const int r0 = blockIdx.z * rows;                 // first row of the tile
+  const int g = min(rows, nq / nkv - r0);           // rows of this block
   const int tid = threadIdx.x, nt = blockDim.x;
 
   extern __shared__ float smem[];
-  float* qs = smem;              // g * dk   (pre-scaled queries)
-  float* ks = qs + g * dk;       // block * (dk + 1), rows padded vs bank conflicts
-  float* vs = ks + block * (dk + 1);  // block * dv
-  float* ps = vs + block * dv;   // g * block (scores, then probabilities)
-  float* acc = ps + g * block;   // g * dv
-  float* ms = acc + g * dv;      // g
-  float* ls = ms + g;            // g
-  float* alpha = ls + g;         // g
-  int* valid = reinterpret_cast<int*>(alpha + g);  // block
+  float* qs = smem;                  // rows * dk   (pre-scaled queries)
+  float* ks = qs + rows * dk;        // block * (dk + 1), rows padded vs bank conflicts
+  float* vs = ks + block * (dk + 1); // block * dv
+  float* ps = vs + block * dv;       // rows * block (scores, then probabilities)
+  float* acc = ps + rows * block;    // rows * dv
+  float* ms = acc + rows * dv;       // rows
+  float* ls = ms + rows;             // rows
+  float* alpha = ls + rows;          // rows
+  int* valid = reinterpret_cast<int*>(alpha + rows);  // block
 
   const int cur_b = cur[b];
-  const int64_t q_row0 = (int64_t)b * nq + (int64_t)h * g;
+  const int64_t q_row0 = (int64_t)b * nq + (int64_t)h * (nq / nkv) + r0;
   for (int i = tid; i < g * dk; i += nt) {
     qs[i] = to_f(q[q_row0 * dk + i]) * scale;
   }
@@ -152,7 +163,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     if (residuals) {
       static_cast<float*>(out)[o] = acc[i];
     } else {
-      static_cast<T*>(out)[o] = from_f<T>(acc[i] / fmaxf(ls[r], 1e-30f));
+      static_cast<TQ*>(out)[o] = from_f<TQ>(acc[i] / fmaxf(ls[r], 1e-30f));
     }
   }
   if (m_out != nullptr) {
@@ -163,36 +174,50 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T>
+size_t smem_bytes(int rows, int dk, int dv, int block) {
+  return sizeof(float) * ((size_t)rows * dk + (size_t)block * (dk + 1) +
+                          (size_t)block * dv + (size_t)rows * block +
+                          (size_t)rows * dv + 3 * (size_t)rows) +
+         sizeof(int) * (size_t)block;
+}
+
+template <typename TQ, typename TP>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* pos_pool, const void* tables, const void* cur,
            void* out, void* m_out, void* l_out, int B, int nq, int nkv, int dk,
            int dv, int block, int nb, int n_blocks, int window, float scale,
            int residuals, cudaStream_t stream) {
   const int g = nq / nkv;
-  const size_t smem = sizeof(float) * ((size_t)g * dk + (size_t)block * (dk + 1) +
-                                       (size_t)block * dv + (size_t)g * block +
-                                       (size_t)g * dv + 3 * (size_t)g) +
-                      sizeof(int) * (size_t)block;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rows = g < ROWS ? g : ROWS;
+  while (rows > 1 && smem_bytes(rows, dk, dv, block) > (size_t)optin)
+    rows = (rows + 1) / 2;
+  const size_t smem = smem_bytes(rows, dk, dv, block);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    err = cudaFuncSetAttribute(paged_decode_kernel<TQ, TP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(B, nkv);
-  paged_decode_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(pos_pool),
+  const dim3 grid(B, nkv, (g + rows - 1) / rows);
+  paged_decode_kernel<TQ, TP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
+      static_cast<const TP*>(v_pool), static_cast<const int*>(pos_pool),
       static_cast<const int*>(tables), static_cast<const int*>(cur), out,
       static_cast<float*>(m_out), static_cast<float*>(l_out), nq, nkv, dk, dv,
-      block, nb, n_blocks, window, scale, residuals);
+      block, nb, n_blocks, window, scale, residuals, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k_pool and v_pool share it).  out is f32
+// q_dtype, pool_dtype: 0 float32, 1 bfloat16 (k_pool and v_pool share the
+// pool's; q bfloat16 over float32 pools is not instantiated).  out is f32
 // when residuals != 0, else q's dtype; m_out / l_out (f32, (B,nq)) may be
 // null.  Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int k4_paged_decode(const void* q, const void* k_pool,
@@ -200,18 +225,23 @@ extern "C" int k4_paged_decode(const void* q, const void* k_pool,
                                const void* tables, const void* cur, void* out,
                                void* m_out, void* l_out, int B, int nq, int nkv,
                                int dk, int dv, int block, int nb, int n_blocks,
-                               int window, float scale, int dtype,
-                               int residuals, void* stream) {
+                               int window, float scale, int q_dtype,
+                               int pool_dtype, int residuals, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch<float>(q, k_pool, v_pool, pos_pool, tables, cur, out, m_out,
-                         l_out, B, nq, nkv, dk, dv, block, nb, n_blocks,
-                         window, scale, residuals, s);
+  if (q_dtype == 0 && pool_dtype == 0) {
+    return launch<float, float>(q, k_pool, v_pool, pos_pool, tables, cur, out,
+                                m_out, l_out, B, nq, nkv, dk, dv, block, nb,
+                                n_blocks, window, scale, residuals, s);
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, pos_pool, tables, cur, out,
-                                 m_out, l_out, B, nq, nkv, dk, dv, block, nb,
-                                 n_blocks, window, scale, residuals, s);
+  if (q_dtype == 1 && pool_dtype == 1) {
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, pos_pool, tables, cur, out, m_out, l_out, B, nq,
+        nkv, dk, dv, block, nb, n_blocks, window, scale, residuals, s);
+  }
+  if (q_dtype == 0 && pool_dtype == 1) {
+    return launch<float, __nv_bfloat16>(
+        q, k_pool, v_pool, pos_pool, tables, cur, out, m_out, l_out, B, nq,
+        nkv, dk, dv, block, nb, n_blocks, window, scale, residuals, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

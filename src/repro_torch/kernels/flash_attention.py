@@ -14,8 +14,9 @@ Every attention over a whole sequence goes through it
 TPU kernel has no backward (JAX differentiates the jnp function); here the
 backward is a kernel too.
 
-    q (b, sq, nq, d), k and v (b, sk, nkv, d), q_pos (b, sq), k_pos (sk,)
-    forward   -> out (b, sq, nq, d) in q's dtype, lse (b, nq, sq) f32 saved
+    q (b, sq, nq, dk), k (b, sk, nkv, dk), v (b, sk, nkv, dv), q_pos (b, sq),
+    k_pos (sk,); dv = dk, or (dk, dv) = (192, 128), MLA's training shape
+    forward   -> out (b, sq, nq, dv) in q's dtype, lse (b, nq, sq) f32 saved
     backward  (q, k, v, out, dout, lse) -> dq, dk, dv, with P recomputed
               and delta = rowsum(dout * out)
 
@@ -35,10 +36,12 @@ picks one of two designs:
   tile, summing the GQA group), no atomics; dS enters its two products in
   bf16, where the plain version keeps it in f32.
 - ``simt`` (``csrc/flash_attention.cu``): f32, where tensor cores would
-  round to TF32, bf16 at d in (16, 32, 48, 256), and bf16 that TMA cannot
-  describe.  64 x 64 f32 tiles in shared memory (32 x 32 at d = 256,
-  where four 64-row f32 tiles of the backward would not fit), f32 FMA on
-  CUDA cores, the same tile skipping and the same two backward passes.
+  round to TF32, bf16 at d in (16, 32, 48, 256), MLA's dk 192 / dv 128,
+  and bf16 that TMA cannot describe.  64 x 64 f32 tiles in shared memory
+  (32 x 32 at d = 256 and at dk 192, where four 64-row f32 tiles of the
+  backward would not fit), f32 FMA on CUDA cores, the same tile skipping
+  and the same two backward passes; QK and dK run over dk, PV, dP, dV and
+  delta over dv.
 
 This is a choice between kernels by dtype and shape, not a fallback: a
 failed build or launch raises, and no bf16 attention of the model's main
@@ -63,6 +66,8 @@ F32 = torch.float32
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 48, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128)
+# the (dk, dv) pairs the simt kernels are instantiated for
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("tc", "simt")
 
@@ -140,18 +145,19 @@ def flash_attention_fwd_plain(q, k, v, q_pos, k_pos, *, causal=True,
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos, k_pos, *,
                               causal=True, window=0, logit_scale=None):
     """The plain version of the backward kernels, the same arithmetic:
-    ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    ``(dq, dk, dv)`` in the dtypes of q, k and v; dout and out carry v's
+    last dim."""
     b, sq, nq, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
+    sk, nkv, dv_ = k.shape[1], k.shape[2], v.shape[-1]
     g = nq // nkv
     scale = _scale(d, logit_scale)
     qf = (q.to(F32) * scale).reshape(b, sq, nkv, g, d)
     kf, vf = k.to(F32), v.to(F32)
-    dof = dout.to(F32).reshape(b, sq, nkv, g, d)
+    dof = dout.to(F32).reshape(b, sq, nkv, g, dv_)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
     mask = _allowed(q_pos, k_pos, causal, window)[:, None, None]
     p = torch.where(mask, torch.exp(s - lse.reshape(b, nkv, g, sq, 1)), 0.0)
-    delta = (dof * out.to(F32).reshape(b, sq, nkv, g, d)).sum(-1)
+    delta = (dof * out.to(F32).reshape(b, sq, nkv, g, dv_)).sum(-1)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(v.dtype).to(F32), dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
     ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
@@ -161,12 +167,15 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos, k_pos, *,
             dv.to(v.dtype))
 
 
-def route(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The kernels that compute an attention of head dim ``d``: ``"tc"`` or
-    ``"simt"`` (module docstring).  ``aligned``: q, k, v (and out, dout for
-    the backward) start on 16 bytes, as TMA needs; their row strides,
-    heads x d x 2 bytes, are then multiples of 16 too."""
-    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS and aligned:
+def route(dtype: torch.dtype, d: int, aligned: bool,
+          dv: int = None) -> str:
+    """The kernels that compute an attention of head dims ``d`` (q and k)
+    and ``dv`` (v, ``d`` when None): ``"tc"`` or ``"simt"`` (module
+    docstring).  ``aligned``: q, k, v (and out, dout for the backward)
+    start on 16 bytes, as TMA needs; their row strides, heads x d x 2
+    bytes, are then multiples of 16 too."""
+    if (dtype == torch.bfloat16 and d in TC_HEAD_DIMS
+            and (dv is None or dv == d) and aligned):
         return "tc"
     return "simt"
 
@@ -175,7 +184,8 @@ def route_for(q: torch.Tensor, *tensors: torch.Tensor) -> str:
     """``route`` for these operands, the alignment read off the pointers (a
     contiguous view may start anywhere)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, *tensors))
-    return route(q.dtype, q.shape[-1], aligned)
+    return route(q.dtype, q.shape[-1], aligned, tensors[1].shape[-1]
+                 if len(tensors) > 1 else None)
 
 
 def _way(force, q, *tensors) -> str:
@@ -186,9 +196,9 @@ def _way(force, q, *tensors) -> str:
         return way
     if force == "tc":
         raise ValueError(
-            f"K2 flash attention: the tc route takes bfloat16 with d in "
-            f"{TC_HEAD_DIMS} and tensors starting on 16 bytes, got {q.dtype} "
-            f"d={q.shape[-1]}")
+            f"K2 flash attention: the tc route takes bfloat16 with dk = dv "
+            f"in {TC_HEAD_DIMS} and tensors starting on 16 bytes, got "
+            f"{q.dtype} dk={q.shape[-1]} dv={tensors[1].shape[-1]}")
     return force
 
 
@@ -201,18 +211,18 @@ def _check_force(force):
 @functools.cache
 def _lib(way: str, backward: bool):
     """The C entry point of route ``way``: its pointers, then B, Sq, Sk,
-    Hq, Hkv, D, causal, window, the scale, (simt: the dtype,) the
-    stream."""
+    Hq, Hkv, D (simt: DK, DV), causal, window, the scale, (simt: the
+    dtype,) the stream."""
     if way == "tc":
         lib = _build.library("flash_attention_hopper")
         fn = lib.k2_tc_backward if backward else lib.k2_tc_forward
-        tail = [ctypes.c_float]
+        ints, tail = 8, [ctypes.c_float]
     else:
         lib = _build.library("flash_attention")
         fn = lib.k2_flash_bwd if backward else lib.k2_flash_fwd
-        tail = [ctypes.c_float, ctypes.c_int]
+        ints, tail = 9, [ctypes.c_float, ctypes.c_int]
     fn.argtypes = ([ctypes.c_void_p] * (12 if backward else 7)
-                   + [ctypes.c_int] * 8 + tail + [ctypes.c_void_p])
+                   + [ctypes.c_int] * ints + tail + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -224,20 +234,21 @@ def _check(q, k, v, q_pos, k_pos, *grads):
                         f" v {v.dtype}")
     if q_pos.dtype != torch.int32 or k_pos.dtype != torch.int32:
         raise TypeError("K2 flash attention: q_pos and k_pos must be int32")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"K2 flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
-                         "(b, sq, nq, d) and two (b, sk, nkv, d)")
+                         "(b, sq, nq, dk), (b, sk, nkv, dk), (b, sk, nkv, dv)")
     b, sq, nq, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    if (k.shape[0] != b or k.shape[3] != d or d not in HEAD_DIMS
+    sk, nkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[0] != b or k.shape[3] != d or (d, dv) not in HEAD_DIM_PAIRS
             or nkv == 0 or nq % nkv or tuple(q_pos.shape) != (b, sq)
             or tuple(k_pos.shape) != (sk,)):
         raise ValueError(
             f"K2 flash attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"q_pos {tuple(q_pos.shape)}, k_pos {tuple(k_pos.shape)}; needs "
-            f"d in {HEAD_DIMS}, nq divisible by nkv, q_pos (b, sq), k_pos "
-            "(sk,)")
+            f"v {tuple(v.shape)}, q_pos {tuple(q_pos.shape)}, k_pos "
+            f"{tuple(k_pos.shape)}; needs (dk, dv) in {HEAD_DIM_PAIRS}, nq "
+            "divisible by nkv, q_pos (b, sq), k_pos (sk,)")
     if b > 65535 or nq > 65535 or max(sq, sk) * nq * d >= 2 ** 31:
         raise ValueError("K2 flash attention: a dimension is too large")
     for t in (q, k, v, q_pos, k_pos, *grads):
@@ -257,14 +268,16 @@ def flash_attention_fwd(q, k, v, q_pos, k_pos, *, causal=True, window=0,
                                          logit_scale=logit_scale)
     _check(q, k, v, q_pos, k_pos)
     b, sq, nq, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    sk, nkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty((b, sq, nq, dv))
     lse = torch.empty((b, nq, sq), dtype=F32, device=q.device)
     way = _way(force, q, k, v, out)
     if q.numel() and sk:
+        dims = [d] if way == "tc" else [d, dv]
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                 k_pos.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk,
-                nq, nkv, d, int(causal), int(window), _scale(d, logit_scale)]
+                nq, nkv, *dims, int(causal), int(window),
+                _scale(d, logit_scale)]
         if way == "simt":
             args.append(_DTYPES[q.dtype])
         with torch.cuda.device(q.device):
@@ -290,11 +303,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos, *,
                                          logit_scale=logit_scale)
     _check(q, k, v, q_pos, k_pos, out, dout)
     b, sq, nq, d = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    if out.shape != q.shape or dout.shape != q.shape or lse.dtype != F32 \
-            or tuple(lse.shape) != (b, nq, sq) or not lse.is_contiguous():
+    sk, nkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if out.shape != (b, sq, nq, dv) or dout.shape != out.shape \
+            or lse.dtype != F32 or tuple(lse.shape) != (b, nq, sq) \
+            or not lse.is_contiguous():
         raise ValueError("K2 flash attention backward: out and dout must be "
-                         "shaped as q, lse float32 (b, nq, sq)")
+                         "(b, sq, nq, dv), lse float32 (b, nq, sq)")
     way = _way(force, q, k, v, out, dout)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or sk == 0:
@@ -303,8 +317,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos, *,
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
             k_pos.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, nq, nkv, d, int(causal), int(window),
-            _scale(d, logit_scale)]
+            dv.data_ptr(), b, sq, sk, nq, nkv,
+            *([d] if way == "tc" else [d, v.shape[3]]), int(causal),
+            int(window), _scale(d, logit_scale)]
     if way == "simt":
         args.append(_DTYPES[q.dtype])
     with torch.cuda.device(q.device):

@@ -42,9 +42,11 @@ kernels:
   partials; a second kernel combines them in split order and, in
   ``paged_flash_decode_step``, folds in the current token and normalises;
 - ``simt`` (``csrc/paged_decode.cu``, the first port's kernel): f32,
-  dv != dk, and the other shapes ``split`` does not take.  One CTA per
-  (slot, kv head) walks the slot's columns; its step entry folds the
-  current token in PyTorch (``fold_current_token``).
+  dv != dk, q f32 over bf16 pools (MLA's latent decode: one kv head of dk
+  576 and dv 512, a group of all the heads), and the other shapes
+  ``split`` does not take.  One CTA per (slot, kv head, tile of at most 8
+  query rows) walks the slot's columns; its step entry folds the current
+  token in PyTorch (``fold_current_token``).
 
 This is a choice between kernels by shape, not a fallback: each route is
 a kernel of its own, and no bf16 decode step of tinyllama-1.1b takes
@@ -262,8 +264,8 @@ def _simt():
     lib = _build.library("paged_decode")
     fn = lib.k4_paged_decode
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -312,10 +314,12 @@ def split_grid(q, k_pool, tables, block: int):
 
 
 def _check(q, k_pool, v_pool, pos_pool, tables, cur, block):
-    if q.dtype not in _DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise TypeError(f"K4 paged decode takes float32 or bfloat16 q/k/v of "
-                        f"one dtype, got {q.dtype}, {k_pool.dtype}, "
+    if (q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES
+            or v_pool.dtype != k_pool.dtype
+            or (q.dtype != k_pool.dtype and q.dtype != torch.float32)):
+        raise TypeError(f"K4 paged decode takes float32 or bfloat16 pools of "
+                        f"one dtype and q of theirs or float32 (MLA's latent "
+                        f"decode), got {q.dtype}, {k_pool.dtype}, "
                         f"{v_pool.dtype}")
     for name, t in (("pos_pool", pos_pool), ("tables", tables), ("cur", cur)):
         if t.dtype != torch.int32:
@@ -385,7 +389,7 @@ def _run_simt(q, k_pool, v_pool, pos_pool, tables, cur, block, window,
                       l.data_ptr() if l is not None else None,
                       B, nq, nkv, dk, dv, block, tables.shape[1],
                       phys // block, window, scale, _DTYPES[q.dtype],
-                      int(residuals), stream)
+                      _DTYPES[k_pool.dtype], int(residuals), stream)
     _build.check_launch("K4 paged decode (simt)", err)
     _count("simt", False)
     return (out, m, l) if residuals else out

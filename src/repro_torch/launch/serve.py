@@ -14,7 +14,8 @@ target's own arch is the target itself, as in the reference);
 ``--ckpt-dir`` then restores the target's parameters from the latest step
 saved there by either package's train launcher (reference
 ``repro/launch/serve.py:108-114``).  Exits nonzero when no tokens were
-produced.
+produced; returns the engine's stats with each request's tokens under
+``outputs``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (mixtral-8x7b "
-                         "holds 16 of its 32 on an 80 GB card)")
+                         "holds 16 of its 32 on an 80 GB card; deepseek-v3 "
+                         "at 4 is its 3 dense layers and one MoE layer)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
@@ -170,7 +172,7 @@ def main(argv=None) -> dict:
         print(f"trace: wrote {args.trace} (+ {args.trace}.jsonl)")
     if stats["tokens"] <= 0:
         sys.exit("no tokens generated")
-    return stats
+    return dict(stats, outputs=[r.out for r in reqs])
 
 
 if __name__ == "__main__":

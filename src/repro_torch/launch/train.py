@@ -3,13 +3,16 @@
 
 The flags of ``repro.launch.train`` plus ``--device {cuda,cpu}`` (default
 cuda; with no card it exits with a message and never falls back to the
-CPU).  It trains the dense, MoE (mixtral, Moonlight), hybrid (zamba2) and
-SSM (xlstm) families on one device, the cube (1, 1, 1) at pp = 1 and
-dp = 1, with AdamW; the flags of what the port does not carry (more than
-one device, the 1-D/2-D baselines, overlap, ZeRO, Adafactor, MLA and the
-mtp head, the vlm/audio families) raise with a pointer to ROADMAP.md.
+CPU).  It trains the dense, MoE (mixtral, Moonlight, deepseek-v3 with MLA
+and the mtp head), hybrid (zamba2) and SSM (xlstm) families on one device,
+the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW; the flags of what the
+port does not carry (more than one device, the 1-D/2-D baselines,
+overlap, ZeRO, Adafactor, the vlm/audio families) raise with a pointer to
+ROADMAP.md.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
-and ``--d-model`` cut them).  It prints the reference launcher's lines
+and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
+many leading layers are dense and ``--experts`` cuts the routed experts, so
+that deepseek-v3 fits one card as [dense, moe] with 16 experts).  It prints the reference launcher's lines
 (``arch=... plan=...``, ``params: ...M``, ``step N loss=... xent=...
 lr=... gnorm=... s/step``, ``done: first loss ...``) and returns
 {"losses", "telemetry", "start"}.
@@ -39,16 +42,16 @@ def _refuse(args, cfg):
     bad = []
     if args.dp > 1 or args.model > 1 or args.pp > 1 or args.host_devices:
         bad.append("more than one device (--dp/--model/--pp/--host-devices;"
-                   " 'Multi-rank islands', items 1-2 and 9)")
+                   " items 3 and 7)")
     if args.strategy != "3d":
         bad.append(f"--strategy {args.strategy} (the 1-D/2-D baselines, "
-                   "item 3)")
+                   "item 4)")
     if args.overlap:
-        bad.append("--overlap (async-TP overlap, item 8)")
+        bad.append("--overlap (async-TP overlap, item 9)")
     if args.zero >= 1:
-        bad.append(f"--zero {args.zero} (ZeRO over dp, item 6)")
+        bad.append(f"--zero {args.zero} (ZeRO over dp, item 5)")
     if args.optimizer != "adamw":
-        bad.append(f"--optimizer {args.optimizer} (Adafactor, item 6)")
+        bad.append(f"--optimizer {args.optimizer} (Adafactor, item 5)")
     reason = unported_reason(cfg)
     if reason:
         bad.append(reason)
@@ -78,6 +81,10 @@ def main(argv=None) -> dict:
                     help="use the smoke-test reduced variant")
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--d-model", type=int, default=0)
+    ap.add_argument("--dense-layers", type=int, default=-1,
+                    help="MoE family: leading dense layers (first_k_dense)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="MoE family: routed experts (top-k stays)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--optimizer", default="adamw")
@@ -122,6 +129,11 @@ def main(argv=None) -> dict:
         changes["n_layers"] = args.layers
     if args.d_model:
         changes["d_model"] = args.d_model
+    if cfg.moe is not None and (args.experts or args.dense_layers >= 0):
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=args.experts or cfg.moe.n_experts,
+            first_k_dense=(args.dense_layers if args.dense_layers >= 0
+                           else cfg.moe.first_k_dense))
     if changes:
         cfg = dataclasses.replace(cfg, **changes)
     _refuse(args, cfg)
@@ -192,8 +204,9 @@ def main(argv=None) -> dict:
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = (time.time() - t0) / (step - start + 1)
-            print(f"step {step + 1:5d} loss={loss:8.4f} "
-                  f"xent={float(metrics['xent']):8.4f} "
+            parts = "".join(f"{k}={float(metrics[k]):8.4f} "
+                            for k in ("xent", "aux", "mtp") if k in metrics)
+            print(f"step {step + 1:5d} loss={loss:8.4f} {parts}"
                   f"lr={float(metrics['lr']):.2e} "
                   f"gnorm={float(metrics['gnorm']):7.3f} "
                   f"{dt:6.2f}s/step", flush=True)

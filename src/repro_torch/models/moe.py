@@ -51,6 +51,7 @@ from ..config import ModelConfig
 from ..core.params import Param
 from ..core.topology import Dirs, Layout
 from . import blocks as B
+from . import mla
 
 F32 = torch.float32
 DROPS: Optional[list] = None
@@ -187,21 +188,33 @@ def moe_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
 
 
 def moe_block_params(cfg: ModelConfig):
-    """One MoE layer (reference ``registry.py:286-294``, MLA not ported)."""
-    return {"ln1": B.norm_params(cfg, cfg.d_model),
-            "ln2": B.norm_params(cfg, cfg.d_model),
-            "moe": moe_params(cfg), "attn": B.attn_params(cfg)}
+    """One MoE layer (reference ``registry.py:286-294``): MLA attention
+    where the config has it (deepseek-v3), else the dense attention."""
+    p = {"ln1": B.norm_params(cfg, cfg.d_model),
+         "ln2": B.norm_params(cfg, cfg.d_model), "moe": moe_params(cfg)}
+    if cfg.mla is not None:
+        p["mla"] = mla.mla_params(cfg)
+    else:
+        p["attn"] = B.attn_params(cfg)
+    return p
 
 
 def moe_block_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
                     positions, *, decode=False, cache=None, return_kv=False,
                     page=None):
     """Attention then the experts (reference ``registry.py:297-313``).
-    Returns (x, new_cache, aux), new_cache as ``blocks.attn_apply``'s."""
+    Returns (x, new_cache, aux), new_cache as ``blocks.attn_apply``'s or
+    ``mla.mla_apply``'s."""
     h = B.apply_norm(cfg, x, p["ln1"])
-    a, new_cache = B.attn_apply(layout, cfg, dirs, h, p["attn"], positions,
-                                window=cfg.window, decode=decode, cache=cache,
-                                return_kv=return_kv, page=page)
+    if "mla" in p:
+        a, new_cache = mla.mla_apply(layout, cfg, dirs, h, p["mla"],
+                                     positions, decode=decode, cache=cache,
+                                     collect_kv=return_kv, page=page)
+    else:
+        a, new_cache = B.attn_apply(layout, cfg, dirs, h, p["attn"],
+                                    positions, window=cfg.window,
+                                    decode=decode, cache=cache,
+                                    return_kv=return_kv, page=page)
     x = x + a
     h = B.apply_norm(cfg, x, p["ln2"])
     y, aux = moe_apply(layout, cfg, dirs, h, p["moe"], decode=decode)

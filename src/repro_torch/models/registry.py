@@ -6,8 +6,8 @@ microbatch weight, and the train-FLOPs estimate that is the MFU numerator
 (``obs/telemetry.py``).  The reference module
 imports jax, so the port keeps its own copies; ``tests/test_torch_train.py``,
 ``tests/test_torch_ssm.py`` and ``tests/test_torch_moe.py`` hold them equal
-to the originals.  Of the MoE family, MLA attention and the
-multi-token-prediction head (deepseek-v3-671b) are not ported yet.
+to the originals.  The MoE family includes deepseek-v3-671b: MLA
+attention (``models/mla.py``) and the multi-token-prediction head.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from ..config import Family, ModelConfig
 from .blocks import kv_cache_init
 from .mamba2 import mamba_cache_init
+from .mla import mla_cache_init
 from .xlstm import mlstm_cache_init, slstm_cache_init
 
 PORTED = (Family.DENSE, Family.MOE, Family.HYBRID, Family.SSM)
@@ -30,9 +31,6 @@ def unported_reason(cfg: ModelConfig):
         return (f"{cfg.arch}: family {cfg.family.value!r} is not ported yet; "
                 "the port runs the dense, MoE, hybrid and SSM families "
                 "(ROADMAP.md, Queue 1 item 10)")
-    if cfg.mla is not None or cfg.mtp:
-        return (f"{cfg.arch}: MLA attention and the multi-token-prediction "
-                "head are not ported yet (ROADMAP.md, Queue 1 item 10)")
     return None
 
 
@@ -104,8 +102,11 @@ def segments(plan) -> Tuple[Tuple[str, int], ...]:
 
 def _attn_cache(cfg: ModelConfig, batch: int, length: int):
     """One attention layer's contiguous cache: ``L = min(length, window)``
-    (reference ``registry.py:274-278``)."""
+    (reference ``registry.py:274-278``), MLA's latent cache where the
+    config has MLA."""
     L = min(length, cfg.window) if cfg.window else length
+    if cfg.mla is not None:
+        return mla_cache_init(cfg, batch, L)
     return kv_cache_init(cfg, batch, L)
 
 

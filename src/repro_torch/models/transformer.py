@@ -12,7 +12,10 @@ one device and pp = 1.  The dense family's:
     head                                                    (d, vocab)
 
 (plus ``ln*.b`` for LayerNorm configs, ``attn.{q,k}_norm`` with qk-norm, and
-no ``w_gate`` for a plain GELU MLP).  The MoE family has
+no ``w_gate`` for a plain GELU MLP).  With MLA (deepseek-v3) each block has
+``mla.{w_dq, q_ln, w_uq, w_dkv, kv_ln, w_ukv, w_o}`` in place of ``attn``,
+and the mtp head adds ``mtp.{ln_h, ln_e, proj, block}``, one MLA block with
+the dense MLP.  The MoE family has
 ``stack.moe.{ln1.g, ln2.g, moe.{w_router, w1, w2, w3, shared.{w_up,
 w_down, w_gate}}, attn.{...}}`` (L - first_k_dense, ...), the router in
 f32, and its ``first_k_dense`` leading layers as ``stack.dense`` with the
@@ -30,7 +33,8 @@ differentiable in every parameter: embedding, the layer plan (dense
 blocks, MoE blocks, zamba2's Mamba2 blocks and its shared attention
 block, or xlstm's mLSTM and sLSTM blocks; each block recomputed in the
 backward when ``cfg.remat``), ``ln_f`` and the chunked vocab-parallel head
-and cross-entropy, plus the MoE blocks' router losses (``aux``).  Serving:
+and cross-entropy, plus the MoE blocks' router losses (``aux``) and, with
+the mtp head, 0.1 of its loss (``mtp``).  Serving:
 ``prefill`` runs
 whole right-padded prompts and hands their rope'd (k, v) to the paged
 pool; ``forward(mode="decode")`` advances every slot by one token, against
@@ -57,16 +61,25 @@ from ..config import Family, ModelConfig
 from ..core.linear3d import embed_lookup, plinear
 from ..core.params import Param, tree_map
 from ..core.topology import Dirs, Layout
+from ..core import ops3d
 from . import blocks as B
-from . import mamba2, moe, xlstm
+from . import mamba2, mla, moe, xlstm
 from .registry import (KV_KINDS, SHARED_KINDS, layer_plan, segments,
                        stack_cache, text_labels)
+
+
+def _attn_block_params(cfg: ModelConfig, d_ff: int = 0):
+    """A dense block, its attention MLA where the config has it
+    (reference ``registry.py:231-237``)."""
+    if cfg.mla is not None:
+        return mla.mla_block_params(cfg, d_ff)
+    return B.dense_block_params(cfg, d_ff)
 
 
 def _dense_params(cfg: ModelConfig):
     """The MoE family's leading dense layers take ``dense_ff`` (reference
     ``registry.py:281-283``)."""
-    return B.dense_block_params(
+    return _attn_block_params(
         cfg, cfg.moe.dense_ff if cfg.family == Family.MOE else 0)
 
 
@@ -101,6 +114,13 @@ def abstract_params(cfg: ModelConfig):
                      for kind, fn in STACKED_KINDS.items() if kind in plan}
     tree["ln_f"] = B.norm_params(cfg, d)
     tree["head"] = Param((d, cfg.vocab))
+    if cfg.mtp:
+        # reference transformer.py:71-79: the proj is a noswap linear
+        tree["mtp"] = {
+            "ln_h": B.norm_params(cfg, d), "ln_e": B.norm_params(cfg, d),
+            "proj": Param((2 * d, d)),
+            "block": _attn_block_params(
+                cfg, cfg.moe.dense_ff if cfg.moe else cfg.d_ff)}
     return tree
 
 
@@ -138,8 +158,15 @@ def _kv_block(kind, layout, cfg, dirs, x, p, positions, **kw):
     MoE block's router losses, or None for a dense block."""
     if kind == "moe":
         return moe.moe_block_apply(layout, cfg, dirs, x, p, positions, **kw)
-    return (*B.dense_block_apply(layout, cfg, dirs, x, p, positions, **kw),
+    return (*_attn_block_apply(layout, cfg, dirs, x, p, positions, **kw),
             None)
+
+
+def _attn_block_apply(layout, cfg, dirs, x, p, positions, **kw):
+    """(x, new_cache) of a dense block, MLA or not (reference
+    ``registry.py:240-258``)."""
+    fn = mla.mla_block_apply if "mla" in p else B.dense_block_apply
+    return fn(layout, cfg, dirs, x, p, positions, **kw)
 
 
 def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
@@ -154,12 +181,13 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
 
     Returns (x, new_cache, aux), ``aux`` the f32 sum of the MoE blocks'
     router losses (None when the plan has none).  ``new_cache``: paged decode
-    (``page``) -> {kind: {"k", "v", "pos"}} for each kv kind ("dense",
-    "moe"), each layer's new entries stacked; contiguous decode -> the
+    (``page``) -> {kind: {"k", "v", "pos"}} (MLA: {"c_kv", "k_rope",
+    "pos"}) for each kv kind ("dense", "moe"), each layer's new entries
+    stacked; contiguous decode -> the
     ``cache`` tree itself, written in place (attention entries, Mamba
     state and conv tails; the shared kind's slab holds one cache per use);
     prefill or extend with ``collect_kv`` -> {kind: (k, v)} stacked
-    (n_layers of the kind, B, S, nkv, d).  Prefill and extend take the
+    (n_layers of the kind, B, S, nkv, d), MLA's {kind: (c_kv, k_rope)}.  Prefill and extend take the
     dense and MoE families only: a recurrent state has no chunked form, so
     the hybrid and SSM families prefill one token a step through decode."""
     plan = layer_plan(cfg)
@@ -268,7 +296,8 @@ def chunked_head_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, x,
 
 def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
             cache=None, page=None):
-    """mode='train' -> (loss, {"xent", "aux"}) for ``batch`` {"tokens":
+    """mode='train' -> (loss, {"xent", "aux"} and "mtp" with the mtp head)
+    for ``batch`` {"tokens":
     (B, S), "labels": (B, S)}, labels < 0 masked out (reference
     ``transformer.py:177-242``).
 
@@ -296,10 +325,6 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
 
 
 def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
-    if cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.arch}: the multi-token-prediction head is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
     dirs = entry_dirs()
     tokens = batch["tokens"]
     x = embed(layout, cfg, dirs, params, tokens)
@@ -313,7 +338,35 @@ def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
     labels, mask = text_labels(batch)
     xent = chunked_head_loss(cfg, layout, dirs, x, labels.clamp_min(0).long(),
                              mask, params["head"])
-    return xent + aux, {"xent": xent, "aux": aux}
+    metrics = {"xent": xent, "aux": aux}
+    loss = xent + aux
+    if cfg.mtp:
+        metrics["mtp"] = _mtp_loss(cfg, layout, dirs, params, x, batch,
+                                   positions)
+        loss = loss + 0.1 * metrics["mtp"]
+    return loss, metrics
+
+
+def _mtp_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, params, h,
+              batch, positions):
+    """DeepSeek's multi-token prediction (reference
+    ``transformer.py:294-317``): predict token t + 2 from (h_t, the
+    embedding of token t + 1) through one more block and the shared
+    head."""
+    p = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    nxt = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    e = embed_lookup(layout, dirs, nxt, params["embed"])
+    cat = torch.cat([B.apply_norm(cfg, h, p["ln_h"]),
+                     B.apply_norm(cfg, e, p["ln_e"])], dim=-1)
+    z = ops3d.matmul3d_noswap(layout, dirs.in_ax, dirs.out_ax, cat,
+                              p["proj"])
+    z, _ = _attn_block_apply(layout, cfg, dirs, z, p["block"], positions)
+    z = B.apply_norm(cfg, z, params["ln_f"])
+    lab2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, -1:], -1)],
+                     dim=1)
+    return chunked_head_loss(cfg, layout, dirs, z, lab2.clamp_min(0).long(),
+                             (lab2 >= 0).float(), params["head"])
 
 
 def prefill(cfg: ModelConfig, layout: Layout, params, batch):
@@ -352,6 +405,10 @@ def extend(cfg: ModelConfig, layout: Layout, params, batch, view):
         raise ValueError(
             f"extend: family {cfg.family} serves with recurrent state, not a "
             "kv view; only 'paged' families support multi-token continuation")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            "extend: MLA latent caches have no gathered-view continuation "
+            "path yet; serve MLA models without --prefix-cache/--draft")
     dirs = entry_dirs()
     tokens = batch["tokens"]
     x = embed(layout, cfg, dirs, params, tokens)
@@ -375,11 +432,12 @@ def abstract_cache(cfg: ModelConfig, layout: Layout, batch: int,
 
 def pack_prefill_cache(cfg: ModelConfig, collected, pos2d):
     """Shape the kv collected by ``prefill`` into pool updates
-    (reference ``registry.py:570-593``): {kind: {"k", "v", "pos"}} with
-    leaves (n_layers, B, S, ...); ``pos2d`` (B, S) holds the logical
-    positions, -1 on padding lanes."""
+    (reference ``registry.py:570-593``): {kind: {"k", "v", "pos"}} (MLA's
+    latents: {"c_kv", "k_rope", "pos"}) with leaves (n_layers, B, S, ...);
+    ``pos2d`` (B, S) holds the logical positions, -1 on padding lanes."""
+    keys = ("c_kv", "k_rope") if cfg.mla is not None else ("k", "v")
     out = {}
-    for kname, (k, v) in collected.items():
-        pos = pos2d[None].to(torch.int32).expand(k.shape[0], *pos2d.shape)
-        out[kname] = {"k": k, "v": v, "pos": pos}
+    for kname, (a, b) in collected.items():
+        pos = pos2d[None].to(torch.int32).expand(a.shape[0], *pos2d.shape)
+        out[kname] = {keys[0]: a, keys[1]: b, "pos": pos}
     return out

@@ -142,7 +142,8 @@ class TrainTelemetry:
             "mem_peak_bytes": mem,
             "nonfinite": self.nonfinite,
             "series": {k: [r.get(k) for r in self.records]
-                       for k in ("loss", "gnorm", "t_step")},
+                       for k in ("loss", "xent", "aux", "mtp", "gnorm",
+                                 "t_step")},
         }
 
     def write(self, path: str):

@@ -7,7 +7,7 @@ parameter updated in f32 and cast back.  The port updates parameters and
 moments in place, one layer slice of a stacked leaf at a time, so the f32
 temporaries live for one slice (the reference scans big leaves for the
 same reason).  ZeRO above stage 0 and Adafactor are not ported
-(ROADMAP.md, Queue 1 item 6).
+(ROADMAP.md, Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -66,11 +66,11 @@ def make_optimizer(cfg: OptimConfig, layout: Layout) -> Callable:
     if cfg.name != "adamw":
         raise NotImplementedError(
             f"optimizer {cfg.name!r}: only AdamW is ported (Adafactor: "
-            "ROADMAP.md, Queue 1 item 6)")
+            "ROADMAP.md, Queue 1 item 5)")
     if layout.n_devices != 1:
         raise NotImplementedError(
             "AdamW over more than one device (ZeRO over dp) is not ported: "
-            "ROADMAP.md, Queue 1 item 6")
+            "ROADMAP.md, Queue 1 item 5")
     sched = make_schedule(cfg)
     b1, b2 = cfg.b1, cfg.b2
 

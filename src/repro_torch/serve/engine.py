@@ -36,9 +36,12 @@ keeps the reference's wipe, so that its tokens equal the JAX engine's
 
 The engine runs on the device its parameters lie on.  A MoE model's
 padding rows and idle slots take expert capacity, as in the reference, so
-its tokens depend on the batches, which copy the reference's.  Not in the
-port yet (each raises ValueError): MLA attention (deepseek-v3-671b) and
-the encoder-decoder and vision-language families.
+its tokens depend on the batches, which copy the reference's.  MLA
+(deepseek-v3-671b) serves through the latent pool {"c_kv", "k_rope",
+"pos"} on the fused and the gather-view decode; as in the reference it
+takes neither the prefix cache nor a draft (no extend path over latents).
+Not in the port yet (each raises ValueError): the encoder-decoder and
+vision-language families.
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ import torch
 
 from ..config import ModelConfig
 from ..core.params import Param, tree_map
-from ..models.registry import KV_KINDS, layer_plan
+from ..models.registry import KIND_CACHES, KV_KINDS, layer_plan
 
 RESERVED = 2                      # block 0 = null (reads), block 1 = trash (writes)
 
@@ -396,24 +396,27 @@ class PagedKVCache:
         self.tokens_reused = 0
 
     def init_pool(self, device):
-        """The zeroed pool on ``device``, {kind: {"k", "v", "pos"}} with
-        leaves (layers of the kind, phys, ...) in plan order (positions
+        """The zeroed pool on ``device``, {kind: {"k", "v", "pos"}} (MLA:
+        {kind: {"c_kv", "k_rope", "pos"}}, the latent pool) with leaves
+        (layers of the kind, phys, ...) in plan order: each leaf of the
+        kind's contiguous cache with its (batch, length) dims replaced by
+        the physical rows (reference ``kvcache.py:415-433``).  Positions
         start at -1: every block, the null block included, is invalid
-        until written)."""
-        cfg = self.cfg
+        until written."""
         phys = self.n_blocks * self.block
-        plan = layer_plan(cfg)
+        plan = layer_plan(self.cfg)
         pool = {}
         for kind in dict.fromkeys(plan):
             if kind not in KV_KINDS:
                 continue
             n = plan.count(kind)
-            shape = (n, phys, cfg.n_kv, cfg.head_dim)
             pool[kind] = {
-                "k": torch.zeros(shape, dtype=self.dtype, device=device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=device),
-                "pos": torch.full((n, phys), -1, dtype=torch.int32,
-                                  device=device)}
+                name: (torch.zeros((n, phys, *p.shape[2:]), device=device,
+                                   dtype=self.dtype)
+                       if p.dtype is None or p.dtype.is_floating_point else
+                       torch.full((n, phys, *p.shape[2:]), -1, dtype=p.dtype,
+                                  device=device))
+                for name, p in KIND_CACHES[kind](self.cfg, 1, 1).items()}
         return pool
 
     # ---- admission / eviction -------------------------------------------

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1 matmul (each route, xlstm's GEMMs with w_if's N = 8 among them and the
-MoE family's), K2 flash attention (each route, the MoE family's d 128
-training layers among them) and K3 RMSNorm (forward and backward, xlstm's
-widths among them), K4 paged decode (each route, mixtral's and
-Moonlight's serve steps among them), K5 SSD scan (forward and backward).
+K1 matmul (each route, xlstm's GEMMs with w_if's N = 8 among them, the
+MoE family's and deepseek-v3's), K2 flash attention (each route, the MoE
+family's d 128 training layers and MLA's dk 192 / dv 128 among them) and
+K3 RMSNorm (forward and backward, xlstm's and deepseek-v3's widths among
+them), K4 paged decode (each
+route, mixtral's and Moonlight's serve steps and MLA's latent decode among
+them), K5 SSD scan (forward and backward).
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -140,6 +142,14 @@ MOE_GEMMS = [(4096, 4096), (4096, 1024), (4096, 32000), (2048, 2048),
              (2048, 163840)]
 
 
+# deepseek-v3's K1 GEMMs (K, N): MLA's w_dq, w_uq, w_dkv (N 576, not a
+# whole number of tc tiles), w_ukv and w_o, the dense MLP (18432), the
+# shared expert (2048), the mtp head's proj and the head (129280)
+DEEPSEEK_GEMMS = [(7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
+                  (16384, 7168), (7168, 18432), (18432, 7168), (7168, 2048),
+                  (2048, 7168), (14336, 7168), (7168, 129280)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", XLSTM_GEMMS)
 @pytest.mark.parametrize("m", [8, 8192])
@@ -157,6 +167,15 @@ def test_k1_xlstm_shapes_match_plain_on_card(cuda, m, k, n):
 def test_k1_moe_shapes_match_plain_on_card(cuda, m, k, n):
     """The MoE family's GEMMs at a decode step's M and a training step's,
     as xlstm's."""
+    _check_k1_shape(cuda, m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", DEEPSEEK_GEMMS)
+@pytest.mark.parametrize("m", [8, 2048, 4096])
+def test_k1_deepseek_shapes_match_plain_on_card(cuda, m, k, n):
+    """deepseek-v3's GEMMs at its decode step's M (8), its training step's
+    (2048) and its prefill's (4096), as xlstm's."""
     _check_k1_shape(cuda, m, k, n)
 
 
@@ -493,6 +512,20 @@ def test_k3_xlstm_widths_match_plain_on_card(cuda, h, m):
     row), the mLSTM's ``out_ln`` at 2048 (a row in registers), at a
     decode step's 8 rows and a training step's 8192, forward and
     backward, within the scaled limit and ``K3_NORM_TOL``."""
+    _check_k3_bf16(cuda, m, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [512, 1536, 7168])
+@pytest.mark.parametrize("m", [8, 2048])
+def test_k3_deepseek_widths_match_plain_on_card(cuda, h, m):
+    """deepseek-v3's norms in bf16: ``kv_ln`` (512), ``q_ln`` (1536) and
+    every norm over d_model (7168), at a decode step's 8 rows and a
+    training step's 2048, as xlstm's."""
+    _check_k3_bf16(cuda, m, h)
+
+
+def _check_k3_bf16(cuda, m, h):
     gen = torch.Generator(device=cuda).manual_seed(h + m)
     x, dy = (torch.randn(m, h, generator=gen, device=cuda)
              .to(torch.bfloat16) for _ in range(2))
@@ -863,3 +896,104 @@ def test_k5_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                 # two devices
         k5.ssd_scan(xbar, la.cpu(), B, C)
     assert k5.launches == before
+
+
+# ---------------------------------------------------------------------------
+# MLA's shapes: K2 at dk 192 / dv 128, K4 on the latent decode
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (b, sq, sk, nh, causal, window, q offset): ragged tiles, a window, an
+    # offset, non-causal; every head its own k and v, as MLA's
+    (1, 100, 100, 4, True, 0, 0),
+    (2, 70, 130, 3, True, 0, 60),
+    (1, 90, 90, 2, True, 24, 0),
+    (2, 50, 90, 2, False, 0, 0)])
+def test_k2_simt_takes_mla_head_dims_on_card(cuda, dtype, case):
+    """q and k at 192, v at 128 through the simt route, forward and
+    backward against the plain version (bf16 also to ``K2_NORM_TOL``);
+    the tc route refuses the pair."""
+    b, sq, sk, nh, causal, window, off = case
+    rng = np.random.default_rng(sq)
+
+    def rand(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)) \
+            .to(cuda, dtype)
+    q, k, v, dout = (rand(b, sq, nh, 192), rand(b, sk, nh, 192),
+                     rand(b, sk, nh, 128), rand(b, sq, nh, 128))
+    q_pos = (off + torch.arange(sq, dtype=torch.int32, device=cuda)) \
+        .expand(b, sq).contiguous()
+    k_pos = torch.arange(sk, dtype=torch.int32, device=cuda)
+    kw = dict(causal=causal, window=window)
+    assert k2.route_for(q, k, v, dout) == "simt"
+    with pytest.raises(ValueError, match="tc route"):
+        k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force="tc", **kw)
+    before = (dict(k2.launches_by_route), dict(k2.launches_bwd_by_route))
+    out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, **kw)
+    grads = k2.flash_attention_bwd(q, k, v, out, dout, lse, q_pos, k_pos,
+                                   **kw)
+    assert k2.launches_by_route == dict(before[0],
+                                        simt=before[0]["simt"] + 1)
+    assert k2.launches_bwd_by_route == dict(before[1],
+                                            simt=before[1]["simt"] + 1)
+    out2, lse2 = k2.flash_attention_fwd_plain(q, k, v, q_pos, k_pos, **kw)
+    grads2 = k2.flash_attention_bwd_plain(q, k, v, out, dout, lse, q_pos,
+                                          k_pos, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (b, sq, nh, 128)
+    assert _rel(lse, lse2) <= 1e-5
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (out2, *grads2)):
+        assert got.shape == want.shape and got.dtype == dtype, name
+        assert _rel(got, want) <= TOL[dtype], name
+        if dtype == torch.bfloat16:
+            assert _norm_err(got, want) <= K2_NORM_TOL[name], name
+
+
+# chip_smoke.py's K4 limits for the f32 arithmetic of the simt route
+K4_NORM_TOL_F32 = {"out": 1.5e-6, "acc": 3e-6, "m": 5e-7, "l": 6e-7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [128, 20])
+def test_k4_latent_decode_on_card(cuda, group):
+    """MLA's latent decode: q f32 (dk 576) over bf16 pools (one kv head,
+    k 576 and v 512 wide), a group of all the heads (128, and 20 for a
+    ragged row tile), through the simt route against the plain version,
+    the residuals too, then the fold of the current token; q is not cast
+    to bf16 (the kernel reads it as f32)."""
+    lens = [275, 276, 277, 278, 279, 1, 17, 0]
+    case, new = _paged_lens_case(lens, nq=group, nkv=1, d=576, block=16,
+                                 nb=19, seed=group)
+    args = [torch.from_numpy(a).to(cuda) for a in case]
+    args[2] = args[1][:, :, :512].contiguous()
+    for i in (1, 2):
+        args[i] = args[i].bfloat16()
+    k_new = torch.from_numpy(new[0]).to(cuda)
+    v_new = k_new[:, :, :512].contiguous()
+    assert args[0].dtype == torch.float32
+    assert k4.route_for(args[0], args[1], args[2], args[3], 16) == "simt"
+    before = dict(k4.launches_by_route)
+    acc, m, l = k4.paged_flash_decode(*args, block=16,
+                                      return_residuals=True)
+    out = k4.paged_flash_decode(*args, block=16)
+    assert k4.launches_by_route == dict(before, simt=before["simt"] + 2)
+    want = k4.paged_flash_decode_plain(*args, block=16,
+                                       return_residuals=True)
+    want_out = k4.paged_flash_decode_plain(*args, block=16)
+    torch.cuda.synchronize()
+    assert acc.dtype == out.dtype == torch.float32
+    for name, g, w in zip(("acc", "m", "l", "out"), (acc, m, l, out),
+                          (*want, want_out)):
+        if name == "m":
+            live = w > -1e29
+            assert torch.equal(g[~live], w[~live])
+            g, w = g[live], w[live]
+        assert _norm_err(g, w) <= K4_NORM_TOL_F32[name], name
+    folded = k4.fold_current_token(args[0], k_new, v_new, acc, m, l)
+    folded_want = k4.fold_current_token(args[0], k_new, v_new, *want)
+    assert _norm_err(folded, folded_want) <= K4_NORM_TOL_F32["out"]
+    with pytest.raises(TypeError):          # bf16 q over f32 pools
+        k4.paged_flash_decode(args[0].bfloat16(), args[1].float(),
+                              args[2].float(), *args[3:], block=16)

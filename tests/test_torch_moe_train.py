@@ -17,12 +17,9 @@ import torch
 from repro import config as jconfig
 from repro.checkpoint import store as jstore
 from repro.configs.registry import get as jget
-from repro.core.params import init_params as jinit_params
-from repro.core.plan import ParallelPlan as JPlan
 from repro.core.topology import single_device_layout
 from repro.models import transformer as jtransformer
 from repro.optim.optimizers import opt_state_abstract
-from repro.train.step import make_train_step as jmake_train_step
 from repro_torch import config
 from repro_torch.checkpoint import store
 from repro_torch.configs.registry import get
@@ -31,7 +28,7 @@ from repro_torch.core.params import init_params, tree_map
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.models import transformer
 from repro_torch.optim import OptState, adamw_init
-from repro_torch.train.step import make_train_step
+from test_torch_train import three_adamw_steps
 
 F32 = jnp.float32
 OPT = dict(lr=3e-3, warmup=2, total_steps=6)
@@ -85,34 +82,8 @@ def _at(tree, path):
 def test_three_adamw_steps_match_reference():
     """Mixtral at two microbatches; Moonlight's dense layer and shared
     expert are held by the loss and gradient test of test_torch_moe.py."""
-    mb = 2
-    jcfg, tcfg, jlay, jp, tp = _model("mixtral-8x7b")
-    opt = dict(lr=3e-3, warmup=2, total_steps=3)
-    jlay_mb = JPlan(microbatches=mb).build()
-    jstate = jinit_params(opt_state_abstract(
-        jtransformer.abstract_params(jcfg, jlay_mb), jlay_mb,
-        jconfig.OptimConfig(**opt)), jax.random.key(1))
-    jstep = jax.jit(jmake_train_step(jcfg, jlay_mb,
-                                     jconfig.OptimConfig(**opt)))
-    lay = ParallelPlan(microbatches=mb).validate(global_batch=4).build()
-    step = make_train_step(tcfg, lay, config.OptimConfig(**opt))
-    tparams = tree_map(lambda t: t.clone(), tp)
-    tstate = adamw_init(tparams)
-    jparams = jp
-    for s in range(3):
-        batch = _batch(tcfg.vocab, 4, 16, 10 + s)
-        jparams, jstate, jmet = jstep(
-            jparams, jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        tparams, tstate, met = step(
-            tparams, tstate, {k: torch.from_numpy(v).long()
-                              for k, v in batch.items()})
-        for key in ("loss", "xent", "aux", "gnorm"):
-            assert abs(met[key].item() - float(jmet[key])) <= 1e-2, key
-    jg = jax.device_get(jparams)
-    for path, t in _paths(tparams):
-        err = float(np.max(np.abs(t.numpy() - np.asarray(_at(jg, path),
-                                                           np.float32))))
-        assert err <= 1e-2, path
+    three_adamw_steps(_model("mixtral-8x7b"), 2, seq=16,
+                      metrics=("loss", "xent", "aux", "gnorm"))
 
 
 # ---------------------------------------------------------------------------

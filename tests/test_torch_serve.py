@@ -439,7 +439,8 @@ def test_sampling_filters_match_reference():
 # port has not reached, and the refusals the reference itself makes
 REFUSALS = {
     "state": ("whisper-medium", {}, "later serving slice"),
-    "moe": ("deepseek-v3-671b", {}, "later serving slice"),
+    "moe": ("deepseek-v3-671b", {"prefix_cache": True},
+            "MLA latent caches have no extend path"),
     "prefix-sequential": ("tinyllama-1.1b",
                           {"prefix_cache": True, "chunked_prefill": False},
                           "prefix_cache requires a paged family with "
@@ -508,7 +509,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.models.mamba2, repro_torch.kernels.ssd_scan",
         "import repro_torch.serve.speculate, repro_torch.serve.kvcache",
         "import repro_torch.models.xlstm, repro_torch.checkpoint.store",
-        "import repro_torch.models.moe",
+        "import repro_torch.models.moe, repro_torch.models.mla",
         "out = train(['--arch', 'mixtral-8x7b', '--reduced', '--device',",
         "             'cpu', '--steps', '1', '--batch', '2', '--seq', '32'])",
         "assert len(out['losses']) == 1, out",

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Planted faults in K2's tc kernels, held to ``chip_smoke.py``'s phase-5
 limits: each fault must fail them, and the unchanged kernels must pass.
+With ``--mla``, faults in the simt kernels' loops over v's head dim,
+held to phase 5d's limits at MLA's pair (q and k at 192, v at 128).
 
 Copies ``src/repro_torch`` into a temporary directory once per case,
 plants one fault in the copy's ``csrc/flash_attention_hopper.cu``, builds
@@ -13,6 +15,7 @@ never modified.  Needs an NVIDIA GPU and nvcc; from the root of a
 checkout:
 
     python3 tools/k2_planted_faults.py
+    python3 tools/k2_planted_faults.py --mla   # simt at dk 192 / dv 128
 """
 import os
 import shutil
@@ -74,8 +77,30 @@ FAULTS = {
         + "      float st[BQ / 2], dpt[BQ / 2];\n"),
 }
 
+# --mla: faults in csrc/flash_attention.cu's products and sums over DV
+SIMT_SOURCE = Path("repro_torch/kernels/csrc/flash_attention.cu")
+MLA_FAULTS = {
+    "none (the kernels as they are)": None,
+    "forward: P V reads v one column over": (
+        "mm<BK, R, NJ, KP, 1, 1, VDP>(acc, Ps, Vs, ty, tx);",
+        "mm<BK, R, NJ, KP, 1, 1, VDP>(acc, Ps, Vs + 1, ty, tx);"),
+    "dq: delta sums the first DV - 32 columns only": (
+        "for (int c = lane; c < DV; c += 32)",
+        "for (int c = lane; c < DV - 32; c += 32)"),
+    "dk/dv: dP = dO V^T over the first DV - 16 columns": (
+        "mm<DV, R, R, VDP, 1, VDP, 1>(dp, dOs, Vs, ty, tx);    // dP",
+        "mm<DV - 16, R, R, VDP, 1, VDP, 1>(dp, dOs, Vs, ty, tx);    // dP"),
+    "dv: the last 16 columns of P^T dO written as 0": (
+        "dvo[row * DV + tx + 16 * j] = from_f<T>(dv[i][j]);",
+        "dvo[row * DV + tx + 16 * j] = from_f<T>(j == NV - 1 ? 0.0f "
+        ": dv[i][j]);"),
+}
+MLA = "--mla" in sys.argv[1:]
+if MLA:
+    SOURCE, FAULTS = SIMT_SOURCE, MLA_FAULTS
+
 BUILD = ("from repro_torch.kernels import _build; "
-         "_build.build(['flash_attention_hopper'])")
+         f"_build.build(['{SOURCE.stem}'])")
 CHECK = """
 import sys, torch
 import chip_smoke as c
@@ -83,8 +108,14 @@ from repro_torch.kernels import flash_attention as k2
 label, b, s, nq, nkv, window = c.K2_SHAPES[0]
 gen = torch.Generator(device="cuda").manual_seed(4)
 try:
-    c.k2_case(k2, "cuda", gen, b, s, nq, nkv, window, torch.bfloat16,
-              ["tc"], label)
+    if MLA:
+        for dtype, tol in ((torch.float32, c.K2_F32_NORM_TOL),
+                           (torch.bfloat16, None)):
+            c.k2_case(k2, "cuda", gen, 1, 512, 16, 16, 0, dtype, ["simt"],
+                      "mla", d=c.DS_DK, dv=c.DS_DV, tag="5d", f32_tol=tol)
+    else:
+        c.k2_case(k2, "cuda", gen, b, s, nq, nkv, window, torch.bfloat16,
+                  ["tc"], label)
 except c.SmokeFailure as e:
     print("caught:", e)
     sys.exit(3)
@@ -123,7 +154,8 @@ def main() -> int:
             return 1
         wrong = []
         for name, copy in copies.items():
-            proc = subprocess.run([sys.executable, "-c", CHECK],
+            proc = subprocess.run([sys.executable, "-c",
+                                   f"MLA = {MLA}\n" + CHECK],
                                   env=env_for(copy), capture_output=True,
                                   text=True, cwd=ROOT)
             print(f"== {name}\n{proc.stdout.strip()}\n{proc.stderr[-2000:]}"

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Paired serving runs of two checkouts on one card: ``python3
 tools/serve_ab.py --base DIR`` serves, in the order base, this tree, this
-tree, base, tinyllama-1.1b with ``chip_smoke.py`` phase 7's traffic and
-zamba2-1.2b and xlstm-350m with phases 7z's and 7x's, each through
+tree, base, tinyllama-1.1b and mixtral-8x7b cut to 16 layers with
+``chip_smoke.py`` phases 7's and 7m's traffic and zamba2-1.2b and
+xlstm-350m with phases 7z's and 7x's, each through
 ``repro_torch.launch.serve`` in a fresh process after that tree's kernels
 are built, and prints one JSON line a run (TTFT p50, TPOT p50, tok/s);
 ``--out FILE`` also writes them.  Run from the root of this tree, with
@@ -19,7 +20,8 @@ COMMON = ["--requests", "8", "--batch-size", "8", "--max-new", "32",
           "--max-len", "512"]
 RUNS = {"tinyllama-1.1b": ["--shared-prefix", "256"],
         "zamba2-1.2b": ["--shared-prefix", "40"],
-        "xlstm-350m": ["--shared-prefix", "40"]}
+        "xlstm-350m": ["--shared-prefix", "40"],
+        "mixtral-8x7b": ["--shared-prefix", "256", "--layers", "16"]}
 
 
 def serve(tree, arch):
