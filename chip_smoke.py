@@ -22,7 +22,9 @@ Phases, in order (any failure raises and exits nonzero):
      8 through the decode route, and deepseek-v3's serving GEMMs at its
      decode step's M = 8 (``DS_DECODE_GEMMS``, decode route) and its
      prefill's M = 4096 (``DS_PREFILL_GEMMS``, tc route; w_dkv's N = 576
-     among them);
+     among them), and whisper's and internvl2's decode steps' GEMMs at M =
+     8 (``W_DECODE_GEMMS``, ``V_DECODE_GEMMS``, decode route; the heads of
+     51872 and 92560 among them);
  2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
@@ -46,10 +48,17 @@ Phases, in order (any failure raises and exits nonzero):
      K4 at the contiguous caches' shapes under the identity block table
      (``K4_CONTIG``: zamba2's shared block, 8 slots, 32/32 heads, L 512,
      contexts 32-96 and a wrapped ring; the speculative draft's cache of
-     528), both routes to ``K4_NORM_TOL``, timed beside the bound and SDPA
+     528; the self attention of whisper, 16/16 of 64, and of internvl2,
+     16/8 of 128, as 7w and 7v serve them), both routes to
+     ``K4_NORM_TOL``, timed beside the bound and SDPA
      with the position mask, which computes the same function there; and,
      under torch.profiler, that a contiguous decode layer's attention
      launches K4's two passes and no PyTorch attention;
+ 3w. K4 over whisper's static cross k/v (``K4_CROSS``: 8 slots, all
+     1504 frames valid, 16/16 heads of 64, the identity table, no fold)
+     as phase 3 holds the contiguous caches, timed beside its bytes bound
+     and SDPA (the same function); and the model's ``cross_decode``
+     against the reference's unmasked f32 softmax, one split launch;
  3d. K4 on MLA's latent decode (``K4_LATENT``): 128 query rows in f32
      over one kv head of 576 (v 512) in bf16, block 16, at the serve shape
      (B 8, contexts 275-279) and 64 slots of 1024-2048, through the simt
@@ -72,8 +81,9 @@ Phases, in order (any failure raises and exits nonzero):
      tinyllama training layer (4 x 2048, 32/4 heads), zamba2's shared
      attention (4 x 2048, 32/32 heads, window 4096) and the serving
      prefill (8 x 512, 32/4); at d = 128 mixtral's training layer (4 x
-     2048, 32/8, window 4096) and Moonlight's (4 x 2048, 16/16): bf16
-     through the tc route (wgmma + TMA) at all five and through the simt
+     2048, 32/8, window 4096), Moonlight's (4 x 2048, 16/16) and
+     internvl2's (4 x 2048, 16/8): bf16
+     through the tc route (wgmma + TMA) at all six and through the simt
      route at the training shape, out, lse,
      dq, dk and dv within 3e-2 of 1 + max (lse 1e-5) and out, dq, dk and
      dv within ``K2_NORM_TOL`` of the plain version's norm, two backward
@@ -85,6 +95,11 @@ Phases, in order (any failure raises and exits nonzero):
      the paper's model, 4 x 512, 64/64 heads of 48, and gemma-2b, 4 x
      2048, 8/1 heads of 256, f32 and bf16 (bf16 also to ``K2_NORM_TOL``),
      timed beside SDPA and the bound;
+ 5w. K2 at whisper's shapes (``K2_WHISPER``, 16/16 heads of 64): the
+     encoder's 4 x 1504 and the cross attention's 4 x 448 over 1504
+     frames, both non-causal, and the decoder's 4 x 448 causal; bf16
+     through tc to ``K2_NORM_TOL``, f32 through simt at the cross shape;
+     forward and backward times beside the bound and SDPA;
  5d. K2 at deepseek-v3's training attention: 1 x 2048, 128 heads, q and k
      at 192, v at 128, through the simt route, f32 (to
      ``K2_F32_NORM_TOL``) and bf16 (to ``K2_NORM_TOL``), timed beside SDPA
@@ -140,8 +155,13 @@ Phases, in order (any failure raises and exits nonzero):
      dense layer, its 2816-wide shared experts and its 163840-word head
      among them) and a deepseek-v3 ([dense, moe] with the mtp head, 1 x
      2048: ``DS_TRAIN_GEMMS`` and its 129280-word head in chunks of 512),
-     then the route, the simt kernel, the plain version and
-     ``torch.matmul`` summed over the GEMMs of one step of each;
+     a whisper (``W_TRAIN_GEMMS``: the encoder's linears and the cross
+     k/v over 4 x 1504 frame rows, the decoder's and the 51872-word head
+     over 4 x 448) and an internvl2 step (``V_TRAIN_GEMMS``, its 92560-word
+     head in 2 chunks), each step's GEMMs summing to its K1 launches where
+     the script counts them; then the route, the simt kernel, the plain
+     version and ``torch.matmul`` summed over the GEMMs of one step of
+     each;
  11. K5 SSD scan forward and backward against their plain versions at
      zamba2's training shape (4 x 2048, 64 heads of 64, 2 groups, d_state
      64, chunk 256), bf16 and f32 B/C, a ragged T (a chunk of 250 steps),
@@ -235,12 +255,41 @@ Phases, in order (any failure raises and exits nonzero):
      bf16, 1 x 2048, remat, AdamW, 3 steps: launches exact, xent, aux and
      mtp by step, step time, tok/s, MFU and peak memory;
  25. one such step under torch.profiler, device time by group (as 22;
-     each kernel in exactly one group).
+     each kernel in exactly one group);
+ 26. full-width whisper-medium cut to 2 encoder and 2 decoder layers over
+     all 1504 frames, f32: one training step's loss and every gradient
+     leaf (1 x 128 text tokens), CPU (plain versions) against the card,
+     K1 and K2 launches exact (simt);
+ 26s. the same model through the decode path with each layer's cross k/v
+     filled from the encoder (``encdec.encoder_kv``): 8 prompt tokens fed
+     one a step and 8 greedy steps of 2 slots, the logits within 1e-4 of
+     1 + max, the same tokens, K1 and K4 launches exact;
+ 7w. whisper-medium served at full depth and width in bf16 through
+     ``repro_torch.launch.serve`` with 7z's traffic: launches per step
+     exact (``W_SERVE_STEP``: K1 decode route, K4 split with its combine
+     for each block's self and cross attention; no K2, K3), TTFT, TPOT
+     and tok/s beside a decode step's bytes bound (``state_step_bytes``:
+     the decoder's weights, the self kv, the cross k/v), peak memory;
+ 27. the whisper training run: ``repro_torch.launch.train`` at full width
+     and depth, bf16, 4 x 448 text tokens and 1504 frames a row, remat,
+     AdamW, 3 steps: launches exact (``W_LAUNCHES``), step time, tok/s
+     (text tokens), MFU (the reference's formula, which leaves out the
+     encoder) and peak memory; 27p, one such step under torch.profiler by
+     kernel group, the kernels outside K1-K5 and the library's GEMMs
+     grouped by the op that launched them (``launching_op_group``), then
+     3 steps without the profiler timed by the wall clock and by the
+     process's CPU time;
+ 7v. internvl2-2b served as 7w (``V_SERVE_STEP``: K1, K3, K4 split; the
+     state path feeds the prompt's text one token a step, no patches);
+ 28. the internvl2 training run: 4 x 2048 (1024 patch embeddings and 1024
+     text tokens a row), remat, AdamW, 3 steps, launches exact
+     (``V_LAUNCHES``); 28p, one such step profiled and timed as 27p.
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
 19), one of the MoE family's (7m, 21, 22), one of deepseek's (7d, 24,
-25), one of per-kernel numbers and
+25), one of the modality families' (7w, 27, 7v, 28), one of per-kernel
+numbers and
 the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -385,6 +434,85 @@ MOON_GEMMS = [("wq,wk,wv,wo", MOON_D, MOON_NH * MOON_DH, 8),
               ("shared w_up,w_gate", MOON_D, 2816, 2),
               ("shared w_down", 2816, MOON_D, 1),
               ("head", MOON_D, MOON_VOCAB, 1)]
+
+
+# ---------------------------------------------------------------------------
+# The modality families: whisper-medium (the encoder-decoder) and
+# internvl2-2b (the VLM frontend)
+# ---------------------------------------------------------------------------
+# whisper-medium (configs/whisper_medium.py, arXiv:2212.04356): a 24-layer
+# encoder over 1504 frames and 24 decoder blocks (self attention, cross
+# attention over the encoder's states, a gelu_mlp of 4096), d_model 1024,
+# 16/16 heads of 64, LayerNorm (PyTorch; K3 is RMSNorm's), vocab 51872.
+# Phase 27 trains it on 448 text tokens a row
+W_D, W_NH, W_DH, W_FF, W_VOCAB = 1024, 16, 64, 4096, 51872
+W_LAYERS, W_ENC, W_FRAMES, W_TEXT, W_STEPS = 24, 24, 1504, 448, 3
+# launches per whisper training step: K1 runs the encoder blocks' 6
+# linears, the decoder blocks' 10 (self q/k/v/o, cross q/k/v/o, MLP up and
+# down) and the head's one loss chunk twice (forward and remat
+# recompute); K2 each encoder block's attention and each decoder block's
+# two twice forward and once backward; no K3 (LayerNorm)
+W_LAUNCHES = {"K1": 2 * (6 * W_ENC + 10 * W_LAYERS + 1),
+              "K2": 2 * (W_ENC + 2 * W_LAYERS),
+              "K2 bwd": W_ENC + 2 * W_LAYERS, "K3": 0, "K3 bwd": 0,
+              "K5": 0, "K5 bwd": 0}
+# whisper served (phase 7w), per decode step: K1 each block's self q/k/v/o,
+# cross q and o and MLP (the cross k/v are the cache's) and the head; K4
+# the self attention and the cross attention of each block, each with its
+# combine pass
+W_SERVE_STEP = {"K1": 8 * W_LAYERS + 1, "K2": 0, "K2 bwd": 0, "K3": 0,
+                "K3 bwd": 0, "K4": 2 * W_LAYERS,
+                "K4 combine": 2 * W_LAYERS, "K5": 0, "K5 bwd": 0}
+# internvl2-2b (configs/internvl2_2b.py, arXiv:2404.16821): 24 dense
+# layers of 16/8 heads of 128, SwiGLU of 8192, d_model 2048, vocab 92560,
+# 1024 patch embeddings ahead of the text; trained 4 x 2048 (1024 patches
+# + 1024 text tokens), the head in 2 loss chunks
+V_D, V_NQ, V_NKV, V_DH, V_FF, V_VOCAB = 2048, 16, 8, 128, 8192, 92560
+V_LAYERS, V_PATCHES, V_STEPS = 24, 1024, 3
+V_LAUNCHES = {"K1": 2 * 7 * V_LAYERS + 2 * 2, "K2": 2 * V_LAYERS,
+              "K2 bwd": V_LAYERS, "K3": 2 * 2 * V_LAYERS + 1,
+              "K3 bwd": 2 * V_LAYERS + 1, "K5": 0, "K5 bwd": 0}
+V_SERVE_STEP = {"K1": 7 * V_LAYERS + 1, "K2": 0, "K2 bwd": 0,
+                "K3": 2 * V_LAYERS + 1, "K3 bwd": 0, "K4": V_LAYERS,
+                "K4 combine": V_LAYERS, "K5": 0, "K5 bwd": 0}
+# K2 at whisper's attention shapes (phase 5w): (label, batch, q length,
+# k length, causal), 16/16 heads of 64
+K2_WHISPER = [("whisper encoder", 4, W_FRAMES, W_FRAMES, False),
+              ("whisper cross", 4, W_TEXT, W_FRAMES, False),
+              ("whisper decoder", 4, W_TEXT, W_TEXT, True)]
+# K4 over whisper's static cross k/v (phase 3w): 8 slots, every one of the
+# 1504 frames valid (positions arange(F), cur F - 1), the identity table
+K4_CROSS = [("whisper cross", [W_FRAMES - 1] * 8, W_FRAMES, W_NH, W_NH, 0)]
+# whisper's and internvl2's K1 GEMMs.  A decode step (phases 7w, 7v; M = 8,
+# the decode route): (name, K, N); whisper's runs its self attention's
+# four projections and the cross attention's wq and wo at d x d
+W_DECODE_GEMMS = [("wq,wk,wv,wo", W_D, W_NH * W_DH), ("w_up", W_D, W_FF),
+                  ("w_down", W_FF, W_D), ("head", W_D, W_VOCAB)]
+V_DECODE_GEMMS = [("wq,wo", V_D, V_NQ * V_DH), ("wk,wv", V_D, V_NKV * V_DH),
+                  ("w_up,w_gate", V_D, V_FF), ("w_down", V_FF, V_D),
+                  ("head", V_D, V_VOCAB)]
+# a training step (phases 27, 28; the tc route): (name, rows, K, N,
+# launches a step, forward and remat recompute), summing to W_LAUNCHES and
+# V_LAUNCHES.  Whisper's encoder linears and the cross attention's wk and
+# wv run over the 4 x 1504 frames, the decoder's other linears and the
+# head (one loss chunk) over the 4 x 448 text rows; internvl2's linears
+# over 4 x 2048 rows and its head in 2 chunks of 4 x 1024
+W_ENC_M, W_DEC_M = TRAIN_B * W_FRAMES, TRAIN_B * W_TEXT
+W_TRAIN_GEMMS = [("encoder wq,wk,wv,wo", W_ENC_M, W_D, W_D, 2 * 4 * W_ENC),
+                 ("encoder w_up", W_ENC_M, W_D, W_FF, 2 * W_ENC),
+                 ("encoder w_down", W_ENC_M, W_FF, W_D, 2 * W_ENC),
+                 ("self wq,wk,wv,wo, cross wq,wo", W_DEC_M, W_D, W_D,
+                  2 * 6 * W_LAYERS),
+                 ("cross wk,wv", W_ENC_M, W_D, W_D, 2 * 2 * W_LAYERS),
+                 ("w_up", W_DEC_M, W_D, W_FF, 2 * W_LAYERS),
+                 ("w_down", W_DEC_M, W_FF, W_D, 2 * W_LAYERS),
+                 ("head", W_DEC_M, W_D, W_VOCAB, 2)]
+V_M = TRAIN_B * TRAIN_S
+V_TRAIN_GEMMS = [("wq,wo", V_M, V_D, V_NQ * V_DH, 2 * 2 * V_LAYERS),
+                 ("wk,wv", V_M, V_D, V_NKV * V_DH, 2 * 2 * V_LAYERS),
+                 ("w_up,w_gate", V_M, V_D, V_FF, 2 * 2 * V_LAYERS),
+                 ("w_down", V_M, V_FF, V_D, 2 * V_LAYERS),
+                 ("head", V_M // 2, V_D, V_VOCAB, 2 * 2)]
 
 
 class SmokeFailure(RuntimeError):
@@ -693,9 +821,12 @@ def phase_k1(dev):
                   f"{worst}")
             path_err[path] = max(path_err[path], worst_abs)
             del x, w, b
-    # the MoE family's decode steps: mixtral's (phase 7m) and Moonlight's
+    # the decode steps of mixtral (phase 7m), Moonlight, whisper (7w) and
+    # internvl2 (7v)
     for arch, gemms in (("mixtral", MIX_GEMMS),
-                        ("moonlight", [g[:3] for g in MOON_GEMMS])):
+                        ("moonlight", [g[:3] for g in MOON_GEMMS]),
+                        ("whisper", W_DECODE_GEMMS),
+                        ("internvl2", V_DECODE_GEMMS)):
         for name, k, n in gemms:
             path = k1.route(DECODE_M, n, k, torch.bfloat16, True)
             check(path == "decode", f"K1 {arch} {name} ({DECODE_M},{k},{n})"
@@ -1009,18 +1140,25 @@ def k4_layer_kernels(dev):
 
 
 # K4 at the contiguous caches' shapes (phase 3): (label, each slot's
-# current position, cache length L, q heads, kv heads, window).  The cache
-# (B, L, nkv, d) is K4's pool laid out flat under the identity block table
-# (models/blocks.py:attention_decode): zamba2's shared block (32/32 heads,
-# contexts 32-96, and a wrapped ring whose positions run past L) and the
-# speculative draft's cache of 512 + 4 entries rounded up to 528.
+# current position, cache length L, q heads, kv heads, window[, d]), d 64
+# unless given.  The cache (B, L, nkv, d) is K4's pool laid out flat under
+# the identity block table (models/blocks.py:attention_decode): zamba2's
+# shared block (32/32 heads, contexts 32-96, and a wrapped ring whose
+# positions run past L), the speculative draft's cache of 512 + 4 entries
+# rounded up to 528, and the self attention of whisper (16/16 of 64) and
+# internvl2 (16/8 of 128) as phases 7w and 7v serve them (L 512,
+# positions 42-77 of prompts of 43-47 and 32 new tokens).
+K4_STATE_CURS = [42 + 5 * i for i in range(8)]
 K4_CONTIG = [("contiguous zamba2", [31 + (i * 9) % 65 for i in range(8)],
               512, Z_HEADS, Z_HEADS, Z_WINDOW),
              ("contiguous zamba2, wrapped ring",
               [600 + 97 * i for i in range(8)], 512, Z_HEADS, Z_HEADS,
               Z_WINDOW),
              ("contiguous draft", [n + 3 for n in K4_SERVE], 528, NQ, NKV,
-              0)]
+              0),
+             ("contiguous whisper self", K4_STATE_CURS, 512, W_NH, W_NH, 0),
+             ("contiguous internvl2", K4_STATE_CURS, 512, V_NQ, V_NKV, 0,
+              V_DH)]
 
 
 def k4_contig_case(dev, curs, L, nq, nkv, dtype, seed, d=DH, block=16):
@@ -1109,8 +1247,8 @@ def k4_contig_layer_kernels(dev):
     return len(names)
 
 
-def phase_k4_contiguous(dev):
-    """K4 at ``K4_CONTIG``: both routes against the plain version to
+def phase_k4_contiguous(dev, cases=K4_CONTIG, tag="3"):
+    """K4 at ``cases`` (``K4_CONTIG``): both routes against the plain version to
     ``K4_NORM_TOL`` (f32 through simt), the split route twice bit for bit;
     then device times (graph_ms) of the split route, the plain version and
     SDPA with the position mask (the same function here) beside the
@@ -1118,10 +1256,11 @@ def phase_k4_contiguous(dev):
     import torch
     from repro_torch.kernels import paged_decode as k4
     shapes = {}
-    for label, curs, L, nq, nkv, window in K4_CONTIG:
+    for label, curs, L, nq, nkv, window, *dims in cases:
+        d = dims[0] if dims else DH
         for dname in ("float32", "bfloat16"):
             args = k4_contig_case(dev, curs, L, nq, nkv,
-                                  getattr(torch, dname), seed=len(label))
+                                  getattr(torch, dname), seed=len(label), d=d)
             call = functools.partial(k4_call, k4, args, None, window, "out")
             want = call(plain=True)
             for way in (("split", "simt") if dname == "bfloat16"
@@ -1129,7 +1268,7 @@ def phase_k4_contiguous(dev):
                 got = call(force=way)
                 torch.cuda.synchronize()
                 errs = k4_errs(got, want)
-                print(f"[3] K4 {label:32s} {dname:8s} {way:5s} "
+                print(f"[{tag}] K4 {label:32s} {dname:8s} {way:5s} "
                       f"out {errs['out']:.2e} (max abs "
                       f"{abs_err(got['out'], want['out']):.2e})")
                 check(errs["out"] <= K4_NORM_TOL[dname]["out"],
@@ -1153,10 +1292,11 @@ def phase_k4_contiguous(dev):
              "library_ms": graph_ms(sdpa, 200), "max_abs_err": worst,
              "sdpa_norm_err": sdpa_err}
         t["bound_ms"], t["bound_by"] = k4_bound(valid, L // 16, 0, 2,
-                                                nq=nq, nkv=nkv)
+                                                d=d, nq=nq, nkv=nkv)
         shapes[label] = t
-        print(f"[3] K4 {label} (B {len(curs)}, {nq}/{nkv} heads, L {L}, "
-              f"positions {min(curs)}-{max(curs)}, bf16, identity table): "
+        print(f"[{tag}] K4 {label} (B {len(curs)}, {nq}/{nkv} heads of {d}, "
+              f"L {L}, positions {min(curs)}-{max(curs)}, bf16, identity "
+              f"table): "
               f"device ms (graph_ms) split {t['ms']:.4f}, plain "
               f"{t['plain_ms']:.4f}, SDPA with the position mask (the same "
               f"function; ||SDPA - plain|| / ||plain|| {sdpa_err:.1e}) "
@@ -1396,13 +1536,14 @@ def phase_k3(dev):
 
 
 # the attention shapes of the main paths (phase 5): (label, batch, seq, q
-# heads, kv heads, window), all causal at d = 64
+# heads, kv heads, window[, d]), all causal, d = 64 unless given
 K2_SHAPES = [("train", TRAIN_B, TRAIN_S, NQ, NKV, 0),
              ("zamba2", TRAIN_B, TRAIN_S, Z_HEADS, Z_HEADS, Z_WINDOW),
              ("prefill", 8, 512, NQ, NKV, 0),
              ("mixtral", TRAIN_B, TRAIN_S, MIX_NQ, MIX_NKV, MIX_WINDOW,
               MIX_DH),
-             ("moonlight", TRAIN_B, TRAIN_S, MOON_NH, MOON_NH, 0, MOON_DH)]
+             ("moonlight", TRAIN_B, TRAIN_S, MOON_NH, MOON_NH, 0, MOON_DH),
+             ("internvl2", TRAIN_B, TRAIN_S, V_NQ, V_NKV, 0, V_DH)]
 # the head dims the tc route does not take, at their configs' training
 # shapes (phase 5): (label, batch, seq, q heads, kv heads, d), causal: the
 # paper's model (configs/paper_transformer.py, seq 512) and gemma-2b
@@ -1411,17 +1552,20 @@ K2_WIDE_SHAPES = [("paper d48", 4, 512, 64, 64, 48),
                   ("gemma d256", 4, 2048, 8, 1, 256)]
 
 
-def k2_work(q_pos, k_pos, b, nq, nkv, d, elt, window=0, dv=None):
+def k2_work(q_pos, k_pos, b, nq, nkv, d, elt, window=0, dv=None,
+            causal=True):
     """(fwd bytes, fwd flops, bwd bytes, bwd flops) of one attention call,
-    causal, the flops counted over the allowed (query, key) pairs of these
-    positions: 2 products a pair forward (QK over d, PV over dv), 5
-    backward (S and dQ and dK over d, dP and dV over dv); q and k of d, v
-    and out of ``dv`` (d when None)."""
+    causal or not, the flops counted over the allowed (query, key) pairs
+    of these positions: 2 products a pair forward (QK over d, PV over dv),
+    5 backward (S and dQ and dK over d, dP and dV over dv); q and k of d,
+    v and out of ``dv`` (d when None)."""
     dv = dv or d
     qp, kp = q_pos[:, :, None], k_pos[None, None, :]
-    allowed = (kp >= 0) & (qp >= kp)
-    if window:
-        allowed &= qp - kp < window
+    allowed = (kp >= 0).expand(*q_pos.shape, k_pos.shape[0])
+    if causal:
+        allowed = allowed & (qp >= kp)
+        if window:
+            allowed &= qp - kp < window
     pairs = int(allowed.sum().item()) * nq
     sq, sk = q_pos.shape[1], k_pos.shape[0]
     q_bytes = b * sq * nq * (d + dv) * elt          # q in, out (or dq, dout)
@@ -1448,11 +1592,12 @@ def norm_err(got, want):
     return ((g - w).norm() / w.norm().clamp_min(1e-300)).item()
 
 
-def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
-    """``(dq, dk)`` of the plain backward (causal, the default scale) with
-    dS rounded to q's dtype before its two products, as the tc kernels
-    round it: held against the plain version, it measures what that
-    rounding alone costs."""
+def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window,
+                      causal=True):
+    """``(dq, dk)`` of the plain backward (the default scale) with dS
+    rounded to q's dtype before its two products, as the tc kernels round
+    it: held against the plain version, it measures what that rounding
+    alone costs."""
     import torch
     f32 = torch.float32
     b, sq, nq, d = q.shape
@@ -1461,8 +1606,8 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
     qf = (q.to(f32) * scale).reshape(b, sq, nkv, g, d)
     dof = dout.to(f32).reshape(b, sq, nkv, g, dv)
     qp = q_pos[:, None, None, :, None]
-    allowed = (k_pos >= 0) & (qp >= k_pos)
-    if window:
+    allowed = (k_pos >= 0) & ((qp >= k_pos) if causal else True)
+    if window and causal:
         allowed &= qp - k_pos < window
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(f32))
     p = torch.where(allowed, torch.exp(s - lse.reshape(b, nkv, g, sq, 1)),
@@ -1477,7 +1622,7 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window):
 
 
 def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
-            d=DH, dv=None, tag="5", f32_tol=None):
+            d=DH, dv=None, tag="5", f32_tol=None, sk=None, causal=True):
     """K2's routes against the plain version at one shape: out, lse, dq,
     dk and dv, and two backward runs of each route that must give the same
     bits.  In bf16 each of out, dq, dk and dv is also held to
@@ -1486,17 +1631,19 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     inputs, the path route's (out, lse), its worst absolute error (lse
     apart) and each route's norm errors (with ``"dS in bf16"``: the
     rounded plain backward's).  ``dv``: v's head dim (d when None);
-    ``f32_tol``: norm limits for f32 too."""
+    ``f32_tol``: norm limits for f32 too; ``sk``: the keys' length (s when
+    None); ``causal``: the mask."""
     import torch
     dv = dv or d
+    sk = sk or s
     q_pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
         .contiguous()
-    k_pos = torch.arange(s, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=dev)
     q = torch.randn(b, s, nq, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, nkv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, nkv, dv, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, nkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, nkv, dv, generator=gen, device=dev).to(dtype)
     dout = torch.randn(b, s, nq, dv, generator=gen, device=dev).to(dtype)
-    kw = dict(window=window)
+    kw = dict(window=window, causal=causal)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     lse_tol = 1e-4 if dtype == torch.float32 else 1e-5
     bf16 = dtype == torch.bfloat16
@@ -1504,8 +1651,9 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     path = k2.route_for(q, k, v, out2)
     worst, kept, norms = 0.0, None, {}
     norm_tol = K2_NORM_TOL if bf16 else f32_tol
-    tag = (f"[{tag}] K2 {label} ({b},{s},{nq}/{nkv},"
-           f"{d if dv == d else f'{d}/{dv}'}) causal"
+    tag = (f"[{tag}] K2 {label} ({b},{s}{f'x{sk}' if sk != s else ''},"
+           f"{nq}/{nkv},{d if dv == d else f'{d}/{dv}'}) "
+           f"{'causal' if causal else 'non-causal'}"
            f"{f' window {window}' if window else ''} {str(dtype)[6:]:8s}")
     for r in routes:
         out, lse = k2.flash_attention_fwd(q, k, v, q_pos, k_pos, force=r,
@@ -1543,7 +1691,7 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     if bf16:
         out, lse, grads, grads2 = kept
         rounded = k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos,
-                                    window)
+                                    window, causal)
         norms["dS in bf16"] = {n: norm_err(x, y) for n, x, y in
                                zip(("dq", "dk"), rounded, grads2)}
         near = {n: norm_err(x, y) for n, x, y in
@@ -1859,44 +2007,57 @@ def phase_k1_train(dev):
     """K1 at the training shapes: every GEMM of one training step of
     tinyllama, zamba2, mixtral cut to 2 layers and Moonlight cut to
     [dense, moe] (M = 4 x 2048 rows; the head's chunks 4 x 1024, or 4 x
-    512 for Moonlight's 4), and of deepseek-v3 cut to [dense, moe] with
-    the mtp head (M = 1 x 2048; the head's chunks 512 rows), through the
-    route the step takes (tc), held
-    against the plain version in bf16 with every activation, with and
+    512 for Moonlight's 4), of deepseek-v3 cut to [dense, moe] with the
+    mtp head (M = 1 x 2048; the head's chunks 512 rows), of whisper
+    (``W_TRAIN_GEMMS``: 4 x 1504 frame rows and 4 x 448 text rows) and of
+    internvl2 (``V_TRAIN_GEMMS``), through the route the step takes (tc),
+    held against the plain version in bf16 with every activation, with and
     without bias; then timed as that route, the simt kernel (the first K1
     design), the plain version and ``torch.matmul``, each times its
-    launches a step (forward and remat recompute)."""
+    launches a step (forward and remat recompute), which must sum to the
+    step's K1 launches where the script counts them."""
     import torch
     from repro_torch.kernels import matmul as k1
     gen = torch.Generator(device=dev).manual_seed(10)
     m = TRAIN_B * TRAIN_S
+    ds_m = DS_TRAIN_B * TRAIN_S
+
+    def at(rows, gemms):
+        return [(name, rows, k, n, per) for name, k, n, per in gemms]
     mix = [(name, k, n, 2 * 2 * MIX_TRAIN_LAYERS) for name, k, n in
            MIX_GEMMS if name != "head"]
     moon = [(name, k, n, 2 * per) for name, k, n, per in MOON_GEMMS
             if name != "head"]
-    ds_m = DS_TRAIN_B * TRAIN_S
-    # (arch, rows, GEMMs, the head's (K, N, launches a step, rows))
-    archs = (("tinyllama", m, TRAIN_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
-             ("zamba2", m, Z_GEMMS, (D, VOCAB, 2 * 2, m // 2)),
-             ("mixtral", m, mix, (MIX_D, MIX_VOCAB, 2 * 2, m // 2)),
-             ("moonlight", m, moon, (MOON_D, MOON_VOCAB, 2 * 4, m // 4)),
-             ("deepseek", ds_m, DS_TRAIN_GEMMS,
-              (DS_D, DS_VOCAB, 2 * 2 * 4, ds_m // 4)))
+    # (arch, (name, rows, K, N, launches a step), the step's K1 launches)
+    archs = (("tinyllama", at(m, TRAIN_GEMMS) + [("head", m // 2, D, VOCAB,
+                                                  2 * 2)],
+              TRAIN_LAUNCHES["K1"]),
+             ("zamba2", at(m, Z_GEMMS) + [("head", m // 2, D, VOCAB, 2 * 2)],
+              Z_LAUNCHES["K1"]),
+             ("mixtral", at(m, mix) + [("head", m // 2, MIX_D, MIX_VOCAB,
+                                         2 * 2)], MIX_LAUNCHES["K1"]),
+             ("moonlight", at(m, moon) + [("head", m // 4, MOON_D,
+                                           MOON_VOCAB, 2 * 4)], None),
+             ("deepseek", at(ds_m, DS_TRAIN_GEMMS) + [
+                 ("head", ds_m // 4, DS_D, DS_VOCAB, 2 * 2 * 4)],
+              DS_LAUNCHES["K1"]),
+             ("whisper", W_TRAIN_GEMMS, W_LAUNCHES["K1"]),
+             ("internvl2", V_TRAIN_GEMMS, V_LAUNCHES["K1"]))
     seen, out, worst_err = {}, {}, 0.0
     keys = ("ms", "simt_ms", "plain_ms", "library_ms", "bound_ms")
-    for arch, arch_m, gemms, (hk, hn, hper, hrows) in archs:
+    for arch, gemms, want in archs:
         tot = dict.fromkeys(keys, 0.0)
         launches = flops = 0
-        for name, k, n, per_step in gemms + [("head", hk, hn, hper)]:
-            rows = hrows if name == "head" else arch_m
+        for name, rows, k, n, per_step in gemms:
             key = (rows, k, n)
             if key not in seen:
                 path = k1.route(rows, n, k, torch.bfloat16, True)
-                check(path == "tc", f"K1 train {name}: route {path}")
+                check(path == "tc", f"K1 train {arch} {name} ({rows},{k},"
+                      f"{n}): route {path}")
                 x, w, b = k1_inputs(gen, dev, rows, k, n, torch.bfloat16)
                 worst, worst_abs = k1_check(k1, x, w, b)
                 worst_err = max(worst_err, worst_abs)
-                check(worst <= 1e-2, f"K1 train {name} tc: {worst}")
+                check(worst <= 1e-2, f"K1 train {arch} {name} tc: {worst}")
                 del x, w, b
                 t = k1_time(k1, dev, gen, rows, k, n, 10,
                             {"ms": path, "simt_ms": "simt"})
@@ -1912,9 +2073,8 @@ def phase_k1_train(dev):
                 tot[key2] += per_step * seen[key][key2]
             launches += per_step
             flops += per_step * 2 * rows * k * n
-        check(arch != "deepseek" or launches == DS_LAUNCHES["K1"],
-              f"K1 deepseek train GEMMs: {launches} a step, not "
-              f"{DS_LAUNCHES['K1']}")
+        check(want is None or launches == want,
+              f"K1 {arch} train GEMMs: {launches} a step, not {want}")
         print(f"[10] K1 per {arch} training step ({launches} GEMMs, bf16): "
               f"kernel {tot['ms']:.1f} ms ({flops / tot['ms'] / 1e9:.1f} "
               f"TFLOP/s), {tot['ms'] / tot['library_ms']:.2f}x torch.matmul "
@@ -2698,10 +2858,10 @@ def phase_spec(bf16, f32, card):
 
 def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
                 per_step=TRAIN_LAUNCHES, tag="8", layers=0, batch=TRAIN_B,
-                cut=(), k2_route="tc"):
+                cut=(), k2_route="tc", seq=TRAIN_S):
     """``repro_torch.launch.train`` at full width in bf16 (full depth, or
     cut to ``layers`` and by the launcher flags ``cut``), batch ``batch``
-    x 2048, remat, AdamW, synthetic tokens from seed 0; the launch
+    x ``seq``, remat, AdamW, synthetic tokens from seed 0; the launch
     counters reset just before and read just after.  Returns the launches,
     the K1 and K2 routes and the telemetry summary."""
     import torch
@@ -2711,7 +2871,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     reset_launches()
     out = train.main(["--arch", arch, "--device", "cuda",
                       "--steps", str(steps), "--batch", str(batch),
-                      "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
+                      "--seq", str(seq), "--lr", "3e-4", "--warmup", "20",
                       "--log-every", "1", "--telemetry", str(tel_path)]
                      + (["--layers", str(layers)] if layers else [])
                      + list(cut))
@@ -2738,7 +2898,7 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     print(f"[{tag}] training {arch}"
           f"{f' cut to {layers} layers' if layers else ''}"
           f"{' ' + ' '.join(cut) if cut else ''} bf16, batch "
-          f"{batch} x {TRAIN_S}, remat, AdamW on {card}: losses "
+          f"{batch} x {seq}, remat, AdamW on {card}: losses "
           + " ".join(f"{x:.4f}" for x in losses)
           + f"; step times " + " ".join(f"{x:.3f}" for x in
                                         tel["series"]["t_step"])
@@ -2778,7 +2938,7 @@ def kernel_group(name: str) -> str:
 
 def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
                     seq=TRAIN_S, layers=0, op_group=None, rows=TRAIN_B,
-                    change=None):
+                    change=None, host_steps=0):
     """Where the time of one training step goes: torch.profiler over the
     second step of the phase 8 (or 13, 17, 21) configuration, at ``seq``
     tokens a row (cut to ``layers``), device time summed by kernel group
@@ -2786,7 +2946,11 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
     launching op's part) against the step's wall time (host clock,
     synchronised), ``rows`` a batch, the config changed by ``change``.  A
     profiler that sees no device kernel leaves the breakdown unmeasured;
-    it does not fail the run."""
+    it does not fail the run.  With ``host_steps``, that many more steps
+    run without the profiler, each timed by the wall clock and by the
+    process's CPU time (every thread's: the autograd engine runs the
+    backward on a thread of its own), so that a host-bound step's time is
+    split into the host's work and its waits."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import OptimConfig, ShapeConfig
@@ -2824,8 +2988,32 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
         wall_ms = (time.perf_counter() - t0) * 1e3
     check(math.isfinite(met["loss"].item()), "breakdown step: loss")
     cut = f" cut to {layers} layers" if layers else ""
-    return report_breakdown(prof, wall_ms, tag, f"one {arch}{cut} training "
-                            f"step (batch {rows} x {seq})", card, op_group)
+    out = report_breakdown(prof, wall_ms, tag, f"one {arch}{cut} training "
+                           f"step (batch {rows} x {seq})", card, op_group)
+    del prof
+    if host_steps:
+        wall, cpu = [], []
+        for _ in range(host_steps):
+            batch = next(data)
+            sync()
+            t0, c0 = time.perf_counter(), time.process_time()
+            params, state, met = step(params, state, batch)
+            sync()
+            wall.append(time.perf_counter() - t0)
+            cpu.append(time.process_time() - c0)
+        n = sum(n for n, _ in out["groups"].values()) if out else None
+        print(f"[{tag}] {host_steps} steps without the profiler on {card}: "
+              "wall " + " ".join(f"{x:.3f}" for x in wall) + " s, the "
+              "process's CPU time " + " ".join(f"{x:.3f}" for x in cpu)
+              + " s (CPU / wall " + " ".join(f"{c / w:.2f}" for c, w in
+                                            zip(cpu, wall)) + ")"
+              + (f"; {n} kernels a step: {min(wall) / n * 1e6:.1f}-"
+                 f"{max(wall) / n * 1e6:.1f} us of wall and "
+                 f"{min(cpu) / n * 1e6:.1f}-{max(cpu) / n * 1e6:.1f} us of "
+                 "CPU a kernel" if n else ""))
+        if out:
+            out["host"] = {"wall_s": wall, "cpu_s": cpu, "kernels": n}
+    return out
 
 
 # record_function ranges of the port, which torch.profiler also lists on
@@ -3077,56 +3265,6 @@ def xlstm_step_bytes(prompts, max_new):
              "sLSTM state": slot_steps * 2 * sstate}
     return sum(parts.values()) / steps, steps, {
         k: v / steps for k, v in parts.items()}
-
-
-def phase_serve_xlstm(card):
-    """``repro_torch.launch.serve`` serves xlstm-350m at full depth and
-    width in bf16, weights from a seed: 8 requests in batch 8, prompts of
-    43-47 tokens fed one a step, 32 new tokens each, max_len 512, greedy.
-    The launch counters reset just before and read just after; the
-    launches per step are exact, and no bf16 GEMM takes simt."""
-    import torch
-    from repro_torch.launch import serve
-    reset_launches()
-    stats = serve.main(["--arch", "xlstm-350m", "--device", "cuda",
-                        "--requests", "8", "--batch-size", "8",
-                        "--shared-prefix", "40", "--max-new", "32",
-                        "--max-len", "512"])
-    torch.cuda.synchronize()
-    launches = read_launches()
-    steps = stats["decode_steps"]
-    want = {k: n * steps for k, n in X_SERVE_STEP.items()}
-    print(f"[7x] launches in the xlstm serving run: {launches} over "
-          f"{stats['prefill_steps']} prefill + {steps} decode steps "
-          f"(expected {want})")
-    check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
-          f"xlstm serving run: {stats['tokens']} tokens, "
-          f"{stats['completed']} done")
-    check(stats["nonfinite_rows"] == 0,
-          f"xlstm serving run: {stats['nonfinite_rows']} non-finite rows")
-    check(stats["prefill_steps"] == 0 and launches == want,
-          f"xlstm serving run launches {launches} != {want}")
-    routes = check_k1_routes(launches, "7x", "xlstm serving run")
-    check(routes["decode"] == launches["K1"],
-          f"xlstm serving run: K1 routes {routes}")
-    step_bytes, want_steps, parts = xlstm_step_bytes(
-        [len(r.prompt) for r in serve_requests(8, shared=40)], 32)
-    check(steps == want_steps, f"xlstm serving run: {steps} decode steps, "
-          f"the bound counts {want_steps}")
-    bound = step_bytes / H100_BYTES_PER_S * 1e3
-    print(f"[7x] serving xlstm-350m bf16, 8 requests (prompts 43-47 fed one "
-          f"a step) x 32 new tokens on {card}: TTFT p50 "
-          f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
-          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
-          f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
-          f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} "
-          f"tok/s; a step's bound on average {bound:.3f} ms ("
-          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
-          + " a step, at 3.35 TB/s)")
-    return launches, routes, {
-        "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
-        "tpot_p50_ms": stats["tpot_p50_s"] * 1e3,
-        "tok_per_s": stats["tok_per_s"], "step_bound_ms": bound}
 
 
 def phase_xlstm_blocks(dev, card, step_s):
@@ -3542,6 +3680,27 @@ def phase_serve_mixtral(card):
         "step_bound_ms": bound, "drop_share_prefill": share[0],
         "drop_share_decode_mean": sum(share[1:]) / max(1, dec),
         "drop_share_decode_max": max(share[1:]), "mem_peak_gib": peak}
+
+
+# the ops whose kernels are library GEMMs (torch.matmul's group)
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul",
+              "aten::linear")
+
+
+def launching_op_group(op):
+    """The optimizer's kernels (the train step's "optimizer" range) as
+    AdamW, and every other kernel outside K1-K5 and the library's GEMMs
+    under the op that launched it ("other: aten::..."): the "other" group
+    split by launching op, which tells which ops make a step's kernels."""
+    chain, o = [], op
+    while o is not None:
+        chain.append(o.name)
+        o = o.cpu_parent
+    if "optimizer" in chain:
+        return "AdamW (the optimizer range)"
+    if op.name in MATMUL_OPS:
+        return None
+    return f"other: {op.name}"
 
 
 # ops whose kernels move tokens between the batch and the expert buffers:
@@ -4108,6 +4267,358 @@ def phase_decode_breakdown_deepseek(eng, card, at=16):
                             op_group=ds_op_group)
 
 
+def phase_k2_whisper(dev):
+    """K2 at whisper's shapes (``K2_WHISPER``) in bf16 through the tc
+    route against the plain version (``K2_NORM_TOL``, the backward
+    repeating bit for bit), and in f32 through simt at the cross shape;
+    then tc's forward and backward times beside the bound (``k2_work``,
+    non-causal where the mask is) and SDPA's, which computes the same
+    function (no mask where non-causal).  Returns {label: numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    gen = torch.Generator(device=dev).manual_seed(26)
+    k2_case(k2, dev, gen, 1, W_TEXT, W_NH, W_NH, 0, torch.float32,
+            ["simt"], "whisper cross", tag="5w", sk=W_FRAMES, causal=False)
+    out_all = {}
+    for label, b, sq, sk, causal in K2_WHISPER:
+        (q, k, v, dout, q_pos, k_pos), (out, lse), worst, norms = k2_case(
+            k2, dev, gen, b, sq, W_NH, W_NH, 0, torch.bfloat16, ["tc"],
+            label, tag="5w", sk=sk, causal=causal)
+        check(k2.route_for(q, k, v, out, dout) == "tc",
+              f"K2 {label}: the bf16 path does not take the tc route")
+        kw = dict(causal=causal)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        sdpa_err = norm_err(sdpa().detach().transpose(1, 2), out)
+        check(sdpa_err <= K2_NORM_TOL["out"], f"K2 {label}: SDPA is not "
+              f"the same function ({sdpa_err:.2e})")
+        t = {"fwd_ms": time_ms(lambda: k2.flash_attention_fwd(
+                 q, k, v, q_pos, k_pos, **kw), 20),
+             "bwd_ms": time_ms(lambda: k2.flash_attention_bwd(
+                 q, k, v, out, dout, lse, q_pos, k_pos, **kw), 10),
+             "plain_fwd_ms": time_ms(lambda: k2.flash_attention_fwd_plain(
+                 q, k, v, q_pos, k_pos, **kw), 2),
+             "plain_bwd_ms": time_ms(lambda: k2.flash_attention_bwd_plain(
+                 q, k, v, out, dout, lse, q_pos, k_pos, **kw), 2),
+             "library_fwd_ms": time_ms(sdpa, 20),
+             "library_ms": time_ms(
+                 lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt), 20),
+             "norm_err": norms, "max_abs_err": worst,
+             "sdpa_norm_err": sdpa_err}
+        t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+        t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+        fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, W_NH, W_NH, W_DH, 2,
+                                     causal=causal)
+        fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
+        bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
+        t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+                 bound_by=fo if fo == bo else "bytes and operations",
+                 fwd_gflop=ffl / 1e9)
+        print(f"[5w] K2 bf16 {label} ({b},{sq}x{sk},{W_NH}/{W_NH},{W_DH}) "
+              f"{'causal' if causal else 'non-causal'}, tc route: forward "
+              f"{t['fwd_ms']:.4f} ms ({ffl / 1e9:.1f} GFLOP, "
+              f"{ffl / t['fwd_ms'] / 1e9:.1f} TFLOP/s), backward "
+              f"{t['bwd_ms']:.4f} ms ({bfl / t['bwd_ms'] / 1e9:.1f} "
+              f"TFLOP/s); plain {t['plain_fwd_ms']:.3f} + "
+              f"{t['plain_bwd_ms']:.3f}; sdpa fwd {t['library_fwd_ms']:.4f},"
+              f" fwd+bwd {t['library_ms']:.4f} (tc / sdpa: forward "
+              f"{t['fwd_ms'] / t['library_fwd_ms']:.2f}x, forward + backward "
+              f"{t['ms'] / t['library_ms']:.2f}x); bound {fb:.4f} + "
+              f"{bb:.4f} ({fo})")
+        out_all[label] = t
+        del q, k, v, dout, out, lse, qt, kt, vt
+    return out_all
+
+
+def phase_k4_cross(dev):
+    """K4 over whisper's static cross k/v (``K4_CROSS``) as phase 3 holds
+    the contiguous caches, and the model's own wrapper
+    (``models/blocks.py:cross_decode``) against the reference's unmasked
+    f32 softmax (``blocks.py:_cross_decode``) in bf16: the split route,
+    one launch and its combine pass."""
+    import torch
+    from repro_torch.kernels import paged_decode as k4
+    from repro_torch.models.blocks import cross_decode
+    shapes = phase_k4_contiguous(dev, K4_CROSS, "3w")
+    label, curs, L, nq, nkv, _ = K4_CROSS[0]
+    B = len(curs)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((B, 1, nq, W_DH), (B, L, nkv, W_DH),
+                             (B, L, nkv, W_DH)))
+    before = (k4.launches_by_route["split"], k4.launches_combine)
+    got = cross_decode(None, None, None, q, k, v)
+    torch.cuda.synchronize()
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float() * W_DH ** -0.5,
+                     k.float())
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    want = (torch.einsum("bhk,bkhd->bhd", p, v.float())
+            / p.sum(-1)[..., None]).to(q.dtype)[:, None]
+    err = norm_err(got, want)
+    print(f"[3w] blocks.cross_decode (B {B}, {L} frames, {nq}/{nkv} heads "
+          f"of {W_DH}, bf16) against the reference's unmasked f32 softmax: "
+          f"||error|| / ||want|| {err:.2e} (tol "
+          f"{K4_NORM_TOL['bfloat16']['out']:.0e}); split launches "
+          f"{k4.launches_by_route['split'] - before[0]}, combine "
+          f"{k4.launches_combine - before[1]}")
+    check(err <= K4_NORM_TOL["bfloat16"]["out"],
+          f"cross_decode against the reference's softmax: {err}")
+    check((k4.launches_by_route["split"] - before[0],
+           k4.launches_combine - before[1]) == (1, 1),
+          "cross_decode did not launch K4's split route once")
+    shapes[label]["model_norm_err"] = err
+    return shapes
+
+
+def whisper_two_layer_cfg():
+    """Full-width whisper-medium cut to 2 encoder and 2 decoder layers
+    over all 1504 frames, f32."""
+    from repro_torch.configs.registry import get
+    base = get("whisper-medium")
+    return dataclasses.replace(
+        base, n_layers=2, dtype="float32",
+        encoder=dataclasses.replace(base.encoder, n_layers=2))
+
+
+def phase_two_layer_whisper(dev):
+    """One training step's loss and every gradient leaf of full-width
+    whisper cut to 2 + 2 layers, f32, 1 x 128 text tokens over 1504
+    frames, remat on: CPU (plain versions) against the card (kernels: K1
+    and K2 on simt), the same seeded weights, tokens and frames; the card
+    launches exactly what the plan says and the CPU nothing.  Returns the
+    CPU weights for phase 26s."""
+    import numpy as np
+    import torch
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import transformer
+    cfg = whisper_two_layer_cfg()
+    layout = ParallelPlan().validate(mode="train").build()
+    cpu = init_params(transformer.abstract_params(cfg),
+                      torch.Generator().manual_seed(26), "cpu",
+                      torch.float32)
+    rng = np.random.default_rng(26)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 129)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].clone(),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (1, W_FRAMES, W_D)).astype(np.float32))}
+    batch["labels"][0, -9:] = -1
+    res = {}
+    for d in ("cpu", dev):
+        reset_launches()
+        live = tree_map(lambda t: t.detach().to(d).requires_grad_(), cpu)
+        loss, met = transformer.forward(
+            cfg, layout, live, {k: v.to(d) for k, v in batch.items()},
+            mode="train")
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads],
+                       read_launches())
+        del live, loss, met
+    (l_cpu, g_cpu, n_cpu), (l_dev, g_dev, n_dev) = res["cpu"], res[str(dev)]
+    names = [".".join(p) for p in _paths(cpu)]
+    errs = {n: (leaf_err(a, b), b.abs().max().item())
+            for n, a, b in zip(names, g_dev, g_cpu)}
+    worst = max(e for e, _ in errs.values())
+    tol = 1e-4
+    # K1: the 2 encoder blocks' 6 linears, the 2 decoder blocks' 10 and
+    # the head's one chunk, twice; K2: 2 + 2 x 2 attentions twice forward,
+    # once backward
+    want = dict(dict.fromkeys(n_dev, 0), K1=2 * (6 * 2 + 10 * 2 + 1),
+                K2=2 * (2 + 2 * 2), **{"K2 bwd": 2 + 2 * 2})
+    print(f"[26] whisper 2 + 2 layers full width f32 train step (1 x 128 "
+          f"text, {W_FRAMES} frames): loss cpu {l_cpu:.6f} card "
+          f"{l_dev:.6f}; gradient max |card - cpu| / max |cpu| per leaf, "
+          f"worst first (max |cpu| in brackets): " + ", ".join(
+              f"{k} {e:.1e} [{g:.1e}]" for k, (e, g) in sorted(
+                  errs.items(), key=lambda kv: -kv[1][0])[:8])
+          + f"; worst of {len(names)} leaves {worst:.1e} (tol {tol:.0e}); "
+          f"launches card {n_dev}")
+    check(all(v == 0 for v in n_cpu.values()) and n_dev == want,
+          f"two-layer whisper: launches cpu {n_cpu}, card {n_dev} "
+          f"(expected {want})")
+    check(abs(l_cpu - l_dev) <= tol * (1 + abs(l_cpu))
+          and math.isfinite(l_dev),
+          f"two-layer whisper train loss: {l_cpu} vs {l_dev}")
+    check(worst <= tol, f"two-layer whisper train gradients: {worst}")
+    return cpu, batch
+
+
+def phase_two_layer_whisper_decode(dev, cpu, batch):
+    """Phase 26's model through the decode path with its cross k/v filled:
+    the encoder over phase 26's frames, each layer's ``xk``/``xv`` written
+    from ``encdec.encoder_kv``, then 8 prompt tokens fed one a step and 8
+    greedy steps of 2 slots, CPU against the card: the logits within 1e-4
+    of 1 + max at every step, the same tokens, and on the card each
+    step's K1 (decode route is not f32's: simt) and K4 (self and cross
+    attention of each block, simt) launches exact."""
+    import torch
+    from repro_torch.core.params import init_params, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.models import encdec, transformer
+    from repro_torch.serve.kvcache import cache_with_dtype
+    cfg = whisper_two_layer_cfg()
+    layout = ParallelPlan().validate(mode="serve").build()
+    frames = batch["frames"].expand(2, -1, -1)
+    prompt = batch["tokens"][:, :8].expand(2, -1) + \
+        torch.tensor([[0], [1]])
+    tree = cache_with_dtype(transformer.abstract_cache(cfg, layout, 2, 64),
+                            torch.float32)
+    res = {}
+    for d in ("cpu", dev):
+        params = tree_map(lambda t: t.to(d), cpu)
+        cache = init_params(tree, None, d)
+        with torch.no_grad():
+            enc = encdec.encoder_apply(layout, cfg, transformer.entry_dirs(),
+                                       frames.to(d), params["encoder"])
+            for i in range(cfg.n_layers):
+                xattn = tree_map(lambda t: t[i],
+                                 params["stack"]["xdec"]["xattn"])
+                k, v = encdec.encoder_kv(layout, cfg,
+                                         transformer.entry_dirs(), enc, xattn)
+                cache["xdec"]["xk"][i].copy_(k)
+                cache["xdec"]["xv"][i].copy_(v)
+            reset_launches()
+            logits, toks = [], []
+            tok = prompt[:, :1]
+            for t in range(8 + 8):
+                lg, cache = transformer.forward(
+                    cfg, layout, params, {"token": tok.to(d), "pos": torch.full(
+                        (2,), t, dtype=torch.int32, device=d)},
+                    mode="decode", cache=cache)
+                lg = lg.float().cpu()
+                logits.append(lg)
+                nxt = lg.argmax(-1)[:, None]
+                toks.append(nxt)
+                tok = prompt[:, t + 1:t + 2] if t + 1 < 8 else nxt
+        launches = read_launches()
+        res[str(d)] = (torch.stack(logits), torch.cat(toks, 1),
+                       (launches["K1"], launches["K4"]))
+    (l_cpu, t_cpu, n_cpu), (l_dev, t_dev, n_dev) = res["cpu"], res[str(dev)]
+    err = ((l_dev - l_cpu).abs().amax(dim=(1, 2))
+           / (1 + l_cpu.abs().amax(dim=(1, 2))))
+    want = (16 * (8 * cfg.n_layers + 1), 16 * 2 * cfg.n_layers)
+    print(f"[26s] whisper 2 + 2 layers full width f32 decode path, the "
+          f"cross k/v filled from the encoder (2 slots, 8 prompt tokens one "
+          f"a step, 8 greedy steps): logits max |card - cpu| / (1 + max "
+          f"|cpu|) per step, worst {err.max().item():.1e} (tol 1e-4); "
+          f"greedy tokens equal {torch.equal(t_cpu[:, 7:], t_dev[:, 7:])}; "
+          f"(K1, K4) launches cpu {n_cpu}, card {n_dev}")
+    check(n_cpu == (0, 0) and n_dev == want, f"whisper decode path: "
+          f"launches cpu {n_cpu}, card {n_dev} (expected {want})")
+    check(err.max().item() <= 1e-4 and torch.isfinite(l_dev).all(),
+          f"whisper decode path logits: {err.tolist()}")
+    check(torch.equal(t_cpu[:, 7:], t_dev[:, 7:]),
+          f"whisper decode path greedy tokens differ: {t_cpu} vs {t_dev}")
+
+
+def state_step_bytes(arch, prompts, max_new, L=512):
+    """(bytes per step on average, steps, parts) of a state-path serving
+    run's decode steps (phases 7v, 7w), each input read once and each
+    output written once: the weights a decode step reads (not the
+    embedding table, only the slots' rows; not whisper's encoder, nor its
+    cross attention's wk and wv, whose k/v the cache holds), the kv
+    entries each running slot's self attentions read and write, and
+    whisper's cross k/v, every frame of each running slot in each layer.
+    A slot of prompt p runs p + max_new - 1 steps."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models import transformer
+    cfg = get(arch)
+    params = transformer.abstract_params(cfg)
+    skip = {"embed": params["embed"]}
+    if cfg.encoder:
+        xattn = params["stack"]["xdec"]["xattn"]
+        skip.update(encoder=params["encoder"], wk=xattn["wk"],
+                    wv=xattn["wv"])
+    weights = param_bytes(params) - param_bytes(skip)
+    runs = [p + max_new - 1 for p in prompts]
+    steps, slot_steps = max(runs), sum(runs)
+    entry = cfg.n_layers * cfg.n_kv * cfg.head_dim * 2 * 2   # k and v, bf16
+    # the step at position t reads t + 1 entries (its own just written)
+    kv = sum(min(t + 1, L) for r in runs for t in range(r)) * entry
+    parts = {"weights": steps * weights,
+             "embed rows": slot_steps * cfg.d_model * 2,
+             "self kv": kv + slot_steps * entry}
+    if cfg.encoder:
+        parts["cross k/v"] = slot_steps * cfg.encoder.n_frames * entry
+    return sum(parts.values()) / steps, steps, {
+        k: v / steps for k, v in parts.items()}
+
+
+def phase_serve_state(card, arch, tag, per_step, step_bytes):
+    """``repro_torch.launch.serve`` serves ``arch`` at full depth and width
+    in bf16 with the state families' traffic (as 7z: 8 requests in batch
+    8, prompts of 43-47 tokens fed one a step, 32 new, max_len 512,
+    greedy); counters reset just before and read just after: launches per
+    step exact (``per_step``), K1 on the decode route, every K4 on split
+    with its combine; TTFT, TPOT and tok/s beside a decode step's bytes
+    bound (``step_bytes(prompts, max_new)``: ``xlstm_step_bytes``,
+    ``state_step_bytes``) and peak memory.  Phases 7x, 7w and 7v.
+    Returns (launches, K1 routes, K4 routes, numbers)."""
+    import torch
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stats = serve.main(["--arch", arch, "--device", "cuda",
+                        "--requests", "8", "--batch-size", "8",
+                        "--shared-prefix", "40", "--max-new", "32",
+                        "--max-len", "512"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = stats["decode_steps"]
+    want = {k: n * steps for k, n in per_step.items()}
+    print(f"[{tag}] launches in the {arch} serving run: {launches} over "
+          f"{stats['prefill_steps']} prefill + {steps} decode steps "
+          f"(expected {want})")
+    check(stats["tokens"] == 8 * 32 and stats["completed"] == 8,
+          f"{arch} serving run: {stats['tokens']} tokens, "
+          f"{stats['completed']} done")
+    check(stats["nonfinite_rows"] == 0,
+          f"{arch} serving run: {stats['nonfinite_rows']} non-finite rows")
+    check(stats["prefill_steps"] == 0 and launches == want,
+          f"{arch} serving run launches {launches} != {want}")
+    routes = check_k1_routes(launches, tag, f"{arch} serving run")
+    check(routes["decode"] == launches["K1"],
+          f"{arch} serving run: K1 routes {routes}")
+    k4_routes = check_k4_routes(launches, f"{arch} serving run", tag)
+    nbytes, want_steps, parts = step_bytes(
+        [len(r.prompt) for r in serve_requests(8, shared=40)], 32)
+    check(steps == want_steps, f"{arch} serving run: {steps} decode steps, "
+          f"the bound counts {want_steps}")
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{tag}] serving {arch} bf16, 8 requests (prompts 43-47 fed one "
+          f"a step) x 32 new tokens on {card}: TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{stats['ttft_p95_s'] * 1e3:.1f} ms; TPOT p50 "
+          f"{stats['tpot_p50_s'] * 1e3:.2f} ms, p95 "
+          f"{stats['tpot_p95_s'] * 1e3:.2f} ms; {stats['tok_per_s']:.1f} "
+          f"tok/s; a step's bound on average {bound:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in parts.items())
+          + f" a step, at 3.35 TB/s); peak memory {mem:.2f} GiB")
+    return launches, routes, k4_routes, {
+        "ttft_p50_ms": stats["ttft_p50_s"] * 1e3,
+        "ttft_p95_ms": stats["ttft_p95_s"] * 1e3,
+        "tpot_p50_ms": stats["tpot_p50_s"] * 1e3,
+        "tpot_p95_ms": stats["tpot_p95_s"] * 1e3,
+        "tok_per_s": stats["tok_per_s"], "step_bound_ms": bound,
+        "mem_peak_gib": mem}
+
+
+def train_numbers(tel, **more):
+    """The numbers of a training run's telemetry that the JSON lines
+    carry."""
+    return dict(more, t_step_s=tel["t_step_s"],
+                tokens_per_s=tel["tokens_per_s"], mfu=tel["mfu"],
+                mem_peak_gib=tel["mem_peak_bytes"] / 2 ** 30,
+                t_step=tel["series"]["t_step"], loss=tel["series"]["loss"])
+
+
 def main():
     import gc
 
@@ -4144,9 +4655,11 @@ def main():
         phase_k1_threshold, dev)
     k4_numbers = timed(phase_k4, dev)
     k4_numbers["shapes"].update(timed(phase_k4_latent, dev))
+    k4_numbers["shapes"].update(timed(phase_k4_cross, dev))
     k3_numbers = timed(phase_k3, dev)
     k2_numbers = timed(phase_k2, dev)
     k2_numbers["shapes"]["mla"] = timed(phase_k2_mla, dev)
+    k2_numbers["shapes"].update(timed(phase_k2_whisper, dev))
     timed(phase_two_layer, dev)
     timed(phase_two_layer, dev, "bfloat16")
     timed(phase_two_layer_train, dev)
@@ -4181,14 +4694,12 @@ def main():
     timed(phase_breakdown, dev, card, "zamba2-1.2b", tag="14")
     timed(phase_two_layer_xlstm, dev)
     timed(phase_two_layer_xlstm_serve, dev)
-    xserve_launches, xserve_routes, xserve_numbers = timed(
-        phase_serve_xlstm, card)
+    xserve_launches, xserve_routes, _, xserve_numbers = timed(
+        phase_serve_state, card, "xlstm-350m", "7x", X_SERVE_STEP,
+        xlstm_step_bytes)
     xlstm_launches, xlstm_routes, xlstm_k2, xlstm_tel = timed(
         phase_train, card, "xlstm-350m", X_STEPS, X_LAUNCHES, tag="17")
-    xlstm_numbers = {"t_step_s": xlstm_tel["t_step_s"],
-                     "tokens_per_s": xlstm_tel["tokens_per_s"],
-                     "mfu": xlstm_tel["mfu"],
-                     "mem_peak_gib": xlstm_tel["mem_peak_bytes"] / 2 ** 30}
+    xlstm_numbers = train_numbers(xlstm_tel)
     # a quarter of the sequence: the sLSTM's per-token loop makes a full
     # step hundreds of thousands of kernels for the profiler to record
     xlstm_numbers["breakdown"] = timed(phase_breakdown, dev, card,
@@ -4208,10 +4719,8 @@ def main():
     mix_launches, mix_routes, mix_k2, mix_tel = timed(
         phase_train, card, "mixtral-8x7b", MIX_STEPS, MIX_LAUNCHES,
         tag="21", layers=MIX_TRAIN_LAYERS)
-    moe_numbers = {"serve_mixtral": moe_numbers, "train_mixtral": {
-        "layers": MIX_TRAIN_LAYERS, "t_step_s": mix_tel["t_step_s"],
-        "tokens_per_s": mix_tel["tokens_per_s"], "mfu": mix_tel["mfu"],
-        "mem_peak_gib": mix_tel["mem_peak_bytes"] / 2 ** 30}}
+    moe_numbers = {"serve_mixtral": moe_numbers, "train_mixtral":
+                   train_numbers(mix_tel, layers=MIX_TRAIN_LAYERS)}
     moe_numbers["train_mixtral"]["breakdown"] = timed(
         phase_breakdown, dev, card, "mixtral-8x7b", tag="22",
         layers=MIX_TRAIN_LAYERS, op_group=moe_op_group)
@@ -4247,6 +4756,43 @@ def main():
         phase_breakdown, dev, card, "deepseek-v3-671b", tag="25",
         layers=DS_TRAIN_LAYERS, rows=DS_TRAIN_B, op_group=ds_op_group,
         change=lambda cfg: ds_train_cfg())
+    gc.collect()
+    torch.cuda.empty_cache()
+    w_model = timed(phase_two_layer_whisper, dev)
+    timed(phase_two_layer_whisper_decode, dev, *w_model)
+    del w_model
+    wserve_launches, wserve_routes, wserve_k4, wserve_numbers = timed(
+        phase_serve_state, card, "whisper-medium", "7w", W_SERVE_STEP,
+        functools.partial(state_step_bytes, "whisper-medium"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    w_launches, w_routes, w_k2, w_tel = timed(
+        phase_train, card, "whisper-medium", W_STEPS, W_LAUNCHES, tag="27",
+        seq=W_TEXT)
+    modality_numbers = {"serve_whisper": wserve_numbers,
+                        "train_whisper": train_numbers(
+                            w_tel, batch=[TRAIN_B, W_TEXT],
+                            frames=W_FRAMES)}
+    modality_numbers["train_whisper"]["breakdown"] = timed(
+        phase_breakdown, dev, card, "whisper-medium", tag="27p", seq=W_TEXT,
+        op_group=launching_op_group, host_steps=3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vserve_launches, vserve_routes, vserve_k4, \
+        modality_numbers["serve_internvl"] = timed(
+            phase_serve_state, card, "internvl2-2b", "7v", V_SERVE_STEP,
+            functools.partial(state_step_bytes, "internvl2-2b"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    v_launches, v_routes, v_k2, v_tel = timed(
+        phase_train, card, "internvl2-2b", V_STEPS, V_LAUNCHES, tag="28")
+    modality_numbers["train_internvl"] = train_numbers(
+        v_tel, batch=[TRAIN_B, TRAIN_S], patches=V_PATCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    modality_numbers["train_internvl"]["breakdown"] = timed(
+        phase_breakdown, dev, card, "internvl2-2b", tag="28p",
+        op_group=launching_op_group, host_steps=3)
 
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
@@ -4256,7 +4802,11 @@ def main():
              ("serve_mixtral", mserve_launches),
              ("train_mixtral", mix_launches),
              ("serve_deepseek", dserve_launches),
-             ("train_deepseek", ds_launches))
+             ("train_deepseek", ds_launches),
+             ("serve_whisper", wserve_launches),
+             ("train_whisper", w_launches),
+             ("serve_internvl", vserve_launches),
+             ("train_internvl", v_launches))
 
     def launched(*names, **more):
         by = {path: sum(counts[n] for n in names) for path, counts in paths}
@@ -4273,12 +4823,16 @@ def main():
                 ("serve_mixtral", mserve_routes),
                 ("train_mixtral", mix_routes),
                 ("serve_deepseek", dserve_routes),
-                ("train_deepseek", ds_routes))
+                ("train_deepseek", ds_routes),
+                ("serve_whisper", wserve_routes),
+                ("train_whisper", w_routes),
+                ("serve_internvl", vserve_routes),
+                ("train_internvl", v_routes))
     by_route = {r: sum(routes[r] for _, routes in k1_paths)
                 for r in serve_routes}
     k2_by_route = {key: {r: sum(p[key][r] for p in (
         serve_k2, train_k2, zamba_k2, xlstm_k2, mserve_k2, mix_k2,
-        dserve_k2, ds_k2))
+        dserve_k2, ds_k2, w_k2, v_k2))
         for r in serve_k2[key]} for key in serve_k2}
 
     def k1_launched(route):
@@ -4323,13 +4877,16 @@ def main():
              **launched("K4", spec_draft=spec_k4,
                         serve_gather_view=gather_numbers["k4"]),
              launches_by_route={r: serve_k4[r] + zserve_k4[r]
-                                + mserve_k4[r] + dserve_k4[r] + (
+                                + mserve_k4[r] + dserve_k4[r]
+                                + wserve_k4[r] + vserve_k4[r] + (
                  spec_k4 + gather_numbers["k4"] if r == "split" else 0)
                  for r in serve_k4},
              launches_combine=(serve_launches["K4 combine"]
                                + zserve_launches["K4 combine"]
                                + mserve_launches["K4 combine"] + spec_k4
-                               + gather_numbers["k4"]),
+                               + gather_numbers["k4"]
+                               + wserve_launches["K4 combine"]
+                               + vserve_launches["K4 combine"]),
              **k4_numbers),
         dict(name="K5 ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -4349,7 +4906,8 @@ def main():
              "decode_layer_kernels", "contiguous_layer_kernels") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2",
                                                   "mixtral", "moonlight",
-                                                  "deepseek")
+                                                  "deepseek", "whisper",
+                                                  "internvl2")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))
     print("serving paths: " + json.dumps({
@@ -4359,6 +4917,7 @@ def main():
     print("xlstm training: " + json.dumps(xlstm_numbers))
     print("moe: " + json.dumps(moe_numbers))
     print("deepseek: " + json.dumps(ds_numbers))
+    print("modality families: " + json.dumps(modality_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

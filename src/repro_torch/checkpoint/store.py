@@ -24,7 +24,9 @@ The optimizer step, a host ``int`` in the port, is written as an int32
 leaves land on ``device`` in the dtype each Param pins, else ``dtype``)
 or of ints.  A restored leaf takes its template's dtype and device, so the
 f32 Mamba2 leaves stay f32 in a bf16 model.  A missing leaf and a
-global-shape mismatch fail loudly, with the reference's messages.
+global-shape mismatch fail loudly, with the reference's messages.  Every
+family's tree goes through the same walk: whisper's ``encoder`` subtree
+and its decoder blocks' ``ln_x`` and ``xattn`` are leaves like any other.
 """
 from __future__ import annotations
 

@@ -41,6 +41,21 @@ def tree_leaves(tree):
     return [tree]
 
 
+def stack_tree(tree, n: int):
+    """A tree of Params with a leading dim of ``n`` on every leaf: ``n``
+    layers' stacked slab (reference ``core/params.py:stack_tree``)."""
+    return tree_map(lambda p: dataclasses.replace(p, shape=(n, *p.shape)),
+                    tree)
+
+
+def unstack(tree, n: int):
+    """The ``n`` per-layer trees of a stacked tree of tensors, one unbind
+    per leaf, whose backward is a single stack (indexing a layer out of a
+    stack would build a full-size zero gradient per layer)."""
+    parts = tree_map(torch.unbind, tree)
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
 def init_params(abstract, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.bfloat16):
     """Random weights for a tree of Params, such as

@@ -4,10 +4,14 @@
 seed: the synthetic stream is the same numpy Zipf generator, and the
 ``file`` kind reads the same packed ``.npy`` token file.  Batches are
 {"tokens": (B, S), "labels": (B, S)} (labels are the tokens shifted by one)
-and land on the stream's device as int64 through ``to_device``, in place of
-the reference's ``shard_batch``.  The port trains the text families (dense,
-MoE, hybrid and SSM), so the modality stubs of the VLM and audio families
-are not drawn.
+and land on the stream's device through ``to_device``, in place of the
+reference's ``shard_batch``: the tokens as int64, the modality stubs in
+bf16, as ``shard_batch`` casts them.  The VLM family's batches carry
+``patch_embeds`` (B, n_vision_tokens, d) and text of ``seq_len -
+n_vision_tokens`` tokens; the audio family's carry ``frames`` (B,
+n_frames, d) beside ``seq_len`` text tokens.  Both stubs are drawn from the
+stream's generator after the tokens, in the reference's order
+(``repro/data/pipeline.py:60-75``), by ``models/frontend.py``.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from ..config import Family, ModelConfig, ShapeConfig
+from ..config import ModelConfig, ShapeConfig
+from ..models.registry import get_stack
 
 
 @dataclasses.dataclass
@@ -27,21 +32,28 @@ class DataConfig:
     seed: int = 0
 
 
+# the float modality stubs; shard_batch casts them to bf16
+# (reference data/pipeline.py:94-97)
+STUBS = ("frames", "patch_embeds")
+
+
 def to_device(batch: dict, device) -> dict:
-    """A host batch of numpy int arrays -> int64 tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).long().to(device)
-            for k, v in batch.items()}
+    """A host batch of numpy arrays -> tensors on ``device``: the token
+    arrays as int64, the modality stubs (``STUBS``) in bf16."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t.to(torch.bfloat16) if k in STUBS else t.long()).to(
+            device)
+    return out
 
 
 class TokenStream:
-    """Iterator of train batches {"tokens", "labels"} on ``device``."""
+    """Iterator of train batches {"tokens", "labels"} (+ the modality
+    stubs) on ``device``."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  data: Optional[DataConfig] = None, device="cpu"):
-        if cfg.family in (Family.VLM, Family.AUDIO):
-            raise NotImplementedError(
-                f"{cfg.arch}: family {cfg.family.value!r} is not ported yet "
-                "(ROADMAP.md, Queue 1 item 10)")
         self.cfg, self.shape, self.device = cfg, shape, device
         self.data = data or DataConfig()
         if self.data.kind not in ("synthetic", "file"):
@@ -70,6 +82,15 @@ class TokenStream:
         return self
 
     def __next__(self) -> dict:
-        toks = self._next_tokens(self.shape.global_batch, self.shape.seq_len)
-        return to_device({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
-                         self.device)
+        return to_device(self.next_host(), self.device)
+
+    def next_host(self) -> dict:
+        """The next batch as numpy arrays (reference
+        ``TokenStream.__next__`` before ``shard_batch``): the tokens of the
+        family's text length, then its stubs (``registry.Stack``)."""
+        b, s = self.shape.global_batch, self.shape.seq_len
+        stack = get_stack(self.cfg.family)
+        toks = self._next_tokens(b, stack.label_len(self.cfg, s))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch.update(stack.stubs(self.cfg, b, self.rng))
+        return batch

@@ -1,8 +1,8 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 8``
 builds the continuous-batching engine on one device (the paged KV cache
-with chunked prefill for the dense and MoE families, the per-slot
-recurrent state with sequential prefill for zamba2 and xlstm), submits
+with chunked prefill for the dense and MoE families, the per-slot caches
+with sequential prefill for zamba2, xlstm, internvl2 and whisper), submits
 synthetic requests and reports the serving metrics (TTFT / TPOT p50/p95,
 tok/s, prefix hits, accepted drafts).  Same flags as ``repro.launch.serve``
 for the paths the port has (``--prefix-cache``, ``--draft ARCH

@@ -3,12 +3,14 @@
 
 The flags of ``repro.launch.train`` plus ``--device {cuda,cpu}`` (default
 cuda; with no card it exits with a message and never falls back to the
-CPU).  It trains the dense, MoE (mixtral, Moonlight, deepseek-v3 with MLA
-and the mtp head), hybrid (zamba2) and SSM (xlstm) families on one device,
-the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW; the flags of what the
-port does not carry (more than one device, the 1-D/2-D baselines,
-overlap, ZeRO, Adafactor, the vlm/audio families) raise with a pointer to
-ROADMAP.md.
+CPU).  It trains every family on one device, the cube (1, 1, 1) at pp = 1
+and dp = 1, with AdamW: dense, MoE (mixtral, Moonlight, deepseek-v3 with
+MLA and the mtp head), hybrid (zamba2), SSM (xlstm), VLM (internvl2: its
+``--seq`` counts the ``n_vision_tokens`` patches ahead of the text, as the
+reference's does) and audio (whisper: ``--seq`` text tokens beside the
+encoder's frames); the flags of what the port does not carry (more than
+one device, the 1-D/2-D baselines, overlap, ZeRO, Adafactor) raise with a
+pointer to ROADMAP.md.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
 and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
 many leading layers are dense and ``--experts`` cuts the routed experts, so
@@ -36,9 +38,8 @@ import time
 TODO = "not ported yet: see ROADMAP.md, Queue 1"
 
 
-def _refuse(args, cfg):
-    """NotImplementedError for every flag this slice does not carry."""
-    from repro_torch.models.registry import unported_reason
+def _refuse(args):
+    """NotImplementedError for every flag the port does not carry yet."""
     bad = []
     if args.dp > 1 or args.model > 1 or args.pp > 1 or args.host_devices:
         bad.append("more than one device (--dp/--model/--pp/--host-devices;"
@@ -52,9 +53,6 @@ def _refuse(args, cfg):
         bad.append(f"--zero {args.zero} (ZeRO over dp, item 5)")
     if args.optimizer != "adamw":
         bad.append(f"--optimizer {args.optimizer} (Adafactor, item 5)")
-    reason = unported_reason(cfg)
-    if reason:
-        bad.append(reason)
     if bad:
         raise NotImplementedError(f"{'; '.join(bad)}: {TODO}")
 
@@ -136,7 +134,7 @@ def main(argv=None) -> dict:
                            else cfg.moe.first_k_dense))
     if changes:
         cfg = dataclasses.replace(cfg, **changes)
-    _refuse(args, cfg)
+    _refuse(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("--device cuda: no CUDA device is available (pass "
                  "--device cpu to run the plain versions on the CPU)")

@@ -13,12 +13,15 @@ restored at block exit (paper §3.2).  The attention islands are written for
 one device: their collectives go through ``core/comm.py``, which raises
 above axis size 1.
 
-Four attention paths: ``attention`` (prefill and training, K2),
+Five attention paths: ``attention`` (prefill and training, K2; the
+encoder's and the cross attention's non-causal form too),
 ``attention_decode_paged`` (one token against the paged pool, K4),
 ``attention_decode`` (one token against a contiguous per-slot cache, also
-K4: the cache is K4's pool laid out flat under the identity block table)
-and ``attention_extend`` (fresh tokens continuing past a cache view, plain
-PyTorch as the reference's is jnp outside any kernel).
+K4: the cache is K4's pool laid out flat under the identity block table),
+``cross_decode`` (one token against the audio decoder's static encoder
+k/v, K4 the same way) and ``attention_extend`` (fresh tokens continuing
+past a cache view, plain PyTorch as the reference's is jnp outside any
+kernel).
 """
 from __future__ import annotations
 
@@ -204,6 +207,31 @@ def attention_decode(layout: Layout, cfg: ModelConfig, dirs: Dirs,
     return out[:, None], cache
 
 
+def cross_decode(layout: Layout, cfg: ModelConfig, dirs: Dirs, q, k, v):
+    """Decode-time cross attention (reference ``blocks.py:664-693`` at one
+    device): q (B, 1, nq, d) against the static encoder k/v (B, F, nkv, d),
+    one unmasked f32 softmax over every frame.
+
+    K4 computes it over the k/v laid out flat as a pool, (B * F, nkv, d),
+    under the identity block table, as ``attention_decode`` reads a
+    contiguous cache: the positions are the constant ``arange(F)`` of each
+    row and ``cur = F - 1``, so every frame is valid and nothing is folded
+    in.  The positions are built here, not kept in the cache, whose tree
+    keeps the reference's leaves."""
+    b, F = k.shape[0], k.shape[1]
+    blk = contiguous_block(F)
+    i32 = torch.int32
+    tables = torch.arange(b * F // blk, dtype=i32,
+                          device=q.device).view(b, F // blk)
+    pos = torch.arange(F, dtype=i32, device=q.device).repeat(b)
+    cur = torch.full((b,), F - 1, dtype=i32, device=q.device)
+    out = paged_flash_decode(q[:, 0].contiguous(),
+                             k.reshape(b * F, *k.shape[2:]),
+                             v.reshape(b * F, *v.shape[2:]), pos, tables,
+                             cur, block=blk)
+    return out[:, None]
+
+
 def attention_extend(layout: Layout, cfg: ModelConfig, dirs: Dirs,
                      q, k_new, v_new, cache, positions, *, window=0):
     """Multi-token continuation (reference ``blocks.py:348-436`` at one
@@ -250,33 +278,46 @@ def _act_fn(name: str):
 
 def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
                *, causal=True, window=0, decode=False, cache=None,
-               return_kv=False, page=None):
-    """Self-attention sub-block.  Returns (out, new_cache): with ``decode``
-    the layer's new entries (paged, ``page`` given) or its written cache
-    (contiguous); else the rope'd (k, v) when ``return_kv``.  A prefill
-    with a ``cache`` view is an extend."""
+               kv_override=None, return_kv=False, page=None):
+    """Self (or cross) attention sub-block.  Returns (out, new_cache): with
+    ``decode`` the layer's new entries (paged, ``page`` given) or its
+    written cache (contiguous); else the rope'd (k, v) when ``return_kv``.
+    A prefill with a ``cache`` view is an extend.
+
+    ``kv_override`` (k, v) makes it a cross attention over those (the
+    encoder's states' k/v, reference ``blocks.py:603-662``), with the
+    reference's quirks: q is roped and qk-normed, the given k is neither;
+    a decode attends it whole (``cross_decode``), else it runs K2 with
+    ``causal``."""
     dh = cfg.head_dim
     hx = layout.size(dirs.in_ax)
     kv_sf = cfg.n_kv % hx == 0 and cfg.n_kv >= hx
     B, S = x.shape[0], x.shape[1]
 
     q, d2 = plinear(layout, dirs, x, p["wq"], kind="first", decode=decode)
-    k, _ = plinear(layout, dirs, x, p["wk"], kind="first", shard_f=kv_sf,
-                   decode=decode)
-    v, _ = plinear(layout, dirs, x, p["wv"], kind="first", shard_f=kv_sf,
-                   decode=decode)
     q = q.reshape(B, S, -1, dh)
-    k = k.reshape(B, S, -1, dh)
-    v = v.reshape(B, S, -1, dh)
+    if kv_override is None:
+        k, _ = plinear(layout, dirs, x, p["wk"], kind="first", shard_f=kv_sf,
+                       decode=decode)
+        v, _ = plinear(layout, dirs, x, p["wv"], kind="first", shard_f=kv_sf,
+                       decode=decode)
+        k = k.reshape(B, S, -1, dh)
+        v = v.reshape(B, S, -1, dh)
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+        if kv_override is None:
+            k = rmsnorm(k, p["k_norm"])
     if cfg.rope_base:
         q = apply_rope(q, positions, cfg.rope_base)
-        k = apply_rope(k, positions, cfg.rope_base)
+        if kv_override is None:
+            k = apply_rope(k, positions, cfg.rope_base)
 
     new_cache = None
-    if decode:
+    if decode and kv_override is not None:
+        out = cross_decode(layout, cfg, dirs, q, k, v)
+    elif decode:
         pvec = (positions[:, 0] if positions.dim() > 1 else positions)
         pvec = pvec.to(torch.int32).contiguous()
         if page is not None:
@@ -285,7 +326,7 @@ def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
         else:
             out, new_cache = attention_decode(layout, cfg, dirs, q, k, v,
                                               cache, pvec, window=window)
-    elif cache is not None:
+    elif cache is not None and kv_override is None:
         out = attention_extend(layout, cfg, dirs, q, k, v, cache, positions,
                                window=window)
         if return_kv:

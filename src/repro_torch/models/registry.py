@@ -1,37 +1,38 @@
 """The hooks of ``repro/models/registry.py`` that the port's paths need,
-for the dense, MoE, hybrid and SSM (xLSTM) families: the layer plan and its
-segments, the
-decode-cache tree (``stack_cache``), the loss labels and mask, the
-microbatch weight, and the train-FLOPs estimate that is the MFU numerator
-(``obs/telemetry.py``).  The reference module
-imports jax, so the port keeps its own copies; ``tests/test_torch_train.py``,
-``tests/test_torch_ssm.py`` and ``tests/test_torch_moe.py`` hold them equal
-to the originals.  The MoE family includes deepseek-v3-671b: MLA
-attention (``models/mla.py``) and the multi-token-prediction head.
+for every family (dense, MoE, hybrid, SSM, VLM and audio): the layer plan
+and its segments, the decode-cache tree (``stack_cache``), and one table,
+``STACKS``, of each family's frontend, loss labels and mask, microbatch
+weight, label length, data stubs, serving cache and train-FLOPs estimate
+(the MFU numerator, ``obs/telemetry.py``), as the reference's
+``get_stack`` keeps them.  The reference
+module imports jax, so the port keeps its own copies;
+``tests/test_torch_train.py``, ``tests/test_torch_ssm.py``,
+``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py`` and
+``tests/test_torch_encdec.py`` hold them equal to the originals.  The MoE
+family includes deepseek-v3-671b: MLA attention (``models/mla.py``) and the
+multi-token-prediction head.  The VLM family (internvl2) is the dense stack
+behind a frontend that prepends patch embeddings outside decode; the audio
+family (whisper) is a stack of ``xdec`` blocks (self attention, cross
+attention over the encoder's states, MLP; ``models/encdec.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Callable, Tuple
 
 import torch
 
 from ..config import Family, ModelConfig
+from ..core.linear3d import embed_lookup
+from ..core.params import stack_tree
+from ..core.topology import Dirs, Layout
+from . import encdec
 from .blocks import kv_cache_init
+from .frontend import audio_frames, vision_patches
 from .mamba2 import mamba_cache_init
 from .mla import mla_cache_init
 from .xlstm import mlstm_cache_init, slstm_cache_init
-
-PORTED = (Family.DENSE, Family.MOE, Family.HYBRID, Family.SSM)
-
-
-def unported_reason(cfg: ModelConfig):
-    """Why the port cannot run ``cfg`` yet, or None."""
-    if cfg.family not in PORTED:
-        return (f"{cfg.arch}: family {cfg.family.value!r} is not ported yet; "
-                "the port runs the dense, MoE, hybrid and SSM families "
-                "(ROADMAP.md, Queue 1 item 10)")
-    return None
 
 
 def _plan_xlstm(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -51,23 +52,9 @@ def _plan_xlstm(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(plan)
 
 
-def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
-    """The block kind of each layer in order (reference ``_plan_dense``,
-    ``_plan_moe``, ``_plan_hybrid`` and ``_plan_xlstm``,
-    ``registry.py:374-411``): the MoE family runs ``first_k_dense`` dense
-    layers, then MoE layers; zamba2 runs the one shared attention block
-    ("attn") after every full ``attn_every`` Mamba layers; xlstm-350m is 21
-    mLSTM and 3 sLSTM layers."""
-    reason = unported_reason(cfg)
-    if reason:
-        raise NotImplementedError(reason)
-    if cfg.family == Family.DENSE:
-        return ("dense",) * cfg.n_layers
-    if cfg.family == Family.MOE:
-        fk = cfg.moe.first_k_dense
-        return ("dense",) * fk + ("moe",) * (cfg.n_layers - fk)
-    if cfg.family == Family.SSM:
-        return _plan_xlstm(cfg)
+def _plan_hybrid(cfg: ModelConfig) -> Tuple[str, ...]:
+    """zamba2: the one shared attention block ("attn") after every full
+    ``attn_every`` Mamba layers (reference ``registry.py:385-397``)."""
     every = cfg.ssm.attn_every or (cfg.n_layers + 1)
     plan, done = [], 0
     while done < cfg.n_layers:
@@ -77,6 +64,13 @@ def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
         if cfg.ssm.attn_every and n == every:
             plan.append("attn")
     return tuple(plan)
+
+
+def _plan_moe(cfg: ModelConfig) -> Tuple[str, ...]:
+    """``first_k_dense`` dense layers, then MoE layers (reference
+    ``registry.py:380-382``)."""
+    fk = cfg.moe.first_k_dense
+    return ("dense",) * fk + ("moe",) * (cfg.n_layers - fk)
 
 
 # The kind whose parameters are shared rather than stacked per layer: it
@@ -110,9 +104,24 @@ def _attn_cache(cfg: ModelConfig, batch: int, length: int):
     return kv_cache_init(cfg, batch, L)
 
 
+def _xdec_cache(cfg: ModelConfig, batch: int, length: int):
+    """One audio decoder layer's cache (reference ``registry.py:362-370``):
+    its self-attention kv, and the cross attention's static encoder k/v,
+    one layer of ``encdec.cross_kv_cache_init``'s (batch, n_frames, nkv,
+    d), zeros until something writes them (the reference's engine never
+    does: ROADMAP.md, Queue 3 fault 5)."""
+    L = min(length, cfg.window) if cfg.window else length
+    cross = encdec.cross_kv_cache_init(cfg, batch)
+    layer = {k: dataclasses.replace(v, shape=v.shape[1:])
+             for k, v in cross.items()}
+    return {"kv": kv_cache_init(cfg, batch, L),
+            "xk": layer["k"], "xv": layer["v"]}
+
+
 # the decode cache of one layer of each kind (reference registry.py:
 # BlockKind.cache); zamba2's shared block has one per use
 KIND_CACHES = {"dense": _attn_cache, "moe": _attn_cache, "attn": _attn_cache,
+               "xdec": _xdec_cache,
                "mamba": lambda cfg, batch, length:
                    mamba_cache_init(cfg, batch),
                "mlstm": lambda cfg, batch, length:
@@ -124,26 +133,12 @@ KIND_CACHES = {"dense": _attn_cache, "moe": _attn_cache, "attn": _attn_cache,
 def stack_cache(cfg: ModelConfig, batch: int, length: int):
     """The decode-cache tree (reference ``registry.py:627-637``): one slab
     per kind in plan order, each leaf stacked (n, ...) over the kind's n
-    layers, or its n uses for the shared "attn" kind."""
+    layers, or its n uses for the shared "attn" kind; the ``xdec`` slab
+    nests its self-attention cache under ``kv``."""
     plan = layer_plan(cfg)
-    return {kind: {name: dataclasses.replace(p, shape=(plan.count(kind),
-                                                       *p.shape))
-                   for name, p in KIND_CACHES[kind](cfg, batch,
-                                                    length).items()}
+    return {kind: stack_tree(KIND_CACHES[kind](cfg, batch, length),
+                             plan.count(kind))
             for kind in dict.fromkeys(plan)}
-
-
-def text_labels(batch):
-    """(labels, mask): the mask is ``labels >= 0`` in f32 (reference
-    ``registry.py:150-152``); the caller clamps the labels at 0."""
-    labels = batch["labels"]
-    return labels, (labels >= 0).float()
-
-
-def text_mb_weight(batch) -> torch.Tensor:
-    """A microbatch's valid-token count, its weight in the accumulated loss
-    and gradient (reference ``registry.py:155-156``)."""
-    return (batch["labels"] >= 0).float().sum()
 
 
 def attn_step_flops(cfg: ModelConfig, s: int) -> float:
@@ -162,6 +157,144 @@ def ssm_step_flops(cfg: ModelConfig, s: int) -> float:
     return 3.0 * 2.0 * cfg.n_active_params()
 
 
+def embed(layout: Layout, cfg: ModelConfig, dirs: Dirs, params, tokens,
+          decode: bool = False):
+    """The token embedding, scaled by sqrt(d) where the config says
+    (reference ``registry.py:137-143``)."""
+    x = embed_lookup(layout, dirs, tokens, params["embed"], decode=decode)
+    if cfg.emb_scale_sqrt_d:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _text_frontend(layout, cfg, dirs, params, batch, *, mode):
+    decode = mode == "decode"
+    return embed(layout, cfg, dirs, params,
+                 batch["token" if decode else "tokens"], decode=decode), {}
+
+
+def _vlm_frontend(layout, cfg, dirs, params, batch, *, mode):
+    """Patches prepended to the text outside decode only (reference
+    ``registry.py:164-170``): served internvl2 never sees them (ROADMAP
+    Queue 3, fault 5)."""
+    x, ctx = _text_frontend(layout, cfg, dirs, params, batch, mode=mode)
+    if mode != "decode":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x, ctx
+
+
+def _audio_frontend(layout, cfg, dirs, params, batch, *, mode):
+    """The encoder over ``batch["frames"]`` outside decode, under remat in
+    training, its states the decoder blocks' ``ctx["enc"]`` (reference
+    ``registry.py:201-208``); a decode attends the cache's ``xk``/``xv``.
+    The frames enter in the model's dtype, which the reference's bf16
+    batches are for a bf16 model."""
+    x, ctx = _text_frontend(layout, cfg, dirs, params, batch, mode=mode)
+    if mode == "decode":
+        return x, ctx
+    frames = batch["frames"].to(params["embed"].dtype)
+    return x, {"enc": encdec.encoder_apply(
+        layout, cfg, dirs, frames, params["encoder"],
+        remat=cfg.remat and mode == "train")}
+
+
+def _text_labels(cfg, batch):
+    labels = batch["labels"]
+    return labels, (labels >= 0).float()
+
+
+def _vlm_labels(cfg, batch):
+    """Labels and mask padded by ``n_vision_tokens`` on the left, the mask
+    0 on the vision positions and 1 on every text position, masked labels
+    included (reference ``registry.py:173-182``)."""
+    labels = batch["labels"]
+    nv = cfg.n_vision_tokens
+    mask = torch.nn.functional.pad(
+        torch.ones(labels.shape, dtype=torch.float32, device=labels.device),
+        (nv, 0))
+    return torch.nn.functional.pad(labels, (nv, 0)), mask
+
+
+def _text_mb_weight(cfg, batch):
+    return (batch["labels"] >= 0).float().sum()
+
+
+def _vlm_mb_weight(cfg, batch):
+    labels = batch["labels"]
+    return torch.tensor(float(labels.numel()), device=labels.device)
+
+
+def _no_params(cfg):
+    return {}
+
+
+def _no_stubs(cfg, b, rng):
+    return {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Stack:
+    """One family's hooks (reference ``BlockStack``, ``registry.py:95-131``),
+    those the port's one-device paths read: ``layer_plan(cfg)``, the block
+    kind of each layer; ``frontend(layout, cfg, dirs, params, batch, *,
+    mode) -> (x, ctx)``; ``frontend_params(cfg)``, its parameter subtrees;
+    ``labels(cfg, batch) -> (labels, mask)`` of the loss (the caller clamps
+    the labels at 0); ``mb_weight(cfg, batch)``, a microbatch's weight,
+    the sum of its loss mask; ``label_len(cfg, s)``, the text length of an
+    ``s``-position shape; ``stubs(cfg, b, rng)``, the modality stubs of a
+    batch, drawn after its tokens (``repro/data/pipeline.py:60-75``);
+    ``step_flops(cfg, s)``, train FLOPs per token; ``serve_cache``,
+    "paged" (the block-table kv pool) or "state"."""
+    layer_plan: Callable
+    frontend: Callable = _text_frontend
+    frontend_params: Callable = _no_params
+    labels: Callable = _text_labels
+    mb_weight: Callable = _text_mb_weight
+    label_len: Callable = lambda cfg, s: s
+    stubs: Callable = _no_stubs
+    step_flops: Callable = attn_step_flops
+    serve_cache: str = "state"
+
+
+STACKS = {
+    Family.DENSE: Stack(lambda cfg: ("dense",) * cfg.n_layers,
+                        serve_cache="paged"),
+    Family.MOE: Stack(_plan_moe, serve_cache="paged"),
+    Family.HYBRID: Stack(_plan_hybrid),
+    Family.SSM: Stack(_plan_xlstm, step_flops=ssm_step_flops),
+    # the dense stack behind the vision frontend (reference
+    # registry.py:544-548)
+    Family.VLM: Stack(
+        lambda cfg: ("dense",) * cfg.n_layers, frontend=_vlm_frontend,
+        labels=_vlm_labels, mb_weight=_vlm_mb_weight,
+        label_len=lambda cfg, s: s - cfg.n_vision_tokens,
+        stubs=lambda cfg, b, rng: {
+            "patch_embeds": vision_patches(cfg, b, rng)}),
+    # whisper's decoder: n_layers xdec blocks behind the encoder (reference
+    # registry.py:415-416, 549-555)
+    Family.AUDIO: Stack(
+        lambda cfg: ("xdec",) * cfg.n_layers, frontend=_audio_frontend,
+        frontend_params=lambda cfg: {"encoder": encdec.encoder_params(cfg)},
+        stubs=lambda cfg, b, rng: {
+            "frames": audio_frames(cfg, b, rng)}),
+}
+
+
+def get_stack(family: Family) -> Stack:
+    return STACKS[family]
+
+
+def layer_plan(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The block kind of each layer in order (reference ``_plan_*``,
+    ``registry.py:376-416``)."""
+    return get_stack(cfg.family).layer_plan(cfg)
+
+
+def serve_cache_mode(cfg: ModelConfig) -> str:
+    """'paged' or 'state' (reference ``registry.serve_cache_mode``)."""
+    return get_stack(cfg.family).serve_cache
+
+
 def train_flops_per_token(cfg: ModelConfig, s: int) -> float:
     """Model FLOPs spent per trained token (reference
     ``registry.py:492-494``).  The reference gives the hybrid family no
@@ -174,11 +307,11 @@ def train_flops_per_token(cfg: ModelConfig, s: int) -> float:
     ``n_active_params`` counts xlstm-350m's 24 layers as attention blocks
     with no MLP (d_ff 0): 0.204B parameters against the 0.342B of its real
     tree, and none of the mLSTM's chunk products, so its MFU reads low, at
-    most 0.60x of what the tree's parameters give.  Both copied as they
-    are."""
-    reason = unported_reason(cfg)
-    if reason:
-        raise NotImplementedError(reason)
-    if cfg.family == Family.SSM:
-        return float(ssm_step_flops(cfg, s))
-    return float(attn_step_flops(cfg, s))
+    most 0.60x of what the tree's parameters give.  The VLM and audio
+    families take ``attn_step_flops`` (the reference's default,
+    ``registry.py:127``); for whisper ``n_active_params`` counts the 24
+    decoder layers without their cross attention and no encoder, and the
+    attention term the decoder's self attention alone, so its MFU leaves
+    out the encoder's 24 layers over 1,504 frames and reads low.  All
+    copied as they are."""
+    return float(get_stack(cfg.family).step_flops(cfg, s))

@@ -1,5 +1,5 @@
-"""Model assembly (port of ``repro/models/transformer.py`` and the dense,
-MoE, hybrid and SSM parts of ``repro/models/registry.py``).
+"""Model assembly (port of ``repro/models/transformer.py`` and the stack
+drivers of ``repro/models/registry.py``).
 
 ``abstract_params(cfg)`` is the parameter tree, with the same nested names,
 shapes and dtypes as the reference's ``transformer.abstract_params`` at
@@ -24,24 +24,30 @@ MLP ``moe.dense_ff`` wide.  The hybrid family (zamba2) has
 w_z, w_bc, w_dt, dt_bias, A_log, D, conv_x, conv_x_b, conv_bc, conv_bc_b,
 gate_ln, w_out}`` (L, ...) instead of ``stack.dense``; the SSM family
 (xlstm) has ``stack.mlstm.{ln, w_q, w_k, w_v, w_z, w_if, out_ln, w_out}``
-and ``stack.slstm.{ln, w_gates, R, w_out}``.  Weights keep JAX's
-(in, out) layout, so a tree converted by ``convert.params_from_jax`` needs
-no transposes.
+and ``stack.slstm.{ln, w_gates, R, w_out}``.  The VLM family (internvl2)
+has the dense family's tree.  The audio family (whisper) has
+``encoder.{blocks.{ln1, attn, ln2, mlp} (n_enc, ...), ln_post}`` and
+``stack.xdec.{ln1, attn, ln_x, xattn.{wq, wk, wv, wo}, ln2, mlp}`` (L, ...)
+(``models/encdec.py``).  Weights keep JAX's (in, out) layout, so a tree
+converted by ``convert.params_from_jax`` needs no transposes.
 
 ``forward(mode="train")`` returns the loss of a batch of token sequences,
-differentiable in every parameter: embedding, the layer plan (dense
+differentiable in every parameter: the frontend (the embedding; the VLM
+family's patch embeddings prepended; the audio family's encoder over its
+frames, whose states the decoder blocks attend), the layer plan (dense
 blocks, MoE blocks, zamba2's Mamba2 blocks and its shared attention
-block, or xlstm's mLSTM and sLSTM blocks; each block recomputed in the
-backward when ``cfg.remat``), ``ln_f`` and the chunked vocab-parallel head
-and cross-entropy, plus the MoE blocks' router losses (``aux``) and, with
-the mtp head, 0.1 of its loss (``mtp``).  Serving:
+block, xlstm's mLSTM and sLSTM blocks, or whisper's decoder blocks; each
+block recomputed in the backward when ``cfg.remat``), ``ln_f`` and the
+chunked vocab-parallel head and cross-entropy, plus the MoE blocks'
+router losses (``aux``) and, with the mtp head, 0.1 of its loss
+(``mtp``).  Serving:
 ``prefill`` runs
 whole right-padded prompts and hands their rope'd (k, v) to the paged
 pool; ``forward(mode="decode")`` advances every slot by one token, against
 that pool (``page=...``) or against a contiguous per-slot cache tree
 (``abstract_cache``: zamba2's and xlstm's recurrent state, zamba2's
-shared-block caches, the speculative draft's cache, the gather-view
-decode); ``extend`` continues
+shared-block caches, the VLM family's and whisper's caches, the
+speculative draft's cache, the gather-view decode); ``extend`` continues
 past a cache view with several fresh tokens a row (the prefix-hit tail
 prefill and the speculative verify).  The reference scans stacked layer
 parameters (``registry.run_stack``); PyTorch runs eagerly, so here the
@@ -51,21 +57,18 @@ would build a full-size zero gradient per layer).
 """
 from __future__ import annotations
 
-import dataclasses
-import math
-
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Family, ModelConfig
 from ..core.linear3d import embed_lookup, plinear
-from ..core.params import Param, tree_map
+from ..core.params import Param, stack_tree, tree_map, unstack
 from ..core.topology import Dirs, Layout
 from ..core import ops3d
 from . import blocks as B
-from . import mamba2, mla, moe, xlstm
-from .registry import (KV_KINDS, SHARED_KINDS, layer_plan, segments,
-                       stack_cache, text_labels)
+from . import encdec, mamba2, mla, moe, xlstm
+from .registry import (KV_KINDS, SHARED_KINDS, embed, get_stack,
+                       layer_plan, segments, serve_cache_mode, stack_cache)
 
 
 def _attn_block_params(cfg: ModelConfig, d_ff: int = 0):
@@ -87,7 +90,8 @@ def _dense_params(cfg: ModelConfig):
 # shared block (reference registry.py:323-329, BlockKind(params=None))
 STACKED_KINDS = {"dense": _dense_params, "moe": moe.moe_block_params,
                  "mamba": mamba2.mamba_block_params,
-                 "mlstm": xlstm.mlstm_params, "slstm": xlstm.slstm_params}
+                 "mlstm": xlstm.mlstm_params, "slstm": xlstm.slstm_params,
+                 "xdec": encdec.decoder_block_params}
 # the recurrent kinds' one-token decode, (x, p, cache) -> (x, new leaves)
 RECURRENT_DECODE = {
     "mamba": mamba2.mamba_decode,
@@ -97,20 +101,16 @@ RECURRENT_DECODE = {
         layout, cfg, dirs, x, p, decode=True, cache=c)}
 
 
-def _stacked(block, n: int):
-    return tree_map(lambda p: dataclasses.replace(p, shape=(n, *p.shape)),
-                    block)
-
-
 def abstract_params(cfg: ModelConfig):
-    """Param tree of a dense-, MoE-, hybrid- or SSM-family model (see the
-    module docstring; reference ``transformer.py:47-73``)."""
+    """Param tree of a model of any family (see the module docstring;
+    reference ``transformer.py:47-73``)."""
     plan = layer_plan(cfg)
     d = cfg.d_model
     tree = {"embed": Param((cfg.vocab, d), init="embed")}
+    tree.update(get_stack(cfg.family).frontend_params(cfg))
     if "attn" in plan:
         tree["shared"] = {"attn": B.dense_block_params(cfg)}
-    tree["stack"] = {kind: _stacked(fn(cfg), plan.count(kind))
+    tree["stack"] = {kind: stack_tree(fn(cfg), plan.count(kind))
                      for kind, fn in STACKED_KINDS.items() if kind in plan}
     tree["ln_f"] = B.norm_params(cfg, d)
     tree["head"] = Param((d, cfg.vocab))
@@ -128,29 +128,23 @@ def entry_dirs() -> Dirs:
     return Dirs("y", "z")
 
 
-def serve_cache_mode(cfg: ModelConfig) -> str:
-    """'paged' when the reference serves this config through the
-    block-table KV pool (dense / MLA attention stacks), else 'state'
-    (recurrent state or modality frontends) — ``registry.serve_cache_mode``."""
-    return "paged" if cfg.family in (Family.DENSE, Family.MOE) else "state"
-
-
-def embed(layout: Layout, cfg: ModelConfig, dirs: Dirs, params, tokens,
-          decode: bool = False):
-    x = embed_lookup(layout, dirs, tokens, params["embed"], decode=decode)
-    if cfg.emb_scale_sqrt_d:
-        x = x * math.sqrt(cfg.d_model)
-    return x
+def frontend(layout: Layout, cfg: ModelConfig, dirs: Dirs, params, batch,
+             *, mode: str):
+    """(x, ctx): the embedded input and the blocks' context, by the
+    family's ``Stack.frontend`` (reference ``registry.py:146-208``).
+    Outside decode the VLM family prepends ``batch["patch_embeds"]`` (B,
+    n_vision, d) to the text, and the audio family runs the encoder over
+    ``batch["frames"]`` (under remat in training), handing its states to
+    the decoder blocks as ``ctx["enc"]``.  A decode embeds the one token
+    and nothing else, as the reference's does: served internvl2 never sees
+    patches and served whisper attends the cache's ``xk``/``xv`` (ROADMAP
+    Queue 3, fault 5)."""
+    return get_stack(cfg.family).frontend(layout, cfg, dirs, params, batch,
+                                          mode=mode)
 
 
 def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
-
-
-def _layers(tree, n: int):
-    """The n per-layer trees of a stacked tree, one unbind per leaf."""
-    parts = tree_map(torch.unbind, tree)
-    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
 
 
 def _kv_block(kind, layout, cfg, dirs, x, p, positions, **kw):
@@ -171,13 +165,16 @@ def _attn_block_apply(layout, cfg, dirs, x, p, positions, **kw):
 
 def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
               positions, *, mode: str, cache=None, page=None,
-              collect_kv: bool = False, remat: bool = False):
+              collect_kv: bool = False, remat: bool = False, ctx=None):
     """The layer plan, one segment of one block kind after another (the
     reference's ``run_stack``, ``registry.py:643-716``): a per-kind offset
     into each stacked slab, the shared kind ("attn", zamba2's one attention
     block) applied unrolled with ``params["shared"]["attn"]``.  With
     ``remat`` each block is recomputed in the backward (``jax.checkpoint``
-    of the scan body and of the shared block there).
+    of the scan body and of the shared block there).  ``ctx`` is the
+    frontend's context: ``ctx["enc"]``, the encoder's states that
+    whisper's ``xdec`` blocks attend outside decode; in decode they
+    attend their cache's ``xk``/``xv``.
 
     Returns (x, new_cache, aux), ``aux`` the f32 sum of the MoE blocks'
     router losses (None when the plan has none).  ``new_cache``: paged decode
@@ -198,10 +195,15 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
             "token a step through forward(mode='decode')")
     decode = mode == "decode"
     contiguous = decode and page is None
-    stacks = {k: _layers(t, plan.count(k))
+    stacks = {k: unstack(t, plan.count(k))
               for k, t in params["stack"].items()}
 
-    def block(kind, xx, p):
+    enc = (ctx or {}).get("enc")
+
+    def block(kind, xx, p, enc=None):
+        if kind == "xdec":
+            return encdec.decoder_block_apply(layout, cfg, dirs, xx, p,
+                                              positions, enc)[0], None
         if kind == "mamba":
             return mamba2.mamba_apply(layout, cfg, dirs, xx, p), None
         if kind == "mlstm":
@@ -220,10 +222,17 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
                 else stacks[kind][i]
             a = None
             if remat:
-                x, a = checkpoint(block, kind, x, p, use_reentrant=False)
+                x, a = checkpoint(block, kind, x, p, enc,
+                                  use_reentrant=False)
             elif contiguous:
                 c = _layer(cache[kind], i)
-                if kind in RECURRENT_DECODE:
+                if kind == "xdec":
+                    # the self attention writes c["kv"] in place; the
+                    # encoder k/v are static (reference registry.py:351-356)
+                    x, _ = encdec.decoder_block_apply(
+                        layout, cfg, dirs, x, p, positions,
+                        (c["xk"], c["xv"]), decode=True, cache=c["kv"])
+                elif kind in RECURRENT_DECODE:
                     x, nc = RECURRENT_DECODE[kind](layout, cfg, dirs, x, p, c)
                     for name, t in nc.items():
                         c[name].copy_(t)
@@ -231,7 +240,7 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
                     x, _, a = _kv_block(kind, layout, cfg, dirs, x, p,
                                         positions, decode=True, cache=c)
             elif kind not in KV_KINDS:
-                x, a = block(kind, x, p)
+                x, a = block(kind, x, p, enc)
             else:
                 c = (_layer(cache[kind], i)
                      if decode or mode == "extend" else None)
@@ -301,6 +310,9 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
     (B, S), "labels": (B, S)}, labels < 0 masked out (reference
     ``transformer.py:177-242``).
 
+    The VLM family's batch carries "patch_embeds" (B, n_vision, d) too,
+    its labels the text's; the audio family's "frames" (B, n_frames, d).
+
     mode='decode' -> (logits (B, V), cache) for ``batch`` {"token": (B,
     1), "pos": (B,) int32} (reference ``transformer.py:177-230``).  With
     ``page=...`` ``cache`` is the paged pool tree (leaves (n_layers, phys,
@@ -314,7 +326,7 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
         raise NotImplementedError(
             f"forward(mode={mode!r}): prompts go through prefill()")
     dirs = entry_dirs()
-    x = embed(layout, cfg, dirs, params, batch["token"], decode=True)
+    x, _ = frontend(layout, cfg, dirs, params, batch, mode="decode")
     positions = batch["pos"][:, None]                      # (B, 1)
     x, new_cache, _ = run_stack(layout, cfg, dirs, x, params, positions,
                                 mode="decode", cache=cache, page=page)
@@ -326,16 +338,15 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
 
 def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
     dirs = entry_dirs()
-    tokens = batch["tokens"]
-    x = embed(layout, cfg, dirs, params, tokens)
-    b, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(b, S)
+    x, ctx = frontend(layout, cfg, dirs, params, batch, mode="train")
+    b, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(b, S)
     x, _, aux = run_stack(layout, cfg, dirs, x, params, positions,
-                          mode="train", remat=cfg.remat)
+                          mode="train", remat=cfg.remat, ctx=ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = B.apply_norm(cfg, x, params["ln_f"])
-    labels, mask = text_labels(batch)
+    labels, mask = get_stack(cfg.family).labels(cfg, batch)
     xent = chunked_head_loss(cfg, layout, dirs, x, labels.clamp_min(0).long(),
                              mask, params["head"])
     metrics = {"xent": xent, "aux": aux}

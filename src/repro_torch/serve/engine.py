@@ -5,7 +5,9 @@
   * ``kvcache.PagedKVCache`` — block-table paged KV pool for the 'paged'
     families (the dense and MoE families' attention), with the
     shared-prefix index; the 'state' families (zamba2's and xlstm's
-    recurrent state) keep contiguous per-slot caches.
+    recurrent state, and the modality families: internvl2's kv caches,
+    whisper's self-attention kv beside its static cross k/v ``xk``/``xv``)
+    keep contiguous per-slot caches.
   * ``sampling.make_sampler`` — greedy / temperature / top-k / top-p under
     one engine-owned, seeded ``torch.Generator``.
   * ``speculate.DraftSpec`` — the optional draft model of speculative
@@ -32,7 +34,11 @@ the first admission into a fresh cache.  For the sLSTM that sets its
 normaliser n to 0 where its cache init and its training scan start it
 at 1, so xlstm's first decode steps differ from its forward; the port
 keeps the reference's wipe, so that its tokens equal the JAX engine's
-(ROADMAP.md, Queue 3).
+(ROADMAP.md, Queue 3, fault 4).  Whisper's slots are wiped the same way,
+``xk``/``xv`` included, and nothing writes the encoder's k/v into them,
+as in the reference, so served whisper attends zeros; served internvl2
+prefills its text alone, through the decode path, with no patches (Queue
+3, fault 5).
 
 The engine runs on the device its parameters lie on.  A MoE model's
 padding rows and idle slots take expert capacity, as in the reference, so
@@ -40,8 +46,7 @@ its tokens depend on the batches, which copy the reference's.  MLA
 (deepseek-v3-671b) serves through the latent pool {"c_kv", "k_rope",
 "pos"} on the fused and the gather-view decode; as in the reference it
 takes neither the prefix cache nor a draft (no extend path over latents).
-Not in the port yet (each raises ValueError): the encoder-decoder and
-vision-language families.
+The state families take neither (their refusals are the reference's).
 """
 from __future__ import annotations
 
@@ -53,18 +58,14 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..core.params import init_params
+from ..core.params import init_params, tree_leaves
 from ..core.topology import Layout
 from ..models import blocks as B
 from ..models import transformer
-from ..models.registry import unported_reason
 from ..obs.trace import NULL
 from . import kvcache, sampling, speculate
 from .metrics import ServeMetrics
 from .scheduler import Scheduler, pad_bucket
-
-LATER = "it arrives with a later serving slice of the port"
-
 
 @dataclasses.dataclass
 class Request:
@@ -92,9 +93,6 @@ class Engine:
                  fused_decode: Optional[bool] = None,
                  prefix_cache: bool = False,
                  draft: Optional[speculate.DraftSpec] = None, tracer=None):
-        reason = unported_reason(cfg)
-        if reason:
-            raise ValueError(f"{reason}; {LATER}")
         self.cfg, self.layout, self.params = cfg, layout, params
         # observability: per-request lifecycle spans come from the metrics
         # hooks; the engine adds one span per device tick on the "engine"
@@ -207,13 +205,13 @@ class Engine:
         return self._sample(logits)
 
     def _reset_rows(self, mask):
-        """Wipe placed slots' state (every float leaf to 0, sLSTM's n
-        included; kv positions to -1) so that a new request never sees its
-        predecessor's context (reference ``engine.py:230-236``)."""
-        for leaves in self.cache.values():
-            for leaf in leaves.values():
-                m = mask.view((1, -1) + (1,) * (leaf.dim() - 2))
-                leaf.masked_fill_(m, 0 if leaf.is_floating_point() else -1)
+        """Wipe placed slots' state (every float leaf to 0, sLSTM's n and
+        whisper's cross k/v included; kv positions to -1) so that a new
+        request never sees its predecessor's context (reference
+        ``engine.py:230-236``)."""
+        for leaf in tree_leaves(self.cache):
+            m = mask.view((1, -1) + (1,) * (leaf.dim() - 2))
+            leaf.masked_fill_(m, 0 if leaf.is_floating_point() else -1)
 
     def _prefill_step(self, tokens, length, phys_map):
         logits, kv = transformer.prefill(

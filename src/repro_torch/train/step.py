@@ -3,9 +3,11 @@ pp = 1): one optimizer step per call,
 
   * microbatches == 1: one forward and backward over the whole batch;
   * microbatches  > 1: f32 gradient accumulation over equal microbatches,
-    each weighted by its valid-token count (``registry.text_mb_weight``),
-    so the loss and gradient equal the single-shot path's global token
-    mean; the metrics too, the MoE router losses (``aux``) among them, as
+    each weighted by the sum of its loss mask (the family's
+    ``Stack.mb_weight``: its valid-token count; every text position for
+    the VLM family), so the
+    loss and gradient equal the single-shot path's global token mean; the
+    metrics too, the MoE router losses (``aux``) among them, as
     the reference weights them (``step.py:87-112``).
 
 ``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``;
@@ -22,7 +24,7 @@ from ..core.params import tree_leaves, tree_map
 from ..core.plan import MULTI_RANK_TODO
 from ..core.topology import Layout
 from ..models import transformer
-from ..models.registry import text_mb_weight
+from ..models.registry import get_stack
 from ..optim import make_optimizer
 
 
@@ -63,7 +65,7 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
             gacc = lacc = wacc = None
             macc = {}
             for mb in _split_microbatches(batch, m):
-                w = text_mb_weight(mb)
+                w = get_stack(cfg.family).mb_weight(cfg, mb)
                 loss_i, met, g = value_and_grad(params, mb)
                 g = [w * gi.float() for gi in g]
                 gacc = g if gacc is None else [a + b for a, b in zip(gacc, g)]

@@ -4,8 +4,10 @@ MoE family's and deepseek-v3's), K2 flash attention (each route, the MoE
 family's d 128 training layers and MLA's dk 192 / dv 128 among them) and
 K3 RMSNorm (forward and backward, xlstm's and deepseek-v3's widths among
 them), K4 paged decode (each
-route, mixtral's and Moonlight's serve steps and MLA's latent decode among
-them), K5 SSD scan (forward and backward).
+route, mixtral's and Moonlight's serve steps, MLA's latent decode and
+whisper's static cross k/v among them), K5 SSD scan (forward and
+backward); K2 at whisper's non-causal shapes (448 and 1504 rows over
+1504 frames) too.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -148,6 +150,31 @@ MOE_GEMMS = [(4096, 4096), (4096, 1024), (4096, 32000), (2048, 2048),
 DEEPSEEK_GEMMS = [(7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
                   (16384, 7168), (7168, 18432), (18432, 7168), (7168, 2048),
                   (2048, 7168), (14336, 7168), (7168, 129280)]
+
+
+# whisper-medium's and internvl2-2b's K1 GEMMs (M, K, N) at the rows their
+# paths give them: whisper's decode step (M 8: the d x d projections, the
+# MLP of 4096, the head of 51872), its training step's encoder linears and
+# cross k/v over 4 x 1504 frame rows and its decoder linears and head over
+# 4 x 448 text rows; internvl2's decode step (M 8: wq/wo, wk/wv of 8 x
+# 128, the MLP of 8192, the head of 92560) and its training step (4 x 2048
+# rows, the head in chunks of 4096)
+MODALITY_GEMMS = [
+    (8, 1024, 1024), (8, 1024, 4096), (8, 4096, 1024), (8, 1024, 51872),
+    (6016, 1024, 1024), (6016, 1024, 4096), (6016, 4096, 1024),
+    (1792, 1024, 1024), (1792, 1024, 4096), (1792, 4096, 1024),
+    (1792, 1024, 51872),
+    (8, 2048, 2048), (8, 2048, 1024), (8, 2048, 8192), (8, 8192, 2048),
+    (8, 2048, 92560), (8192, 2048, 2048), (8192, 2048, 1024),
+    (8192, 2048, 8192), (8192, 8192, 2048), (4096, 2048, 92560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MODALITY_GEMMS)
+def test_k1_modality_shapes_match_plain_on_card(cuda, m, k, n):
+    """whisper's and internvl2's GEMMs at their decode and training rows,
+    as xlstm's: the decode route at M 8, tc at the training rows."""
+    _check_k1_shape(cuda, m, k, n)
 
 
 @pytest.mark.cuda
@@ -328,6 +355,10 @@ def _k4_check(got, want):
     # mixtral's serve step (32/8 heads of 128) and Moonlight's (16/16)
     (16, 128, 32, 8, [275, 276, 277, 278, 279, 275, 276, 277], 32),
     (16, 128, 16, 16, [16, 17, 20, 24], 4),
+    # the served self attention of whisper (16/16 of 64) and internvl2
+    # (16/8 of 128): 8 slots 43-78 tokens in, a cache of 512
+    (16, 64, 16, 16, [43 + 5 * i for i in range(8)], 32),
+    (16, 128, 16, 8, [43 + 5 * i for i in range(8)], 32),
 ])
 @pytest.mark.parametrize("kind", ["out", "residuals", "step"])
 def test_k4_split_route_matches_plain_on_card(cuda, block, d, nq, nkv, lens,
@@ -362,6 +393,43 @@ def test_k4_split_route_matches_plain_on_card(cuda, block, d, nq, nkv, lens,
     if isinstance(got, torch.Tensor):
         got, again = (got,), (again,)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_k4_split_over_static_cross_kv_on_card(cuda):
+    """Whisper's cross decode: K4's split route over a static 1,504-frame
+    k/v laid out as a pool under the identity table, every frame valid,
+    no token folded in (``models/blocks.py:cross_decode``), against the
+    plain version and the reference's unmasked f32 softmax; one split
+    launch with its combine pass, twice bit for bit."""
+    from repro_torch.models.blocks import contiguous_block, cross_decode
+    rng = np.random.default_rng(15)
+    B, F, nh, d = 8, 1504, 16, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda).bfloat16()
+               for s in ((B, 1, nh, d), (B, F, nh, d), (B, F, nh, d)))
+    blk = contiguous_block(F)
+    assert blk == 16
+    args = (q[:, 0], k.reshape(B * F, nh, d), v.reshape(B * F, nh, d),
+            torch.arange(F, dtype=torch.int32, device=cuda).repeat(B),
+            torch.arange(B * F // blk, dtype=torch.int32,
+                         device=cuda).view(B, -1),
+            torch.full((B,), F - 1, dtype=torch.int32, device=cuda))
+    assert k4.route_for(*args[:4], blk) == "split"
+    before = (k4.launches_by_route["split"], k4.launches_combine)
+    got, again = cross_decode(None, None, None, q, k, v), \
+        cross_decode(None, None, None, q, k, v)
+    torch.cuda.synchronize()
+    assert (k4.launches_by_route["split"] - before[0],
+            k4.launches_combine - before[1]) == (2, 2)
+    assert torch.equal(got, again)
+    want = k4.paged_flash_decode_plain(*args, block=blk)
+    _k4_check(got[:, 0], want)
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float() * d ** -0.5,
+                     k.float())
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    ref = torch.einsum("bhk,bkhd->bhd", p, v.float()) / p.sum(-1)[..., None]
+    assert _norm_err(got[:, 0], ref.bfloat16()) <= K4_NORM_TOL["out"]
 
 
 @pytest.mark.cuda
@@ -552,7 +620,10 @@ def _check_k3_bf16(cuda, m, h):
     (2, 100, 100, 8, 2, 64, True, 0, 0),
     (1, 64, 200, 4, 4, 32, True, 0, 136),
     (2, 70, 70, 4, 1, 16, True, 24, 0),
-    (1, 50, 90, 6, 3, 128, False, 0, 0)])
+    (1, 50, 90, 6, 3, 128, False, 0, 0),
+    # whisper's cross attention, non-causal over a ragged last key tile
+    # (1504 = 23.5 x 64): f32 on simt, bf16 on tc
+    (1, 448, 1504, 16, 16, 64, False, 0, 0)])
 def test_k2_kernel_matches_plain_on_card(cuda, dtype, case):
     b, sq, sk, nq, nkv, d, causal, window, off = case
     rng = np.random.default_rng(8)
@@ -657,7 +728,14 @@ def _k2_case(cuda, b, sq, sk, nq, nkv, d, off, seed=9):
     # the MoE family's training layers: mixtral (32/8, window 4096) and
     # Moonlight (16/16), 4 x 2048 at d 128
     (4, 2048, 2048, 32, 8, 128, True, 4096, 0),
-    (4, 2048, 2048, 16, 16, 128, True, 0, 0)])
+    (4, 2048, 2048, 16, 16, 128, True, 0, 0),
+    # internvl2's training layer (16/8, 4 x 2048 at d 128)
+    (4, 2048, 2048, 16, 8, 128, True, 0, 0),
+    # whisper (16/16 heads of 64, non-causal): the cross attention, 448
+    # text rows over 1504 frames, and the encoder over 1504 frames; the
+    # last key tile is half full and the dk/dv pass runs over Sk > Sq
+    (4, 448, 1504, 16, 16, 64, False, 0, 0),
+    (2, 1504, 1504, 16, 16, 64, False, 0, 0)])
 def test_k2_tc_route_matches_plain_on_card(cuda, case):
     """The tc route (wgmma + TMA) against the plain version in bf16, with
     the limits of the simt route's bf16 test and ``K2_NORM_TOL``, and its

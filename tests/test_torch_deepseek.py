@@ -5,7 +5,7 @@ Reduced deepseek-v3 (d_model 256, 4 heads with q and k at 32 and v at 16,
 the plan [dense, moe], 4 experts top-2 with a shared one, the mtp head) in
 f32, weights drawn by the port's init and handed to JAX as arrays:
 
-  * the copies: the layer plan, the FLOPs formula and ``unported_reason``;
+  * the copies: the layer plan and the FLOPs formula;
   * the train loss, its parts (xent, the router losses, the mtp loss) and
     every gradient leaf within 1e-4, at capacity factor 0.5 so that the
     step drops choices;
@@ -60,7 +60,6 @@ def _model():
 
 def test_deepseek_copies_match_reference():
     cfg, jcfg = get(ARCH), jget(ARCH)
-    assert registry.unported_reason(cfg) is None
     assert registry.layer_plan(cfg) == ("dense",) * 3 + ("moe",) * 58
     assert jregistry._plan_moe(jcfg) == registry.layer_plan(cfg)
     for s in (1, 2048, 8192):

@@ -435,10 +435,11 @@ def test_sampling_filters_match_reference():
 # ---------------------------------------------------------------------------
 # What this slice refuses, and the rule that the port imports no jax
 # ---------------------------------------------------------------------------
-# (case, arch, engine keywords, what the message says): the families the
-# port has not reached, and the refusals the reference itself makes
+# (case, arch, engine keywords, what the message says): the refusals the
+# reference itself makes ("state": a state family takes no prefix cache)
 REFUSALS = {
-    "state": ("whisper-medium", {}, "later serving slice"),
+    "state": ("whisper-medium", {"prefix_cache": True},
+              "prefix_cache requires a paged family"),
     "moe": ("deepseek-v3-671b", {"prefix_cache": True},
             "MLA latent caches have no extend path"),
     "prefix-sequential": ("tinyllama-1.1b",
@@ -510,11 +511,15 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.serve.speculate, repro_torch.serve.kvcache",
         "import repro_torch.models.xlstm, repro_torch.checkpoint.store",
         "import repro_torch.models.moe, repro_torch.models.mla",
-        "out = train(['--arch', 'mixtral-8x7b', '--reduced', '--device',",
-        "             'cpu', '--steps', '1', '--batch', '2', '--seq', '32'])",
-        "assert len(out['losses']) == 1, out",
+        "import repro_torch.models.encdec, repro_torch.models.frontend",
+        "for arch in ('mixtral-8x7b', 'internvl2-2b', 'whisper-medium'):",
+        "    out = train(['--arch', arch, '--reduced', '--device', 'cpu',",
+        "                 '--steps', '1', '--batch', '2', '--seq', '32'])",
+        "    assert len(out['losses']) == 1, (arch, out)",
         "for extra in (['--arch', 'zamba2-1.2b'], ['--arch', 'xlstm-350m'],",
         "              ['--arch', 'mixtral-8x7b'],",
+        "              ['--arch', 'internvl2-2b'],",
+        "              ['--arch', 'whisper-medium'],",
         "              ['--arch', 'moonshot-v1-16b-a3b'],",
         "              ['--prefix-cache',",
         "              '--shared-prefix', '20'], ['--draft',",

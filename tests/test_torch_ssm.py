@@ -309,10 +309,6 @@ def test_layer_plan_and_segments_match_reference():
             c, jc = get(arch), jget(arch)
             if red:
                 c, jc = config.reduced(c), jconfig.reduced(jc)
-            if registry.unported_reason(c):
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    registry.layer_plan(c)
-                continue
             plan = jregistry.get_stack(jc.family).layer_plan(jc)
             assert registry.layer_plan(c) == plan, arch
             assert registry.segments(plan) == jregistry._segments(plan)

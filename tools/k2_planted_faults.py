@@ -8,7 +8,9 @@ Copies ``src/repro_torch`` into a temporary directory once per case,
 plants one fault in the copy's ``csrc/flash_attention_hopper.cu``, builds
 the copies in parallel, then runs ``chip_smoke.k2_case`` (the tc route
 against the plain version at the tinyllama training shape, 4 x 2048, 32/4
-heads, d 64, causal, bf16) against each copy in a process of its own.  It
+heads, d 64, causal, bf16, and at whisper's cross attention, 4 x 448
+over 1504 frames, 16/16 heads, non-causal) against each copy in a
+process of its own.  It
 prints each case's errors and whether the limits caught it, and exits
 nonzero if a fault passed or the unchanged copy failed.  The checkout is
 never modified.  Needs an NVIDIA GPU and nvcc; from the root of a
@@ -75,6 +77,12 @@ FAULTS = {
         WAIT + "      float st[BQ / 2], dpt[BQ / 2];\n",
         WAIT + skip("i / n == 1 && blockIdx.y == gridDim.y / 2")
         + "      float st[BQ / 2], dpt[BQ / 2];\n"),
+    # the forward's mask of a ragged last key tile (1504 = 23.5 x 64):
+    # without the causal mask, the columns past Sk read as valid keys
+    "forward: key columns past Sk valid under causal = 0": (
+        "\n        const int kp = col < a.Sk ? __ldg(a.k_pos + col) : -1;",
+        "\n        const int kp = col < a.Sk ? __ldg(a.k_pos + col) "
+        ": (a.causal ? -1 : col);"),
 }
 
 # --mla: faults in csrc/flash_attention.cu's products and sums over DV
@@ -116,6 +124,9 @@ try:
     else:
         c.k2_case(k2, "cuda", gen, b, s, nq, nkv, window, torch.bfloat16,
                   ["tc"], label)
+        c.k2_case(k2, "cuda", gen, 4, c.W_TEXT, c.W_NH, c.W_NH, 0,
+                  torch.bfloat16, ["tc"], "whisper cross", tag="5w",
+                  sk=c.W_FRAMES, causal=False)
 except c.SmokeFailure as e:
     print("caught:", e)
     sys.exit(3)
