@@ -28,6 +28,10 @@ Phases, in order (any failure raises and exits nonzero):
  2t. the decode threshold: both bf16 routes timed at M in {8, 16, 32,
      64, 128} over a decode step's GEMMs, and the crossover printed
      beside ``kernels/matmul.py:DECODE_MAX_M``;
+ 2c. K1 at every local GEMM shape of a (2,2,2) rank and of a dp2 x
+     (2,2,1) rank of tinyllama-1.1b's training step (``rank_gemms``,
+     from the weights' specs): the tc route against the plain version,
+     timed beside ``torch.matmul`` and the bound;
   3. K4 paged decode against its plain version at the tinyllama shape
      (32 q heads, 4 kv heads, d = 64, block 16), bf16 through both routes
      (split and simt), f32 through simt: ragged contexts of 64-1024 tokens,
@@ -76,6 +80,12 @@ Phases, in order (any failure raises and exits nonzero):
      ``K3_NORM_TOL`` of the plain version's norm, dg repeating bit for
      bit; then device times at each width beside ``F.rms_norm``'s forward
      and its backward (the backward's kernels summed by torch.profiler);
+ 4c. K3 in two phases (``K3_SPLIT_CASES``): 8192 rows of 2048 and 2560
+     cut in 2 and 4, as ranks of the cube hold them, the pieces' partial
+     sums added on the card as the all-reduce adds them; y, dx and dg
+     against the plain phases and against the one-phase K3 on the whole
+     rows, within ``K3_NORM_TOL``; one piece's device time beside its
+     bytes bound and ``F.rms_norm`` on the whole rows;
   5. K2 flash attention forward and backward against their plain versions
      at the main paths' attention shapes, all causal: at d = 64 the
      tinyllama training layer (4 x 2048, 32/4 heads), zamba2's shared
@@ -104,6 +114,11 @@ Phases, in order (any failure raises and exits nonzero):
      at 192, v at 128, through the simt route, f32 (to
      ``K2_F32_NORM_TOL``) and bf16 (to ``K2_NORM_TOL``), timed beside SDPA
      and the bound;
+ 5c. K2 at a (2,2,2) rank's attention (``K2_RANK_SHAPES``): 2 x 1024 q
+     rows at positions 0 and 1024 over 2048 keys, 16/2 heads, causal,
+     through tc, and gemma-2b's replicated-kv slice (4/1 heads of 256)
+     through simt, against the plain version, timed beside SDPA with the
+     same mask;
   6. full-width two-layer tinyllama in f32 (K1's simt route) and in bf16
      (its tc and decode routes): CPU (plain versions) against the card
      (kernels), serving prefill and the first fused decode step's logits,
@@ -284,12 +299,26 @@ Phases, in order (any failure raises and exits nonzero):
  28. the internvl2 training run: 4 x 2048 (1024 patch embeddings and 1024
      text tokens a row), remat, AdamW, 3 steps, launches exact
      (``V_LAUNCHES``); 28p, one such step profiled and timed as 27p.
+ 29. the paper's cube across ranks, 8 ranks sharing the one card over
+     gloo, every collective staged through the host (NCCL refuses two
+     ranks on a device; the times are no measure of the paper's
+     communication claim): tinyllama-1.1b cut to 2 layers at full width
+     in f32, 4 x 512, one forward and backward on 8 ranks at (2,2,2) and
+     at dp2 x (2,2,1) (``RANK_LAYOUTS``) against one rank on the card:
+     the loss and every rank's gradient shard within 1e-4 of each leaf's
+     largest value;
+ 30. ``repro_torch.launch.train`` under torchrun, 8 ranks at each layout:
+     tinyllama-1.1b at full width and depth in bf16, 4 x 2048, remat,
+     AdamW, 3 steps, each loss within 3e-2 of phase 8's, each rank's
+     K1/K2/K3 launches exact (``rank_train_launches``: K3 in its two
+     phases where 'z' splits the hidden dim), every K1 and K2 launch on
+     tc; each rank's step time, tokens/s and peak memory.
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
 19), one of the MoE family's (7m, 21, 22), one of deepseek's (7d, 24,
-25), one of the modality families' (7w, 27, 7v, 28), one of per-kernel
-numbers and
+25), one of the modality families' (7w, 27, 7v, 28), one of the cube
+across ranks (29, 30), one of per-kernel numbers and
 the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1622,7 +1651,8 @@ def k2_bwd_ds_rounded(q, k, v, out, dout, lse, q_pos, k_pos, window,
 
 
 def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
-            d=DH, dv=None, tag="5", f32_tol=None, sk=None, causal=True):
+            d=DH, dv=None, tag="5", f32_tol=None, sk=None, causal=True,
+            q0=0):
     """K2's routes against the plain version at one shape: out, lse, dq,
     dk and dv, and two backward runs of each route that must give the same
     bits.  In bf16 each of out, dq, dk and dv is also held to
@@ -1632,12 +1662,13 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     apart) and each route's norm errors (with ``"dS in bf16"``: the
     rounded plain backward's).  ``dv``: v's head dim (d when None);
     ``f32_tol``: norm limits for f32 too; ``sk``: the keys' length (s when
-    None); ``causal``: the mask."""
+    None); ``causal``: the mask; ``q0``: the position of the first q row
+    (a rank's rows of the 3-D cube)."""
     import torch
     dv = dv or d
     sk = sk or s
-    q_pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s) \
-        .contiguous()
+    q_pos = (q0 + torch.arange(s, dtype=torch.int32, device=dev)) \
+        .expand(b, s).contiguous()
     k_pos = torch.arange(sk, dtype=torch.int32, device=dev)
     q = torch.randn(b, s, nq, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(b, sk, nkv, d, generator=gen, device=dev).to(dtype)
@@ -1651,7 +1682,8 @@ def k2_case(k2, dev, gen, b, s, nq, nkv, window, dtype, routes, label,
     path = k2.route_for(q, k, v, out2)
     worst, kept, norms = 0.0, None, {}
     norm_tol = K2_NORM_TOL if bf16 else f32_tol
-    tag = (f"[{tag}] K2 {label} ({b},{s}{f'x{sk}' if sk != s else ''},"
+    tag = (f"[{tag}] K2 {label} ({b},{s}{f'x{sk}' if sk != s else ''}"
+           f"{f' from {q0}' if q0 else ''},"
            f"{nq}/{nkv},{d if dv == d else f'{d}/{dv}'}) "
            f"{'causal' if causal else 'non-causal'}"
            f"{f' window {window}' if window else ''} {str(dtype)[6:]:8s}")
@@ -2310,6 +2342,8 @@ def reset_launches():
     from repro_torch.kernels import ssd_scan as k5
     k1.launches = k2.launches = k2.launches_bwd = k3.launches = 0
     k3.launches_bwd = k4.launches = k5.launches = k5.launches_bwd = 0
+    k3.launches_moments = k3.launches_apply = 0
+    k3.launches_bwd_dot = k3.launches_bwd_apply = 0
     k4.launches_combine = 0
     k1.launches_by_route = dict.fromkeys(k1.ROUTES, 0)
     k4.launches_by_route = dict.fromkeys(k4.ROUTES, 0)
@@ -2888,6 +2922,9 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     check(tel["nonfinite"] is None, f"{arch} training run: {tel['nonfinite']}")
     check(launches == want, f"{arch} training run launches {launches} != "
           f"{want}")
+    split = read_split_launches()
+    check(not any(split.values()), f"{arch} training run on one card: K3's "
+          f"two phases launched {split}")
     routes = check_k1_routes(launches, tag, f"{arch} training run")
     check(routes["tc"] == launches["K1"],
           f"{arch} training run: K1 routes {routes}")
@@ -4610,6 +4647,589 @@ def phase_serve_state(card, arch, tag, per_step, step_bytes):
         "mem_peak_gib": mem}
 
 
+# ---------------------------------------------------------------------------
+# The paper's 3-D cube across ranks.  The card's machine has one H100 and
+# NCCL refuses two ranks on a device, so the multi-rank phases run 8 ranks
+# on the one card over gloo: the kernels run on the card and every
+# collective is staged through the host (core/comm.py).  Their times
+# measure the kernels and that staging; they are no measure of the
+# paper's communication claim.
+# ---------------------------------------------------------------------------
+# the layouts (tests/test_multidev.py:66-67): name -> (dp, model, cube)
+RANK_LAYOUTS = {"cube": (1, 8, (2, 2, 2)), "dp2": (2, 4, (2, 2, 1))}
+RANKS, RANK_STEPS, RANK_TIMEOUT_S = 8, 3, 600
+RANK_DEVICE = "cuda"            # "cpu" to rehearse the rank phases
+RANK_SCRIPT = ROOT / "chip_smoke.py"    # each rank runs its --rank-job
+# phase 29: tinyllama cut to 2 layers at full width in f32, 4 x 512
+R29_SEED, R29_B, R29_S = 29, 4, 512
+
+
+def rank_layout(lname, rank=0, layouts=None):
+    from repro_torch.core.topology import make_layout
+    n_dp, n_model, cube = (layouts or RANK_LAYOUTS)[lname]
+    return make_layout(1, n_dp, n_model, "3d", cube, rank=rank)
+
+
+def rank_flags(lname, layouts=None):
+    n_dp, n_model, cube = (layouts or RANK_LAYOUTS)[lname]
+    return ["--dp", str(n_dp), "--model", str(n_model), "--cube",
+            ",".join(map(str, cube))]
+
+
+def rank_gemms(lname):
+    """(name, M, K, N, launches a step) of one rank's K1 GEMMs in a
+    tinyllama-1.1b training step (4 x 2048, remat) at layout ``lname``,
+    from the weights' specs: x gathered over in_ax (its batch stays split
+    over pod, dp and x) times the weight's columns gathered over 'x', so
+    K is the hidden dim split over out_ax and N the features split over
+    in_ax, the axes swapped for wo and w_down; the head in 2 loss
+    chunks."""
+    lay = rank_layout(lname)
+    y, z = lay.size("y"), lay.size("z")
+    m = TRAIN_B // lay.size(lay.batch_axes) * TRAIN_S
+    return [("wq", m, D // z, NQ * DH // y, 2 * LAYERS),
+            ("wk,wv", m, D // z, NKV * DH // y, 2 * 2 * LAYERS),
+            ("wo", m, NQ * DH // y, D // z, 2 * LAYERS),
+            ("w_up,w_gate", m, D // z, FF // y, 2 * 2 * LAYERS),
+            ("w_down", m, FF // y, D // z, 2 * LAYERS),
+            ("head", m // 2, D // z, VOCAB // y, 2 * 2)]
+
+
+def phase_k1_ranks(dev):
+    """2c: K1 at every local GEMM shape of a (2,2,2) rank and of a dp2 x
+    (2,2,1) rank of tinyllama-1.1b's training step (``rank_gemms``):
+    the tc route, which ``route`` must pick, against the plain version in
+    bf16 with every activation, with and without bias; then timed as tc,
+    the plain version and ``torch.matmul``, each times its launches a
+    step, which sum to the step's K1 launches."""
+    import torch
+    from repro_torch.kernels import matmul as k1
+    gen = torch.Generator(device=dev).manual_seed(31)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    seen, out, worst_err = {}, {}, 0.0
+    for lname in RANK_LAYOUTS:
+        tot = dict.fromkeys(keys, 0.0)
+        launches = 0
+        for name, m, k, n, per in rank_gemms(lname):
+            key = (m, k, n)
+            if key not in seen:
+                path = k1.route(m, n, k, torch.bfloat16, True)
+                check(path == "tc", f"K1 rank {lname} {name} ({m},{k},{n}):"
+                      f" route {path}")
+                x, w, b = k1_inputs(gen, dev, m, k, n, torch.bfloat16)
+                worst, worst_abs = k1_check(k1, x, w, b)
+                worst_err = max(worst_err, worst_abs)
+                check(worst <= 1e-2, f"K1 rank {lname} {name}: {worst}")
+                del x, w, b
+                t = seen[key] = k1_time(k1, dev, gen, m, k, n, 10,
+                                        {"ms": path})
+                print(f"[2c] K1 {lname} rank GEMM {name} ({m},{k})@({k},{n})"
+                      f" bf16 tc: max rel err {worst:.2e} (tol 1e-02); "
+                      f"{t['ms']:.4f} ms ({2 * m * k * n / t['ms'] / 1e9:.1f}"
+                      f" TFLOP/s), plain {t['plain_ms']:.4f}, torch.matmul "
+                      f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                      f"({t['bound_by']})")
+            for kk in keys:
+                tot[kk] += per * seen[key][kk]
+            launches += per
+        check(launches == TRAIN_LAUNCHES["K1"],
+              f"K1 {lname} rank GEMMs: {launches} a step")
+        print(f"[2c] K1 per {lname} rank's training step ({launches} GEMMs,"
+              f" bf16): kernel {tot['ms']:.2f} ms, torch.matmul "
+              f"{tot['library_ms']:.2f} ms "
+              f"({tot['ms'] / tot['library_ms']:.2f}x), plain "
+              f"{tot['plain_ms']:.2f} ms, bound {tot['bound_ms']:.2f} ms")
+        out[f"rank_{lname}"] = tot
+    return out, worst_err
+
+
+# K3 in two phases (phase 4c): (label, the norm's width, pieces a row is
+# cut in) at 8192 rows: the (2,2,2) cube cuts tinyllama's and gemma-2b's
+# 2048 and qwen3-4b's 2560 in 2, a z of 4 in 4
+K3_SPLIT_CASES = [("tinyllama, gemma-2b", D, 2), ("tinyllama, gemma-2b", D, 4),
+                  ("qwen3-4b", 2560, 2), ("qwen3-4b", 2560, 4)]
+
+
+def read_split_launches():
+    from repro_torch.kernels import rmsnorm as k3
+    return {"K3 moments": k3.launches_moments, "K3 apply": k3.launches_apply,
+            "K3 bwd dot": k3.launches_bwd_dot,
+            "K3 bwd apply": k3.launches_bwd_apply}
+
+
+def k3_split_case(k3, dev, gen, m, h, n, dtype, zc, label):
+    """K3's two phases on rows of ``h`` cut in ``n`` pieces, the pieces'
+    partial sums added on the device in piece order as the all-reduce
+    adds them: y, dx and dg (the pieces' own, side by side) against the
+    plain versions of the phases and against the one-phase K3 on the whole
+    rows, each within ``K3_NORM_TOL``.  Returns one piece's inputs and
+    the all-reduced ss and dot, and the norm errors."""
+    import torch
+    x = torch.randn(m, h, generator=gen, device=dev).to(dtype)
+    g = (1 + 0.1 * torch.randn(h, generator=gen, device=dev)).to(dtype)
+    dy = torch.randn(m, h, generator=gen, device=dev).to(dtype)
+    xs, gs, dys = ([t.contiguous() for t in a.chunk(n, -1)]
+                   for a in (x, g, dy))
+    ss = sum(k3.rmsnorm_moments(p) for p in xs)
+    fw = [k3.rmsnorm_apply(p, gp, ss, h, zero_centered=zc)
+          for p, gp in zip(xs, gs)]
+    dot = sum(k3.rmsnorm_bwd_dot(d, p, gp, zc)
+              for d, p, gp in zip(dys, xs, gs))
+    bw = [k3.rmsnorm_bwd_apply(d, p, gp, rstd, dot, h, zc)
+          for d, p, gp, (_, rstd) in zip(dys, xs, gs, fw)]
+    ss2 = sum(k3.rmsnorm_moments_plain(p) for p in xs)
+    fw2 = [k3.rmsnorm_apply_plain(p, gp, ss2, h, zero_centered=zc)
+           for p, gp in zip(xs, gs)]
+    dot2 = sum(k3.rmsnorm_bwd_dot_plain(d, p, gp, zc)
+               for d, p, gp in zip(dys, xs, gs))
+    bw2 = [k3.rmsnorm_bwd_apply_plain(d, p, gp, rstd, dot2, h, zc)
+           for d, p, gp, (_, rstd) in zip(dys, xs, gs, fw2)]
+    y1, rstd1 = k3.rmsnorm_fwd(x, g, zero_centered=zc)
+    dx1, dg1 = k3.rmsnorm_bwd(dy, x, g, rstd1, zero_centered=zc)
+    got = {"y": torch.cat([a for a, _ in fw], -1),
+           "dx": torch.cat([a for a, _ in bw], -1),
+           "dg": torch.cat([b for _, b in bw], -1)}
+    plain = {"y": torch.cat([a for a, _ in fw2], -1),
+             "dx": torch.cat([a for a, _ in bw2], -1),
+             "dg": torch.cat([b for _, b in bw2], -1)}
+    whole = {"y": y1, "dx": dx1, "dg": dg1}
+    name = str(dtype)[6:]
+    ntol = K3_NORM_TOL[name]
+    norms = {"plain": {k: norm_err(got[k], plain[k]) for k in got},
+             "one-phase": {k: norm_err(got[k], whole[k]) for k in got}}
+    print(f"[4c] K3 two phases {label} ({m},{h}) cut in {n} {name:8s} "
+          f"zc={zc!s:5s} ||error|| / ||want||: against the plain phases "
+          + ", ".join(f"{k} {v:.2e}" for k, v in norms["plain"].items())
+          + "; against the one-phase K3 on whole rows "
+          + ", ".join(f"{k} {v:.2e}" for k, v in norms["one-phase"].items())
+          + " (tol " + ", ".join(f"{k} {v:.0e}" for k, v in ntol.items())
+          + ")")
+    for what, errs in norms.items():
+        check(all(errs[k] <= ntol[k] for k in ntol),
+              f"K3 two phases ({m},{h})/{n} {name} zc={zc} against {what}: "
+              f"{errs}")
+    worst = max(abs_err(got[k], plain[k]) for k in got)
+    return (xs[0], gs[0], dys[0], fw[0][1], ss, dot), norms, worst
+
+
+def phase_k3_split(dev):
+    """4c: K3 in two phases (``K3_SPLIT_CASES``) at 8192 rows, forward
+    and backward, in bf16, and at the (2,2,2) cube's cut also in f32 and
+    zero-centred (gemma-2b); then one rank's device time of the two
+    phases (moments + apply, dot + apply) on its piece beside their bytes
+    bound, the plain versions and ``F.rms_norm``'s time on the whole
+    row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as k3
+    gen = torch.Generator(device=dev).manual_seed(33)
+    m = TRAIN_B * TRAIN_S
+    out, worst_err = {}, 0.0
+    for dtype, zc in ((torch.float32, False), (torch.bfloat16, True)):
+        k3_split_case(k3, dev, gen, m, D, 2, dtype, zc,
+                      "tinyllama, gemma-2b")
+    for label, h, n in K3_SPLIT_CASES:
+        (x, g, dy, rstd, ss, dot), norms, worst = k3_split_case(
+            k3, dev, gen, m, h, n, torch.bfloat16, False, label)
+        worst_err = max(worst_err, worst)
+        hl = h // n
+        xw = torch.randn(m, h, generator=gen, device=dev).to(torch.bfloat16)
+        gw = torch.ones(h, device=dev, dtype=torch.bfloat16)
+        xr = xw.detach().requires_grad_()
+        gr = gw.detach().requires_grad_()
+        lib_out = F.rms_norm(xr, (h,), gr, 1e-6)
+        dyw = torch.randn(m, h, generator=gen, device=dev).to(torch.bfloat16)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, (xr, gr), dyw, retain_graph=True)
+        t = {"fwd_ms": graph_ms(lambda: k3.rmsnorm_apply(
+                 x, g, k3.rmsnorm_moments(x), h), 50),
+             "bwd_ms": graph_ms(lambda: k3.rmsnorm_bwd_apply(
+                 dy, x, g, rstd, k3.rmsnorm_bwd_dot(dy, x, g), h), 50),
+             "plain_fwd_ms": time_ms(lambda: k3.rmsnorm_apply_plain(
+                 x, g, k3.rmsnorm_moments_plain(x), h), 10),
+             "plain_bwd_ms": time_ms(lambda: k3.rmsnorm_bwd_apply_plain(
+                 dy, x, g, rstd, k3.rmsnorm_bwd_dot_plain(dy, x, g), h), 10),
+             "library_fwd_ms": graph_ms(
+                 lambda: F.rms_norm(xw, (h,), gw, 1e-6), 50),
+             "library_bwd_ms": kernel_ms(lib_bwd, 20),
+             "norm_err": norms, "max_abs_err": worst}
+        t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+        t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+        t["library_ms"] = (t["library_fwd_ms"] + t["library_bwd_ms"]
+                           if t["library_bwd_ms"] is not None else None)
+        # one rank's piece: x (and dy) read once, y (dx) written once, the
+        # gains, rstd, and the row sums written by phase 1 and read back
+        fb, fo = bound_ms(2 * m * hl * 2 + hl * 2 + m * 4 + 2 * m * 4,
+                          4 * m * hl, H100_F32_FLOPS)
+        bb, bo = bound_ms(3 * m * hl * 2 + 2 * hl * 2 + m * 4 + 2 * m * 4,
+                          10 * m * hl, H100_F32_FLOPS)
+        t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+                 bound_by=fo if fo == bo else "bytes and operations")
+        lib = t["library_ms"]
+        print(f"[4c] K3 two phases bf16 {label}, one rank's piece ({m},{hl}) "
+              f"of rows of {h}, device time: moments + apply "
+              f"{t['fwd_ms']:.4f} ms ({fb / t['fwd_ms'] * 100:.0f}% of its "
+              f"bound {fb:.4f} {fo}), dot + apply {t['bwd_ms']:.4f} ms "
+              f"({bb / t['bwd_ms'] * 100:.0f}% of its bound {bb:.4f} {bo});"
+              f" plain {t['plain_fwd_ms']:.4f} + {t['plain_bwd_ms']:.4f} ms;"
+              f" F.rms_norm on the whole rows {t['library_fwd_ms']:.4f} + "
+              + (f"{t['library_bwd_ms']:.4f} ms" if lib else "not measured"))
+        out[f"{m}x{h}/{n}"] = t
+        del xw, gw, xr, gr, lib_out, dyw
+    return dict(out[f"{m}x{D}/2"], shapes=out, max_abs_err=worst_err)
+
+
+# K2 at a (2,2,2) rank's attention (phase 5c): (label, batch, q rows,
+# keys, the first q row's position, q heads, kv heads, d), causal: a
+# tinyllama rank's 1024 rows of 16 heads at both offsets over the 2048
+# gathered keys of its 2 kv heads, and gemma-2b's replicated-kv slice (4
+# of 8 q heads, its one kv head, d 256: the simt route)
+K2_RANK_SHAPES = [("tinyllama rank", TRAIN_B // 2, TRAIN_S // 2, TRAIN_S, 0,
+                   NQ // 2, NKV // 2, DH),
+                  ("tinyllama rank", TRAIN_B // 2, TRAIN_S // 2, TRAIN_S,
+                   TRAIN_S // 2, NQ // 2, NKV // 2, DH),
+                  ("gemma-2b rank", TRAIN_B // 2, TRAIN_S // 2, TRAIN_S,
+                   TRAIN_S // 2, 4, 1, 256)]
+
+
+def phase_k2_ranks(dev):
+    """5c: K2 at the (2,2,2) rank shapes (``K2_RANK_SHAPES``), forward and
+    backward, the route the path takes (tc at d 64, simt at gemma's d
+    256) against the plain version in bf16 (and the simt route in f32 at
+    d 256); then the route's, the plain version's and SDPA's (with the
+    same boolean mask) times beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k2
+    gen = torch.Generator(device=dev).manual_seed(35)
+    out, worst_err = {}, 0.0
+    for label, b, sq, sk, q0, nq, nkv, d in K2_RANK_SHAPES:
+        route = "tc" if d == DH else "simt"
+        if route == "simt":
+            k2_case(k2, dev, gen, b, sq, nq, nkv, 0, torch.float32,
+                    ["simt"], label, d=d, sk=sk, q0=q0, tag="5c")
+        (q, k, v, dout, q_pos, k_pos), (o, lse), worst, norms = k2_case(
+            k2, dev, gen, b, sq, nq, nkv, 0, torch.bfloat16, [route], label,
+            d=d, sk=sk, q0=q0, tag="5c")
+        check(k2.route_for(q, k, v, o, dout) == route,
+              f"K2 {label}: the bf16 path does not take {route}")
+        worst_err = max(worst_err, worst)
+        mask = (q_pos[0][:, None] >= k_pos[None, :])
+        qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_()
+                      for a in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        reps = (10, 5) if route == "tc" else (2, 1)
+        t = {"fwd_ms": time_ms(lambda: k2.flash_attention_fwd(
+                 q, k, v, q_pos, k_pos), reps[0]),
+             "bwd_ms": time_ms(lambda: k2.flash_attention_bwd(
+                 q, k, v, o, dout, lse, q_pos, k_pos), reps[1]),
+             "plain_fwd_ms": time_ms(lambda: k2.flash_attention_fwd_plain(
+                 q, k, v, q_pos, k_pos), 1),
+             "plain_bwd_ms": time_ms(lambda: k2.flash_attention_bwd_plain(
+                 q, k, v, o, dout, lse, q_pos, k_pos), 1),
+             "library_fwd_ms": time_ms(sdpa, 10),
+             "library_ms": time_ms(
+                 lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dt), 10),
+             "norm_err": norms, "route": route}
+        t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+        t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+        fby, ffl, bby, bfl = k2_work(q_pos, k_pos, b, nq, nkv, d, 2)
+        fb, fo = bound_ms(fby, ffl, H100_BF16_FLOPS)
+        bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
+        t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+                 bound_by=fo if fo == bo else "bytes and operations")
+        print(f"[5c] K2 bf16 {label} ({b},{sq}x{sk} from {q0},{nq}/{nkv},"
+              f"{d}) causal, {route}: forward {t['fwd_ms']:.4f} ms "
+              f"({ffl / t['fwd_ms'] / 1e9:.1f} TFLOP/s), backward "
+              f"{t['bwd_ms']:.4f} ms ({bfl / t['bwd_ms'] / 1e9:.1f} "
+              f"TFLOP/s); plain {t['plain_fwd_ms']:.3f} + "
+              f"{t['plain_bwd_ms']:.3f}; sdpa with the mask fwd "
+              f"{t['library_fwd_ms']:.4f}, fwd+bwd {t['library_ms']:.4f}; "
+              f"bound {fb:.4f} + {bb:.4f} ({fo})")
+        out[f"{label} {b}x{sq}x{sk}@{q0} {nq}/{nkv} d{d}"] = t
+        del q, k, v, dout, o, lse, qt, kt, vt
+    return out, worst_err
+
+
+def run_rank_job(job, torchrun=False, nranks=RANKS):
+    """Run ``job`` on ``nranks`` ranks (``chip_smoke.py
+    --rank-job``): under torchrun (``python -m torch.distributed.run
+    --standalone``, which gives each rank RANK, WORLD_SIZE and LOCAL_RANK
+    and a rendezvous on localhost) or ``launch/ranks.spawn_local`` (a
+    file rendezvous).  A rank that fails, or a world that outlives
+    ``RANK_TIMEOUT_S``, fails the phase; every rank is stopped.  Returns
+    each rank's result."""
+    import os
+    import shutil
+    import signal
+    d = ROOT / "build" / "chip_smoke_ranks" / f"{job['kind']}_{job['layout']}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    job = dict(job, out=str(d))
+    (d / "job.json").write_text(json.dumps(job))
+    tail = [str(RANK_SCRIPT), "--rank-job", str(d / "job.json")]
+    sys.stdout.flush()
+    if torchrun:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nranks), *tail],
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise SmokeFailure(f"{job['kind']} {job['layout']}: the ranks "
+                               f"outlived {RANK_TIMEOUT_S} s")
+        check(rc == 0, f"{job['kind']} {job['layout']}: torchrun exited {rc}")
+    else:
+        from repro_torch.launch import ranks
+        try:
+            outs = ranks.spawn_local([sys.executable, *tail], nranks,
+                                     timeout=RANK_TIMEOUT_S)
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)) from e
+        print(outs[0], end="")
+    return [json.loads((d / f"rank{r}.json").read_text())
+            for r in range(nranks)]
+
+
+def rank_job(path):
+    """One rank of a multi-rank phase (``chip_smoke.py --rank-job JOB``):
+    runs the job and writes the rank's result beside it."""
+    job = json.loads(Path(path).read_text())
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import ranks
+    me = ranks.rank_env()
+    res = {"grads": rank_grads, "train": rank_train}[job["kind"]](job, me)
+    (Path(job["out"]) / f"rank{me.rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def r29_cfg():
+    from repro_torch.configs.registry import get
+    return dataclasses.replace(get("tinyllama-1.1b"), n_layers=2,
+                               dtype="float32")
+
+
+def r29_batch(vocab):
+    import numpy as np
+    rng = np.random.default_rng(R29_SEED)
+    toks = rng.integers(0, vocab, (R29_B, R29_S + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[-1, -7:] = -1
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+def rank_grads(job, me):
+    """Phase 29's rank: the f32 two-layer model's loss and gradient
+    shards (the train step's leaf sync included), each leaf held to the
+    one-rank run's block at the rank's coordinates."""
+    import torch
+    from repro_torch.core import comm
+    from repro_torch.core.params import (init_params, shard, tree_leaves,
+                                         tree_map)
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import shard_batch, to_device
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer
+    from repro_torch.train.step import leaf_sync_axes
+    dev = ranks.device_for(me, job["device"])
+    ranks.init_world(me, "gloo", dev)
+    n_dp, n_model, cube = RANK_LAYOUTS[job["layout"]]
+    lay = comm.init(ParallelPlan(n_dp=n_dp, n_model=n_model,
+                                 cube=tuple(cube)).validate().build(me.rank),
+                    "gloo")
+    cfg = r29_cfg()
+    abstract = transformer.abstract_params(cfg, lay)
+    params = init_params(abstract, torch.Generator(device=dev).manual_seed(
+        R29_SEED), dev, torch.float32, layout=lay)
+    batch = to_device(shard_batch(r29_batch(cfg.vocab), lay), dev)
+    reset_launches()
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = transformer.forward(cfg, lay, live, batch, mode="train")
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    grads = [comm.psum(lay, g, leaf_sync_axes(p, lay))
+             for g, p in zip(grads, tree_leaves(abstract))]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(read_launches(), **read_split_launches())
+    # mapped, not read: each rank reads only its blocks of the leaves
+    ref = torch.load(job["ref"], mmap=True)
+    names = ["/".join(p) for p in _paths(params)]
+    errs = {n: leaf_err(g, shard(ref["grads"][n], p.spec, lay).to(dev))
+            for n, g, p in zip(names, grads, tree_leaves(abstract))}
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return {"loss": loss.item(), "ref_loss": ref["loss"], "errs": errs,
+            "launches": launches}
+
+
+def phase_ranks_grads(dev):
+    """29: tinyllama-1.1b cut to 2 layers at full width, f32, 4 x 512, one
+    forward and backward on 8 ranks at each layout against the one-rank
+    run on the same card: the loss within 1e-4, and every rank's shard of
+    every gradient leaf within 1e-4 of the leaf's largest value (after
+    the train step's leaf sync); K1, K2 and K3 (two phases at (2,2,2))
+    must have run on every rank."""
+    import torch
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import transformer
+    cfg = r29_cfg()
+    lay = ParallelPlan().validate().build()
+    params = init_params(transformer.abstract_params(cfg),
+                         torch.Generator(device=dev).manual_seed(R29_SEED),
+                         dev, torch.float32)
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = transformer.forward(cfg, lay, live,
+                                  to_device(r29_batch(cfg.vocab), dev),
+                                  mode="train")
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    ref = ROOT / "build" / "chip_smoke_ranks" / "ref29.pt"
+    ref.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"loss": loss.item(), "grads": {
+        "/".join(p): g.cpu() for p, g in zip(_paths(params), grads)}}, ref)
+    one = loss.item()
+    del params, live, loss, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    for lname in RANK_LAYOUTS:
+        t = time.perf_counter()
+        res = run_rank_job({"kind": "grads", "layout": lname,
+                            "device": RANK_DEVICE, "ref": str(ref)})
+        wall = time.perf_counter() - t
+        worst = max(max(r["errs"].values()) for r in res)
+        dl = max(abs(r["loss"] - r["ref_loss"]) for r in res)
+        split = lname == "cube"
+        print(f"[29] {lname} ({RANKS} ranks on one card, gloo through the "
+              f"host) f32 2-layer tinyllama {R29_B}x{R29_S}: loss "
+              f"{res[0]['loss']:.6f} against one rank's {one:.6f} (worst "
+              f"rank {dl:.2e}, tol 1e-4); worst gradient shard error "
+              f"{worst:.2e} of its leaf's max over {len(res[0]['errs'])} "
+              f"leaves x {RANKS} ranks (tol 1e-4); rank 0's launches "
+              f"{res[0]['launches']}; {wall:.1f} s")
+        check(dl <= 1e-4, f"29 {lname}: loss {dl}")
+        check(worst <= 1e-4, f"29 {lname}: gradient shards {worst}")
+        for r, rr in enumerate(res):
+            la = rr["launches"]
+            norms = (la["K3 moments"] if split else la["K3"])
+            check(la["K1"] > 0 and la["K2"] > 0 and la["K2 bwd"] > 0
+                  and norms > 0, f"29 {lname} rank {r}: launches {la}")
+        out[lname] = {"loss_err": dl, "grad_err": worst, "wall_s": wall}
+    return out
+
+
+def rank_train(job, me):
+    """Phase 30's rank: ``repro_torch.launch.train`` as this rank (its
+    environment names it), the launch counters reset just before and read
+    just after."""
+    import torch
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import matmul as k1
+    from repro_torch.launch import train
+    reset_launches()
+    res = train.main(job["argv"])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"launches": dict(read_launches(), **read_split_launches()),
+            "k1_routes": dict(k1.launches_by_route),
+            "k2_routes": dict(k2.launches_by_route),
+            "k2_bwd_routes": dict(k2.launches_bwd_by_route),
+            "losses": res["losses"], "telemetry": res["telemetry"]}
+
+
+def rank_train_launches(lname, layouts=None):
+    """One rank's launches in phase 30's run: tinyllama's step as one rank
+    runs it (``TRAIN_LAUNCHES``), its norms in K3's two phases where out_ax
+    ('z') splits the hidden dim."""
+    per = dict(TRAIN_LAUNCHES)
+    fwd, bwd = per["K3"], per["K3 bwd"]
+    split = rank_layout(lname, layouts=layouts).size("z") > 1
+    per.update({"K3": 0 if split else fwd, "K3 bwd": 0 if split else bwd,
+                "K3 moments": fwd if split else 0,
+                "K3 apply": fwd if split else 0,
+                "K3 bwd dot": bwd if split else 0,
+                "K3 bwd apply": bwd if split else 0,
+                "K4": 0, "K4 combine": 0})
+    return {k: RANK_STEPS * n for k, n in per.items()}
+
+
+def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
+                      backend="gloo"):
+    """30: tinyllama-1.1b at full width and depth in bf16, 4 x 2048,
+    remat, AdamW, ``RANK_STEPS`` steps, through ``repro_torch.launch.train``
+    under torchrun on 8 ranks at (2,2,2) and at dp2 x (2,2,1) (or
+    ``nranks`` at ``layouts`` over ``backend``), against the one-rank run
+    of phase 8 (the same seed, data and lr at these steps): each step's
+    loss within 3e-2 (tests/test_multidev.py:92), each rank's K1/K2/K3
+    launches exact, every K1 and K2 launch on the tc route; each rank's
+    step time, tokens/s and peak memory printed."""
+    layouts = layouts or RANK_LAYOUTS
+    where = (f"{nranks} ranks sharing {card} (gloo, collectives staged "
+             "through the host: no measure of the paper's communication)"
+             if backend == "gloo" else
+             f"{nranks} ranks, one a card, over {backend}")
+    out = {}
+    for lname in layouts:
+        tel = ROOT / "build" / f"chip_smoke_ranks_{lname}_telemetry.json"
+        argv = ["--arch", "tinyllama-1.1b", "--device", RANK_DEVICE,
+                "--backend", backend, *rank_flags(lname, layouts),
+                "--steps",
+                str(RANK_STEPS), "--batch", str(TRAIN_B), "--seq",
+                str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
+                "--log-every", "1", "--telemetry", str(tel)]
+        t = time.perf_counter()
+        res = run_rank_job({"kind": "train", "layout": lname, "argv": argv},
+                           torchrun=RANK_DEVICE == "cuda", nranks=nranks)
+        wall = time.perf_counter() - t
+        want = rank_train_launches(lname, layouts)
+        losses = res[0]["losses"]
+        ref = one_rank_losses[:RANK_STEPS]
+        diff = max(abs(a - b) for a, b in zip(losses, ref))
+        for r, rr in enumerate(res):
+            check(rr["losses"] == losses, f"30 {lname}: rank {r} losses "
+                  f"{rr['losses']} != rank 0's {losses}")
+            check(rr["launches"] == want, f"30 {lname} rank {r}: launches "
+                  f"{rr['launches']} != {want}")
+            check(rr["k1_routes"]["tc"] == want["K1"]
+                  and rr["k2_routes"]["tc"] == want["K2"]
+                  and rr["k2_bwd_routes"]["tc"] == want["K2 bwd"],
+                  f"30 {lname} rank {r}: routes {rr['k1_routes']} "
+                  f"{rr['k2_routes']} {rr['k2_bwd_routes']}")
+        tels = [rr["telemetry"] for rr in res]
+        mem = [tl["mem_peak_bytes"] / 2 ** 30 for tl in tels]
+        print(f"[30] {lname}: tinyllama-1.1b full width and depth bf16 "
+              f"{TRAIN_B}x{TRAIN_S}, remat, AdamW on {where}: losses "
+              + " ".join(f"{x:.4f}" for x in losses) + " against one "
+              "rank's " + " ".join(f"{x:.4f}" for x in ref)
+              + f" (worst {diff:.2e}, tol 3e-2); rank 0's step times "
+              + " ".join(f"{x:.3f}" for x in tels[0]["series"]["t_step"])
+              + f" s (first = warm-up), steady {tels[0]['t_step_s']:.3f} "
+              f"s/step, {tels[0]['tokens_per_s']:.0f} tok/s; peak memory "
+              f"per rank " + " ".join(f"{x:.2f}" for x in mem)
+              + f" GiB; launches per rank {res[0]['launches']}; "
+              f"{wall:.1f} s")
+        check(diff <= 3e-2, f"30 {lname}: losses {losses} vs {ref}")
+        out[lname] = {"losses": losses, "one_rank_losses": ref,
+                      "t_step_s": tels[0]["t_step_s"],
+                      "t_step": tels[0]["series"]["t_step"],
+                      "tokens_per_s": tels[0]["tokens_per_s"],
+                      "mem_peak_gib_by_rank": mem, "wall_s": wall,
+                      "launches_per_rank": res[0]["launches"]}
+    return out
+
+
 def train_numbers(tel, **more):
     """The numbers of a training run's telemetry that the JSON lines
     carry."""
@@ -4653,13 +5273,18 @@ def main():
     k1_numbers = timed(phase_k1, dev)
     k1_numbers["decode"]["decode_max_m_measured"] = timed(
         phase_k1_threshold, dev)
+    k1_ranks, k1_ranks_err = timed(phase_k1_ranks, dev)
     k4_numbers = timed(phase_k4, dev)
     k4_numbers["shapes"].update(timed(phase_k4_latent, dev))
     k4_numbers["shapes"].update(timed(phase_k4_cross, dev))
     k3_numbers = timed(phase_k3, dev)
+    k3_numbers["two_phase"] = timed(phase_k3_split, dev)
     k2_numbers = timed(phase_k2, dev)
     k2_numbers["shapes"]["mla"] = timed(phase_k2_mla, dev)
     k2_numbers["shapes"].update(timed(phase_k2_whisper, dev))
+    k2_rank_shapes, k2_ranks_err = timed(phase_k2_ranks, dev)
+    k2_numbers["shapes"].update(k2_rank_shapes)
+    k2_numbers["max_abs_err"] = max(k2_numbers["max_abs_err"], k2_ranks_err)
     timed(phase_two_layer, dev)
     timed(phase_two_layer, dev, "bfloat16")
     timed(phase_two_layer_train, dev)
@@ -4683,7 +5308,8 @@ def main():
     zserve_numbers["breakdown"] = timed(phase_decode_breakdown_zamba2,
                                         zserve_eng, card)
     del zserve_eng
-    train_launches, train_routes, train_k2, _ = timed(phase_train, card)
+    train_launches, train_routes, train_k2, train_tel = timed(phase_train,
+                                                              card)
     timed(phase_breakdown, dev, card)
     k1_train, k1_train_err = timed(phase_k1_train, dev)
     k5_numbers = timed(phase_k5, dev)
@@ -4794,6 +5420,16 @@ def main():
         phase_breakdown, dev, card, "internvl2-2b", tag="28p",
         op_group=launching_op_group, host_steps=3)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks_numbers = {"grads_f32": timed(phase_ranks_grads, dev)}
+    ranks_numbers["train"] = timed(phase_ranks_train, card,
+                                   train_tel["series"]["loss"])
+    # each layout's launches over its 8 ranks: every rank runs the same
+    rank_paths = {f"train_ranks_{lname}": {
+        k: RANKS * n for k, n in v["launches_per_rank"].items()}
+        for lname, v in ranks_numbers["train"].items()}
+
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
              ("serve_zamba2", zserve_launches),
@@ -4809,13 +5445,17 @@ def main():
              ("train_internvl", v_launches))
 
     def launched(*names, **more):
-        by = {path: sum(counts[n] for n in names) for path, counts in paths}
+        by = {path: sum(counts.get(n, 0) for n in names)
+              for path, counts in (*paths, *rank_paths.items())}
         by.update(more)
         return dict(launches=sum(by.values()), launches_by_path=by)
     k1_tc, k1_dec = k1_numbers["tc"], k1_numbers["decode"]
     for arch, agg in k1_train.items():
         k1_tc.update({f"train_{arch}_{k}": v for k, v in agg.items()})
-    k1_tc["max_abs_err"] = max(k1_tc["max_abs_err"], k1_train_err)
+    k1_tc["max_abs_err"] = max(k1_tc["max_abs_err"], k1_train_err,
+                               k1_ranks_err)
+    for name, agg in k1_ranks.items():
+        k1_tc.update({f"train_{name}_{k}": v for k, v in agg.items()})
     k1_paths = (("serve", serve_routes), ("train", train_routes),
                 ("train_zamba2", zamba_routes),
                 ("serve_zamba2", zserve_routes),
@@ -4832,11 +5472,17 @@ def main():
                 for r in serve_routes}
     k2_by_route = {key: {r: sum(p[key][r] for p in (
         serve_k2, train_k2, zamba_k2, xlstm_k2, mserve_k2, mix_k2,
-        dserve_k2, ds_k2, w_k2, v_k2))
+        dserve_k2, ds_k2, w_k2, v_k2)) + (sum(
+            c[key] for c in rank_paths.values()) if r == "tc" else 0)
         for r in serve_k2[key]} for key in serve_k2}
+
+    # every K1 launch of the rank runs took the tc route (phase 30)
+    by_route["tc"] += sum(c["K1"] for c in rank_paths.values())
 
     def k1_launched(route):
         by = {path: routes[route] for path, routes in k1_paths}
+        by.update({path: c["K1"] if route == "tc" else 0
+                   for path, c in rank_paths.items()})
         return dict(launches=sum(by.values()), launches_by_path=by,
                     launches_by_route=by_route)
     ratios = {"decode step": k1_dec["ms"] / k1_dec["library_ms"],
@@ -4868,7 +5514,8 @@ def main():
         dict(name="K3 rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:19",
-             **launched("K3", "K3 bwd"), **k3_numbers),
+             **launched("K3", "K3 bwd", "K3 moments", "K3 apply",
+                        "K3 bwd dot", "K3 bwd apply"), **k3_numbers),
         dict(name="K4 paged_flash_decode", route="cuda",
              source="src/repro_torch/kernels/csrc/paged_decode_hopper.cu "
                     "(split), src/repro_torch/kernels/csrc/paged_decode.cu "
@@ -4903,11 +5550,13 @@ def main():
              "library_fwd_device_ms", "fwd_host_ms", "bwd_host_ms",
              "bwd_kernels_ms", "library_bwd_ms", "norm_err", "kernels_ms",
              "shapes", "launch_floor_ms", "launches_combine",
-             "decode_layer_kernels", "contiguous_layer_kernels") + tuple(
+             "decode_layer_kernels", "contiguous_layer_kernels",
+             "two_phase") + tuple(
                  f"train_{arch}_{k}" for arch in ("tinyllama", "zamba2",
                                                   "mixtral", "moonlight",
                                                   "deepseek", "whisper",
-                                                  "internvl2")
+                                                  "internvl2", "rank_cube",
+                                                  "rank_dp2")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))
     print("serving paths: " + json.dumps({
@@ -4918,6 +5567,8 @@ def main():
     print("moe: " + json.dumps(moe_numbers))
     print("deepseek: " + json.dumps(ds_numbers))
     print("modality families: " + json.dumps(modality_numbers))
+    print("3-D cube across ranks (8 ranks on one card, gloo through the "
+          "host): " + json.dumps(ranks_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))
@@ -4929,4 +5580,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job(sys.argv[2]))
     sys.exit(main())

@@ -5,7 +5,8 @@
 returns the port's tree of tensors with the same names and shapes.  A cast
 to the model's dtype leaves float32 the leaves the reference keeps in
 float32 (the Mamba2 ``dt_bias``, ``A_log`` and ``D``), as the port's own
-``init_params`` does.
+``init_params`` does.  With a ``layout`` each leaf is the rank's shard of
+the global array (``core.params.shard`` under the leaf's spec).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .core.params import tree_map
+from .core.params import shard, tree_map
 from .models.transformer import abstract_params
 
 
@@ -28,16 +29,18 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None,
-                    cfg=None):
+                    cfg=None, layout=None):
     """Nested dict of numpy arrays -> the same tree of tensors on ``device``.
     With ``dtype``, floating leaves are cast to it, except those whose
-    Param in ``abstract_params(cfg)`` pins its own dtype: ``cfg`` (the
-    port's ModelConfig) is then required."""
-    if dtype is None:
+    Param in ``abstract_params(cfg)`` pins its own dtype; with ``layout``,
+    each leaf is cut to the rank's shard.  Either needs ``cfg`` (the port's
+    ModelConfig)."""
+    if dtype is None and layout is None:
         return tree_map(lambda a: _tensor(a).to(device), tree)
     if cfg is None:
-        raise ValueError("params_from_jax: a cast to a dtype needs the "
-                         "model's cfg, to keep the leaves it pins in f32")
+        raise ValueError("params_from_jax: a cast to a dtype or a layout "
+                         "needs the model's cfg (the leaves' dtypes and "
+                         "specs)")
     out = {}
 
     def walk(src, spec, dst):
@@ -47,8 +50,10 @@ def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None,
                 walk(v, spec[k], dst[k])
                 continue
             t = _tensor(v)
-            if t.is_floating_point():
+            if layout is not None:
+                t = shard(t, spec[k].spec, layout)
+            if dtype is not None and t.is_floating_point():
                 t = t.to(spec[k].dtype or dtype)
             dst[k] = t.to(device)
-    walk(tree, abstract_params(cfg), out)
+    walk(tree, abstract_params(cfg, layout), out)
     return out

@@ -1,48 +1,305 @@
-"""The 3-D islands' collectives over a named mesh axis (the port's stand-in
+"""The 3-D islands' collectives over named mesh axes (the port's stand-in
 for ``lax.all_gather`` / ``lax.psum`` / ``lax.psum_scatter`` /
-``lax.axis_index`` inside the reference's ``shard_map`` islands).
+``lax.pmax`` / ``lax.axis_index`` inside the reference's ``shard_map``
+islands), over ``torch.distributed`` process groups.
 
-``axis`` is one name of ``topology.AXES`` or a tuple of them.  At axis size
-1 each collective is the identity (the tiled all-gather and reduce-scatter
-of one shard are that shard).  Above size 1 each one raises until the
-multi-rank slice builds the ``torch.distributed`` groups: a wrong answer is
-never returned silently.
+``axis`` is one name of ``topology.AXES``, a tuple of them, or None.  At
+axis size 1 each collective is the identity (the tiled all-gather and
+reduce-scatter of one shard are that shard) and touches no process group,
+so the one-device paths never call ``torch.distributed``.
+
+Above size 1 the layout must carry the ``Groups`` that ``init`` builds:
+for every set of the layout's axes of size > 1, the group of the ranks
+that share this rank's coordinates on every other axis.  Every rank
+creates every group, in one order, as ``new_group`` requires.  A group's
+members are ordered by global rank; JAX orders a tiled collective over an
+axis tuple by the mixed-radix index with the first axis major, so a gather
+over ``("y", "x")`` (y major, while the global rank has x major) permutes
+the gathered blocks, and a reduce-scatter the blocks it sends.
+
+Backends: NCCL when each rank has a card of its own; gloo for CPU tensors,
+and for ranks that share one card (NCCL refuses two ranks on a device), in
+which case each CUDA tensor is copied to the host for the collective and
+back (``Groups.staged``).  The backend is the caller's choice and is never
+switched on failure.
+
+The plain functions carry no autograd.  ``all_gather_ad``, ``psum_ad``,
+``psum_id`` and ``grad_psum`` are differentiable, with the transposes the
+islands need: a gather's is a reduce-scatter; a sum whose result each
+rank uses in its own way (a norm's moments over the split hidden dim) has
+a sum as its transpose; a sum whose result every rank then uses
+identically (the loss and the vocab-parallel softmax's sums) has the
+identity, since each rank already seeds the gradient of the whole; and a
+replicated tensor that each rank reads in its own way (the kv heads that
+the attention island slices) sums its gradient.
 """
 from __future__ import annotations
 
+import itertools
+import warnings
+from typing import Dict, FrozenSet, List, Tuple
+
 import torch
 
-from .plan import MULTI_RANK_TODO
-from .topology import Layout
+from .topology import AXES, Layout
 
 
-def _check(layout: Layout, axis, op: str):
-    n = layout.size(axis)
-    if n != 1:
-        raise NotImplementedError(f"{op} over {axis!r} of size {n}: "
-                                  f"{MULTI_RANK_TODO}")
+def _axes(ax) -> Tuple[str, ...]:
+    if ax is None:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+class Groups:
+    """The process groups of one layout (see the module docstring)."""
+
+    def __init__(self, layout: Layout, staged: bool):
+        import torch.distributed as dist
+        self.staged = staged
+        live = [a for a in AXES if layout.size(a) > 1]
+        world = layout.n_devices
+        coords = [layout.coords_of(r) for r in range(world)]
+        self.group: Dict[FrozenSet[str], object] = {}
+        self.members: Dict[FrozenSet[str], List[int]] = {}
+        for n in range(1, len(live) + 1):
+            for axes in itertools.combinations(live, n):
+                key = frozenset(axes)
+                rest = [a for a in AXES if a not in key]
+                parts: Dict[tuple, List[int]] = {}
+                for r in range(world):
+                    parts.setdefault(tuple(coords[r][a] for a in rest),
+                                     []).append(r)
+                for ranks in parts.values():     # in order of first rank
+                    g = dist.new_group(ranks)
+                    if layout.rank in ranks:
+                        self.group[key] = g
+                        self.members[key] = ranks
+        self._coords, self._sizes = coords, dict(layout.sizes)
+        self._orders: Dict[Tuple[str, ...], tuple] = {}
+
+    def order(self, axes: Tuple[str, ...]):
+        """(group, perm): ``perm[j]`` is the group position (the members in
+        global-rank order) of the member whose mixed-radix index over
+        ``axes``, first axis major, is j; None when the two orders agree."""
+        if axes not in self._orders:
+            key = frozenset(axes)
+            members = self.members[key]
+            perm = [0] * len(members)
+            for pos, r in enumerate(members):
+                perm[_mixed(self._coords[r], axes, self._sizes)] = pos
+            self._orders[axes] = (self.group[key],
+                                  None if perm == sorted(perm) else perm)
+        return self._orders[axes]
+
+
+def _mixed(coords: Dict[str, int], axes, sizes: Dict[str, int]) -> int:
+    i = 0
+    for a in axes:
+        i = i * sizes[a] + coords[a]
+    return i
+
+
+def init(layout: Layout, backend: str = "gloo") -> Layout:
+    """``layout`` with its ``Groups`` attached; every rank of the world
+    calls it with its own layout, after
+    ``torch.distributed.init_process_group``.  ``backend`` is the world's:
+    with "gloo" CUDA tensors are staged through the host; "nccl" needs a
+    card for each rank.  A one-device layout is returned as it is."""
+    import dataclasses
+
+    import torch.distributed as dist
+    if layout.n_devices == 1:
+        return layout
+    if not dist.is_initialized():
+        raise RuntimeError("comm.init: torch.distributed is not initialised")
+    if dist.get_world_size() != layout.n_devices or \
+            dist.get_rank() != layout.rank:
+        raise ValueError(
+            f"comm.init: rank {dist.get_rank()} of {dist.get_world_size()} "
+            f"for a layout of rank {layout.rank} of {layout.n_devices}")
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r} not in ('gloo', 'nccl')")
+    # all_gather_into_tensor / reduce_scatter_tensor are the calls every
+    # supported PyTorch has; newer ones flag them as deprecated
+    warnings.filterwarnings("ignore", category=FutureWarning,
+                            message=r".*(all_gather_into_tensor|"
+                                    r"reduce_scatter_tensor).*")
+    return dataclasses.replace(layout,
+                               groups=Groups(layout, backend == "gloo"))
+
+
+def _prep(layout: Layout, axis):
+    """(live axes, groups) of a collective; live axes () = identity."""
+    axes = layout.live(_axes(axis))
+    if not axes:
+        return (), None
+    if layout.groups is None:
+        raise RuntimeError(
+            f"collective over {axes} of size {layout.size(axes)}: the layout "
+            "has no process groups (comm.init)")
+    return axes, layout.groups
+
+
+def _to_host(g: Groups, x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, or for a staged CUDA tensor its copy on the host
+    (pinned buffers with asynchronous copies were no faster on an H100:
+    PERF.md §6)."""
+    return x.cpu() if (g.staged and x.is_cuda) else x
+
 
 
 def all_gather(layout: Layout, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """Tiled all-gather of ``x`` along tensor dim ``dim`` over ``axis``."""
-    _check(layout, axis, "all_gather")
-    return x
-
-
-def psum(layout: Layout, x: torch.Tensor, axis) -> torch.Tensor:
-    """Sum of ``x`` over ``axis``."""
-    _check(layout, axis, "psum")
-    return x
+    axes, g = _prep(layout, axis)
+    if not axes:
+        return x
+    import torch.distributed as dist
+    group, perm = g.order(axes)
+    n = layout.size(axes)
+    src = _to_host(g, x.movedim(dim, 0).contiguous())
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    if perm is not None:
+        blocks = out.chunk(n)
+        out = torch.cat([blocks[p] for p in perm])
+    return out.to(x.device).movedim(0, dim)
 
 
 def psum_scatter(layout: Layout, x: torch.Tensor, axis,
                  dim: int) -> torch.Tensor:
-    """Tiled reduce-scatter of ``x`` along tensor dim ``dim`` over ``axis``."""
-    _check(layout, axis, "psum_scatter")
-    return x
+    """Tiled reduce-scatter of ``x`` along tensor dim ``dim`` over ``axis``:
+    the sum over the axis of block ``index(axis)`` of dim ``dim``."""
+    axes, g = _prep(layout, axis)
+    if not axes:
+        return x
+    import torch.distributed as dist
+    group, perm = g.order(axes)
+    n = layout.size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
+                         f"not split over {axes} of size {n}")
+    src = x.movedim(dim, 0)
+    if perm is not None:
+        # position p of the group receives block j = its own index
+        blocks = src.chunk(n)
+        inv = [0] * n
+        for j, p in enumerate(perm):
+            inv[p] = j
+        src = torch.cat([blocks[inv[p]] for p in range(n)])
+    src = _to_host(g, src.contiguous())
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(x.device).movedim(0, dim)
+
+
+def _all_reduce(layout: Layout, x: torch.Tensor, axis, op) -> torch.Tensor:
+    axes, g = _prep(layout, axis)
+    if not axes:
+        return x
+    import torch.distributed as dist
+    group, _ = g.order(axes)
+    buf = _to_host(g, x.contiguous())
+    if buf is x:
+        buf = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=getattr(dist.ReduceOp, op), group=group)
+    return buf.to(x.device)
+
+
+def psum(layout: Layout, x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum of ``x`` over ``axis`` (a new tensor; ``x`` is not written)."""
+    return _all_reduce(layout, x, axis, "SUM")
+
+
+def pmax(layout: Layout, x: torch.Tensor, axis) -> torch.Tensor:
+    """Elementwise max of ``x`` over ``axis``."""
+    return _all_reduce(layout, x, axis, "MAX")
 
 
 def axis_index(layout: Layout, axis) -> int:
-    """This rank's coordinate on ``axis``."""
-    _check(layout, axis, "axis_index")
-    return 0
+    """This rank's index on ``axis`` (mixed radix over a tuple, the first
+    axis major); no communication."""
+    return layout.index(layout.live(_axes(axis)))
+
+
+# ---------------------------------------------------------------------------
+# Differentiable forms
+# ---------------------------------------------------------------------------
+class _GatherAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axis, dim):
+        ctx.cfg = (layout, axis, dim)
+        return all_gather(layout, x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        layout, axis, dim = ctx.cfg
+        return psum_scatter(layout, dy, axis, dim), None, None, None
+
+
+class _PsumAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axis):
+        ctx.cfg = (layout, axis)
+        return psum(layout, x, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        layout, axis = ctx.cfg
+        return psum(layout, dy, axis), None, None
+
+
+class _PsumID(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axis):
+        return psum(layout, x, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+class _GradPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axis):
+        ctx.cfg = (layout, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        layout, axis = ctx.cfg
+        return psum(layout, dy, axis), None, None
+
+
+def grad_psum(layout: Layout, x, axis):
+    """The identity, whose backward sums the gradient over ``axis``: for a
+    tensor replicated over the axis whose copies each rank reads in its
+    own way (the cotangent of a replicated input to a ``shard_map``
+    island)."""
+    if not layout.live(_axes(axis)):
+        return x
+    return _GradPsum.apply(x, layout, axis)
+
+
+def all_gather_ad(layout: Layout, x, axis, dim: int):
+    """``all_gather``, whose backward reduce-scatters the gradient."""
+    if not layout.live(_axes(axis)):
+        return x
+    return _GatherAD.apply(x, layout, axis, dim)
+
+
+def psum_ad(layout: Layout, x, axis):
+    """``psum`` whose backward sums the gradient over ``axis``: for a sum
+    that each rank uses in its own way."""
+    if not layout.live(_axes(axis)):
+        return x
+    return _PsumAD.apply(x, layout, axis)
+
+
+def psum_id(layout: Layout, x, axis):
+    """``psum`` whose backward is the identity: for a sum that every rank
+    of ``axis`` then uses identically, each seeding the whole gradient."""
+    if not layout.live(_axes(axis)):
+        return x
+    return _PsumID.apply(x, layout, axis)

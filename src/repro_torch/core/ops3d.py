@@ -166,9 +166,11 @@ def matmul3d_repc_decode(layout: Layout, in_ax: str, out_ax: str, x, w):
 
 def grad_sync_axes(layout: Layout):
     """Axes the weight gradient is summed over beyond the cube's 'x'
-    reduce-scatter: the data-parallel axes (reference ``_grad_sync_axes``
-    with batch axes (pod, dp, x) and no sequence axes)."""
-    return tuple(a for a in ("pod", "dp") if layout.size(a) > 1)
+    reduce-scatter (reference ``_grad_sync_axes``): the batch axes and the
+    sequence axes outside the cube, of size > 1, each once."""
+    axes = [a for a in (*layout.batch_axes, *layout.seq_axes)
+            if a not in ("x", "y", "z") and layout.size(a) > 1]
+    return tuple(dict.fromkeys(axes))
 
 
 def matmul3d(layout: Layout, in_ax: str, out_ax: str, x, w,

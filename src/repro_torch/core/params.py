@@ -1,9 +1,12 @@
 """Parameter leaves and their native init (port of ``repro/core/params.py``).
 
-A ``Param`` describes one leaf: its shape, init rule and, where the
-reference pins one, its dtype.  The model's tree of Params is
-``models.transformer.abstract_params(cfg)``; ``init_params`` turns such a
-tree into tensors.  It follows the reference's init rules
+A ``Param`` describes one leaf: its global shape, init rule, where the
+reference pins one its dtype, and its ``spec``, the reference's
+``PartitionSpec`` as a tuple: per dim an axis name, a tuple of names
+(first axis major) or None.  The model's tree of Params is
+``models.transformer.abstract_params(cfg, layout)``; ``init_params`` turns
+such a tree into tensors, each rank's local shard of every leaf
+(``shard``).  It follows the reference's init rules
 (``repro/core/params.py:44-66``) in distribution only: its random numbers
 come from a ``torch.Generator``, not from ``jax.random``.
 """
@@ -12,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Callable, Optional, Tuple
+
+from .topology import Layout
 
 import torch
 
@@ -26,6 +31,38 @@ class Param:
     fan_axis: int = -2          # contraction axis for fan_in scaling
     scale: float = 1.0
     dtype: Optional[torch.dtype] = None   # None: the model's dtype
+    spec: Optional[tuple] = None    # None: replicated on every rank
+    # True where the op that reads the leaf sums its gradient over every
+    # axis itself (a 3-D island's weight, the embedding table); the train
+    # step sums the others' over the axes their spec leaves out
+    synced: bool = False
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every axis name a spec splits a dim over, in order."""
+    out = []
+    for e in spec or ():
+        out.extend((e,) if isinstance(e, str) else (e or ()))
+    return tuple(out)
+
+
+def shard(t: torch.Tensor, spec, layout: Layout) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``spec``: each
+    dim split over its entry's axes, the block at the rank's mixed-radix
+    index over them (JAX's ``NamedSharding`` order).  ``t`` itself when
+    nothing splits; otherwise a copy, so that the global can be freed."""
+    out = t
+    for dim, e in enumerate(spec or ()):
+        axes = layout.live((e,) if isinstance(e, str) else (e or ()))
+        if not axes:
+            continue
+        n = layout.size(axes)
+        if out.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {axes} of size {n}")
+        step = out.shape[dim] // n
+        out = out.narrow(dim, layout.index(axes) * step, step)
+    return out if out is t else out.clone()
 
 
 def tree_map(fn: Callable, tree):
@@ -43,9 +80,11 @@ def tree_leaves(tree):
 
 def stack_tree(tree, n: int):
     """A tree of Params with a leading dim of ``n`` on every leaf: ``n``
-    layers' stacked slab (reference ``core/params.py:stack_tree``)."""
-    return tree_map(lambda p: dataclasses.replace(p, shape=(n, *p.shape)),
-                    tree)
+    layers' stacked slab (reference ``core/params.py:stack_tree``), the
+    layer dim unsplit."""
+    return tree_map(lambda p: dataclasses.replace(
+        p, shape=(n, *p.shape),
+        spec=None if p.spec is None else (None, *p.spec)), tree)
 
 
 def unstack(tree, n: int):
@@ -57,7 +96,8 @@ def unstack(tree, n: int):
 
 
 def init_params(abstract, generator: torch.Generator, device,
-                dtype: torch.dtype = torch.bfloat16):
+                dtype: torch.dtype = torch.bfloat16,
+                layout: Optional[Layout] = None):
     """Random weights for a tree of Params, such as
     ``transformer.abstract_params(cfg)``, drawn from ``generator``
     (which must live on ``device``; None for a tree of constants, such as
@@ -65,8 +105,13 @@ def init_params(abstract, generator: torch.Generator, device,
     for weights, ones and zeros for norms, -1 for cache positions.  Leaves
     are in ``dtype`` except those whose Param pins its own.  A leaf of more
     than ``DRAW_SLICE`` values is drawn one slice of its first dim at a
-    time."""
+    time.  With a ``layout``, every global leaf is drawn in turn and the
+    rank keeps its shard, so that every world size holds one model."""
     def one(p: Param) -> torch.Tensor:
+        t = full(p)
+        return t if layout is None else shard(t, p.spec, layout)
+
+    def full(p: Param) -> torch.Tensor:
         dt = p.dtype or dtype
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dt, device=device)

@@ -1,14 +1,16 @@
 """ParallelPlan: data x 3-D tensor x pipeline parallelism in one object
 (port of ``repro/core/plan.py``).
 
-``ParallelPlan(...).validate(mode=...).build()`` yields the ``Layout``
-everything downstream reads.  Plans validate as the reference's do, for
-``mode="train"`` and ``mode="serve"``, but ``build`` accepts one device
-only, the cube (1, 1, 1): the islands' collectives above axis size 1
-arrive with the multi-rank slice (ROADMAP.md, "Multi-rank islands").
-Optimizer-state partitioning (``zero_stage``) and async-TP overlap need a
-data or model axis above size 1, so the plan does not carry them yet; the
-train launcher refuses their flags.
+``ParallelPlan(...).validate(mode=...).build(rank=r)`` yields rank r's
+``Layout``, which everything downstream reads; ``comm.init`` then attaches
+the layout's process groups, one for every set of its axes of size > 1
+(``comm.Groups``).  Plans validate as the reference's do, for
+``mode="train"`` and ``mode="serve"``.  Above one device ``build`` takes
+the 3-D strategy at pp = 1, and ``validate`` refuses serving (decode's
+psum-combined residuals, ROADMAP.md Queue 1 item 3); ``multi_rank_refusal``
+names what else the port refuses above one device.  Optimizer-state
+partitioning (``zero_stage``) and async-TP overlap are not carried yet;
+the train launcher refuses their flags.
 """
 from __future__ import annotations
 
@@ -16,11 +18,37 @@ import dataclasses
 from typing import Optional, Tuple
 
 from . import topology
-from .topology import AXES, Layout, factor_model_axis
+from .topology import Layout, factor_model_axis, make_layout
 
-MULTI_RANK_TODO = ("multi-rank islands are not ported yet: this slice runs "
-                   "one device, the cube (1, 1, 1); see ROADMAP.md, "
-                   "'Multi-rank islands'")
+# the families whose blocks are not ported above one rank
+MULTI_RANK_TODO = ("above one rank the port trains the dense family only; "
+                   "the MoE (expert parallelism), hybrid, SSM, VLM, audio "
+                   "and MLA families run on one device (ROADMAP.md, Queue 1 "
+                   "item 3)")
+
+
+def multi_rank_refusal(n_devices: int, *, n_stages: int = 1,
+                       strategy: str = "3d", cfg=None,
+                       mode: str = "train"):
+    """What the port refuses of a plan of ``n_devices`` devices, or None:
+    pp > 1 (item 7), the 1-D/2-D baselines (item 4), serving and every
+    family but the dense one above one device (item 3)."""
+    if n_devices == 1:
+        return None
+    if n_stages > 1:
+        return (f"pp={n_stages}: pipeline stages are not ported yet "
+                "(ROADMAP.md, Queue 1 item 7)")
+    if strategy != "3d":
+        return (f"strategy {strategy!r} above one device: the 1-D and 2-D "
+                "baselines are not ported yet (ROADMAP.md, Queue 1 item 4)")
+    if mode != "train":
+        return ("multi-rank serving (decode's psum-combined residuals) is "
+                "not ported yet: serve on one device (ROADMAP.md, Queue 1 "
+                "item 3)")
+    if cfg is not None and (cfg.family.value != "dense" or cfg.moe
+                            or cfg.mla):
+        return f"{cfg.arch} on {n_devices} devices: {MULTI_RANK_TODO}"
+    return None
 
 
 def pipeline_mode_error(n_stages: int, mode: str) -> Optional[str]:
@@ -45,6 +73,8 @@ class ParallelPlan:
     microbatches: int = 1           # grad-accumulation / pipeline m
     strategy: str = "3d"            # 3d | 2d | 1d tensor strategy per stage
     cube: Optional[Tuple[int, int, int]] = None
+    batch_axes: Tuple[str, ...] = ("pod", "dp", "x")
+    seq_axes: Tuple[str, ...] = ()
 
     @property
     def n_devices(self) -> int:
@@ -65,7 +95,8 @@ class ParallelPlan:
                  mode: str = "train", draft=None) -> "ParallelPlan":
         """Raise ValueError on illegal compositions, naming the offending
         fields, as the reference does; a ``draft`` raises ValueError until
-        speculative decoding is ported."""
+        speculative decoding is ported, and a serving plan above one
+        device NotImplementedError."""
         if self.n_stages < 1 or self.microbatches < 1:
             raise ValueError("n_stages and microbatches must be >= 1")
         err = pipeline_mode_error(self.n_stages, mode)
@@ -93,17 +124,25 @@ class ParallelPlan:
         px, py, pz = self.cube_dims
         if px * py * pz != self.n_model:
             raise ValueError(f"cube {self.cube_dims} != n_model {self.n_model}")
+        if mode != "train" and self.n_devices > 1:
+            raise NotImplementedError(multi_rank_refusal(self.n_devices,
+                                                         mode=mode))
         return self
 
-    def build(self) -> Layout:
-        """The plan's Layout.  One device only in this slice."""
-        if self.n_devices != 1:
-            raise NotImplementedError(
-                f"plan with {self.n_devices} devices: {MULTI_RANK_TODO}")
-        px, py, pz = self.cube_dims
-        shape = (self.n_pod, self.n_dp, self.n_stages, px, py, pz)
-        return Layout(sizes=dict(zip(AXES, shape)), strategy=self.strategy,
-                      microbatches=self.microbatches)
+    def build(self, rank: int = 0) -> Layout:
+        """Rank ``rank``'s Layout (reference ``ParallelPlan.build``, with
+        the rank in place of the device list).  Above one device: the 3-D
+        strategy at pp = 1 only."""
+        err = multi_rank_refusal(self.n_devices, n_stages=self.n_stages,
+                                 strategy=self.strategy)
+        if err:
+            raise NotImplementedError(err)
+        return make_layout(self.n_pod, self.n_dp, self.n_model,
+                           self.strategy, self.cube,
+                           batch_axes=self.batch_axes,
+                           seq_axes=self.seq_axes, rank=rank,
+                           n_pp=self.n_stages,
+                           microbatches=self.microbatches)
 
     def describe(self) -> dict:
         px, py, pz = self.cube_dims

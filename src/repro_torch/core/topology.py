@@ -10,16 +10,21 @@ layouts of the paper's direction exchange (section 3.2):
     Y  : (B, S, F)  split  (BATCH, out_ax, in_ax)     after a 3-D linear
 
 with in_ax/out_ax swapping between 'y' and 'z' after every linear, while
-weights stay attached to 'x'.  A ``Layout`` only names sizes and directions;
-the collectives that move data live in ``core/comm.py``.
+weights stay attached to 'x'.  BATCH is ``Layout.batch_axes``, by default
+("pod", "dp", "x"); ``Layout.seq_axes`` (default none) split the sequence
+beside in_ax.  A ``Layout`` names sizes, directions and this process's
+rank; the collectives that move data live in ``core/comm.py``, over the
+process groups that ``comm.init`` builds for a layout.
 
-This slice runs one device, the cube (1, 1, 1): every axis has size 1.
+Rank r sits at the coordinates of r written row-major over
+``(pod, dp, pp, x, y, z)``, the order in which the reference's
+``make_mesh`` reshapes its device list.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 AXES = ("pod", "dp", "pp", "x", "y", "z")
 
@@ -44,12 +49,22 @@ class Layout:
     ``sizes`` maps every name in ``AXES`` to its size.  ``inference_opt``
     selects the x-replicated decode weight layout (no per-token weight
     all-gather), as in the reference.  ``microbatches`` is the plan's
-    gradient-accumulation count, read by the train step.
+    gradient-accumulation count, read by the train step.  ``batch_axes``
+    and ``seq_axes`` name the axes that split the batch and (beside in_ax)
+    the sequence of the activations, as the reference's fields do.
+    ``rank`` is this process's rank in the world of ``n_devices`` ranks;
+    ``groups`` is the ``comm.Groups`` that ``comm.init`` attached, None
+    until then (and at one device, where no collective is issued).
     """
     sizes: Dict[str, int]
     strategy: str = "3d"
     inference_opt: bool = False
     microbatches: int = 1
+    batch_axes: Tuple[str, ...] = ("pod", "dp", "x")
+    seq_axes: Tuple[str, ...] = ()
+    rank: int = 0
+    groups: Optional[Any] = dataclasses.field(default=None, compare=False,
+                                              repr=False)
 
     def size(self, ax) -> int:
         if ax is None:
@@ -66,6 +81,36 @@ class Layout:
     def n_devices(self) -> int:
         return math.prod(self.sizes.values())
 
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of ``rank`` on every axis (row-major over
+        AXES)."""
+        out = {}
+        for a in reversed(AXES):
+            rank, out[a] = divmod(rank, self.sizes[a])
+        return {a: out[a] for a in AXES}
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on every axis."""
+        return self.coords_of(self.rank)
+
+    def index(self, ax) -> int:
+        """This rank's index along ``ax``, a name or a tuple of names: for
+        a tuple the mixed-radix index with the first axis major, the order
+        of JAX's tiled collectives over an axis tuple."""
+        if ax is None:
+            return 0
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        c, i = self.coords, 0
+        for a in axes:
+            i = i * self.sizes[a] + c[a]
+        return i
+
+    def live(self, axes) -> Tuple[str, ...]:
+        """The axes of ``axes`` (names, None entries skipped) whose size is
+        above 1, in order."""
+        return tuple(a for a in axes if a is not None and self.size(a) > 1)
+
 
 @dataclasses.dataclass
 class Dirs:
@@ -75,6 +120,13 @@ class Dirs:
 
     def swap(self) -> "Dirs":
         return Dirs(self.out_ax, self.in_ax)
+
+
+def entry_dirs() -> Dirs:
+    """The directions at every block's entry and exit, and of the
+    embedding's output and the head's input (reference
+    ``transformer.entry_dirs``)."""
+    return Dirs("y", "z")
 
 
 def factor_model_axis(n_model: int, strategy: str) -> Tuple[int, int, int]:
@@ -109,6 +161,26 @@ def factor_model_axis(n_model: int, strategy: str) -> Tuple[int, int, int]:
             if best is None or spread < best[0]:
                 best = (spread, (px, py, pz))
     return best[1]
+
+
+def make_layout(n_pod: int = 1, n_dp: int = 1, n_model: int = 1,
+                strategy: str = "3d",
+                cube: Optional[Tuple[int, int, int]] = None,
+                batch_axes=("pod", "dp", "x"), seq_axes=(), rank: int = 0,
+                n_pp: int = 1, microbatches: int = 1) -> Layout:
+    """The layout of rank ``rank`` on the mesh (n_pod, n_dp, n_pp, cube)
+    (reference ``topology.py:make_layout``, with the rank in place of the
+    device list)."""
+    px, py, pz = cube or factor_model_axis(n_model, strategy)
+    if px * py * pz != n_model:
+        raise ValueError(f"cube {(px, py, pz)} != n_model {n_model}")
+    sizes = dict(zip(AXES, (n_pod, n_dp, n_pp, px, py, pz)))
+    n = math.prod(sizes.values())
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside a mesh of {n} devices")
+    return Layout(sizes=sizes, strategy=strategy, microbatches=microbatches,
+                  batch_axes=tuple(batch_axes), seq_axes=tuple(seq_axes),
+                  rank=rank)
 
 
 def single_device_layout(strategy: str = "3d") -> Layout:

@@ -12,6 +12,10 @@ n_vision_tokens`` tokens; the audio family's carry ``frames`` (B,
 n_frames, d) beside ``seq_len`` text tokens.  Both stubs are drawn from the
 stream's generator after the tokens, in the reference's order
 (``repro/data/pipeline.py:60-75``), by ``models/frontend.py``.
+
+Above one device every rank draws the same global batch from the seed and
+keeps its shard (``shard_batch``), the placement of the reference's
+``shard_batch`` and of the head's logits.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, ShapeConfig
+from ..core.params import shard
+from ..core.topology import Layout, entry_dirs
 from ..models.registry import get_stack
 
 
@@ -48,13 +54,38 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
+def shard_batch(batch: dict, layout: Layout) -> dict:
+    """This rank's shard of a global host batch: the batch dim of every
+    array over ``layout.batch_axes``; the tokens' sequence over
+    ``seq_axes`` and the entry directions' in_ax, the labels' over
+    ``seq_axes`` and out_ax, the layout of the head's logits
+    (``transformer.chunked_head_loss``).  At one device the batch itself.
+    The modality stubs have no multi-rank layout in the port yet."""
+    if layout.n_devices == 1:
+        return batch
+    dirs = entry_dirs()
+    seq = {"tokens": dirs.in_ax, "labels": dirs.out_ax}
+    bad = set(batch) - set(seq)
+    if bad:
+        raise NotImplementedError(
+            f"batch entries {sorted(bad)} above one device: only the dense "
+            "family's tokens and labels are split (ROADMAP.md, Queue 1 "
+            "item 3)")
+    return {k: shard(torch.from_numpy(np.ascontiguousarray(a)),
+                     (layout.batch_axes, (*layout.seq_axes, seq[k])),
+                     layout).numpy()
+            for k, a in batch.items()}
+
+
 class TokenStream:
     """Iterator of train batches {"tokens", "labels"} (+ the modality
-    stubs) on ``device``."""
+    stubs) on ``device``: with a ``layout``, the rank's shard of each."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
-                 data: Optional[DataConfig] = None, device="cpu"):
+                 data: Optional[DataConfig] = None, device="cpu",
+                 layout: Optional[Layout] = None):
         self.cfg, self.shape, self.device = cfg, shape, device
+        self.layout = layout
         self.data = data or DataConfig()
         if self.data.kind not in ("synthetic", "file"):
             raise ValueError(f"data kind {self.data.kind!r} not in "
@@ -82,7 +113,10 @@ class TokenStream:
         return self
 
     def __next__(self) -> dict:
-        return to_device(self.next_host(), self.device)
+        batch = self.next_host()
+        if self.layout is not None:
+            batch = shard_batch(batch, self.layout)
+        return to_device(batch, self.device)
 
     def next_host(self) -> dict:
         """The next batch as numpy arrays (reference

@@ -36,6 +36,15 @@
 // sums the blocks' partials in block order.  No float atomics: the same
 // inputs give the same bits (the grid depends only on the card and the
 // instance).
+//
+// Two phases, for a row that a rank holds only part of (the hidden dim
+// split over the 3-D cube's out_ax; the caller all-reduces in between):
+// MODE 1 of each kernel stops after the row's partial sum (the forward's
+// sum of squares, the backward's dot) and writes it, one float a row;
+// MODE 2 reads the all-reduced sum in its place and applies it with the
+// norm's global width Hn (rstd = 1 / sqrt(ss / Hn + eps), dx's dot / Hn),
+// its dg the local columns' share.  MODE 0 is the one-phase kernel,
+// Hn = H.  The modes share the instances' loads, layouts and sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,11 +106,12 @@ __device__ __forceinline__ float row_sum(float v, float* red, int group,
   return t;
 }
 
-template <class C>
+template <class C, int MODE>
 __global__ void __launch_bounds__(THREADS)
 rms_fwd(const typename C::Elt* __restrict__ x,
         const typename C::Elt* __restrict__ g, typename C::Elt* __restrict__ y,
-        float* __restrict__ rstd, int64_t M, int H, float eps, int zc) {
+        float* __restrict__ rstd, float* __restrict__ ss_io, int64_t M, int H,
+        int Hn, float eps, int zc) {
   using T = typename C::Elt;
   using P = typename C::P;
   __shared__ float red[8];
@@ -122,9 +132,18 @@ rms_fwd(const typename C::Elt* __restrict__ x,
       }
     }
   }
-  ss = row_sum<C>(ss, red, group, t / 32);
-  if (!live) return;
-  const float r = rsqrtf(ss / (float)H + eps);
+  if (MODE == 2) {
+    if (!live) return;
+    ss = ss_io[row];                         // the all-reduced sum
+  } else {
+    ss = row_sum<C>(ss, red, group, t / 32);
+    if (!live) return;
+    if (MODE == 1) {
+      if (t == 0) ss_io[row] = ss;
+      return;
+    }
+  }
+  const float r = rsqrtf(ss / (float)Hn + eps);
   if (t == 0) rstd[row] = r;
   const float shift = zc ? 1.0f : 0.0f;
   T* yr = y + row * H;
@@ -144,13 +163,14 @@ rms_fwd(const typename C::Elt* __restrict__ x,
 // dynamic shared memory when a block holds more than one row group.  The
 // loads of a group's next row are issued before the current row's sum,
 // so that they are in flight while it waits and computes.
-template <class C>
+template <class C, int MODE>
 __global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS)
 rms_bwd(const typename C::Elt* __restrict__ dy,
         const typename C::Elt* __restrict__ x,
         const typename C::Elt* __restrict__ g,
         const float* __restrict__ rstd, typename C::Elt* __restrict__ dx,
-        float* __restrict__ dg_part, int64_t M, int H, int zc) {
+        float* __restrict__ dg_part, float* __restrict__ dot_io, int64_t M,
+        int H, int Hn, int zc) {
   using T = typename C::Elt;
   using P = typename C::P;
   extern __shared__ float buf[];
@@ -196,11 +216,16 @@ rms_bwd(const typename C::Elt* __restrict__ dy,
                  * to_f(xv[k].v[e]);
       }
     }
-    // alternate halves of red: one barrier a step suffices
-    dot = row_sum<C>(dot, red[it & 1], group, wir);
-    if (live) {
+    if (MODE == 2) {
+      if (live) dot = dot_io[row];           // the all-reduced dot
+    } else {
+      // alternate halves of red: one barrier a step suffices
+      dot = row_sum<C>(dot, red[it & 1], group, wir);
+      if (MODE == 1 && live && t == 0) dot_io[row] = dot;
+    }
+    if (MODE != 1 && live) {
       const float r = rstd[row];
-      const float kx = dot * r * r * r / (float)H;
+      const float kx = dot * r * r * r / (float)Hn;
 #pragma unroll
       for (int k = 0; k < C::V; ++k) {
         if (!C::in(k, t, H)) continue;
@@ -221,6 +246,7 @@ rms_bwd(const typename C::Elt* __restrict__ dy,
       dyv[k] = dyn[k];
     }
   }
+  if (MODE == 1) return;
   float* part = dg_part + (int64_t)blockIdx.x * H;
   if (C::RPC == 1) {
 #pragma unroll
@@ -256,25 +282,37 @@ __global__ void rms_dg_reduce(const float* __restrict__ dg_part, int nparts,
   dg[c] = from_f<T>(s);
 }
 
-template <class C>
-int fwd(const void* x, const void* g, void* y, void* rstd, int64_t M, int H,
-        float eps, int zc, cudaStream_t s) {
+// The arguments of one call of either kernel in any mode; the mode's
+// unused pointers may be null.
+struct Args {
+  const void *dy, *x, *g;
+  void *y, *rstd, *dx, *dg_part, *dg, *sum;   // sum: ss or dot, (M,) f32
+  int64_t M;
+  int H, Hn, max_blocks, zc;
+  float eps;
+};
+
+template <class C, int MODE>
+int fwd(const Args& a, cudaStream_t s) {
   using T = typename C::Elt;
-  const int64_t blocks = (M + C::RPC - 1) / C::RPC;
-  rms_fwd<C><<<(unsigned)blocks, THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(y),
-      static_cast<float*>(rstd), M, H, eps, zc);
+  const int64_t blocks = (a.M + C::RPC - 1) / C::RPC;
+  rms_fwd<C, MODE><<<(unsigned)blocks, THREADS, 0, s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.g),
+      static_cast<T*>(a.y), static_cast<float*>(a.rstd),
+      static_cast<float*>(a.sum), a.M, a.H, a.Hn, a.eps, a.zc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class C>
-int bwd(const void* dy, const void* x, const void* g, const void* rstd,
-        void* dx, void* dg_part, void* dg, int64_t M, int H, int max_blocks,
-        int zc, cudaStream_t s) {
+template <class C, int MODE>
+int bwd(const Args& a, cudaStream_t s) {
   using T = typename C::Elt;
-  const size_t smem = C::RPC > 1 ? (size_t)H * sizeof(float) : 0;
+  const int64_t M = a.M;
+  const int H = a.H;
+  const size_t smem = (C::RPC > 1 && MODE != 1) ? (size_t)H * sizeof(float)
+                                                 : 0;
   cudaError_t e = cudaFuncSetAttribute(
-      rms_bwd<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      rms_bwd<C, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   // a persistent grid: as many blocks as the SMs hold at once
   int dev = 0, sms = 0, per_sm = 0;
@@ -282,22 +320,23 @@ int bwd(const void* dy, const void* x, const void* g, const void* rstd,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rms_bwd<C>,
-                                                      THREADS, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rms_bwd<C, MODE>, THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   int64_t nblocks = (M + C::RPC - 1) / C::RPC;
   if (nblocks > (int64_t)sms * per_sm) nblocks = (int64_t)sms * per_sm;
-  if (nblocks > max_blocks) nblocks = max_blocks;
+  if (nblocks > a.max_blocks) nblocks = a.max_blocks;
   if (nblocks < 1) nblocks = 1;
-  rms_bwd<C><<<(unsigned)nblocks, THREADS, smem, s>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(x),
-      static_cast<const T*>(g), static_cast<const float*>(rstd),
-      static_cast<T*>(dx), static_cast<float*>(dg_part), M, H, zc);
+  rms_bwd<C, MODE><<<(unsigned)nblocks, THREADS, smem, s>>>(
+      static_cast<const T*>(a.dy), static_cast<const T*>(a.x),
+      static_cast<const T*>(a.g), static_cast<const float*>(a.rstd),
+      static_cast<T*>(a.dx), static_cast<float*>(a.dg_part),
+      static_cast<float*>(a.sum), M, H, a.Hn, a.zc);
   int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
+  if (err != 0 || MODE == 1) return err;
   rms_dg_reduce<T><<<(H + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      static_cast<const float*>(dg_part), (int)nblocks, H,
-      static_cast<T*>(dg));
+      static_cast<const float*>(a.dg_part), (int)nblocks, H,
+      static_cast<T*>(a.dg));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,38 +378,46 @@ using Narrow = Cfg<T, 1, V, 8, false>;
     return CALL(N48);                                     \
   } while (0)
 
-template <typename T>
-int fwd_any(const void* x, const void* g, void* y, void* rstd, int64_t M,
-            int H, float eps, int zc, int aligned, cudaStream_t s) {
-#define K3_FWD(C) fwd<C>(x, g, y, rstd, M, H, eps, zc, s)
+template <typename T, int MODE>
+int fwd_any(const Args& a, int aligned, cudaStream_t s) {
+  const int H = a.H;
+#define K3_FWD(C) fwd<C, MODE>(a, s)
   K3_DISPATCH(K3_FWD, Wide);
 #undef K3_FWD
 }
 
-template <typename T>
-int bwd_any(const void* dy, const void* x, const void* g, const void* rstd,
-            void* dx, void* dg_part, void* dg, int64_t M, int H,
-            int max_blocks, int zc, int aligned, cudaStream_t s) {
-#define K3_BWD(C) \
-  bwd<C>(dy, x, g, rstd, dx, dg_part, dg, M, H, max_blocks, zc, s)
+template <typename T, int MODE>
+int bwd_any(const Args& a, int aligned, cudaStream_t s) {
+  const int H = a.H;
+#define K3_BWD(C) bwd<C, MODE>(a, s)
   K3_DISPATCH(K3_BWD, WideBwd);
 #undef K3_BWD
 }
 
+template <int MODE>
+int run(bool backward, const Args& a, int aligned, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return backward ? bwd_any<float, MODE>(a, aligned, s)
+                    : fwd_any<float, MODE>(a, aligned, s);
+  if (dtype == 1)
+    return backward ? bwd_any<__nv_bfloat16, MODE>(a, aligned, s)
+                    : fwd_any<__nv_bfloat16, MODE>(a, aligned, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x, g, y share it); rstd is float32 (M,);
-// H at most 48 * 256 = 12288; aligned: every tensor starts on 16 bytes.
-// Returns cudaGetLastError() after the launch (0 = success).
+// dtype: 0 float32, 1 bfloat16 (x, g, y, dy, dx share it); rstd and the
+// row sums are float32 (M,); H at most 48 * 256 = 12288; aligned: every
+// tensor starts on 16 bytes.  Each returns cudaGetLastError() after its
+// launches (0 = success).
 extern "C" int k3_rmsnorm_fwd(const void* x, const void* g, void* y,
                               void* rstd, long long M, int H, float eps,
                               int zc, int aligned, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fwd_any<float>(x, g, y, rstd, M, H, eps, zc, aligned, s);
-  if (dtype == 1)
-    return fwd_any<__nv_bfloat16>(x, g, y, rstd, M, H, eps, zc, aligned, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Args a{nullptr, x, g, y, rstd, nullptr, nullptr, nullptr, nullptr,
+         M, H, H, 0, zc, eps};
+  return run<0>(false, a, aligned, dtype, stream);
 }
 
 // dg_part: float32 (max_blocks, H) scratch, of which the first
@@ -380,12 +427,51 @@ extern "C" int k3_rmsnorm_bwd(const void* dy, const void* x, const void* g,
                               const void* rstd, void* dx, void* dg_part,
                               void* dg, long long M, int H, int max_blocks,
                               int zc, int aligned, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_any<float>(dy, x, g, rstd, dx, dg_part, dg, M, H, max_blocks,
-                          zc, aligned, s);
-  if (dtype == 1)
-    return bwd_any<__nv_bfloat16>(dy, x, g, rstd, dx, dg_part, dg, M, H,
-                                  max_blocks, zc, aligned, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Args a{dy, x, g, nullptr, const_cast<void*>(rstd), dx, dg_part, dg,
+         nullptr, M, H, H, max_blocks, zc, 0.0f};
+  return run<0>(true, a, aligned, dtype, stream);
+}
+
+// Phase 1 of the forward: ss[row] = sum of x^2 over the row's H columns.
+extern "C" int k3_rmsnorm_moments(const void* x, void* ss, long long M,
+                                  int H, int aligned, int dtype,
+                                  void* stream) {
+  Args a{nullptr, x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         ss, M, H, H, 0, 0, 0.0f};
+  return run<1>(false, a, aligned, dtype, stream);
+}
+
+// Phase 2 of the forward: y and rstd from the all-reduced ss, with the
+// norm's width Hn.
+extern "C" int k3_rmsnorm_apply(const void* x, const void* g, const void* ss,
+                                void* y, void* rstd, long long M, int H,
+                                int Hn, float eps, int zc, int aligned,
+                                int dtype, void* stream) {
+  Args a{nullptr, x, g, y, rstd, nullptr, nullptr, nullptr,
+         const_cast<void*>(ss), M, H, Hn, 0, zc, eps};
+  return run<2>(false, a, aligned, dtype, stream);
+}
+
+// Phase 1 of the backward: dot[row] = sum of dy * g' * x over the row's H
+// columns.
+extern "C" int k3_rmsnorm_bwd_dot(const void* dy, const void* x,
+                                  const void* g, void* dot, long long M,
+                                  int H, int max_blocks, int zc, int aligned,
+                                  int dtype, void* stream) {
+  Args a{dy, x, g, nullptr, nullptr, nullptr, nullptr, nullptr, dot, M, H,
+         H, max_blocks, zc, 0.0f};
+  return run<1>(true, a, aligned, dtype, stream);
+}
+
+// Phase 2 of the backward: dx and the local columns' dg from the
+// all-reduced dot, with the norm's width Hn.
+extern "C" int k3_rmsnorm_bwd_apply(const void* dy, const void* x,
+                                    const void* g, const void* rstd,
+                                    const void* dot, void* dx, void* dg_part,
+                                    void* dg, long long M, int H, int Hn,
+                                    int max_blocks, int zc, int aligned,
+                                    int dtype, void* stream) {
+  Args a{dy, x, g, nullptr, const_cast<void*>(rstd), dx, dg_part, dg,
+         const_cast<void*>(dot), M, H, Hn, max_blocks, zc, 0.0f};
+  return run<2>(true, a, aligned, dtype, stream);
 }

@@ -3,14 +3,30 @@
 
 The flags of ``repro.launch.train`` plus ``--device {cuda,cpu}`` (default
 cuda; with no card it exits with a message and never falls back to the
-CPU).  It trains every family on one device, the cube (1, 1, 1) at pp = 1
-and dp = 1, with AdamW: dense, MoE (mixtral, Moonlight, deepseek-v3 with
-MLA and the mtp head), hybrid (zamba2), SSM (xlstm), VLM (internvl2: its
-``--seq`` counts the ``n_vision_tokens`` patches ahead of the text, as the
-reference's does) and audio (whisper: ``--seq`` text tokens beside the
-encoder's frames); the flags of what the port does not carry (more than
-one device, the 1-D/2-D baselines, overlap, ZeRO, Adafactor) raise with a
-pointer to ROADMAP.md.
+CPU), ``--cube X,Y,Z`` (the plan's cube; default the near-cube factors of
+``--model``) and ``--backend {gloo,nccl}``.  It trains every family on one
+device, the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW: dense, MoE
+(mixtral, Moonlight, deepseek-v3 with MLA and the mtp head), hybrid
+(zamba2), SSM (xlstm), VLM (internvl2: its ``--seq`` counts the
+``n_vision_tokens`` patches ahead of the text, as the reference's does)
+and audio (whisper: ``--seq`` text tokens beside the encoder's frames).
+The dense family also trains above one device, on the 3-D cube with data
+parallelism (``--dp``, ``--model``, ``--cube``), one rank a device:
+
+  * ``--host-devices N`` spawns N local ranks (the JAX launcher's flag,
+    which gives JAX N host devices): CPU ranks with ``--device cpu``, or
+    ranks that share the cards, ``LOCAL_RANK % device_count()``;
+  * under ``torchrun`` each process is the rank its environment names
+    (``launch/ranks.py``) and runs on card ``LOCAL_RANK %
+    device_count()``.
+
+The backend defaults to gloo for CPU ranks and NCCL for CUDA ranks, and is
+never switched: NCCL with more ranks than cards raises, and ranks that
+share a card take ``--backend gloo``, whose collectives go through the
+host.  Only rank 0 prints; MFU divides by the peak of the world's cards.
+The flags of what the port does not carry (pp > 1, the 1-D/2-D
+baselines, overlap, ZeRO, Adafactor, the other families and checkpoints
+above one device) raise with a pointer to ROADMAP.md.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
 and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
 many leading layers are dense and ``--experts`` cuts the routed experts, so
@@ -32,21 +48,32 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import math
+import os
 import sys
 import time
 
 TODO = "not ported yet: see ROADMAP.md, Queue 1"
 
 
-def _refuse(args):
+def _refuse(args, cfg):
     """NotImplementedError for every flag the port does not carry yet."""
+    from repro_torch.core.plan import multi_rank_refusal
     bad = []
-    if args.dp > 1 or args.model > 1 or args.pp > 1 or args.host_devices:
-        bad.append("more than one device (--dp/--model/--pp/--host-devices;"
-                   " items 3 and 7)")
+    if args.pp > 1:
+        bad.append(f"--pp {args.pp} (pipeline stages, item 7)")
     if args.strategy != "3d":
         bad.append(f"--strategy {args.strategy} (the 1-D/2-D baselines, "
                    "item 4)")
+    n = args.dp * args.model
+    if n > 1 and args.pp == 1 and args.strategy == "3d":
+        err = multi_rank_refusal(n, cfg=cfg)
+        if err:
+            bad.append(err)
+        if args.ckpt_dir:
+            bad.append("--ckpt-dir above one device (each leaf's global "
+                       "value from a sharded run, item 6)")
     if args.overlap:
         bad.append("--overlap (async-TP overlap, item 9)")
     if args.zero >= 1:
@@ -66,6 +93,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
+    ap.add_argument("--cube", default="",
+                    help="the model cube as X,Y,Z (default: the near-cube "
+                         "factors of --model)")
+    ap.add_argument("--backend", default="", choices=["", "gloo", "nccl"],
+                    help="torch.distributed backend above one device "
+                         "(default: gloo for --device cpu, nccl for cuda)")
     ap.add_argument("--strategy", default="3d", choices=["3d", "2d", "1d"])
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline-parallel stages (n_layers must divide)")
@@ -91,7 +124,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--data", default="synthetic")
     ap.add_argument("--data-path", default="")
-    ap.add_argument("--host-devices", type=int, default=0)
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="spawn this many local ranks (one per device of "
+                         "the plan)")
     ap.add_argument("--trace", default="",
                     help="write a Chrome-trace of the run here (plus a "
                          "<path>.jsonl event log)")
@@ -107,18 +142,35 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from repro_torch.checkpoint import store
-    from repro_torch.config import OptimConfig, ShapeConfig, reduced
-    from repro_torch.configs.registry import get
-    from repro_torch.core.params import init_params, tree_leaves
-    from repro_torch.core.plan import ParallelPlan
-    from repro_torch.data.pipeline import DataConfig, TokenStream
-    from repro_torch.models import transformer
-    from repro_torch.obs import make_tracer
-    from repro_torch.obs.telemetry import TrainTelemetry, peak_flops_for
-    from repro_torch.optim import adamw_init
-    from repro_torch.train.step import make_train_step
+    from repro_torch.launch import ranks
+    cfg = _config(args)
+    _refuse(args, cfg)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        sys.exit("--device cuda: no CUDA device is available (pass "
+                 "--device cpu to run the plain versions on the CPU)")
+    world = args.dp * args.model * args.pp
+    backend = args.backend or ("nccl" if args.device == "cuda" else "gloo")
+    me = ranks.rank_env() if world > 1 else None
+    if world > 1:
+        ranks.check_backend(backend, args.device, world)
+    if world > 1 and me is None:
+        if args.host_devices != world:
+            raise ValueError(
+                f"a plan of {world} devices runs {world} ranks: pass "
+                f"--host-devices {world}, or start them with torchrun")
+        return _spawn(argv if argv is not None else sys.argv[1:], world,
+                      args.device)
+    if me is not None and me.world != world:
+        raise ValueError(f"{me.world} ranks for a plan of {world} devices")
+    if world == 1 and args.host_devices > 1:
+        raise ValueError(f"--host-devices {args.host_devices} for a plan of "
+                         "one device: add --dp/--model")
+    return _train(args, cfg, me, backend)
 
+
+def _config(args):
+    from repro_torch.config import reduced
+    from repro_torch.configs.registry import get
     cfg = get(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -134,11 +186,51 @@ def main(argv=None) -> dict:
                            else cfg.moe.first_k_dense))
     if changes:
         cfg = dataclasses.replace(cfg, **changes)
-    _refuse(args)
-    if args.device == "cuda" and not torch.cuda.is_available():
-        sys.exit("--device cuda: no CUDA device is available (pass "
-                 "--device cpu to run the plain versions on the CPU)")
+    return cfg
+
+
+def _spawn(argv, world: int, device: str) -> dict:
+    """Run this launcher as ``world`` local ranks (``--host-devices``),
+    print rank 0's output and return its result."""
+    import tempfile
+
+    from repro_torch.launch import ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "result.json")
+        env = dict(os.environ, REPRO_TORCH_RESULT=result)
+        cores = os.cpu_count() or 1
+        outs = ranks.spawn_local(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv], world,
+            timeout=ranks.TIMEOUT_S, env=env,
+            cpu_threads=max(1, cores // world) if device == "cpu" else 0)
+        print(outs[0], end="", flush=True)
+        with open(result) as f:
+            return json.load(f)
+
+
+def _train(args, cfg, me, backend: str) -> dict:
+    """The run of one rank (``me``; None at one device)."""
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.config import OptimConfig, ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.core.params import init_params, tree_leaves
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer
+    from repro_torch.obs import make_tracer
+    from repro_torch.obs.telemetry import TrainTelemetry, peak_flops_for
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+
     device = torch.device(args.device)
+    if me is not None:
+        device = ranks.device_for(me, args.device)
+        ranks.init_world(me, backend, device)
+    rank = 0 if me is None else me.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
     if device.type == "cuda":
         # f32 stays IEEE; bf16 products accumulate in f32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,42 +238,51 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
 
+    cube = tuple(int(c) for c in args.cube.split(",")) if args.cube \
+        else None
     plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
                         strategy=args.strategy, n_stages=args.pp,
-                        microbatches=args.microbatch)
+                        microbatches=args.microbatch, cube=cube)
     plan.validate(n_layers=cfg.n_layers, global_batch=args.batch, model=cfg,
                   mode="train")
-    layout = plan.build()
+    layout = comm.init(plan.build(rank), backend)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     opt_cfg = OptimConfig(name=args.optimizer, lr=args.lr,
                           warmup=args.warmup, total_steps=args.steps)
     tracer = make_tracer(bool(args.trace))
 
-    print(f"arch={cfg.arch} layers={cfg.n_layers} d={cfg.d_model} "
-          f"mesh={layout.sizes} plan={plan.describe()} device={device}")
+    say(f"arch={cfg.arch} layers={cfg.n_layers} d={cfg.d_model} "
+        f"mesh={layout.sizes} plan={plan.describe()} device={device}"
+        + (f" ranks={layout.n_devices} backend={backend}"
+           if layout.n_devices > 1 else ""))
     gen = torch.Generator(device=device).manual_seed(0)
-    params = init_params(transformer.abstract_params(cfg),
-                         gen, device, getattr(torch, cfg.dtype))
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"params: {n_params / 1e6:.1f}M")
+    abstract = transformer.abstract_params(cfg, layout)
+    params = init_params(abstract, gen, device, getattr(torch, cfg.dtype),
+                         layout=layout)
+    n_params = sum(math.prod(p.shape) for p in tree_leaves(abstract))
+    say(f"params: {n_params / 1e6:.1f}M")
     opt_state = adamw_init(params)
     step_fn = make_train_step(cfg, layout, opt_cfg)
     start = 0
     if args.ckpt_dir:
         last = store.latest_step(args.ckpt_dir)
         if last >= 0:
-            print(f"restoring step {last} from {args.ckpt_dir}")
+            say(f"restoring step {last} from {args.ckpt_dir}")
             params, opt_state, _ = store.restore(args.ckpt_dir, last, params,
                                                  opt_state)
             start = last
     data = TokenStream(cfg, shape, DataConfig(kind=args.data,
-                                              path=args.data_path), device)
+                                              path=args.data_path), device,
+                       layout=layout)
     tel = None
     if args.telemetry:
+        peak = args.peak_flops or peak_flops_for(device)
+        cards = 1
+        if device.type == "cuda":
+            cards = min(layout.n_devices, torch.cuda.device_count())
         tel = TrainTelemetry(cfg, global_batch=args.batch, seq_len=args.seq,
                              device=device,
-                             peak_flops=args.peak_flops
-                             or peak_flops_for(device), tracer=tracer)
+                             peak_flops=peak and peak * cards, tracer=tracer)
         tel.start()
     t0 = time.time()
     losses = []
@@ -196,39 +297,47 @@ def main(argv=None) -> dict:
             tel.record(step, metrics)
             if tel.nonfinite is not None and "blame" not in tel.nonfinite:
                 tel.nonfinite["blame"] = tel.blame(params)
-                print(f"non-finite loss at step {step + 1}: "
-                      f"{tel.nonfinite['blame']}", file=sys.stderr)
+                say(f"non-finite loss at step {step + 1}: "
+                    f"{tel.nonfinite['blame']}", file=sys.stderr)
         if (step + 1) % args.log_every == 0 or step == start:
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = (time.time() - t0) / (step - start + 1)
             parts = "".join(f"{k}={float(metrics[k]):8.4f} "
                             for k in ("xent", "aux", "mtp") if k in metrics)
-            print(f"step {step + 1:5d} loss={loss:8.4f} {parts}"
-                  f"lr={float(metrics['lr']):.2e} "
-                  f"gnorm={float(metrics['gnorm']):7.3f} "
-                  f"{dt:6.2f}s/step", flush=True)
+            say(f"step {step + 1:5d} loss={loss:8.4f} {parts}"
+                f"lr={float(metrics['lr']):.2e} "
+                f"gnorm={float(metrics['gnorm']):7.3f} "
+                f"{dt:6.2f}s/step", flush=True)
         if args.ckpt_dir and args.ckpt_every and \
                 (step + 1) % args.ckpt_every == 0:
             d = store.save(args.ckpt_dir, step + 1, params, opt_state,
                            layout=layout)
-            print(f"saved {d}")
+            say(f"saved {d}")
     if losses:
-        print(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+        say(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
     else:
-        print(f"nothing to do: restored step {start} >= --steps "
-              f"{args.steps}")
+        say(f"nothing to do: restored step {start} >= --steps "
+            f"{args.steps}")
     summary = None
     if tel is not None:
-        tel.write(args.telemetry)
         summary = tel.summary()
-        print(tel.format_summary(), flush=True)
-        print(f"telemetry: wrote {args.telemetry}")
-    if args.trace:
+        if rank == 0:
+            tel.write(args.telemetry)
+        say(tel.format_summary(), flush=True)
+        say(f"telemetry: wrote {args.telemetry}")
+    if args.trace and rank == 0:
         tracer.write_chrome(args.trace)
         tracer.write_jsonl(args.trace + ".jsonl")
-        print(f"trace: wrote {args.trace} (+ {args.trace}.jsonl)")
-    return {"losses": losses, "telemetry": summary, "start": start}
+        say(f"trace: wrote {args.trace} (+ {args.trace}.jsonl)")
+    out = {"losses": losses, "telemetry": summary, "start": start}
+    if me is not None:
+        if rank == 0 and os.environ.get("REPRO_TORCH_RESULT"):
+            with open(os.environ["REPRO_TORCH_RESULT"], "w") as f:
+                json.dump(out, f)
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    return out
 
 
 if __name__ == "__main__":

@@ -9,9 +9,10 @@ Layouts inside a block (entry dirs (in_ax=y, out_ax=z)):
     out proj                  back to (batch, y, z)
 
 Every block holds an even number of 3-D linears, so the direction state is
-restored at block exit (paper §3.2).  The attention islands are written for
-one device: their collectives go through ``core/comm.py``, which raises
-above axis size 1.
+restored at block exit (paper §3.2).  Tensors are each rank's local
+shards; the collectives go through ``core/comm.py``.  Training and
+prefill (``attention``) run on any 3-D layout; the decode and extend
+paths, and the other families' blocks, on one device.
 
 Five attention paths: ``attention`` (prefill and training, K2; the
 encoder's and the cross attention's non-causal form too),
@@ -33,9 +34,10 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..core import comm
-from ..core.linear3d import layernorm, plinear, rmsnorm
+from ..core.linear3d import (layernorm, norm_param, plinear, rmsnorm,
+                             weight_param)
 from ..core.params import Param
-from ..core.topology import Dirs, Layout
+from ..core.topology import Dirs, Layout, entry_dirs
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_decode import (paged_flash_decode,
                                     paged_flash_decode_step)
@@ -45,20 +47,36 @@ NEG_INF = -1e30
 
 
 def norm_params(cfg: ModelConfig, d: int):
-    p = {"g": Param((d,), init="ones")}
+    """A norm at the block's entry, split over its out_ax (reference
+    ``blocks.py:make_norm_params``)."""
+    p = {"g": norm_param(entry_dirs(), d)}
     if cfg.norm == "layernorm":
-        p["b"] = Param((d,), init="zeros")
+        p["b"] = norm_param(entry_dirs(), d, init="zeros")
     return p
 
 
-def attn_params(cfg: ModelConfig):
-    """One attention sub-block (reference ``blocks.py:attn_params``)."""
+def kv_sharded(layout: Layout, cfg: ModelConfig, dirs: Dirs) -> bool:
+    """True when the kv heads split over the head axis (in_ax after the
+    qkv linear); else they are replicated over it (reference
+    ``blocks.py:144``; gemma-2b's one kv head)."""
+    hx = layout.size(dirs.in_ax)
+    return cfg.n_kv % hx == 0 and cfg.n_kv >= hx
+
+
+def attn_params(cfg: ModelConfig, layout: Layout = None):
+    """One attention sub-block with the reference's specs (reference
+    ``blocks.py:578-591``): wk and wv keep their features whole where the
+    kv heads are replicated over the head axis."""
     d, nh, nkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    attn = {"wq": Param((d, nh * dh)), "wk": Param((d, nkv * dh)),
-            "wv": Param((d, nkv * dh)), "wo": Param((nh * dh, d))}
+    dirs = entry_dirs()
+    kv_sf = layout is None or kv_sharded(layout, cfg, dirs)
+    attn = {"wq": weight_param(dirs, d, nh * dh),
+            "wk": weight_param(dirs, d, nkv * dh, shard_f=kv_sf),
+            "wv": weight_param(dirs, d, nkv * dh, shard_f=kv_sf),
+            "wo": weight_param(dirs.swap(), nh * dh, d)}
     if cfg.qk_norm:
-        attn["q_norm"] = Param((dh,), init="ones")
-        attn["k_norm"] = Param((dh,), init="ones")
+        attn["q_norm"] = Param((dh,), init="ones", spec=(None,))
+        attn["k_norm"] = Param((dh,), init="ones", spec=(None,))
     return attn
 
 
@@ -66,19 +84,23 @@ def mlp_params(cfg: ModelConfig, d_ff: int = 0):
     """One MLP of width ``d_ff or cfg.d_ff`` (reference
     ``blocks.py:594-600``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    mlp = {"w_up": Param((d, f)), "w_down": Param((f, d))}
+    dirs = entry_dirs()
+    mlp = {"w_up": weight_param(dirs, d, f),
+           "w_down": weight_param(dirs.swap(), f, d)}
     if cfg.act in ("silu", "gelu"):
-        mlp["w_gate"] = Param((d, f))
+        mlp["w_gate"] = weight_param(dirs, d, f)
     return mlp
 
 
-def dense_block_params(cfg: ModelConfig, d_ff: int = 0):
+def dense_block_params(cfg: ModelConfig, d_ff: int = 0,
+                       layout: Layout = None):
     """One dense attention + MLP block (reference
     ``blocks.py:dense_block_params``); ``d_ff`` overrides the MLP's width,
     as the MoE family's leading dense layers take ``moe.dense_ff``
-    (reference ``registry.py:281-283``)."""
+    (reference ``registry.py:281-283``).  ``layout`` sets the kv
+    projections' specs (None: one device)."""
     d = cfg.d_model
-    return {"ln1": norm_params(cfg, d), "attn": attn_params(cfg),
+    return {"ln1": norm_params(cfg, d), "attn": attn_params(cfg, layout),
             "ln2": norm_params(cfg, d), "mlp": mlp_params(cfg, d_ff)}
 
 
@@ -113,20 +135,62 @@ def apply_rope(x, positions, base: float):
 # ---------------------------------------------------------------------------
 # Attention islands
 # ---------------------------------------------------------------------------
+def gather_axes(layout: Layout, dirs: Dirs):
+    """The axes that split the post-qkv sequence, which the attention
+    island gathers k/v over: ``seq_axes`` then out_ax, those above size 1
+    (reference ``blocks.py:_gather_axes``)."""
+    return layout.live((*layout.seq_axes, dirs.out_ax))
+
+
+def seq_offset(layout: Layout, dirs: Dirs, s: int) -> int:
+    """The global position of the first of this rank's s post-qkv rows:
+    the mixed-radix index over ``gather_axes`` times s (reference
+    ``blocks.py:146-156``)."""
+    return comm.axis_index(layout, gather_axes(layout, dirs)) * s
+
+
+def local_positions(layout: Layout, dirs: Dirs, positions, s: int):
+    """The columns of the global ``positions`` (B, S) that this rank's s
+    post-qkv rows hold."""
+    if not gather_axes(layout, dirs):
+        return positions
+    off = seq_offset(layout, dirs, s)
+    return positions[:, off:off + s]
+
+
 def attention(layout: Layout, cfg: ModelConfig, dirs: Dirs, q, k, v,
               *, causal=True, window=0):
     """Prefill and training attention island (reference
     ``blocks.py:131-195``).  q/k/v: (B, S, n, d) in the post-qkv layout,
-    sequence split over out_ax.  The island all-gathers k/v along the
-    sequence split and runs K2 (``kernels/flash_attention.py``), whose
-    backward is a kernel too."""
-    seq_ax = dirs.out_ax
-    k = comm.all_gather(layout, k, seq_ax, dim=1)
-    v = comm.all_gather(layout, v, seq_ax, dim=1)
+    sequence split over ``gather_axes``, heads over in_ax.  The island
+    all-gathers k/v along the sequence split (its backward
+    reduce-scatters their gradients) and runs K2
+    (``kernels/flash_attention.py``), whose backward is a kernel too, on
+    the rank's q rows at their global positions.  Where the kv heads are
+    replicated over the head axis, each rank slices the kv groups its q
+    heads read."""
+    gax = gather_axes(layout, dirs)
+    hx = layout.size(dirs.in_ax)
+    sliced = hx > 1 and not kv_sharded(layout, cfg, dirs)
+    if sliced:
+        # replicated over the head axis, each rank reading its own kv
+        # groups: their gradients sum there, before the wk/wv transpose,
+        # as the reference's shard_map sums a replicated input's
+        k = comm.grad_psum(layout, k, dirs.in_ax)
+        v = comm.grad_psum(layout, v, dirs.in_ax)
+    k = comm.all_gather_ad(layout, k, gax, dim=1)
+    v = comm.all_gather_ad(layout, v, gax, dim=1)
+    if sliced:
+        group = cfg.n_heads // cfg.n_kv
+        nloc = cfg.n_heads // hx
+        kv0 = (comm.axis_index(layout, dirs.in_ax) * nloc) // group
+        nkv_loc = max(1, nloc // group)
+        k = k[:, :, kv0:kv0 + nkv_loc]
+        v = v[:, :, kv0:kv0 + nkv_loc]
     b, sq = q.shape[0], q.shape[1]
-    off = comm.axis_index(layout, seq_ax)
     i32 = torch.int32
-    q_pos = (off * sq + torch.arange(sq, device=q.device, dtype=i32)) \
+    q_pos = (seq_offset(layout, dirs, sq)
+             + torch.arange(sq, device=q.device, dtype=i32)) \
         .expand(b, sq).contiguous()
     k_pos = torch.arange(k.shape[1], device=q.device, dtype=i32)
     out, _ = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -290,11 +354,17 @@ def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
     a decode attends it whole (``cross_decode``), else it runs K2 with
     ``causal``."""
     dh = cfg.head_dim
-    hx = layout.size(dirs.in_ax)
-    kv_sf = cfg.n_kv % hx == 0 and cfg.n_kv >= hx
-    B, S = x.shape[0], x.shape[1]
+    kv_sf = kv_sharded(layout, cfg, dirs)
+    if cfg.qk_norm and not kv_sf:
+        # k_norm's gradient would come out whole on every head-axis rank
+        # and the leaf sync would count it once a rank; no config of the
+        # registry has qk-norm with kv heads replicated over that axis
+        raise NotImplementedError(
+            f"{cfg.arch}: qk-norm with kv heads replicated over the head "
+            "axis above one device (ROADMAP.md, Queue 1 item 3)")
 
     q, d2 = plinear(layout, dirs, x, p["wq"], kind="first", decode=decode)
+    B, S = q.shape[0], q.shape[1]            # the post-qkv local rows
     q = q.reshape(B, S, -1, dh)
     if kv_override is None:
         k, _ = plinear(layout, dirs, x, p["wk"], kind="first", shard_f=kv_sf,
@@ -305,6 +375,8 @@ def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
         v = v.reshape(B, S, -1, dh)
     else:
         k, v = kv_override
+    if not decode:
+        positions = local_positions(layout, dirs, positions, S)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         if kv_override is None:
@@ -356,21 +428,26 @@ def mlp_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
     return y
 
 
-def apply_norm(cfg: ModelConfig, x, p):
+def apply_norm(cfg: ModelConfig, x, p, layout: Layout = None,
+               dirs: Dirs = None):
+    """The config's norm over the hidden dim, which ``dirs.out_ax`` of
+    ``layout`` splits where given (the norm then runs in two phases)."""
+    ax = None if dirs is None else dirs.out_ax
     if cfg.norm == "layernorm":
-        return layernorm(x, p["g"], p["b"])
-    return rmsnorm(x, p["g"], zero_centered=cfg.zero_centered_norm)
+        return layernorm(x, p["g"], p["b"], layout=layout, axis=ax)
+    return rmsnorm(x, p["g"], zero_centered=cfg.zero_centered_norm,
+                   layout=layout, axis=ax)
 
 
 def dense_block_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
                       positions, *, decode=False, cache=None, window=None,
                       causal=True, return_kv=False, page=None):
     w = cfg.window if window is None else window
-    h = apply_norm(cfg, x, p["ln1"])
+    h = apply_norm(cfg, x, p["ln1"], layout, dirs)
     a, new_cache = attn_apply(layout, cfg, dirs, h, p["attn"], positions,
                               window=w, decode=decode, cache=cache,
                               causal=causal, return_kv=return_kv, page=page)
     x = x + a
-    h = apply_norm(cfg, x, p["ln2"])
+    h = apply_norm(cfg, x, p["ln2"], layout, dirs)
     x = x + mlp_apply(layout, cfg, dirs, h, p["mlp"], decode=decode)
     return x, new_cache

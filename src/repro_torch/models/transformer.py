@@ -1,9 +1,10 @@
 """Model assembly (port of ``repro/models/transformer.py`` and the stack
 drivers of ``repro/models/registry.py``).
 
-``abstract_params(cfg)`` is the parameter tree, with the same nested names,
-shapes and dtypes as the reference's ``transformer.abstract_params`` at
-one device and pp = 1.  The dense family's:
+``abstract_params(cfg, layout)`` is the parameter tree, with the same
+nested names, global shapes, dtypes and (for the dense family's leaves)
+specs as the reference's ``transformer.abstract_params`` at pp = 1.  The
+dense family's:
 
     embed                                                   (vocab, d)
     stack.dense.{ln1.g, attn.{wq, wk, wv, wo}, ln2.g,
@@ -61,29 +62,30 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Family, ModelConfig
-from ..core.linear3d import embed_lookup, plinear
+from ..core.linear3d import (cross_entropy_sums, embed_lookup, embed_param,
+                             plinear, weight_param)
 from ..core.params import Param, stack_tree, tree_map, unstack
-from ..core.topology import Dirs, Layout
-from ..core import ops3d
+from ..core.topology import Dirs, Layout, entry_dirs
+from ..core import comm, ops3d
 from . import blocks as B
 from . import encdec, mamba2, mla, moe, xlstm
 from .registry import (KV_KINDS, SHARED_KINDS, embed, get_stack,
                        layer_plan, segments, serve_cache_mode, stack_cache)
 
 
-def _attn_block_params(cfg: ModelConfig, d_ff: int = 0):
+def _attn_block_params(cfg: ModelConfig, d_ff: int = 0, layout=None):
     """A dense block, its attention MLA where the config has it
     (reference ``registry.py:231-237``)."""
     if cfg.mla is not None:
         return mla.mla_block_params(cfg, d_ff)
-    return B.dense_block_params(cfg, d_ff)
+    return B.dense_block_params(cfg, d_ff, layout)
 
 
-def _dense_params(cfg: ModelConfig):
+def _dense_params(cfg: ModelConfig, layout=None):
     """The MoE family's leading dense layers take ``dense_ff`` (reference
     ``registry.py:281-283``)."""
     return _attn_block_params(
-        cfg, cfg.moe.dense_ff if cfg.family == Family.MOE else 0)
+        cfg, cfg.moe.dense_ff if cfg.family == Family.MOE else 0, layout)
 
 
 # block kinds with per-layer (stacked) parameters; "attn" reads the one
@@ -101,31 +103,32 @@ RECURRENT_DECODE = {
         layout, cfg, dirs, x, p, decode=True, cache=c)}
 
 
-def abstract_params(cfg: ModelConfig):
+def abstract_params(cfg: ModelConfig, layout: Layout = None):
     """Param tree of a model of any family (see the module docstring;
-    reference ``transformer.py:47-73``)."""
+    reference ``transformer.py:47-73``); ``layout`` sets the specs that
+    depend on it (the kv projections', ``blocks.attn_params``), None for
+    one device."""
     plan = layer_plan(cfg)
     d = cfg.d_model
-    tree = {"embed": Param((cfg.vocab, d), init="embed")}
+    dirs = entry_dirs()
+    tree = {"embed": embed_param(dirs, cfg.vocab, d)}
     tree.update(get_stack(cfg.family).frontend_params(cfg))
     if "attn" in plan:
         tree["shared"] = {"attn": B.dense_block_params(cfg)}
-    tree["stack"] = {kind: stack_tree(fn(cfg), plan.count(kind))
-                     for kind, fn in STACKED_KINDS.items() if kind in plan}
+    tree["stack"] = {
+        kind: stack_tree(fn(cfg, layout) if kind == "dense" else fn(cfg),
+                         plan.count(kind))
+        for kind, fn in STACKED_KINDS.items() if kind in plan}
     tree["ln_f"] = B.norm_params(cfg, d)
-    tree["head"] = Param((d, cfg.vocab))
+    tree["head"] = weight_param(dirs, d, cfg.vocab)
     if cfg.mtp:
         # reference transformer.py:71-79: the proj is a noswap linear
         tree["mtp"] = {
             "ln_h": B.norm_params(cfg, d), "ln_e": B.norm_params(cfg, d),
-            "proj": Param((2 * d, d)),
+            "proj": Param((2 * d, d), spec=(dirs.out_ax, None), synced=True),
             "block": _attn_block_params(
                 cfg, cfg.moe.dense_ff if cfg.moe else cfg.d_ff)}
     return tree
-
-
-def entry_dirs() -> Dirs:
-    return Dirs("y", "z")
 
 
 def frontend(layout: Layout, cfg: ModelConfig, dirs: Dirs, params, batch,
@@ -265,12 +268,19 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
 def head_loss_chunks(cfg: ModelConfig, layout: Layout, S: int) -> int:
     """Sequence-chunking factor of the LM head and loss (reference
     ``transformer.py:245-254``): bounds the live (tokens, V) logits to
-    about a 32k vocabulary's worth.  The port has no sequence axes."""
+    about a 32k vocabulary's worth.  ``S`` is the global sequence."""
     k = min(8, max(1, cfg.vocab // 32000, S // 1024))
-    div = layout.size("y") * layout.size("z")
+    div = layout.size("y") * layout.size("z") * \
+        layout.size(tuple(layout.seq_axes))
     while k > 1 and (S % k or (S // k) % div):
         k -= 1
     return k
+
+
+def loss_axes(layout: Layout, dirs: Dirs):
+    """The axes over which the head's logits split the tokens: the batch
+    axes, ``seq_axes`` and out_ax (``linear3d.logits_spec``)."""
+    return layout.live((*layout.batch_axes, *layout.seq_axes, dirs.out_ax))
 
 
 def chunked_head_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, x,
@@ -278,28 +288,33 @@ def chunked_head_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, x,
     """LM head + vocab-parallel cross entropy, chunked over the sequence
     and recomputed per chunk in the backward (reference
     ``transformer.py:257-291``): tokens go to chunk ``position % K``; the
-    running max is detached, as ``stop_gradient`` is there."""
-    B_, S = labels.shape
+    running max is detached, as ``stop_gradient`` is there.
+
+    ``x`` is the rank's shard in the entry layout (batch, sequence over
+    ``seq_axes`` and in_ax, hidden over out_ax); ``labels`` and ``mask``
+    are the rank's shard in the logits' layout (batch, sequence over
+    ``seq_axes`` and out_ax), which the head's 3-D linear produces, with
+    the vocab over in_ax.  Since K divides each rank's sequence block,
+    chunk i of a block is the block's part of global chunk i.  The loss is
+    the token mean, its two sums over ``loss_axes``."""
+    B_, S_loc = labels.shape
+    S = S_loc * layout.size((*layout.seq_axes, dirs.out_ax))
     K = head_loss_chunks(cfg, layout, S)
 
     def chunk(x_c, lab_c, mask_c, w):
         logits, _ = plinear(layout, dirs, x_c, w, kind="first")
-        lf = logits.float()
-        m = lf.amax(dim=-1, keepdim=True).detach()
-        lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-        picked = torch.gather(lf, -1, lab_c[..., None])[..., 0]
-        nll = (lse - picked) * mask_c
-        return nll.sum(), mask_c.sum()
+        return cross_entropy_sums(layout, dirs.in_ax, logits, lab_c, mask_c)
 
-    c = S // K
-    xs = x.reshape(B_, c, K, x.shape[-1])
-    labs = labels.reshape(B_, c, K)
-    masks = mask.reshape(B_, c, K)
+    xs = x.reshape(B_, x.shape[1] // K, K, x.shape[-1])
+    labs = labels.reshape(B_, S_loc // K, K)
+    masks = mask.reshape(B_, S_loc // K, K)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(K):
         t, n = checkpoint(chunk, xs[:, :, i], labs[:, :, i], masks[:, :, i],
                           w_head, use_reentrant=False)
         tot, cnt = tot + t, cnt + n
+    tot, cnt = comm.psum_id(layout, torch.stack([tot, cnt]),
+                            loss_axes(layout, dirs)).unbind()
     return tot / cnt.clamp_min(1.0)
 
 
@@ -337,15 +352,21 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
 
 
 def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
+    """The train loss of the rank's shard of a batch: ``tokens`` split in
+    the entry layout (batch, sequence over ``seq_axes`` and in_ax),
+    ``labels`` in the logits' (``chunked_head_loss``); the whole batch at
+    one device (``data.pipeline.shard_batch``)."""
     dirs = entry_dirs()
     x, ctx = frontend(layout, cfg, dirs, params, batch, mode="train")
-    b, S = x.shape[:2]
+    b = x.shape[0]
+    S = x.shape[1] * layout.size((*layout.seq_axes, dirs.in_ax))
+    # the global positions; each attention keeps its rows' columns
     positions = torch.arange(S, device=x.device).expand(b, S)
     x, _, aux = run_stack(layout, cfg, dirs, x, params, positions,
                           mode="train", remat=cfg.remat, ctx=ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = B.apply_norm(cfg, x, params["ln_f"])
+    x = B.apply_norm(cfg, x, params["ln_f"], layout, dirs)
     labels, mask = get_stack(cfg.family).labels(cfg, batch)
     xent = chunked_head_loss(cfg, layout, dirs, x, labels.clamp_min(0).long(),
                              mask, params["head"])

@@ -14,15 +14,24 @@ pp = 1): one optimizer step per call,
 the parameters are updated in place.  The gradient of every leaf comes from
 ``torch.autograd.grad`` over a detached view of it, so the caller's
 parameters never carry autograd state.
+
+Above one device (the dense family on a 3-D layout at pp = 1) ``params``,
+the optimizer state and ``batch`` are the rank's shards.  The islands sum
+their weights' gradients themselves (``Param.synced``); every other leaf
+(the norms' gains and biases, qk-norm) has its gradient summed over every
+axis but pp that its spec does not split, as GSPMD sums it in the
+reference.  The microbatch weights are summed over the axes that split
+the labels, so that each is the microbatch's global token count.
 """
 from __future__ import annotations
 
 import torch
 
 from ..config import ModelConfig, OptimConfig
-from ..core.params import tree_leaves, tree_map
-from ..core.plan import MULTI_RANK_TODO
-from ..core.topology import Layout
+from ..core import comm
+from ..core.params import spec_axes, tree_leaves, tree_map
+from ..core.plan import multi_rank_refusal
+from ..core.topology import AXES, Layout
 from ..models import transformer
 from ..models.registry import get_stack
 from ..optim import make_optimizer
@@ -44,17 +53,35 @@ def _split_microbatches(batch, m: int):
             for i in range(m)]
 
 
+def leaf_sync_axes(p, layout: Layout):
+    """The axes a leaf's gradient is summed over after the backward: none
+    for a leaf whose op syncs it (``Param.synced``), else every axis but
+    pp of size > 1 that its spec does not split."""
+    if p.synced:
+        return ()
+    split = set(spec_axes(p.spec))
+    return layout.live(tuple(a for a in AXES
+                             if a != "pp" and a not in split))
+
+
 def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
-    if layout.n_devices != 1:
-        raise NotImplementedError(MULTI_RANK_TODO)
-    update = make_optimizer(opt_cfg, layout)
+    err = multi_rank_refusal(layout.n_devices, n_stages=layout.size("pp"),
+                             strategy=layout.strategy, cfg=cfg)
+    if err:
+        raise NotImplementedError(err)
+    abstract = transformer.abstract_params(cfg, layout)
+    update = make_optimizer(opt_cfg, layout, abstract)
     m = max(layout.microbatches, 1)
+    sync = [leaf_sync_axes(p, layout) for p in tree_leaves(abstract)]
+    label_axes = transformer.loss_axes(layout, transformer.entry_dirs())
 
     def value_and_grad(params, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = transformer.forward(cfg, layout, live, batch,
                                             mode="train")
         grads = torch.autograd.grad(loss, tree_leaves(live))
+        grads = [comm.psum(layout, g, ax) if ax else g
+                 for g, ax in zip(grads, sync)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
@@ -65,7 +92,8 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
             gacc = lacc = wacc = None
             macc = {}
             for mb in _split_microbatches(batch, m):
-                w = get_stack(cfg.family).mb_weight(cfg, mb)
+                w = comm.psum(layout, get_stack(cfg.family).mb_weight(
+                    cfg, mb), label_axes)
                 loss_i, met, g = value_and_grad(params, mb)
                 g = [w * gi.float() for gi in g]
                 gacc = g if gacc is None else [a + b for a, b in zip(gacc, g)]

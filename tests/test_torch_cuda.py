@@ -7,7 +7,9 @@ them), K4 paged decode (each
 route, mixtral's and Moonlight's serve steps, MLA's latent decode and
 whisper's static cross k/v among them), K5 SSD scan (forward and
 backward); K2 at whisper's non-causal shapes (448 and 1504 rows over
-1504 frames) too.
+1504 frames) and at a (2,2,2) rank's rows (q offset by half the keys),
+and K3's two phases for a row that a rank of the 3-D cube holds only
+part of, too.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ``repro_torch``, so it runs
@@ -540,6 +542,75 @@ K3_NORM_TOL = {torch.float32: {"y": 3e-7, "dx": 3e-7, "dg": 1.5e-6},
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zc", [False, True])
+@pytest.mark.parametrize("h,n", [(2048, 2), (2048, 4), (2560, 2),
+                                 (2560, 4), (300, 3)])
+def test_k3_two_phases_match_plain_and_one_phase_on_card(cuda, dtype, zc, h,
+                                                         n):
+    """K3's two phases on rows of ``h`` cut in ``n`` pieces, as a rank of
+    the 3-D cube holds them (tinyllama's and gemma-2b's 2048, qwen3-4b's
+    2560), the pieces' partial sums added on the card as the all-reduce
+    adds them: y, dx and dg against the plain phases and against the
+    one-phase K3 on the whole rows, within ``K3_NORM_TOL``; each piece
+    launches each of the four kernels once."""
+    rng = np.random.default_rng(11)
+    m = 1000
+    x, dy = (torch.from_numpy(rng.standard_normal((m, h)).astype(np.float32))
+             .to(cuda, dtype) for _ in range(2))
+    g = torch.from_numpy((rng.standard_normal(h) * 0.1 + 1)
+                         .astype(np.float32)).to(cuda, dtype)
+    xs, gs, dys = ([t.contiguous() for t in a.chunk(n, -1)]
+                   for a in (x, g, dy))
+    counters = ("launches_moments", "launches_apply", "launches_bwd_dot",
+                "launches_bwd_apply")
+    before = [getattr(k3, c) for c in counters]
+    ss = sum(k3.rmsnorm_moments(p) for p in xs)
+    fw = [k3.rmsnorm_apply(p, gp, ss, h, zero_centered=zc)
+          for p, gp in zip(xs, gs)]
+    dot = sum(k3.rmsnorm_bwd_dot(d, p, gp, zc)
+              for d, p, gp in zip(dys, xs, gs))
+    bw = [k3.rmsnorm_bwd_apply(d, p, gp, r, dot, h, zc)
+          for d, p, gp, (_, r) in zip(dys, xs, gs, fw)]
+    assert [getattr(k3, c) - b for c, b in zip(counters, before)] == [n] * 4
+    ss2 = sum(k3.rmsnorm_moments_plain(p) for p in xs)
+    fw2 = [k3.rmsnorm_apply_plain(p, gp, ss2, h, zero_centered=zc)
+           for p, gp in zip(xs, gs)]
+    dot2 = sum(k3.rmsnorm_bwd_dot_plain(d, p, gp, zc)
+               for d, p, gp in zip(dys, xs, gs))
+    bw2 = [k3.rmsnorm_bwd_apply_plain(d, p, gp, r, dot2, h, zc)
+           for d, p, gp, (_, r) in zip(dys, xs, gs, fw2)]
+    y1, rstd1 = k3.rmsnorm_fwd(x, g, zero_centered=zc)
+    dx1, dg1 = k3.rmsnorm_bwd(dy, x, g, rstd1, zero_centered=zc)
+    torch.cuda.synchronize()
+
+    def cat(parts, i):
+        return torch.cat([p[i] for p in parts], -1)
+    got = {"y": cat(fw, 0), "dx": cat(bw, 0), "dg": cat(bw, 1)}
+    plain = {"y": cat(fw2, 0), "dx": cat(bw2, 0), "dg": cat(bw2, 1)}
+    whole = {"y": y1, "dx": dx1, "dg": dg1}
+    assert _rel(fw[0][1], rstd1) <= 1e-5
+    for name in got:
+        assert got[name].dtype == dtype
+        assert _norm_err(got[name], plain[name]) <= K3_NORM_TOL[dtype][name]
+        assert _norm_err(got[name], whole[name]) <= K3_NORM_TOL[dtype][name]
+
+
+@pytest.mark.cuda
+def test_k3_two_phases_never_fall_back(cuda):
+    """A CUDA tensor through the two-phase path launches the kernel or
+    raises: mixed devices and a wrong sum raise."""
+    x = torch.randn(4, 64, device=cuda)
+    g = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError):
+        k3.rmsnorm_apply(x, g, torch.zeros(4), 128)
+    with pytest.raises(ValueError):
+        k3.rmsnorm_apply(x, g, torch.zeros(5, device=cuda), 128)
+    with pytest.raises(ValueError):
+        k3.rmsnorm_apply(x, g, torch.zeros(4, device=cuda), 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h", [128, 2048, 3072, 4096, 1000])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_k3_widths_match_plain_on_card(cuda, dtype, h, offset):
@@ -735,7 +806,12 @@ def _k2_case(cuda, b, sq, sk, nq, nkv, d, off, seed=9):
     # text rows over 1504 frames, and the encoder over 1504 frames; the
     # last key tile is half full and the dk/dv pass runs over Sk > Sq
     (4, 448, 1504, 16, 16, 64, False, 0, 0),
-    (2, 1504, 1504, 16, 16, 64, False, 0, 0)])
+    (2, 1504, 1504, 16, 16, 64, False, 0, 0),
+    # a (2,2,2) rank of tinyllama's 4 x 2048 step: 1024 q rows of 16
+    # heads at offsets 0 and 1024 over the 2048 gathered keys of its 2 kv
+    # heads, causal
+    (2, 1024, 2048, 16, 2, 64, True, 0, 0),
+    (2, 1024, 2048, 16, 2, 64, True, 0, 1024)])
 def test_k2_tc_route_matches_plain_on_card(cuda, case):
     """The tc route (wgmma + TMA) against the plain version in bf16, with
     the limits of the simt route's bf16 test and ``K2_NORM_TOL``, and its

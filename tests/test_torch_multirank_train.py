@@ -1,0 +1,301 @@
+"""The port's dense training on 8 ranks against the JAX package's at the
+same layout on 8 host devices, in f32: reduced tinyllama-1.1b and
+gemma-2b (one kv head, replicated over the head axis: the island's
+sliced-kv branch) on the cube (2, 2, 2) and on dp 2 x cube (2, 2, 1)
+(``tests/test_multidev.py:66-67``).
+
+One JAX subprocess and one world of 8 gloo ranks run at once
+(``test_torch_multirank_islands.py``'s machinery).  The weights are the
+port's seeded init, handed to JAX as arrays; each rank keeps its shards
+(``convert.params_from_jax(layout=)``) and its shard of each batch
+(``data.pipeline.shard_batch``).  Held: the loss, and every gradient
+leaf's shard on every rank within 1e-4 of the leaf's largest value
+against JAX's at the rank's coordinates; then three AdamW steps at two
+microbatches (the train step, its leaf sync and the sharded global norm):
+each step's loss and gnorm, and every parameter shard, within 1e-2.
+``run_train``, ``check_grads`` and ``check_steps`` serve
+``test_torch_multirank_more.py`` too.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.config import reduced
+from repro_torch.configs.registry import get
+from repro_torch.core.params import init_params, tree_leaves
+from repro_torch.models import transformer
+from test_torch_multirank_islands import (LAYOUTS, WORLD, held, layout_of,
+                                          run_jax, run_ranks, wait_jax)
+
+# arch -> the reduced config's change
+ARCHS = {"tinyllama-1.1b": {}, "gemma-2b": {}}
+B, S, STEPS = 8, 32, 3
+OPT = dict(lr=3e-3, warmup=2, total_steps=3)
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def batch(vocab: int, seed: int):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
+    labels = toks[:, 1:].copy()
+    labels[0, -5:] = -1                              # masked positions
+    return {"tokens": toks[:, :-1], "labels": labels}
+
+
+def port_cfg(arch, change):
+    import dataclasses
+    return dataclasses.replace(reduced(get(arch)), **change)
+
+
+def write_inputs(tmp, archs):
+    """The seeded f32 weights and the batches of each arch."""
+    for arch, change in archs.items():
+        cfg = port_cfg(arch, change)
+        p = init_params(transformer.abstract_params(cfg),
+                        torch.Generator().manual_seed(0), "cpu",
+                        torch.float32)
+        np.savez(tmp / f"{arch}_params.npz",
+                 **{k: v.numpy() for k, v in flat(p).items()})
+        for s in range(STEPS + 1):
+            np.savez(tmp / f"{arch}_batch{s}.npz", **batch(cfg.vocab, s))
+
+
+JAX_SCRIPT = r"""
+import dataclasses, os
+import numpy as np
+import jax, jax.numpy as jnp
+from repro import config
+from repro.config import reduced
+from repro.configs.registry import get
+from repro.core.params import init_params, shardings
+from repro.core.topology import make_layout
+from repro.models import transformer
+from repro.optim.optimizers import opt_state_abstract
+from repro.train.step import make_train_step
+
+d = os.environ["MR_DIR"]
+ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)d, %(mb)d
+OPT = config.OptimConfig(**%(opt)r)
+
+
+def unflat(dd):
+    out = {}
+    for path, v in dd.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = jnp.asarray(v)
+    return out
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(jax.device_get(tree), np.float32)}
+
+
+def load(name):
+    return {k: jnp.asarray(v) for k, v in np.load(os.path.join(d, name)).items()}
+
+
+for arch, change in ARCHS.items():
+    cfg = dataclasses.replace(reduced(get(arch)), **change)
+    p0 = unflat(dict(np.load(os.path.join(d, f"{arch}_params.npz"))))
+    for lname, kw in LAYOUTS.items():
+        kw = dict(kw)
+        if "cube" in kw:
+            kw["cube"] = tuple(kw["cube"])
+        lay = make_layout(strategy="3d", zero_stage=0, **kw)
+        params = jax.device_put(p0, shardings(
+            transformer.abstract_params(cfg, lay), lay))
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: transformer.forward(cfg, lay, p, b, mode="train"),
+            has_aux=True))(params, load(f"{arch}_batch0.npz"))
+        out = {"loss": np.asarray(loss, np.float32)}
+        out.update({"grad/" + k: v for k, v in flat(grads).items()})
+        lay_mb = make_layout(strategy="3d", zero_stage=0, microbatches=MB,
+                             **kw)
+        state = init_params(opt_state_abstract(
+            transformer.abstract_params(cfg, lay_mb), lay_mb, OPT),
+            jax.random.key(1))
+        step = jax.jit(make_train_step(cfg, lay_mb, OPT))
+        for s in range(STEPS):
+            params, state, met = step(params, state,
+                                      load(f"{arch}_batch{s + 1}.npz"))
+            for key in ("loss", "gnorm", "lr"):
+                out[f"step{s}/{key}"] = np.asarray(met[key], np.float32)
+        out.update({"param/" + k: v for k, v in flat(params).items()})
+        np.savez(os.path.join(d, f"jax_{arch}_{lname}.npz"), **out)
+print("JAX-OK")
+"""
+
+RANK_SCRIPT = r"""
+import dataclasses, os
+import numpy as np
+import torch
+from repro_torch import config
+from repro_torch.config import reduced
+from repro_torch.configs.registry import get
+from repro_torch.convert import params_from_jax
+from repro_torch.core import comm
+from repro_torch.core.params import tree_leaves, tree_map
+from repro_torch.core.topology import make_layout
+from repro_torch.data.pipeline import shard_batch, to_device
+from repro_torch.launch import ranks
+from repro_torch.models import transformer
+from repro_torch.optim import adamw_init
+from repro_torch.train.step import leaf_sync_axes, make_train_step
+
+torch.set_num_threads(1)
+me = ranks.rank_env()
+ranks.init_world(me, "gloo", torch.device("cpu"))
+d = os.environ["MR_DIR"]
+ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)d, %(mb)d
+OPT = config.OptimConfig(**%(opt)r)
+
+
+def unflat(dd):
+    out = {}
+    for path, v in dd.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree.detach().float().numpy()}
+
+
+for arch, change in ARCHS.items():
+    cfg = dataclasses.replace(reduced(get(arch)), **change)
+    p0 = unflat(dict(np.load(os.path.join(d, f"{arch}_params.npz"))))
+    for lname, kw in LAYOUTS.items():
+        lay = comm.init(make_layout(strategy="3d", rank=me.rank, **kw),
+                        "gloo")
+        params = params_from_jax(p0, "cpu", cfg=cfg, layout=lay)
+
+        def shard(s):
+            b = dict(np.load(os.path.join(d, f"{arch}_batch{s}.npz")))
+            return to_device(shard_batch(b, lay), "cpu")
+
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = transformer.forward(cfg, lay, live, shard(0), mode="train")
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        # the train step's sync of the leaves outside the islands
+        abstract = tree_leaves(transformer.abstract_params(cfg, lay))
+        grads = [comm.psum(lay, g, leaf_sync_axes(p, lay))
+                 for g, p in zip(grads, abstract)]
+        it = iter(grads)
+        out = {"loss": loss.detach().numpy()}
+        out.update({"grad/" + k: v for k, v in flat(tree_map(
+            lambda _: next(it), params)).items()})
+        step = make_train_step(cfg, dataclasses.replace(lay, microbatches=MB),
+                               OPT)
+        state = adamw_init(params)
+        for s in range(STEPS):
+            params, state, met = step(params, state, shard(s + 1))
+            for key in ("loss", "gnorm", "lr"):
+                out[f"step{s}/{key}"] = np.asarray(float(met[key]),
+                                                   np.float32)
+        out.update({"param/" + k: v for k, v in flat(params).items()})
+        np.savez(os.path.join(d, f"rank{me.rank}_{arch}_{lname}.npz"), **out)
+print("RANK-OK")
+"""
+
+
+def fill(script, archs, mb):
+    layouts = {k: dict(v, cube=list(v["cube"])) if "cube" in v else v
+               for k, v in LAYOUTS.items()}
+    return script % {"archs": archs, "layouts": layouts, "steps": STEPS,
+                     "mb": mb, "opt": OPT}
+
+
+def run_train(tmp, archs, mb):
+    """Run both sides, a JAX subprocess for each arch beside the ranks;
+    {(arch, layout): (jax outputs, [rank outputs])}."""
+    write_inputs(tmp, archs)
+    runs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb), tmp, f"jax_{a}")
+            for a in archs]
+    try:
+        run_ranks(fill(RANK_SCRIPT, archs, mb), tmp, timeout=600)
+    finally:
+        for run in runs:
+            wait_jax(run, timeout=600)
+    return {(a, ln): (dict(np.load(tmp / f"jax_{a}_{ln}.npz")),
+                      [dict(np.load(tmp / f"rank{r}_{a}_{ln}.npz"))
+                       for r in range(WORLD)])
+            for a in archs for ln in LAYOUTS}
+
+
+def check_grads(res, arch, change, lname):
+    want, ranks = res[(arch, lname)]
+    cfg = port_cfg(arch, change)
+    bad = []
+    for r, got in enumerate(ranks):
+        lay = layout_of(lname, r)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4, (
+            r, float(got["loss"]), float(want["loss"]))
+        specs = flat(transformer.abstract_params(cfg, lay))
+        assert {"grad/" + k for k in specs} == {
+            k for k in want if k.startswith("grad/")}
+        for k, p in specs.items():
+            ok, info = held(got["grad/" + k], want["grad/" + k], p.spec, lay,
+                            what=f"rank {r} {k}")
+            if not ok:
+                bad.append(info)
+    assert not bad, bad
+
+
+def check_steps(res, arch, change, lname):
+    want, ranks = res[(arch, lname)]
+    cfg = port_cfg(arch, change)
+    for r, got in enumerate(ranks):
+        lay = layout_of(lname, r)
+        for s in range(STEPS):
+            for key in ("loss", "gnorm", "lr"):
+                k = f"step{s}/{key}"
+                assert abs(float(got[k]) - float(want[k])) <= 1e-2, (
+                    r, k, float(got[k]), float(want[k]))
+        for k, p in flat(transformer.abstract_params(cfg, lay)).items():
+            ok, info = held(got["param/" + k], want["param/" + k], p.spec,
+                            lay, tol=1.0, what=f"rank {r} {k}")
+            # within 1e-2 absolute, as test_torch_train.three_adamw_steps
+            assert info[1] <= 1e-2, info
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    return run_train(tmp_path_factory.mktemp("train"), ARCHS, mb=2)
+
+
+CASES = [(a, ln) for a in ARCHS for ln in LAYOUTS]
+
+
+@pytest.mark.parametrize("arch,lname", CASES)
+def test_loss_and_grad_shards_match_jax(trained, arch, lname):
+    check_grads(trained, arch, ARCHS[arch], lname)
+
+
+@pytest.mark.parametrize("arch,lname", CASES)
+def test_three_adamw_steps_match_jax(trained, arch, lname):
+    check_steps(trained, arch, ARCHS[arch], lname)

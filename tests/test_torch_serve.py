@@ -36,6 +36,7 @@ from repro_torch.core import comm
 from repro_torch.core.params import init_params, tree_leaves
 from repro_torch.core.plan import ParallelPlan
 from repro_torch.core.topology import AXES, Layout, factor_model_axis
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import blocks
 from repro_torch.models import transformer
 from repro_torch.serve import Engine, Request, kvcache, sampling
@@ -466,14 +467,20 @@ def test_engine_refuses_later_slices(tlayout, case):
 
 
 def test_multi_rank_refused():
-    with pytest.raises(NotImplementedError, match="Multi-rank islands"):
+    """Serving stays on one device; a collective above axis size 1 needs
+    the layout's process groups (``comm.init``), and never returns a
+    wrong answer without them."""
+    with pytest.raises(NotImplementedError, match="multi-rank serving"):
         ParallelPlan(n_model=8).validate(mode="serve").build()
+    with pytest.raises(NotImplementedError, match="multi-rank serving"):
+        serve_main(["--arch", "tinyllama-1.1b", "--reduced", "--device",
+                    "cpu", "--model", "8"])
     lay = Layout(sizes={a: (2 if a == "z" else 1) for a in AXES})
     x = torch.zeros(2, 4, 8)
     assert comm.all_gather(lay, x, "y", dim=1) is x
     for fn, args in ((comm.all_gather, ("z", 1)), (comm.psum, ("z",)),
                      (comm.psum_scatter, ("z", 1))):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="comm.init"):
             fn(lay, x, *args)
 
 
@@ -512,6 +519,12 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.models.xlstm, repro_torch.checkpoint.store",
         "import repro_torch.models.moe, repro_torch.models.mla",
         "import repro_torch.models.encdec, repro_torch.models.frontend",
+        "import repro_torch.launch.mesh, repro_torch.launch.ranks",
+        "import repro_torch.core.comm, repro_torch.core.topology",
+        "out = train(['--arch', 'tinyllama-1.1b', '--reduced', '--device',",
+        "             'cpu', '--steps', '1', '--batch', '2', '--seq', '32',",
+        "             '--model', '2', '--host-devices', '2'])",
+        "assert len(out['losses']) == 1, out",
         "for arch in ('mixtral-8x7b', 'internvl2-2b', 'whisper-medium'):",
         "    out = train(['--arch', arch, '--reduced', '--device', 'cpu',",
         "                 '--steps', '1', '--batch', '2', '--seq', '32'])",

@@ -387,8 +387,14 @@ def _launch_on_cpu(capsys, arch, seq=64):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dp", "2"], ["--model", "8"], ["--pp", "2"], ["--strategy", "1d"],
-    ["--overlap"], ["--zero", "1"], ["--optimizer", "adafactor"],
+    ["--dp", "2", "--zero", "1"], ["--model", "8", "--pp", "2"],
+    ["--model", "4", "--strategy", "2d"], ["--pp", "2"],
+    ["--strategy", "1d"], ["--overlap"], ["--zero", "1"],
+    ["--optimizer", "adafactor"],
+    ["--model", "8", "--ckpt-dir", "unused"],
+    ["--arch", "mixtral-8x7b", "--model", "8"],
+    ["--arch", "zamba2-1.2b", "--dp", "2"],
+    ["--arch", "deepseek-v3-671b", "--model", "8"],
     ["--arch", "deepseek-v3-671b", "--optimizer", "adafactor"],
     ["--arch", "mixtral-8x7b", "--pp", "2"],
     ["--arch", "moonshot-v1-16b-a3b", "--optimizer", "adafactor"],
@@ -399,6 +405,19 @@ def test_train_launcher_refusals(flags):
             "--steps", "1"] + flags
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_launch.main(argv)
+
+
+def test_train_launcher_refuses_nccl_sharing_a_card(monkeypatch):
+    """NCCL refuses two ranks on one device; the launcher raises before
+    any rank starts, and never switches the backend."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = ["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1",
+            "--model", "2", "--host-devices", "2", "--backend", "nccl"]
+    with pytest.raises(ValueError, match="NCCL refuses two ranks"):
+        train_launch.main(argv)
+    with pytest.raises(ValueError, match="nccl takes CUDA ranks"):
+        train_launch.main(argv + ["--device", "cpu"])
 
 
 def test_train_launcher_never_falls_back_to_cpu(monkeypatch):
@@ -452,6 +471,28 @@ def test_config_copies_match_reference():
                     jregistry.train_flops_per_token(jc, s), arch
 
 
+def test_mesh_copies_match_reference():
+    """``launch/mesh.py`` against the reference's: the per-shape axis
+    policy equal; rank r's coordinates its place in the reference's
+    row-major device grid (``topology.make_mesh``), and its layout's
+    sizes the framework mesh's."""
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch import mesh
+    for name in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        for multi_pod in (False, True):
+            assert mesh.shape_layout_args(name, multi_pod) == \
+                jmesh.shape_layout_args(name, multi_pod)
+    for kw in ({}, {"multi_pod": True, "n_pp": 2}, {"cube": (4, 2, 2)}):
+        lay = mesh.make_framework_layout(**kw)
+        grid = np.arange(lay.n_devices).reshape(tuple(lay.sizes.values()))
+        for r in (0, 1, 37, lay.n_devices - 1):
+            got = mesh.make_framework_layout(rank=r, **kw).coords
+            assert tuple(got.values()) == tuple(np.argwhere(grid == r)[0])
+    assert mesh.make_framework_layout().cube == (2, 2, 4)
+    assert mesh.make_framework_layout(multi_pod=True, n_pp=2).sizes == {
+        "pod": 2, "dp": 8, "pp": 2, "x": 2, "y": 2, "z": 4}
+
+
 @pytest.mark.parametrize("sched", ["cosine", "linear", "constant"])
 def test_schedule_matches_reference(sched):
     kw = dict(lr=1e-3, warmup=5, total_steps=20, schedule=sched)
@@ -472,7 +513,7 @@ def test_train_plan_validation_matches_reference():
         with pytest.raises(ValueError) as got:
             ParallelPlan(**kw).validate(**vkw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="Multi-rank islands"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ParallelPlan(n_stages=2, microbatches=2).validate(
             n_layers=2).build()
 

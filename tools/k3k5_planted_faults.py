@@ -7,8 +7,11 @@ Copies ``src/repro_torch`` into a temporary directory once per case,
 plants one fault in the copy's ``csrc/rmsnorm.cu`` or ``csrc/ssd_scan.cu``,
 builds the copies in parallel, then runs the checks of the faulty kernel
 against each copy in a process of its own: ``chip_smoke.k3_case`` at the
-training shape (8192 x 2048, f32 and bf16) for K3, ``chip_smoke.k5_case``
-at zamba2's training shape (4 x 2048, 64 heads, f32 and bf16 B/C) for K5.
+training shape (8192 x 2048, f32 and bf16) for K3,
+``chip_smoke.k3_split_case`` there for K3's two phases (rows cut in 2, as
+a rank of the (2,2,2) cube holds them; phase 4c's limits),
+``chip_smoke.k5_case`` at zamba2's training shape (4 x 2048, 64 heads, f32
+and bf16 B/C) for K5.
 It prints each case's errors and whether the limits caught it, and exits
 nonzero if a fault passed or the unchanged copy failed.  The checkout is
 never modified.  Needs an NVIDIA GPU and nvcc; from the root of a
@@ -29,7 +32,12 @@ CSRC = Path("repro_torch/kernels/csrc")
 # name -> (kernel, source, text in the source, text that replaces it);
 # each text occurs once in its source
 FAULTS = {
-    "none (the kernels as they are)": ("K3 K5", None, None, None),
+    "none (the kernels as they are)": ("K3 K3s K5", None, None, None),
+    "K3 two phases: the apply divides by the row's local columns, not the "
+    "norm's width": (
+        "K3s", "rmsnorm.cu",
+        "  const float r = rsqrtf(ss / (float)Hn + eps);",
+        "  const float r = rsqrtf(ss / (float)H + eps);"),
     "K3 forward: y of one row not written": (
         "K3", "rmsnorm.cu",
         "    *reinterpret_cast<P*>(yr + C::col(k, t)) = out;",
@@ -84,6 +92,11 @@ try:
         for dtype in (torch.float32, torch.bfloat16):
             c.k3_case(k3, "cuda", gen, c.TRAIN_B * c.TRAIN_S, c.D, dtype,
                       False)
+    if "K3s" in kernels:
+        gen = torch.Generator(device="cuda").manual_seed(33)
+        for dtype in (torch.float32, torch.bfloat16):
+            c.k3_split_case(k3, "cuda", gen, c.TRAIN_B * c.TRAIN_S, c.D, 2,
+                            dtype, False, "tinyllama (2,2,2)")
     if "K5" in kernels:
         gen = torch.Generator(device="cuda").manual_seed(5)
         for label, b, T, dtype, scale in c.K5_CASES[:2]:
