@@ -32,6 +32,7 @@ Phases, in order (any failure raises and exits nonzero):
      (2,2,1) rank of tinyllama-1.1b's training step (``rank_gemms``,
      from the weights' specs): the tc route against the plain version,
      timed beside ``torch.matmul`` and the bound;
+ 2b. the same at a 1d(4) and a 2d(q2) rank's GEMMs (``BASE_LAYOUTS``);
   3. K4 paged decode against its plain version at the tinyllama shape
      (32 q heads, 4 kv heads, d = 64, block 16), bf16 through both routes
      (split and simt), f32 through simt: ragged contexts of 64-1024 tokens,
@@ -86,6 +87,8 @@ Phases, in order (any failure raises and exits nonzero):
      against the plain phases and against the one-phase K3 on the whole
      rows, within ``K3_NORM_TOL``; one piece's device time beside its
      bytes bound and ``F.rms_norm`` on the whole rows;
+ 4b. K3 in one phase at a 1d(4) rank's norm, 4096 whole rows of 2048,
+     against the plain version, timed as phase 4 times it;
   5. K2 flash attention forward and backward against their plain versions
      at the main paths' attention shapes, all causal: at d = 64 the
      tinyllama training layer (4 x 2048, 32/4 heads), zamba2's shared
@@ -119,6 +122,8 @@ Phases, in order (any failure raises and exits nonzero):
      through tc, and gemma-2b's replicated-kv slice (4/1 heads of 256)
      through simt, against the plain version, timed beside SDPA with the
      same mask;
+ 5b. K2 at a 1d(4) rank's attention (``K2_BASE_SHAPES``): 2 x 2048 rows,
+     8/1 heads, no offset, through tc, the same way;
   6. full-width two-layer tinyllama in f32 (K1's simt route) and in bf16
      (its tc and decode routes): CPU (plain versions) against the card
      (kernels), serving prefill and the first fused decode step's logits,
@@ -307,18 +312,36 @@ Phases, in order (any failure raises and exits nonzero):
      at dp2 x (2,2,1) (``RANK_LAYOUTS``) against one rank on the card:
      the loss and every rank's gradient shard within 1e-4 of each leaf's
      largest value;
+ 30r. phase 8's run cut to ``RANK_TRAIN_LAYERS`` (4 of 22) layers, 3
+     steps: the losses that 30 and 33 are held to;
  30. ``repro_torch.launch.train`` under torchrun, 8 ranks at each layout:
-     tinyllama-1.1b at full width and depth in bf16, 4 x 2048, remat,
-     AdamW, 3 steps, each loss within 3e-2 of phase 8's, each rank's
+     tinyllama-1.1b at full width in bf16, cut to 4 layers, 4 x 2048,
+     remat, AdamW, 3 steps, each loss within 3e-2 of 30r's, each rank's
      K1/K2/K3 launches exact (``rank_train_launches``: K3 in its two
      phases where 'z' splits the hidden dim), every K1 and K2 launch on
-     tc; each rank's step time, tokens/s and peak memory.
+     tc; each rank's step time, tokens/s, peak memory and collective
+     bytes a step (``core/comm.py``'s counter);
+ 31. the paper's 1-D and 2-D baselines at 1d(4) and 2d(q2)
+     (``BASE_LAYOUTS``, ``tests/test_multidev.py:68-69``), 8 ranks
+     sharing the card over gloo: phase 29's f32 two-layer model, the loss
+     within 1e-4 of one rank's, every gradient shard within 1e-4 of its
+     leaf's max against one rank's at 1d and against the same layout on
+     the machine's CPU ranks at 2d (ROADMAP Queue 3 fault 6: neither
+     package's 2-D gradient is one rank's);
+ 32. the comm check (``repro_torch.obs.commcheck``) at the reference's
+     defaults (paper-transformer, 4 layers, d_ff = d_model, vocab 4096,
+     12 x 512, bf16): the 1d and 3d plans of 8 ranks in 31's world, the
+     2d plan of 4 under torchrun; measured and analytic bytes per plan,
+     the measured ordering 3d < 2d < 1d;
+ 33. phase 30 at 1d(4) and 2d(q2), 2 steps: the first loss within 3e-2
+     of 30r's, the second within 1e-2 at 1d and finite at 2d (fault 6).
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
 19), one of the MoE family's (7m, 21, 22), one of deepseek's (7d, 24,
 25), one of the modality families' (7w, 27, 7v, 28), one of the cube
-across ranks (29, 30), one of per-kernel numbers and
+across ranks (29, 30), one of the baselines across ranks (31, 32, 33),
+one of per-kernel numbers and
 the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -357,9 +380,16 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5    # the training run (phase 8)
 # (forward and its recompute under remat) and the head's 2 loss chunks
 # twice; K2 runs each layer's attention forward twice and backward once;
 # K3 the 2 norms of each layer twice and ln_f once, backward once each
-TRAIN_LAUNCHES = {"K1": 2 * 7 * LAYERS + 2 * 2, "K2": 2 * LAYERS,
-                  "K2 bwd": LAYERS, "K3": 2 * 2 * LAYERS + 1,
-                  "K3 bwd": 2 * LAYERS + 1, "K5": 0, "K5 bwd": 0}
+
+
+def step_launches(layers):
+    """One tinyllama-1.1b training step's launches at ``layers`` deep."""
+    return {"K1": 2 * 7 * layers + 2 * 2, "K2": 2 * layers,
+            "K2 bwd": layers, "K3": 2 * 2 * layers + 1,
+            "K3 bwd": 2 * layers + 1, "K5": 0, "K5 bwd": 0}
+
+
+TRAIN_LAUNCHES = step_launches(LAYERS)
 # training GEMMs of tinyllama: (name, K, N, launches per step), forward and
 # its recompute; the head runs in 2 chunks of 4 x 1024 rows
 TRAIN_GEMMS = [("wq,wo", D, NQ * DH, 2 * 2 * LAYERS),
@@ -1486,6 +1516,60 @@ def k3_case(k3, dev, gen, m, h, dtype, zc, tag="[4]"):
     return (x, g, dy), rstd, worst, norms
 
 
+def k3_times(k3, x, g, dy, rstd, norms, worst, tag="4"):
+    """The device times of K3's forward and backward on (x, g, dy) in
+    bf16, called from the host too, beside its bound, the plain version
+    and ``F.rms_norm``'s."""
+    import torch
+    import torch.nn.functional as F
+    m, h = x.shape
+    xr = x.detach().requires_grad_()
+    gr = g.detach().requires_grad_()
+    lib_out = F.rms_norm(xr, (h,), gr, 1e-6)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (xr, gr), dy, retain_graph=True)
+    t = {"fwd_ms": graph_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
+         "bwd_ms": graph_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 50),
+         "fwd_host_ms": time_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
+         "bwd_host_ms": time_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd),
+                                50),
+         "bwd_kernels_ms": kernel_ms(
+             lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 20),
+         "plain_fwd_ms": time_ms(lambda: k3.rmsnorm_plain(x, g), 10),
+         "plain_bwd_ms": time_ms(
+             lambda: k3.rmsnorm_bwd_plain(dy, x, g, rstd), 10),
+         "library_fwd_ms": graph_ms(
+             lambda: F.rms_norm(x, (h,), g, 1e-6), 50),
+         "library_bwd_ms": kernel_ms(lib_bwd, 20),
+         "norm_err": norms, "max_abs_err": worst}
+    t["ms"] = t["fwd_ms"] + t["bwd_ms"]
+    t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
+    t["library_ms"] = (t["library_fwd_ms"] + t["library_bwd_ms"]
+                       if t["library_bwd_ms"] is not None else None)
+    fb, fo = bound_ms(2 * m * h * 2 + h * 2 + m * 4, 4 * m * h,
+                      H100_F32_FLOPS)
+    bb, bo = bound_ms(3 * m * h * 2 + 2 * h * 2 + m * 4, 10 * m * h,
+                      H100_F32_FLOPS)
+    t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
+             bound_by=fo if fo == bo else "bytes and operations")
+    lb = t["library_bwd_ms"]
+    print(f"[{tag}] K3 bf16 ({m},{h}), device time: forward {t['fwd_ms']:.4f}"
+          f" ms ({fb / t['fwd_ms'] * 100:.0f}% of its bound {fb:.4f} {fo};"
+          f" F.rms_norm {t['library_fwd_ms']:.4f}, "
+          f"{t['fwd_ms'] / t['library_fwd_ms']:.2f}x); backward "
+          f"{t['bwd_ms']:.4f} ms ({bb / t['bwd_ms'] * 100:.0f}% of its "
+          f"bound {bb:.4f} {bo}; its kernels summed by the profiler "
+          f"{t['bwd_kernels_ms'] or float('nan'):.4f}; F.rms_norm's "
+          f"backward, its kernels summed by the profiler, "
+          + (f"{lb:.4f}, {t['bwd_kernels_ms'] / lb:.2f}x"
+             if lb and t["bwd_kernels_ms"] else "not measured")
+          + f"); called from the host {t['fwd_host_ms']:.4f} + "
+          f"{t['bwd_host_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} + "
+          f"{t['plain_bwd_ms']:.4f} ms")
+    return t
+
+
 def phase_k3(dev):
     """K3 at the training shape: every norm of a step sees 8192 rows, of
     2048 (tinyllama, zamba2, xlstm's out_ln), 4096 (zamba2's gate_ln) or
@@ -1498,7 +1582,6 @@ def phase_k3(dev):
     as forward + backward of one norm (device time), the other widths
     under ``shapes``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as k3
     gen = torch.Generator(device=dev).manual_seed(3)
     cases = [(TRAIN_B * TRAIN_S, D, dtype, zc)
@@ -1514,52 +1597,7 @@ def phase_k3(dev):
                                                  zc)
         if dtype != torch.bfloat16 or zc:
             continue
-        xr = x.detach().requires_grad_()
-        gr = g.detach().requires_grad_()
-        lib_out = F.rms_norm(xr, (h,), gr, 1e-6)
-
-        def lib_bwd():
-            torch.autograd.grad(lib_out, (xr, gr), dy, retain_graph=True)
-        t = {"fwd_ms": graph_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
-             "bwd_ms": graph_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 50),
-             "fwd_host_ms": time_ms(lambda: k3.rmsnorm_fwd(x, g), 50),
-             "bwd_host_ms": time_ms(lambda: k3.rmsnorm_bwd(dy, x, g, rstd),
-                                    50),
-             "bwd_kernels_ms": kernel_ms(
-                 lambda: k3.rmsnorm_bwd(dy, x, g, rstd), 20),
-             "plain_fwd_ms": time_ms(lambda: k3.rmsnorm_plain(x, g), 10),
-             "plain_bwd_ms": time_ms(
-                 lambda: k3.rmsnorm_bwd_plain(dy, x, g, rstd), 10),
-             "library_fwd_ms": graph_ms(
-                 lambda: F.rms_norm(x, (h,), g, 1e-6), 50),
-             "library_bwd_ms": kernel_ms(lib_bwd, 20),
-             "norm_err": norms, "max_abs_err": worst}
-        t["ms"] = t["fwd_ms"] + t["bwd_ms"]
-        t["plain_ms"] = t["plain_fwd_ms"] + t["plain_bwd_ms"]
-        t["library_ms"] = (t["library_fwd_ms"] + t["library_bwd_ms"]
-                           if t["library_bwd_ms"] is not None else None)
-        fb, fo = bound_ms(2 * m * h * 2 + h * 2 + m * 4, 4 * m * h,
-                          H100_F32_FLOPS)
-        bb, bo = bound_ms(3 * m * h * 2 + 2 * h * 2 + m * 4, 10 * m * h,
-                          H100_F32_FLOPS)
-        t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
-                 bound_by=fo if fo == bo else "bytes and operations")
-        lb = t["library_bwd_ms"]
-        print(f"[4] K3 bf16 ({m},{h}), device time: forward {t['fwd_ms']:.4f}"
-              f" ms ({fb / t['fwd_ms'] * 100:.0f}% of its bound {fb:.4f} {fo};"
-              f" F.rms_norm {t['library_fwd_ms']:.4f}, "
-              f"{t['fwd_ms'] / t['library_fwd_ms']:.2f}x); backward "
-              f"{t['bwd_ms']:.4f} ms ({bb / t['bwd_ms'] * 100:.0f}% of its "
-              f"bound {bb:.4f} {bo}; its kernels summed by the profiler "
-              f"{t['bwd_kernels_ms'] or float('nan'):.4f}; F.rms_norm's "
-              f"backward, its kernels summed by the profiler, "
-              + (f"{lb:.4f}, {t['bwd_kernels_ms'] / lb:.2f}x"
-                 if lb and t["bwd_kernels_ms"] else "not measured")
-              + f"); called from the host {t['fwd_host_ms']:.4f} + "
-              f"{t['bwd_host_ms']:.4f} ms; plain {t['plain_fwd_ms']:.4f} + "
-              f"{t['plain_bwd_ms']:.4f} ms")
-        out[(m, h)] = t
-        del xr, gr, lib_out
+        out[(m, h)] = k3_times(k3, x, g, dy, rstd, norms, worst)
     return dict(out[(TRAIN_B * TRAIN_S, D)],
                 shapes={f"{m}x{h}": t for (m, h), t in out.items()})
 
@@ -4655,9 +4693,15 @@ def phase_serve_state(card, arch, tag, per_step, step_bytes):
 # measure the kernels and that staging; they are no measure of the
 # paper's communication claim.
 # ---------------------------------------------------------------------------
-# the layouts (tests/test_multidev.py:66-67): name -> (dp, model, cube)
+# the layouts (tests/test_multidev.py:66-67): name -> (dp, model, cube[,
+# strategy]); the 3-D strategy where none is named
 RANK_LAYOUTS = {"cube": (1, 8, (2, 2, 2)), "dp2": (2, 4, (2, 2, 1))}
+# the paper's baselines (tests/test_multidev.py:68-69): 1d(4) and 2d(q2)
+BASE_LAYOUTS = {"1d": (2, 4, None, "1d"), "2d": (2, 4, None, "2d")}
 RANKS, RANK_STEPS, RANK_TIMEOUT_S = 8, 3, 600
+# phases 30 and 33 train tinyllama-1.1b cut to this many of its 22 layers;
+# 33 takes 2 steps (the second is the steady one)
+RANK_TRAIN_LAYERS, BASE_STEPS = 4, 2
 RANK_DEVICE = "cuda"            # "cpu" to rehearse the rank phases
 RANK_SCRIPT = ROOT / "chip_smoke.py"    # each rank runs its --rank-job
 # phase 29: tinyllama cut to 2 layers at full width in f32, 4 x 512
@@ -4666,27 +4710,41 @@ R29_SEED, R29_B, R29_S = 29, 4, 512
 
 def rank_layout(lname, rank=0, layouts=None):
     from repro_torch.core.topology import make_layout
-    n_dp, n_model, cube = (layouts or RANK_LAYOUTS)[lname]
-    return make_layout(1, n_dp, n_model, "3d", cube, rank=rank)
+    n_dp, n_model, cube, *strategy = (layouts or RANK_LAYOUTS)[lname]
+    return make_layout(1, n_dp, n_model, (strategy or ["3d"])[0], cube,
+                       rank=rank)
 
 
 def rank_flags(lname, layouts=None):
-    n_dp, n_model, cube = (layouts or RANK_LAYOUTS)[lname]
-    return ["--dp", str(n_dp), "--model", str(n_model), "--cube",
-            ",".join(map(str, cube))]
+    n_dp, n_model, cube, *strategy = (layouts or RANK_LAYOUTS)[lname]
+    return (["--dp", str(n_dp), "--model", str(n_model)]
+            + (["--cube", ",".join(map(str, cube))] if cube else [])
+            + (["--strategy", strategy[0]] if strategy else []))
 
 
-def rank_gemms(lname):
+def rank_gemms(lname, layouts=None):
     """(name, M, K, N, launches a step) of one rank's K1 GEMMs in a
     tinyllama-1.1b training step (4 x 2048, remat) at layout ``lname``,
-    from the weights' specs: x gathered over in_ax (its batch stays split
-    over pod, dp and x) times the weight's columns gathered over 'x', so
-    K is the hidden dim split over out_ax and N the features split over
-    in_ax, the axes swapped for wo and w_down; the head in 2 loss
-    chunks."""
-    lay = rank_layout(lname)
+    from the weights' specs; the head in 2 loss chunks.  3d: x gathered
+    over in_ax (its batch stays split over pod, dp and x) times the
+    weight's columns gathered over 'x', so K is the hidden dim split over
+    out_ax and N the features split over in_ax, the axes swapped for wo
+    and w_down.  2d: the rank's rows of the sequence (over 'y') with x
+    gathered over 'z' and w over 'y', so K is whole and N split over 'z'.
+    1d: every row, K whole for the column linears and split over 'z' for
+    the row linears (wo, w_down), N the other way."""
+    lay = rank_layout(lname, layouts=layouts)
     y, z = lay.size("y"), lay.size("z")
     m = TRAIN_B // lay.size(lay.batch_axes) * TRAIN_S
+    if lay.strategy != "3d":
+        m //= y
+        kz = z if lay.strategy == "1d" else 1       # the row linears' K
+        return [("wq", m, D, NQ * DH // z, 2 * LAYERS),
+                ("wk,wv", m, D, NKV * DH // z, 2 * 2 * LAYERS),
+                ("wo", m, NQ * DH // kz, D // (z // kz), 2 * LAYERS),
+                ("w_up,w_gate", m, D, FF // z, 2 * 2 * LAYERS),
+                ("w_down", m, FF // kz, D // (z // kz), 2 * LAYERS),
+                ("head", m // 2, D, VOCAB // z, 2 * 2)]
     return [("wq", m, D // z, NQ * DH // y, 2 * LAYERS),
             ("wk,wv", m, D // z, NKV * DH // y, 2 * 2 * LAYERS),
             ("wo", m, NQ * DH // y, D // z, 2 * LAYERS),
@@ -4695,22 +4753,23 @@ def rank_gemms(lname):
             ("head", m // 2, D // z, VOCAB // y, 2 * 2)]
 
 
-def phase_k1_ranks(dev):
+def phase_k1_ranks(dev, layouts=None, tag="2c"):
     """2c: K1 at every local GEMM shape of a (2,2,2) rank and of a dp2 x
-    (2,2,1) rank of tinyllama-1.1b's training step (``rank_gemms``):
-    the tc route, which ``route`` must pick, against the plain version in
-    bf16 with every activation, with and without bias; then timed as tc,
-    the plain version and ``torch.matmul``, each times its launches a
-    step, which sum to the step's K1 launches."""
+    (2,2,1) rank of tinyllama-1.1b's training step (``rank_gemms``; 2b:
+    of a 1d(4) and a 2d(q2) rank, ``layouts=BASE_LAYOUTS``): the tc
+    route, which ``route`` must pick, against the plain version in bf16
+    with every activation, with and without bias; then timed as tc, the
+    plain version and ``torch.matmul``, each times its launches a step,
+    which sum to the step's K1 launches."""
     import torch
     from repro_torch.kernels import matmul as k1
     gen = torch.Generator(device=dev).manual_seed(31)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     seen, out, worst_err = {}, {}, 0.0
-    for lname in RANK_LAYOUTS:
+    for lname in (layouts or RANK_LAYOUTS):
         tot = dict.fromkeys(keys, 0.0)
         launches = 0
-        for name, m, k, n, per in rank_gemms(lname):
+        for name, m, k, n, per in rank_gemms(lname, layouts):
             key = (m, k, n)
             if key not in seen:
                 path = k1.route(m, n, k, torch.bfloat16, True)
@@ -4723,7 +4782,8 @@ def phase_k1_ranks(dev):
                 del x, w, b
                 t = seen[key] = k1_time(k1, dev, gen, m, k, n, 10,
                                         {"ms": path})
-                print(f"[2c] K1 {lname} rank GEMM {name} ({m},{k})@({k},{n})"
+                print(f"[{tag}] K1 {lname} rank GEMM {name} ({m},{k})@"
+                      f"({k},{n})"
                       f" bf16 tc: max rel err {worst:.2e} (tol 1e-02); "
                       f"{t['ms']:.4f} ms ({2 * m * k * n / t['ms'] / 1e9:.1f}"
                       f" TFLOP/s), plain {t['plain_ms']:.4f}, torch.matmul "
@@ -4734,7 +4794,7 @@ def phase_k1_ranks(dev):
             launches += per
         check(launches == TRAIN_LAUNCHES["K1"],
               f"K1 {lname} rank GEMMs: {launches} a step")
-        print(f"[2c] K1 per {lname} rank's training step ({launches} GEMMs,"
+        print(f"[{tag}] K1 per {lname} rank's training step ({launches} GEMMs,"
               f" bf16): kernel {tot['ms']:.2f} ms, torch.matmul "
               f"{tot['library_ms']:.2f} ms "
               f"({tot['ms'] / tot['library_ms']:.2f}x), plain "
@@ -4893,25 +4953,26 @@ K2_RANK_SHAPES = [("tinyllama rank", TRAIN_B // 2, TRAIN_S // 2, TRAIN_S, 0,
                    TRAIN_S // 2, 4, 1, 256)]
 
 
-def phase_k2_ranks(dev):
-    """5c: K2 at the (2,2,2) rank shapes (``K2_RANK_SHAPES``), forward and
-    backward, the route the path takes (tc at d 64, simt at gemma's d
-    256) against the plain version in bf16 (and the simt route in f32 at
-    d 256); then the route's, the plain version's and SDPA's (with the
-    same boolean mask) times beside the bound."""
+def phase_k2_ranks(dev, shapes=None, tag="5c"):
+    """5c: K2 at the (2,2,2) rank shapes (``K2_RANK_SHAPES``; 5b: a 1d(4)
+    rank's, ``K2_BASE_SHAPES``), forward and backward, the route the path
+    takes (tc at d 64, simt at gemma's d 256) against the plain version
+    in bf16 (and the simt route in f32 at d 256); then the route's, the
+    plain version's and SDPA's (with the same boolean mask) times beside
+    the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k2
     gen = torch.Generator(device=dev).manual_seed(35)
     out, worst_err = {}, 0.0
-    for label, b, sq, sk, q0, nq, nkv, d in K2_RANK_SHAPES:
+    for label, b, sq, sk, q0, nq, nkv, d in (shapes or K2_RANK_SHAPES):
         route = "tc" if d == DH else "simt"
         if route == "simt":
             k2_case(k2, dev, gen, b, sq, nq, nkv, 0, torch.float32,
-                    ["simt"], label, d=d, sk=sk, q0=q0, tag="5c")
+                    ["simt"], label, d=d, sk=sk, q0=q0, tag=tag)
         (q, k, v, dout, q_pos, k_pos), (o, lse), worst, norms = k2_case(
             k2, dev, gen, b, sq, nq, nkv, 0, torch.bfloat16, [route], label,
-            d=d, sk=sk, q0=q0, tag="5c")
+            d=d, sk=sk, q0=q0, tag=tag)
         check(k2.route_for(q, k, v, o, dout) == route,
               f"K2 {label}: the bf16 path does not take {route}")
         worst_err = max(worst_err, worst)
@@ -4943,7 +5004,7 @@ def phase_k2_ranks(dev):
         bb, bo = bound_ms(bby, bfl, H100_BF16_FLOPS)
         t.update(fwd_bound_ms=fb, bwd_bound_ms=bb, bound_ms=fb + bb,
                  bound_by=fo if fo == bo else "bytes and operations")
-        print(f"[5c] K2 bf16 {label} ({b},{sq}x{sk} from {q0},{nq}/{nkv},"
+        print(f"[{tag}] K2 bf16 {label} ({b},{sq}x{sk} from {q0},{nq}/{nkv},"
               f"{d}) causal, {route}: forward {t['fwd_ms']:.4f} ms "
               f"({ffl / t['fwd_ms'] / 1e9:.1f} TFLOP/s), backward "
               f"{t['bwd_ms']:.4f} ms ({bfl / t['bwd_ms'] / 1e9:.1f} "
@@ -5009,7 +5070,8 @@ def rank_job(path):
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.launch import ranks
     me = ranks.rank_env()
-    res = {"grads": rank_grads, "train": rank_train}[job["kind"]](job, me)
+    res = {"grads": rank_grads, "train": rank_train,
+           "base": rank_base}[job["kind"]](job, me)
     (Path(job["out"]) / f"rank{me.rank}.json").write_text(json.dumps(res))
     return 0
 
@@ -5135,10 +5197,12 @@ def rank_train(job, me):
     environment names it), the launch counters reset just before and read
     just after."""
     import torch
+    from repro_torch.core import comm
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import matmul as k1
     from repro_torch.launch import train
     reset_launches()
+    comm.reset_bytes()
     res = train.main(job["argv"])
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -5146,35 +5210,45 @@ def rank_train(job, me):
             "k1_routes": dict(k1.launches_by_route),
             "k2_routes": dict(k2.launches_by_route),
             "k2_bwd_routes": dict(k2.launches_bwd_by_route),
+            "bytes": comm.bytes_moved(),
             "losses": res["losses"], "telemetry": res["telemetry"]}
 
 
-def rank_train_launches(lname, layouts=None):
-    """One rank's launches in phase 30's run: tinyllama's step as one rank
-    runs it (``TRAIN_LAUNCHES``), its norms in K3's two phases where out_ax
-    ('z') splits the hidden dim."""
-    per = dict(TRAIN_LAUNCHES)
+def rank_train_launches(lname, layouts=None, layers=LAYERS,
+                        steps=RANK_STEPS):
+    """One rank's launches in phase 30's (33's) run: tinyllama's step at
+    ``layers`` deep as one rank runs it (``step_launches``), its norms in
+    K3's two phases where the hidden dim is split (over out_ax, 'z', at
+    3d; 'z' at 2d; never at 1d)."""
+    from repro_torch.core.linear3d import act_axes
+    from repro_torch.core.topology import entry_dirs
+    per = step_launches(layers)
     fwd, bwd = per["K3"], per["K3 bwd"]
-    split = rank_layout(lname, layouts=layouts).size("z") > 1
+    lay = rank_layout(lname, layouts=layouts)
+    split = lay.size(act_axes(lay, entry_dirs())[1]) > 1
     per.update({"K3": 0 if split else fwd, "K3 bwd": 0 if split else bwd,
                 "K3 moments": fwd if split else 0,
                 "K3 apply": fwd if split else 0,
                 "K3 bwd dot": bwd if split else 0,
                 "K3 bwd apply": bwd if split else 0,
                 "K4": 0, "K4 combine": 0})
-    return {k: RANK_STEPS * n for k, n in per.items()}
+    return {k: steps * n for k, n in per.items()}
 
 
 def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
-                      backend="gloo"):
-    """30: tinyllama-1.1b at full width and depth in bf16, 4 x 2048,
-    remat, AdamW, ``RANK_STEPS`` steps, through ``repro_torch.launch.train``
-    under torchrun on 8 ranks at (2,2,2) and at dp2 x (2,2,1) (or
-    ``nranks`` at ``layouts`` over ``backend``), against the one-rank run
-    of phase 8 (the same seed, data and lr at these steps): each step's
-    loss within 3e-2 (tests/test_multidev.py:92), each rank's K1/K2/K3
-    launches exact, every K1 and K2 launch on the tc route; each rank's
-    step time, tokens/s and peak memory printed."""
+                      backend="gloo", layers=0, tag="30", later_tol=3e-2,
+                      steps=RANK_STEPS):
+    """30: tinyllama-1.1b at full width in bf16 (cut to ``layers`` deep,
+    0: full depth), 4 x 2048, remat, AdamW, ``steps`` steps, through
+    ``repro_torch.launch.train`` under torchrun on 8 ranks at (2,2,2) and
+    at dp2 x (2,2,1) (or ``nranks`` at ``layouts`` over ``backend``;
+    33: at 1d(4) and 2d(q2)), against the one-rank run of the same depth
+    (the same seed, data and lr at these steps): the first loss within
+    3e-2 (tests/test_multidev.py:92), the later ones within ``later_tol``
+    (None: finite only, as the 2-D baseline's gradients carry ROADMAP
+    Queue 3 fault 6), each rank's K1/K2/K3 launches exact, every K1 and
+    K2 launch on the tc route; each rank's step time, tokens/s, peak
+    memory and collective bytes a step (``comm.bytes_moved``)."""
     layouts = layouts or RANK_LAYOUTS
     where = (f"{nranks} ranks sharing {card} (gloo, collectives staged "
              "through the host: no measure of the paper's communication)"
@@ -5186,47 +5260,225 @@ def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
         argv = ["--arch", "tinyllama-1.1b", "--device", RANK_DEVICE,
                 "--backend", backend, *rank_flags(lname, layouts),
                 "--steps",
-                str(RANK_STEPS), "--batch", str(TRAIN_B), "--seq",
+                str(steps), "--batch", str(TRAIN_B), "--seq",
                 str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
-                "--log-every", "1", "--telemetry", str(tel)]
+                "--log-every", "1", "--telemetry", str(tel)] + (
+                    ["--layers", str(layers)] if layers else [])
         t = time.perf_counter()
         res = run_rank_job({"kind": "train", "layout": lname, "argv": argv},
                            torchrun=RANK_DEVICE == "cuda", nranks=nranks)
         wall = time.perf_counter() - t
-        want = rank_train_launches(lname, layouts)
+        want = rank_train_launches(lname, layouts, layers or LAYERS, steps)
         losses = res[0]["losses"]
-        ref = one_rank_losses[:RANK_STEPS]
-        diff = max(abs(a - b) for a, b in zip(losses, ref))
+        ref = one_rank_losses[:steps]
+        diffs = [abs(a - b) for a, b in zip(losses, ref)]
         for r, rr in enumerate(res):
-            check(rr["losses"] == losses, f"30 {lname}: rank {r} losses "
+            check(rr["losses"] == losses, f"{tag} {lname}: rank {r} losses "
                   f"{rr['losses']} != rank 0's {losses}")
-            check(rr["launches"] == want, f"30 {lname} rank {r}: launches "
-                  f"{rr['launches']} != {want}")
+            check(rr["launches"] == want, f"{tag} {lname} rank {r}: "
+                  f"launches {rr['launches']} != {want}")
             check(rr["k1_routes"]["tc"] == want["K1"]
                   and rr["k2_routes"]["tc"] == want["K2"]
                   and rr["k2_bwd_routes"]["tc"] == want["K2 bwd"],
-                  f"30 {lname} rank {r}: routes {rr['k1_routes']} "
+                  f"{tag} {lname} rank {r}: routes {rr['k1_routes']} "
                   f"{rr['k2_routes']} {rr['k2_bwd_routes']}")
         tels = [rr["telemetry"] for rr in res]
         mem = [tl["mem_peak_bytes"] / 2 ** 30 for tl in tels]
-        print(f"[30] {lname}: tinyllama-1.1b full width and depth bf16 "
+        step_bytes = [rr["bytes"]["bytes_per_device"] / steps
+                      for rr in res]
+        depth = f"cut to {layers} layers" if layers else "full depth"
+        print(f"[{tag}] {lname}: tinyllama-1.1b full width, {depth}, bf16 "
               f"{TRAIN_B}x{TRAIN_S}, remat, AdamW on {where}: losses "
               + " ".join(f"{x:.4f}" for x in losses) + " against one "
               "rank's " + " ".join(f"{x:.4f}" for x in ref)
-              + f" (worst {diff:.2e}, tol 3e-2); rank 0's step times "
+              + f" (first {diffs[0]:.2e}, tol 3e-2; later "
+              + (" ".join(f"{x:.2e}" for x in diffs[1:]) + f", tol "
+                 f"{later_tol:.0e}" if later_tol else "finite only")
+              + "); rank 0's step times "
               + " ".join(f"{x:.3f}" for x in tels[0]["series"]["t_step"])
               + f" s (first = warm-up), steady {tels[0]['t_step_s']:.3f} "
               f"s/step, {tels[0]['tokens_per_s']:.0f} tok/s; peak memory "
               f"per rank " + " ".join(f"{x:.2f}" for x in mem)
-              + f" GiB; launches per rank {res[0]['launches']}; "
-              f"{wall:.1f} s")
-        check(diff <= 3e-2, f"30 {lname}: losses {losses} vs {ref}")
+              + " GiB; collective bytes a rank a step (ring model, "
+              f"comm.bytes_moved) {min(step_bytes):.4g}-{max(step_bytes):.4g}"
+              f" ({res[0]['bytes']['counts']} issued by rank 0 in "
+              f"{steps} steps); launches per rank {res[0]['launches']};"
+              f" {wall:.1f} s")
+        check(all(map(math.isfinite, losses)), f"{tag} {lname}: {losses}")
+        check(diffs[0] <= 3e-2, f"{tag} {lname}: first loss {losses} vs "
+              f"{ref}")
+        if later_tol:
+            check(max(diffs) <= later_tol, f"{tag} {lname}: losses {losses}"
+                  f" vs {ref}")
         out[lname] = {"losses": losses, "one_rank_losses": ref,
+                      "layers": layers or LAYERS,
                       "t_step_s": tels[0]["t_step_s"],
                       "t_step": tels[0]["series"]["t_step"],
                       "tokens_per_s": tels[0]["tokens_per_s"],
                       "mem_peak_gib_by_rank": mem, "wall_s": wall,
+                      "bytes_per_rank_step": max(step_bytes),
                       "launches_per_rank": res[0]["launches"]}
+    return out
+
+
+# K2 at a 1d(4) rank's attention (phase 5b): 2 x 2048 rows of 8 of the 32
+# q heads over the one kv head of 4 that is the rank's, no offset (the
+# 2d(q2) rank's shape is 5c's (2,2,2) one: 2 x 1024 rows at both offsets)
+K2_BASE_SHAPES = [("tinyllama 1d rank", TRAIN_B // 2, TRAIN_S, TRAIN_S, 0,
+                   NQ // 4, NKV // 4, DH)]
+# the comm check at the reference's defaults (obs/commcheck.py): paper-
+# transformer, 4 layers, d_ff = d_model, vocab 4096, 12 x 512, bf16
+CC_ARGS = dict(arch="paper-transformer", n_layers=4, d_ff=0, vocab=4096,
+               reduced=False, changes=None)
+CC_BATCH, CC_SEQ = 12, 512
+
+
+def phase_k3_base(dev):
+    """4b: K3 in one phase at a 1d(4) rank's norm, whole rows of 2048 for
+    the rank's 2 x 2048 tokens (the 2d(q2) rank's two phases are 4c's),
+    against the plain version, then timed as phase 4 times it."""
+    import torch
+    from repro_torch.kernels import rmsnorm as k3
+    gen = torch.Generator(device=dev).manual_seed(37)
+    m = TRAIN_B // 2 * TRAIN_S
+    (x, g, dy), rstd, worst, norms = k3_case(k3, dev, gen, m, D,
+                                             torch.bfloat16, False, "[4b]")
+    return {f"{m}x{D}": k3_times(k3, x, g, dy, rstd, norms, worst, "4b")}
+
+
+def rank_base(job, me):
+    """Phase 31's rank: the f32 two-layer model's loss and gradient shards
+    at 1d(4) and 2d(q2) (the train step's leaf sync included), launches
+    and collective bytes counted; 1d's shards held to the one-rank run's
+    blocks, 2d's to the same layout's run on the CPU in the same world
+    (the plain versions); then the comm check's 8-rank plans (1d, 3d) at
+    the reference's defaults."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import comm
+    from repro_torch.core.params import (init_params, shard, tree_leaves,
+                                         tree_map)
+    from repro_torch.core.topology import make_layout
+    from repro_torch.data.pipeline import shard_batch, to_device
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer
+    from repro_torch.obs import commcheck
+    from repro_torch.train.step import loss_and_grads
+    dev = ranks.device_for(me, job["device"])
+    ranks.init_world(me, "gloo", dev)
+    torch.set_num_threads(1)
+    cfg = r29_cfg()
+    ref = torch.load(job["ref"], mmap=True)
+    out = {}
+    for lname in BASE_LAYOUTS:
+        lay = comm.init(rank_layout(lname, me.rank, BASE_LAYOUTS), "gloo")
+        abstract = transformer.abstract_params(cfg, lay)
+        params = init_params(abstract, torch.Generator(
+            device=dev).manual_seed(R29_SEED), dev, torch.float32, layout=lay)
+        host = shard_batch(r29_batch(cfg.vocab), lay)
+        reset_launches()
+        comm.reset_bytes()
+        loss, _, grads = loss_and_grads(cfg, lay, params,
+                                        to_device(host, dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        res = {"loss": loss.item(), "ref_loss": ref["loss"],
+               "launches": dict(read_launches(), **read_split_launches()),
+               "bytes": comm.bytes_moved()}
+        names = ["/".join(p) for p in _paths(params)]
+        if lname == "1d":
+            res["errs"] = {n: leaf_err(g, shard(ref["grads"][n], p.spec,
+                                                lay).to(dev))
+                           for n, g, p in zip(names, grads,
+                                              tree_leaves(abstract))}
+        else:
+            cpu_loss, _, cpu_grads = loss_and_grads(
+                cfg, lay, tree_map(lambda t: t.cpu(), params),
+                to_device(host, "cpu"))
+            res["cpu_loss"] = cpu_loss.item()
+            res["errs"] = {n: leaf_err(g.cpu(), c)
+                           for n, g, c in zip(names, grads, cpu_grads)}
+        out[lname] = res
+        del params, grads
+    ccfg = commcheck.plan_config(**CC_ARGS)
+    for strat in ("1d", "3d"):
+        lay = comm.init(make_layout(1, 1, RANKS, strat, rank=me.rank), "gloo")
+        out["cc_" + strat] = dict(commcheck.measure(ccfg, lay, CC_BATCH,
+                                                    CC_SEQ, dev),
+                                  cube=list(lay.cube))
+    dist.destroy_process_group()
+    return out
+
+
+def phase_base_grads(dev):
+    """31: the paper's baselines on 8 ranks sharing the card over gloo:
+    tinyllama-1.1b cut to 2 layers at full width, f32, 4 x 512 (phase
+    29's model, data and one-rank gradients), one forward and backward at
+    1d(4) and 2d(q2): the loss within 1e-4 of one rank's at both; every
+    gradient shard within 1e-4 of its leaf's max against one rank's at
+    1d, and at 2d against the same layout on the CPU ranks of this
+    machine (the plain versions), since neither package's 2-D gradient is
+    one rank's (ROADMAP.md Queue 3, fault 6); K1, K2 and K3 (two phases
+    at 2d) launched on every rank.  32: the comm check at the reference's
+    defaults: the 1d and 3d plans of 8 ranks measured in 31's world, the
+    2d plan of 4 ranks under torchrun (``commcheck.check``); measured and
+    analytic bytes per plan, and the measured ordering 3d < 2d < 1d."""
+    from repro_torch.obs import commcheck
+    ref = ROOT / "build" / "chip_smoke_ranks" / "ref29.pt"
+    t = time.perf_counter()
+    res = run_rank_job({"kind": "base", "layout": "1d_2d",
+                        "device": RANK_DEVICE, "ref": str(ref)})
+    wall = time.perf_counter() - t
+    out = {}
+    for lname in BASE_LAYOUTS:
+        rs = [r[lname] for r in res]
+        worst = max(max(r["errs"].values()) for r in rs)
+        dl = max(abs(r["loss"] - r["ref_loss"]) for r in rs)
+        split = lname == "2d"
+        against = ("one rank's" if lname == "1d" else
+                   "the same layout's on the CPU ranks (plain versions)")
+        print(f"[31] {lname} ({RANKS} ranks on one card, gloo through the "
+              f"host) f32 2-layer tinyllama {R29_B}x{R29_S}: loss "
+              f"{rs[0]['loss']:.6f} against one rank's "
+              f"{rs[0]['ref_loss']:.6f} (worst rank {dl:.2e}, tol 1e-4)"
+              + (f", the CPU ranks' {rs[0]['cpu_loss']:.6f}" if split
+                 else "")
+              + f"; worst gradient shard error {worst:.2e} of its leaf's "
+              f"max against {against} over {len(rs[0]['errs'])} leaves x "
+              f"{RANKS} ranks (tol 1e-4); rank 0's launches "
+              f"{rs[0]['launches']}; its collective bytes (ring model) "
+              f"{rs[0]['bytes']['bytes_per_device']:.4g} "
+              f"{rs[0]['bytes']['counts']}")
+        check(dl <= 1e-4, f"31 {lname}: loss {dl}")
+        check(worst <= 1e-4, f"31 {lname}: gradient shards {worst}")
+        for r, rr in enumerate(rs):
+            la = rr["launches"]
+            norms = la["K3 moments"] if split else la["K3"]
+            check(la["K1"] > 0 and la["K2"] > 0 and la["K2 bwd"] > 0
+                  and norms > 0, f"31 {lname} rank {r}: launches {la}")
+        out[lname] = {"loss_err": dl, "grad_err": worst}
+    out["wall_s"] = wall
+    cfg = commcheck.plan_config(**CC_ARGS)
+    plans = {}
+    for strat in ("1d", "3d"):
+        top = max(range(RANKS),
+                  key=lambda r: res[r]["cc_" + strat]["bytes_per_device"])
+        plans[strat] = commcheck.plan_report(
+            cfg, strat, dict(res[top]["cc_" + strat], rank=top,
+                             n_model=RANKS), CC_BATCH, CC_SEQ)
+    t = time.perf_counter()
+    two = commcheck.check(
+        CC_ARGS["arch"], CC_BATCH, CC_SEQ, CC_ARGS["n_layers"],
+        CC_ARGS["d_ff"], CC_ARGS["vocab"], {"2d": commcheck.PLANS["2d"]},
+        device=RANK_DEVICE, host_devices=commcheck.PLANS["2d"],
+        reduced=CC_ARGS["reduced"], changes=CC_ARGS["changes"])
+    plans["2d"] = two["plans"]["2d"]
+    rep = commcheck.report(cfg, CC_BATCH, CC_SEQ, RANK_DEVICE, plans)
+    print("[32] " + commcheck.format_report(rep).replace("\n", "\n[32] ")
+          + f" ({time.perf_counter() - t:.1f} s for the 2d plan's world)")
+    check(rep["ordering_measured_3d_2d_1d"],
+          f"32: measured ordering violated {plans}")
+    out["commcheck"] = rep
     return out
 
 
@@ -5274,17 +5526,25 @@ def main():
     k1_numbers["decode"]["decode_max_m_measured"] = timed(
         phase_k1_threshold, dev)
     k1_ranks, k1_ranks_err = timed(phase_k1_ranks, dev)
+    k1_base, k1_base_err = timed(phase_k1_ranks, dev, BASE_LAYOUTS, "2b")
+    k1_ranks.update(k1_base)
+    k1_ranks_err = max(k1_ranks_err, k1_base_err)
     k4_numbers = timed(phase_k4, dev)
     k4_numbers["shapes"].update(timed(phase_k4_latent, dev))
     k4_numbers["shapes"].update(timed(phase_k4_cross, dev))
     k3_numbers = timed(phase_k3, dev)
     k3_numbers["two_phase"] = timed(phase_k3_split, dev)
+    k3_numbers["shapes"].update(timed(phase_k3_base, dev))
     k2_numbers = timed(phase_k2, dev)
     k2_numbers["shapes"]["mla"] = timed(phase_k2_mla, dev)
     k2_numbers["shapes"].update(timed(phase_k2_whisper, dev))
     k2_rank_shapes, k2_ranks_err = timed(phase_k2_ranks, dev)
     k2_numbers["shapes"].update(k2_rank_shapes)
-    k2_numbers["max_abs_err"] = max(k2_numbers["max_abs_err"], k2_ranks_err)
+    k2_base_shapes, k2_base_err = timed(phase_k2_ranks, dev, K2_BASE_SHAPES,
+                                        "5b")
+    k2_numbers["shapes"].update(k2_base_shapes)
+    k2_numbers["max_abs_err"] = max(k2_numbers["max_abs_err"], k2_ranks_err,
+                                    k2_base_err)
     timed(phase_two_layer, dev)
     timed(phase_two_layer, dev, "bfloat16")
     timed(phase_two_layer_train, dev)
@@ -5423,12 +5683,30 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ranks_numbers = {"grads_f32": timed(phase_ranks_grads, dev)}
-    ranks_numbers["train"] = timed(phase_ranks_train, card,
-                                   train_tel["series"]["loss"])
+    # the one-rank run that phases 30 and 33 are held to: phase 8's path
+    # cut to their depth
+    cut_launches, _, _, cut_tel = timed(
+        phase_train, card, steps=RANK_STEPS,
+        per_step=step_launches(RANK_TRAIN_LAYERS), tag="30r",
+        layers=RANK_TRAIN_LAYERS)
+    cut_losses = cut_tel["series"]["loss"]
+    ranks_numbers["train"] = timed(phase_ranks_train, card, cut_losses,
+                                   layers=RANK_TRAIN_LAYERS)
+    base_numbers = {"grads_f32": timed(phase_base_grads, dev)}
+    base_numbers["train"] = timed(
+        phase_ranks_train, card, cut_losses, {"1d": BASE_LAYOUTS["1d"]},
+        layers=RANK_TRAIN_LAYERS, tag="33", later_tol=1e-2,
+        steps=BASE_STEPS)
+    base_numbers["train"].update(timed(
+        phase_ranks_train, card, cut_losses, {"2d": BASE_LAYOUTS["2d"]},
+        layers=RANK_TRAIN_LAYERS, tag="33", later_tol=None,
+        steps=BASE_STEPS))
     # each layout's launches over its 8 ranks: every rank runs the same
     rank_paths = {f"train_ranks_{lname}": {
         k: RANKS * n for k, n in v["launches_per_rank"].items()}
-        for lname, v in ranks_numbers["train"].items()}
+        for lname, v in (*ranks_numbers["train"].items(),
+                         *base_numbers["train"].items())}
+    rank_paths["train_cut"] = cut_launches
 
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
@@ -5556,7 +5834,8 @@ def main():
                                                   "mixtral", "moonlight",
                                                   "deepseek", "whisper",
                                                   "internvl2", "rank_cube",
-                                                  "rank_dp2")
+                                                  "rank_dp2", "rank_1d",
+                                                  "rank_2d")
                  for k in ("ms", "simt_ms", "plain_ms", "library_ms",
                            "bound_ms"))
     print("serving paths: " + json.dumps({
@@ -5569,6 +5848,8 @@ def main():
     print("modality families: " + json.dumps(modality_numbers))
     print("3-D cube across ranks (8 ranks on one card, gloo through the "
           "host): " + json.dumps(ranks_numbers))
+    print("1-D and 2-D baselines across ranks (8 ranks on one card, gloo "
+          "through the host) and the comm check: " + json.dumps(base_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

@@ -32,6 +32,15 @@ identically (the loss and the vocab-parallel softmax's sums) has the
 identity, since each rank already seeds the gradient of the whole; and a
 replicated tensor that each rank reads in its own way (the kv heads that
 the attention island slices) sums its gradient.
+
+Every collective issued adds the bytes that the ring model says it moves
+per device, by kind, to a counter (the reference's
+``launch/hlo_cost.py:230-239``, n the group's size): an all-gather
+out·(n−1)/n, an all-reduce 2·bytes·(n−1)/n, a reduce-scatter out·(n−1)
+with out the scattered shard, all in the tensor's dtype.  The host
+staging of a shared card is not counted; a collective over axes of size
+1 issues nothing and counts nothing.  ``bytes_moved`` reads the counter
+and ``reset_bytes`` zeroes it (``obs/commcheck.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +51,30 @@ from typing import Dict, FrozenSet, List, Tuple
 import torch
 
 from .topology import AXES, Layout
+
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+# ring-model bytes per device and collectives issued since the last reset
+_moved = dict.fromkeys(KINDS, 0.0)
+_counts = dict.fromkeys(KINDS, 0)
+
+
+def _count(kind: str, nbytes: float) -> None:
+    _moved[kind] += nbytes
+    _counts[kind] += 1
+
+
+def bytes_moved() -> dict:
+    """{"bytes_per_device", "by_kind", "counts"}: the ring-model bytes this
+    rank's collectives moved since the last ``reset_bytes``, in all and by
+    kind, and how many of each it issued."""
+    return {"bytes_per_device": sum(_moved.values()),
+            "by_kind": dict(_moved), "counts": dict(_counts)}
+
+
+def reset_bytes() -> None:
+    for k in KINDS:
+        _moved[k], _counts[k] = 0.0, 0
 
 
 def _axes(ax) -> Tuple[str, ...]:
@@ -160,6 +193,7 @@ def all_gather(layout: Layout, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
     dist.all_gather_into_tensor(out, src, group=group)
+    _count("all-gather", out.nbytes * (n - 1) / n)
     if perm is not None:
         blocks = out.chunk(n)
         out = torch.cat([blocks[p] for p in perm])
@@ -191,6 +225,7 @@ def psum_scatter(layout: Layout, x: torch.Tensor, axis,
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
     dist.reduce_scatter_tensor(out, src, group=group)
+    _count("reduce-scatter", out.nbytes * (n - 1))
     return out.to(x.device).movedim(0, dim)
 
 
@@ -204,6 +239,8 @@ def _all_reduce(layout: Layout, x: torch.Tensor, axis, op) -> torch.Tensor:
     if buf is x:
         buf = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(buf, op=getattr(dist.ReduceOp, op), group=group)
+    n = layout.size(axes)
+    _count("all-reduce", 2 * buf.nbytes * (n - 1) / n)
     return buf.to(x.device)
 
 

@@ -36,6 +36,11 @@ class Param:
     # axis itself (a 3-D island's weight, the embedding table); the train
     # step sums the others' over the axes their spec leaves out
     synced: bool = False
+    # model axes over which the activations that read the leaf are
+    # replicated (the 1-D baseline's residual stream over 'z'): every rank
+    # there already holds the leaf's whole gradient, so the train step
+    # does not sum over them
+    act_rep: Tuple[str, ...] = ()
 
 
 def spec_axes(spec) -> Tuple[str, ...]:

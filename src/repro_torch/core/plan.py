@@ -6,8 +6,9 @@
 the layout's process groups, one for every set of its axes of size > 1
 (``comm.Groups``).  Plans validate as the reference's do, for
 ``mode="train"`` and ``mode="serve"``.  Above one device ``build`` takes
-the 3-D strategy at pp = 1, and ``validate`` refuses serving (decode's
-psum-combined residuals, ROADMAP.md Queue 1 item 3); ``multi_rank_refusal``
+each strategy (3d, 2d, 1d) at pp = 1, and ``validate`` refuses serving
+(decode's psum-combined residuals, ROADMAP.md Queue 1 item 3);
+``multi_rank_refusal``
 names what else the port refuses above one device.  Optimizer-state
 partitioning (``zero_stage``) and async-TP overlap are not carried yet;
 the train launcher refuses their flags.
@@ -27,20 +28,17 @@ MULTI_RANK_TODO = ("above one rank the port trains the dense family only; "
                    "item 3)")
 
 
-def multi_rank_refusal(n_devices: int, *, n_stages: int = 1,
-                       strategy: str = "3d", cfg=None,
+def multi_rank_refusal(n_devices: int, *, n_stages: int = 1, cfg=None,
                        mode: str = "train"):
     """What the port refuses of a plan of ``n_devices`` devices, or None:
-    pp > 1 (item 7), the 1-D/2-D baselines (item 4), serving and every
-    family but the dense one above one device (item 3)."""
+    pp > 1 (item 7), serving and every family but the dense one above one
+    device (item 3).  The dense family trains on every strategy: the 3-D
+    cube and the 1-D and 2-D baselines."""
     if n_devices == 1:
         return None
     if n_stages > 1:
         return (f"pp={n_stages}: pipeline stages are not ported yet "
                 "(ROADMAP.md, Queue 1 item 7)")
-    if strategy != "3d":
-        return (f"strategy {strategy!r} above one device: the 1-D and 2-D "
-                "baselines are not ported yet (ROADMAP.md, Queue 1 item 4)")
     if mode != "train":
         return ("multi-rank serving (decode's psum-combined residuals) is "
                 "not ported yet: serve on one device (ROADMAP.md, Queue 1 "
@@ -131,10 +129,9 @@ class ParallelPlan:
 
     def build(self, rank: int = 0) -> Layout:
         """Rank ``rank``'s Layout (reference ``ParallelPlan.build``, with
-        the rank in place of the device list).  Above one device: the 3-D
-        strategy at pp = 1 only."""
-        err = multi_rank_refusal(self.n_devices, n_stages=self.n_stages,
-                                 strategy=self.strategy)
+        the rank in place of the device list).  Above one device: pp = 1
+        only."""
+        err = multi_rank_refusal(self.n_devices, n_stages=self.n_stages)
         if err:
             raise NotImplementedError(err)
         return make_layout(self.n_pod, self.n_dp, self.n_model,

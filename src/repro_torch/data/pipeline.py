@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, ShapeConfig
+from ..core.linear3d import act_axes, out_axes
 from ..core.params import shard
 from ..core.topology import Layout, entry_dirs
 from ..models.registry import get_stack
@@ -57,14 +58,17 @@ def to_device(batch: dict, device) -> dict:
 def shard_batch(batch: dict, layout: Layout) -> dict:
     """This rank's shard of a global host batch: the batch dim of every
     array over ``layout.batch_axes``; the tokens' sequence over
-    ``seq_axes`` and the entry directions' in_ax, the labels' over
-    ``seq_axes`` and out_ax, the layout of the head's logits
-    (``transformer.chunked_head_loss``).  At one device the batch itself.
-    The modality stubs have no multi-rank layout in the port yet."""
+    ``seq_axes`` and the entry layout's sequence axis (``act_axes``: 3d
+    in_ax, 2d 'y', 1d none), the labels' over ``seq_axes`` and the
+    logits' (``out_axes``: 3d out_ax, 2d 'y', 1d none), the layout of
+    the head's logits (``transformer.chunked_head_loss``).  At one
+    device the batch itself.  The modality stubs have no multi-rank
+    layout in the port yet."""
     if layout.n_devices == 1:
         return batch
     dirs = entry_dirs()
-    seq = {"tokens": dirs.in_ax, "labels": dirs.out_ax}
+    seq = {"tokens": act_axes(layout, dirs)[0],
+           "labels": out_axes(layout, dirs)[0]}
     bad = set(batch) - set(seq)
     if bad:
         raise NotImplementedError(

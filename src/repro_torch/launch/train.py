@@ -10,7 +10,8 @@ device, the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW: dense, MoE
 (zamba2), SSM (xlstm), VLM (internvl2: its ``--seq`` counts the
 ``n_vision_tokens`` patches ahead of the text, as the reference's does)
 and audio (whisper: ``--seq`` text tokens beside the encoder's frames).
-The dense family also trains above one device, on the 3-D cube with data
+The dense family also trains above one device, on the 3-D cube or the
+paper's 1-D (Megatron) and 2-D (SUMMA) baselines (``--strategy``) with data
 parallelism (``--dp``, ``--model``, ``--cube``), one rank a device:
 
   * ``--host-devices N`` spawns N local ranks (the JAX launcher's flag,
@@ -24,9 +25,9 @@ The backend defaults to gloo for CPU ranks and NCCL for CUDA ranks, and is
 never switched: NCCL with more ranks than cards raises, and ranks that
 share a card take ``--backend gloo``, whose collectives go through the
 host.  Only rank 0 prints; MFU divides by the peak of the world's cards.
-The flags of what the port does not carry (pp > 1, the 1-D/2-D
-baselines, overlap, ZeRO, Adafactor, the other families and checkpoints
-above one device) raise with a pointer to ROADMAP.md.
+The flags of what the port does not carry (pp > 1, overlap, ZeRO,
+Adafactor, the other families and checkpoints above one device) raise
+with a pointer to ROADMAP.md.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
 and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
 many leading layers are dense and ``--experts`` cuts the routed experts, so
@@ -63,11 +64,8 @@ def _refuse(args, cfg):
     bad = []
     if args.pp > 1:
         bad.append(f"--pp {args.pp} (pipeline stages, item 7)")
-    if args.strategy != "3d":
-        bad.append(f"--strategy {args.strategy} (the 1-D/2-D baselines, "
-                   "item 4)")
     n = args.dp * args.model
-    if n > 1 and args.pp == 1 and args.strategy == "3d":
+    if n > 1 and args.pp == 1:
         err = multi_rank_refusal(n, cfg=cfg)
         if err:
             bad.append(err)

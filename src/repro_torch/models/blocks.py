@@ -1,18 +1,21 @@
 """Attention + MLP blocks of the dense family (port of
-``repro/models/blocks.py``), written over the 3-D linears of
+``repro/models/blocks.py``), written over the linears of
 ``core/linear3d.py``.
 
-Layouts inside a block (entry dirs (in_ax=y, out_ax=z)):
+Layouts inside a block (3-D strategy, entry dirs (in_ax=y, out_ax=z)):
 
     x          (B, S, H)      split (batch, y, z)
     q/k/v      (B, S, n, d)   split (batch, z, y, -)   after the qkv linear
     out proj                  back to (batch, y, z)
 
 Every block holds an even number of 3-D linears, so the direction state is
-restored at block exit (paper §3.2).  Tensors are each rank's local
-shards; the collectives go through ``core/comm.py``.  Training and
-prefill (``attention``) run on any 3-D layout; the decode and extend
-paths, and the other families' blocks, on one device.
+restored at block exit (paper §3.2).  At the 2-D baseline x is split
+(batch, y, z) and q/k/v (batch, y, z, -); at the 1-D one x is whole and
+q/k/v's heads split over z (``linear3d.act_axes``, ``out_axes``).
+Tensors are each rank's local shards; the collectives go through
+``core/comm.py``.  Training and prefill (``attention``) run on any
+layout of the three strategies; the decode and extend paths, and the
+other families' blocks, on one device.
 
 Five attention paths: ``attention`` (prefill and training, K2; the
 encoder's and the cross attention's non-causal form too),
@@ -34,8 +37,8 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..core import comm
-from ..core.linear3d import (layernorm, norm_param, plinear, rmsnorm,
-                             weight_param)
+from ..core.linear3d import (act_axes, layernorm, norm_param, out_axes,
+                             plinear, rmsnorm, weight_param)
 from ..core.params import Param
 from ..core.topology import Dirs, Layout, entry_dirs
 from ..kernels.flash_attention import flash_attention
@@ -46,49 +49,53 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def norm_params(cfg: ModelConfig, d: int):
-    """A norm at the block's entry, split over its out_ax (reference
+def norm_params(cfg: ModelConfig, d: int, strategy: str = "3d"):
+    """A norm at the block's entry, split like its hidden dim (reference
     ``blocks.py:make_norm_params``)."""
-    p = {"g": norm_param(entry_dirs(), d)}
+    p = {"g": norm_param(entry_dirs(), d, strategy=strategy)}
     if cfg.norm == "layernorm":
-        p["b"] = norm_param(entry_dirs(), d, init="zeros")
+        p["b"] = norm_param(entry_dirs(), d, init="zeros", strategy=strategy)
     return p
 
 
 def kv_sharded(layout: Layout, cfg: ModelConfig, dirs: Dirs) -> bool:
-    """True when the kv heads split over the head axis (in_ax after the
-    qkv linear); else they are replicated over it (reference
-    ``blocks.py:144``; gemma-2b's one kv head)."""
-    hx = layout.size(dirs.in_ax)
+    """True when the kv heads split over the head axis (``out_axes``: in_ax
+    after a 3-D qkv linear, 'z' at 1d and 2d); else they are replicated
+    over it (reference ``blocks.py:144``; gemma-2b's one kv head)."""
+    hx = layout.size(out_axes(layout, dirs)[1])
     return cfg.n_kv % hx == 0 and cfg.n_kv >= hx
 
 
 def attn_params(cfg: ModelConfig, layout: Layout = None):
     """One attention sub-block with the reference's specs (reference
-    ``blocks.py:578-591``): wk and wv keep their features whole where the
-    kv heads are replicated over the head axis."""
+    ``blocks.py:578-591``) for ``layout``'s strategy (None: one device):
+    wk and wv keep their features whole where the kv heads are replicated
+    over the head axis."""
     d, nh, nkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     dirs = entry_dirs()
+    st = "3d" if layout is None else layout.strategy
     kv_sf = layout is None or kv_sharded(layout, cfg, dirs)
-    attn = {"wq": weight_param(dirs, d, nh * dh),
-            "wk": weight_param(dirs, d, nkv * dh, shard_f=kv_sf),
-            "wv": weight_param(dirs, d, nkv * dh, shard_f=kv_sf),
-            "wo": weight_param(dirs.swap(), nh * dh, d)}
+    attn = {"wq": weight_param(dirs, d, nh * dh, strategy=st),
+            "wk": weight_param(dirs, d, nkv * dh, shard_f=kv_sf, strategy=st),
+            "wv": weight_param(dirs, d, nkv * dh, shard_f=kv_sf, strategy=st),
+            "wo": weight_param(dirs.swap(), nh * dh, d, kind="second",
+                               strategy=st)}
     if cfg.qk_norm:
         attn["q_norm"] = Param((dh,), init="ones", spec=(None,))
         attn["k_norm"] = Param((dh,), init="ones", spec=(None,))
     return attn
 
 
-def mlp_params(cfg: ModelConfig, d_ff: int = 0):
+def mlp_params(cfg: ModelConfig, d_ff: int = 0, strategy: str = "3d"):
     """One MLP of width ``d_ff or cfg.d_ff`` (reference
     ``blocks.py:594-600``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
     dirs = entry_dirs()
-    mlp = {"w_up": weight_param(dirs, d, f),
-           "w_down": weight_param(dirs.swap(), f, d)}
+    mlp = {"w_up": weight_param(dirs, d, f, strategy=strategy),
+           "w_down": weight_param(dirs.swap(), f, d, kind="second",
+                                  strategy=strategy)}
     if cfg.act in ("silu", "gelu"):
-        mlp["w_gate"] = weight_param(dirs, d, f)
+        mlp["w_gate"] = weight_param(dirs, d, f, strategy=strategy)
     return mlp
 
 
@@ -97,11 +104,12 @@ def dense_block_params(cfg: ModelConfig, d_ff: int = 0,
     """One dense attention + MLP block (reference
     ``blocks.py:dense_block_params``); ``d_ff`` overrides the MLP's width,
     as the MoE family's leading dense layers take ``moe.dense_ff``
-    (reference ``registry.py:281-283``).  ``layout`` sets the kv
-    projections' specs (None: one device)."""
+    (reference ``registry.py:281-283``).  ``layout`` sets the specs by its
+    strategy and the kv projections' (None: one device)."""
     d = cfg.d_model
-    return {"ln1": norm_params(cfg, d), "attn": attn_params(cfg, layout),
-            "ln2": norm_params(cfg, d), "mlp": mlp_params(cfg, d_ff)}
+    st = "3d" if layout is None else layout.strategy
+    return {"ln1": norm_params(cfg, d, st), "attn": attn_params(cfg, layout),
+            "ln2": norm_params(cfg, d, st), "mlp": mlp_params(cfg, d_ff, st)}
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, length: int):
@@ -137,9 +145,10 @@ def apply_rope(x, positions, base: float):
 # ---------------------------------------------------------------------------
 def gather_axes(layout: Layout, dirs: Dirs):
     """The axes that split the post-qkv sequence, which the attention
-    island gathers k/v over: ``seq_axes`` then out_ax, those above size 1
+    island gathers k/v over: ``seq_axes`` then the sequence axis of
+    ``out_axes`` (3d out_ax, 2d 'y', 1d none), those above size 1
     (reference ``blocks.py:_gather_axes``)."""
-    return layout.live((*layout.seq_axes, dirs.out_ax))
+    return layout.live((*layout.seq_axes, out_axes(layout, dirs)[0]))
 
 
 def seq_offset(layout: Layout, dirs: Dirs, s: int) -> int:
@@ -162,7 +171,8 @@ def attention(layout: Layout, cfg: ModelConfig, dirs: Dirs, q, k, v,
               *, causal=True, window=0):
     """Prefill and training attention island (reference
     ``blocks.py:131-195``).  q/k/v: (B, S, n, d) in the post-qkv layout,
-    sequence split over ``gather_axes``, heads over in_ax.  The island
+    sequence split over ``gather_axes``, heads over the head axis of
+    ``out_axes`` (3d in_ax, 1d and 2d 'z').  The island
     all-gathers k/v along the sequence split (its backward
     reduce-scatters their gradients) and runs K2
     (``kernels/flash_attention.py``), whose backward is a kernel too, on
@@ -170,20 +180,21 @@ def attention(layout: Layout, cfg: ModelConfig, dirs: Dirs, q, k, v,
     replicated over the head axis, each rank slices the kv groups its q
     heads read."""
     gax = gather_axes(layout, dirs)
-    hx = layout.size(dirs.in_ax)
+    hax = out_axes(layout, dirs)[1]
+    hx = layout.size(hax)
     sliced = hx > 1 and not kv_sharded(layout, cfg, dirs)
     if sliced:
         # replicated over the head axis, each rank reading its own kv
         # groups: their gradients sum there, before the wk/wv transpose,
         # as the reference's shard_map sums a replicated input's
-        k = comm.grad_psum(layout, k, dirs.in_ax)
-        v = comm.grad_psum(layout, v, dirs.in_ax)
+        k = comm.grad_psum(layout, k, hax)
+        v = comm.grad_psum(layout, v, hax)
     k = comm.all_gather_ad(layout, k, gax, dim=1)
     v = comm.all_gather_ad(layout, v, gax, dim=1)
     if sliced:
         group = cfg.n_heads // cfg.n_kv
         nloc = cfg.n_heads // hx
-        kv0 = (comm.axis_index(layout, dirs.in_ax) * nloc) // group
+        kv0 = (comm.axis_index(layout, hax) * nloc) // group
         nkv_loc = max(1, nloc // group)
         k = k[:, :, kv0:kv0 + nkv_loc]
         v = v[:, :, kv0:kv0 + nkv_loc]
@@ -430,9 +441,10 @@ def mlp_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
 
 def apply_norm(cfg: ModelConfig, x, p, layout: Layout = None,
                dirs: Dirs = None):
-    """The config's norm over the hidden dim, which ``dirs.out_ax`` of
-    ``layout`` splits where given (the norm then runs in two phases)."""
-    ax = None if dirs is None else dirs.out_ax
+    """The config's norm over the hidden dim, which the hidden axis of
+    ``act_axes`` splits where ``dirs`` is given (3d out_ax, 2d 'z': the
+    norm then runs in two phases; 1d none: whole rows)."""
+    ax = None if dirs is None else act_axes(layout, dirs)[1]
     if cfg.norm == "layernorm":
         return layernorm(x, p["g"], p["b"], layout=layout, axis=ax)
     return rmsnorm(x, p["g"], zero_centered=cfg.zero_centered_norm,

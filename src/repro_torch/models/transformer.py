@@ -62,8 +62,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Family, ModelConfig
-from ..core.linear3d import (cross_entropy_sums, embed_lookup, embed_param,
-                             plinear, weight_param)
+from ..core.linear3d import (act_axes, cross_entropy_sums, embed_lookup,
+                             embed_param, out_axes, plinear, weight_param)
 from ..core.params import Param, stack_tree, tree_map, unstack
 from ..core.topology import Dirs, Layout, entry_dirs
 from ..core import comm, ops3d
@@ -111,7 +111,8 @@ def abstract_params(cfg: ModelConfig, layout: Layout = None):
     plan = layer_plan(cfg)
     d = cfg.d_model
     dirs = entry_dirs()
-    tree = {"embed": embed_param(dirs, cfg.vocab, d)}
+    st = "3d" if layout is None else layout.strategy
+    tree = {"embed": embed_param(dirs, cfg.vocab, d, strategy=st)}
     tree.update(get_stack(cfg.family).frontend_params(cfg))
     if "attn" in plan:
         tree["shared"] = {"attn": B.dense_block_params(cfg)}
@@ -119,8 +120,8 @@ def abstract_params(cfg: ModelConfig, layout: Layout = None):
         kind: stack_tree(fn(cfg, layout) if kind == "dense" else fn(cfg),
                          plan.count(kind))
         for kind, fn in STACKED_KINDS.items() if kind in plan}
-    tree["ln_f"] = B.norm_params(cfg, d)
-    tree["head"] = weight_param(dirs, d, cfg.vocab)
+    tree["ln_f"] = B.norm_params(cfg, d, st)
+    tree["head"] = weight_param(dirs, d, cfg.vocab, strategy=st)
     if cfg.mtp:
         # reference transformer.py:71-79: the proj is a noswap linear
         tree["mtp"] = {
@@ -279,8 +280,10 @@ def head_loss_chunks(cfg: ModelConfig, layout: Layout, S: int) -> int:
 
 def loss_axes(layout: Layout, dirs: Dirs):
     """The axes over which the head's logits split the tokens: the batch
-    axes, ``seq_axes`` and out_ax (``linear3d.logits_spec``)."""
-    return layout.live((*layout.batch_axes, *layout.seq_axes, dirs.out_ax))
+    axes, ``seq_axes`` and the sequence axis of ``out_axes`` (3d out_ax,
+    2d 'y', 1d none; the reference's ``linear3d.logits_spec``)."""
+    return layout.live((*layout.batch_axes, *layout.seq_axes,
+                        out_axes(layout, dirs)[0]))
 
 
 def chunked_head_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, x,
@@ -290,20 +293,22 @@ def chunked_head_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, x,
     ``transformer.py:257-291``): tokens go to chunk ``position % K``; the
     running max is detached, as ``stop_gradient`` is there.
 
-    ``x`` is the rank's shard in the entry layout (batch, sequence over
-    ``seq_axes`` and in_ax, hidden over out_ax); ``labels`` and ``mask``
-    are the rank's shard in the logits' layout (batch, sequence over
-    ``seq_axes`` and out_ax), which the head's 3-D linear produces, with
-    the vocab over in_ax.  Since K divides each rank's sequence block,
-    chunk i of a block is the block's part of global chunk i.  The loss is
-    the token mean, its two sums over ``loss_axes``."""
+    ``x`` is the rank's shard in the entry layout (``act_axes``: 3d the
+    sequence over ``seq_axes`` and in_ax, the hidden over out_ax);
+    ``labels`` and ``mask`` are the rank's shard in the logits' layout
+    (``out_axes``: 3d the sequence over ``seq_axes`` and out_ax, the vocab
+    over in_ax; 2d 'y' and 'z'; 1d the vocab over 'z'), which the head's
+    linear produces.  Since K divides each rank's sequence block, chunk i
+    of a block is the block's part of global chunk i.  The loss is the
+    token mean, its two sums over ``loss_axes``."""
+    seq_ax, vocab_ax = out_axes(layout, dirs)
     B_, S_loc = labels.shape
-    S = S_loc * layout.size((*layout.seq_axes, dirs.out_ax))
+    S = S_loc * layout.size((*layout.seq_axes, seq_ax))
     K = head_loss_chunks(cfg, layout, S)
 
     def chunk(x_c, lab_c, mask_c, w):
         logits, _ = plinear(layout, dirs, x_c, w, kind="first")
-        return cross_entropy_sums(layout, dirs.in_ax, logits, lab_c, mask_c)
+        return cross_entropy_sums(layout, vocab_ax, logits, lab_c, mask_c)
 
     xs = x.reshape(B_, x.shape[1] // K, K, x.shape[-1])
     labs = labels.reshape(B_, S_loc // K, K)
@@ -359,7 +364,8 @@ def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
     dirs = entry_dirs()
     x, ctx = frontend(layout, cfg, dirs, params, batch, mode="train")
     b = x.shape[0]
-    S = x.shape[1] * layout.size((*layout.seq_axes, dirs.in_ax))
+    S = x.shape[1] * layout.size((*layout.seq_axes,
+                                  act_axes(layout, dirs)[0]))
     # the global positions; each attention keeps its rows' columns
     positions = torch.arange(S, device=x.device).expand(b, S)
     x, _, aux = run_stack(layout, cfg, dirs, x, params, positions,

@@ -15,13 +15,15 @@ the parameters are updated in place.  The gradient of every leaf comes from
 ``torch.autograd.grad`` over a detached view of it, so the caller's
 parameters never carry autograd state.
 
-Above one device (the dense family on a 3-D layout at pp = 1) ``params``,
-the optimizer state and ``batch`` are the rank's shards.  The islands sum
-their weights' gradients themselves (``Param.synced``); every other leaf
-(the norms' gains and biases, qk-norm) has its gradient summed over every
-axis but pp that its spec does not split, as GSPMD sums it in the
-reference.  The microbatch weights are summed over the axes that split
-the labels, so that each is the microbatch's global token count.
+Above one device (the dense family at pp = 1, on a 3-D layout or a 1-D or
+2-D baseline's) ``params``, the optimizer state and ``batch`` are the
+rank's shards.  The linears sum their weights' gradients themselves
+(``Param.synced``); every other leaf (the norms' gains and biases,
+qk-norm) has its gradient summed over every axis but pp that its spec
+does not split and its activations do not replicate (``leaf_sync_axes``),
+as GSPMD sums it in the reference.  The microbatch weights are summed
+over the axes that split the labels, so that each is the microbatch's
+global token count.
 """
 from __future__ import annotations
 
@@ -56,17 +58,37 @@ def _split_microbatches(batch, m: int):
 def leaf_sync_axes(p, layout: Layout):
     """The axes a leaf's gradient is summed over after the backward: none
     for a leaf whose op syncs it (``Param.synced``), else every axis but
-    pp of size > 1 that its spec does not split."""
+    pp of size > 1 that its spec does not split and over which its
+    activations are not replicated (``Param.act_rep``: at 1d the norms'
+    gains and the row linear's bias, whose gradient every rank of 'z'
+    already holds whole)."""
     if p.synced:
         return ()
-    split = set(spec_axes(p.spec))
-    return layout.live(tuple(a for a in AXES
-                             if a != "pp" and a not in split))
+    skip = {"pp", *spec_axes(p.spec), *p.act_rep}
+    return layout.live(tuple(a for a in AXES if a not in skip))
+
+
+def loss_and_grads(cfg: ModelConfig, layout: Layout, params, batch,
+                   sync=None):
+    """(loss, metrics, the gradient of every leaf in ``tree_leaves``
+    order) of the rank's shard of a batch, each leaf's gradient summed over
+    its ``leaf_sync_axes`` (``sync``: those axes per leaf, computed once by
+    the caller; None computes them)."""
+    if sync is None:
+        sync = [leaf_sync_axes(p, layout) for p in
+                tree_leaves(transformer.abstract_params(cfg, layout))]
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, metrics = transformer.forward(cfg, layout, live, batch,
+                                        mode="train")
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    grads = [comm.psum(layout, g, ax) if ax else g
+             for g, ax in zip(grads, sync)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
     err = multi_rank_refusal(layout.n_devices, n_stages=layout.size("pp"),
-                             strategy=layout.strategy, cfg=cfg)
+                             cfg=cfg)
     if err:
         raise NotImplementedError(err)
     abstract = transformer.abstract_params(cfg, layout)
@@ -76,14 +98,7 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
     label_axes = transformer.loss_axes(layout, transformer.entry_dirs())
 
     def value_and_grad(params, batch):
-        live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, metrics = transformer.forward(cfg, layout, live, batch,
-                                            mode="train")
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-        grads = [comm.psum(layout, g, ax) if ax else g
-                 for g, ax in zip(grads, sync)]
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads
+        return loss_and_grads(cfg, layout, params, batch, sync)
 
     def train_step(params, opt_state, batch):
         if m == 1:

@@ -48,11 +48,18 @@ LAYOUTS = {"cube": dict(n_pod=1, n_dp=1, n_model=8),
 FAULTS = ("tuple_order", "loss_psum_allreduce", "q_pos_offset")
 
 
+# XLA's CPU backend without LLVM's costly passes: the programs are small
+# and run once, so most of their time is compilation
+XLA_FAST_COMPILE = ("--xla_backend_optimization_level=0 "
+                    "--xla_llvm_disable_expensive_passes=true")
+
+
 def run_jax(script: str, tmp_path, name: str = "jax"):
     """Start ``script`` in a subprocess with 8 JAX host devices (MR_DIR
     names ``tmp_path``); its output goes to ``tmp_path/<name>.log``."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8 "
+               + XLA_FAST_COMPILE,
                PYTHONPATH=os.path.join(ROOT, "src"), MR_DIR=str(tmp_path))
     path = tmp_path / f"{name}.log"
     log = open(path, "w")
@@ -86,8 +93,10 @@ def run_ranks(script: str, tmp_path, timeout: float = 300):
                        workdir=str(tmp_path))
 
 
-def layout_of(name: str, rank: int):
-    return make_layout(strategy="3d", rank=rank, **LAYOUTS[name])
+def layout_of(name: str, rank: int, layouts=LAYOUTS):
+    """Rank ``rank``'s layout of ``layouts[name]`` (make_layout's
+    arguments; the strategy 3d unless they name one)."""
+    return make_layout(rank=rank, **dict({"strategy": "3d"}, **layouts[name]))
 
 
 def held(got, want, spec, lay, tol=1e-4, what=""):

@@ -82,7 +82,7 @@ from repro.optim.optimizers import opt_state_abstract
 from repro.train.step import make_train_step
 
 d = os.environ["MR_DIR"]
-ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)d, %(mb)d
+ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)r, %(mb)d
 OPT = config.OptimConfig(**%(opt)r)
 
 
@@ -117,7 +117,8 @@ for arch, change in ARCHS.items():
         kw = dict(kw)
         if "cube" in kw:
             kw["cube"] = tuple(kw["cube"])
-        lay = make_layout(strategy="3d", zero_stage=0, **kw)
+        kw.setdefault("strategy", "3d")
+        lay = make_layout(zero_stage=0, **kw)
         params = jax.device_put(p0, shardings(
             transformer.abstract_params(cfg, lay), lay))
         (loss, _), grads = jax.jit(jax.value_and_grad(
@@ -125,13 +126,12 @@ for arch, change in ARCHS.items():
             has_aux=True))(params, load(f"{arch}_batch0.npz"))
         out = {"loss": np.asarray(loss, np.float32)}
         out.update({"grad/" + k: v for k, v in flat(grads).items()})
-        lay_mb = make_layout(strategy="3d", zero_stage=0, microbatches=MB,
-                             **kw)
+        lay_mb = make_layout(zero_stage=0, microbatches=MB, **kw)
         state = init_params(opt_state_abstract(
             transformer.abstract_params(cfg, lay_mb), lay_mb, OPT),
             jax.random.key(1))
         step = jax.jit(make_train_step(cfg, lay_mb, OPT))
-        for s in range(STEPS):
+        for s in range(STEPS[arch]):
             params, state, met = step(params, state,
                                       load(f"{arch}_batch{s + 1}.npz"))
             for key in ("loss", "gnorm", "lr"):
@@ -162,7 +162,7 @@ torch.set_num_threads(1)
 me = ranks.rank_env()
 ranks.init_world(me, "gloo", torch.device("cpu"))
 d = os.environ["MR_DIR"]
-ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)d, %(mb)d
+ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)r, %(mb)d
 OPT = config.OptimConfig(**%(opt)r)
 
 
@@ -190,8 +190,8 @@ for arch, change in ARCHS.items():
     cfg = dataclasses.replace(reduced(get(arch)), **change)
     p0 = unflat(dict(np.load(os.path.join(d, f"{arch}_params.npz"))))
     for lname, kw in LAYOUTS.items():
-        lay = comm.init(make_layout(strategy="3d", rank=me.rank, **kw),
-                        "gloo")
+        lay = comm.init(make_layout(rank=me.rank, **dict(
+            {"strategy": "3d"}, **kw)), "gloo")
         params = params_from_jax(p0, "cpu", cfg=cfg, layout=lay)
 
         def shard(s):
@@ -212,7 +212,7 @@ for arch, change in ARCHS.items():
         step = make_train_step(cfg, dataclasses.replace(lay, microbatches=MB),
                                OPT)
         state = adamw_init(params)
-        for s in range(STEPS):
+        for s in range(STEPS[arch]):
             params, state, met = step(params, state, shard(s + 1))
             for key in ("loss", "gnorm", "lr"):
                 out[f"step{s}/{key}"] = np.asarray(float(met[key]),
@@ -223,36 +223,39 @@ print("RANK-OK")
 """
 
 
-def fill(script, archs, mb):
+def fill(script, archs, mb, layouts=LAYOUTS, steps=None):
     layouts = {k: dict(v, cube=list(v["cube"])) if "cube" in v else v
-               for k, v in LAYOUTS.items()}
-    return script % {"archs": archs, "layouts": layouts, "steps": STEPS,
+               for k, v in layouts.items()}
+    steps = {a: STEPS if steps is None or a in steps else 0 for a in archs}
+    return script % {"archs": archs, "layouts": layouts, "steps": steps,
                      "mb": mb, "opt": OPT}
 
 
-def run_train(tmp, archs, mb):
-    """Run both sides, a JAX subprocess for each arch beside the ranks;
-    {(arch, layout): (jax outputs, [rank outputs])}."""
+def run_train(tmp, archs, mb, layouts=LAYOUTS, steps=None):
+    """Run both sides, a JAX subprocess for each arch beside the ranks, at
+    each of ``layouts``, with the AdamW steps for the archs of ``steps``
+    (None: every arch); {(arch, layout): (jax outputs, [rank outputs])}."""
     write_inputs(tmp, archs)
-    runs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb), tmp, f"jax_{a}")
-            for a in archs]
+    runs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb, layouts, steps), tmp,
+                    f"jax_{a}") for a in archs]
     try:
-        run_ranks(fill(RANK_SCRIPT, archs, mb), tmp, timeout=600)
+        run_ranks(fill(RANK_SCRIPT, archs, mb, layouts, steps), tmp,
+                  timeout=600)
     finally:
         for run in runs:
             wait_jax(run, timeout=600)
     return {(a, ln): (dict(np.load(tmp / f"jax_{a}_{ln}.npz")),
                       [dict(np.load(tmp / f"rank{r}_{a}_{ln}.npz"))
                        for r in range(WORLD)])
-            for a in archs for ln in LAYOUTS}
+            for a in archs for ln in layouts}
 
 
-def check_grads(res, arch, change, lname):
+def check_grads(res, arch, change, lname, layouts=LAYOUTS):
     want, ranks = res[(arch, lname)]
     cfg = port_cfg(arch, change)
     bad = []
     for r, got in enumerate(ranks):
-        lay = layout_of(lname, r)
+        lay = layout_of(lname, r, layouts)
         assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4, (
             r, float(got["loss"]), float(want["loss"]))
         specs = flat(transformer.abstract_params(cfg, lay))
@@ -266,11 +269,11 @@ def check_grads(res, arch, change, lname):
     assert not bad, bad
 
 
-def check_steps(res, arch, change, lname):
+def check_steps(res, arch, change, lname, layouts=LAYOUTS):
     want, ranks = res[(arch, lname)]
     cfg = port_cfg(arch, change)
     for r, got in enumerate(ranks):
-        lay = layout_of(lname, r)
+        lay = layout_of(lname, r, layouts)
         for s in range(STEPS):
             for key in ("loss", "gnorm", "lr"):
                 k = f"step{s}/{key}"

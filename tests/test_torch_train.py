@@ -388,8 +388,9 @@ def _launch_on_cpu(capsys, arch, seq=64):
 
 @pytest.mark.parametrize("flags", [
     ["--dp", "2", "--zero", "1"], ["--model", "8", "--pp", "2"],
-    ["--model", "4", "--strategy", "2d"], ["--pp", "2"],
-    ["--strategy", "1d"], ["--overlap"], ["--zero", "1"],
+    ["--model", "4", "--strategy", "2d", "--pp", "2"], ["--pp", "2"],
+    ["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4"],
+    ["--overlap"], ["--zero", "1"],
     ["--optimizer", "adafactor"],
     ["--model", "8", "--ckpt-dir", "unused"],
     ["--arch", "mixtral-8x7b", "--model", "8"],
