@@ -215,7 +215,7 @@ Phases, in order (any failure raises and exits nonzero):
      xlstm-350m at full depth and width in bf16 (batch 4 x 2048, remat,
      AdamW), launches exact (``X_LAUNCHES``), step time, tok/s, MFU (the
      reference's SSM formula, which undercounts) and peak memory;
- 18. one xlstm training step at 4 x 512 under torch.profiler (as phase
+ 18. one xlstm training step at 4 x 256 under torch.profiler (as phase
      9), then one mLSTM and one sLSTM block timed at 4 x 2048: forward,
      forward + backward, and both under remat as the step runs them, and
      their share of phase 17's step;
@@ -312,11 +312,13 @@ Phases, in order (any failure raises and exits nonzero):
      at dp2 x (2,2,1) (``RANK_LAYOUTS``) against one rank on the card:
      the loss and every rank's gradient shard within 1e-4 of each leaf's
      largest value;
- 30r. phase 8's run cut to ``RANK_TRAIN_LAYERS`` (4 of 22) layers, 3
-     steps: the losses that 30 and 33 are held to;
+ 30r. phase 8's run cut to ``RANK_TRAIN_LAYERS`` (2 of 22) layers,
+     ``RANK_STEPS`` (2) steps: the losses that 30 and 33 are held to;
  30. ``repro_torch.launch.train`` under torchrun, 8 ranks at each layout:
-     tinyllama-1.1b at full width in bf16, cut to 4 layers, 4 x 2048,
-     remat, AdamW, 3 steps, each loss within 3e-2 of 30r's, each rank's
+     tinyllama-1.1b at full width in bf16, cut to ``RANK_TRAIN_LAYERS``
+     layers, 4 x 2048,
+     remat, AdamW (at dp2 on ZeRO-1 shards, the launcher's default), 2
+     steps, each loss within 3e-2 of 30r's, each rank's
      K1/K2/K3 launches exact (``rank_train_launches``: K3 in its two
      phases where 'z' splits the hidden dim), every K1 and K2 launch on
      tc; each rank's step time, tokens/s, peak memory and collective
@@ -334,14 +336,34 @@ Phases, in order (any failure raises and exits nonzero):
      2d plan of 4 under torchrun; measured and analytic bytes per plan,
      the measured ordering 3d < 2d < 1d;
  33. phase 30 at 1d(4) and 2d(q2), 2 steps: the first loss within 3e-2
-     of 30r's, the second within 1e-2 at 1d and finite at 2d (fault 6).
+     of 30r's, the second within 1e-2 at 1d and finite at 2d (fault 6);
+ 34. ZeRO 0, 1 and 2 across ranks (``rank_zero``): phase 30's dp2 x
+     (2,2,1) layout on 8 ranks, tinyllama-1.1b cut to
+     ``RANK_TRAIN_LAYERS`` layers, bf16,
+     ``ZERO_B`` x 2048, 2 microbatches, 2 steps a stage from one seed:
+     the stages' losses and gnorms within 1e-2 of one another, launches
+     exact, every rank's moment bytes at stage 0 over stage 1 within
+     ``ZERO_RATIO``, stage 2's f32 accumulation on the ZeRO blocks
+     (counted from their specs); step time and peak memory a rank;
+ 35. checkpoints across layouts: 34's stage-1 state saved (every rank's
+     shards bit for bit the files), restored at dp4 x (1,1,2) on the
+     same 8 ranks (every leaf bit for bit), then resumed by
+     ``repro_torch.launch.train --ckpt-dir`` at dp 4 (4 ranks, the model
+     whole) under torchrun and on one rank: the next step's loss within
+     1e-2 of the dp2 run's on both;
+ 36. Adafactor on one card: phase 8's run under ``--optimizer
+     adafactor`` beside its AdamW (step time, peak memory, the state's
+     bytes, the optimizer range's device time in one profiled step of
+     each), then mixtral-8x7b cut to ``ADA_MIX_LAYERS`` (4) layers, 3
+     steps, the depth whose AdamW moments alone would take 48.6 GB.
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
 19), one of the MoE family's (7m, 21, 22), one of deepseek's (7d, 24,
 25), one of the modality families' (7w, 27, 7v, 28), one of the cube
 across ranks (29, 30), one of the baselines across ranks (31, 32, 33),
-one of per-kernel numbers and
+one of ZeRO and the checkpoints across layouts (34, 35), one of
+Adafactor (36), one of per-kernel numbers and
 the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -431,7 +453,8 @@ Z_DECODE_GEMMS = [(name, k, n) for name, k, n, _ in Z_GEMMS] + \
 # slot) and 3 sLSTM blocks (4 heads of 256, R 4 x 4 x 256 x 256), d_model
 # 1024, vocab 50304
 X_D, X_DIN, X_NH, X_VOCAB, X_MLSTM, X_SLSTM = 1024, 2048, 4, 50304, 21, 3
-X_STEPS = 3
+# 2 steps, the first a warm-up: the script's time limit binds
+X_STEPS = 2
 # (name, K, N) of its GEMMs, run at a decode step's M = 8 and a training
 # step's M = 8192 in phase 2; w_if's N = 8 (the input and forget gates of
 # 4 heads) is narrower than one 64-column tile
@@ -2973,7 +2996,9 @@ def phase_train(card, arch="tinyllama-1.1b", steps=TRAIN_STEPS,
     print(f"[{tag}] training {arch}"
           f"{f' cut to {layers} layers' if layers else ''}"
           f"{' ' + ' '.join(cut) if cut else ''} bf16, batch "
-          f"{batch} x {seq}, remat, AdamW on {card}: losses "
+          f"{batch} x {seq}, remat, "
+          f"{'Adafactor' if 'adafactor' in cut else 'AdamW'} on {card}: "
+          "losses "
           + " ".join(f"{x:.4f}" for x in losses)
           + f"; step times " + " ".join(f"{x:.3f}" for x in
                                         tel["series"]["t_step"])
@@ -3042,10 +3067,10 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
     if change:
         cfg = change(cfg)
     layout = ParallelPlan().validate(mode="train").build()
-    params = init_params(transformer.abstract_params(cfg),
-                         torch.Generator(device=dev).manual_seed(0),
+    abstract = transformer.abstract_params(cfg)
+    params = init_params(abstract, torch.Generator(device=dev).manual_seed(0),
                          dev, torch.bfloat16)
-    state = adamw_init(params)
+    state = adamw_init(params, layout, abstract)
     step = make_train_step(cfg, layout, OptimConfig(
         lr=3e-4, warmup=20, total_steps=TRAIN_STEPS))
     data = TokenStream(cfg, ShapeConfig("smoke", seq, rows, "train"),
@@ -4698,10 +4723,14 @@ def phase_serve_state(card, arch, tag, per_step, step_bytes):
 RANK_LAYOUTS = {"cube": (1, 8, (2, 2, 2)), "dp2": (2, 4, (2, 2, 1))}
 # the paper's baselines (tests/test_multidev.py:68-69): 1d(4) and 2d(q2)
 BASE_LAYOUTS = {"1d": (2, 4, None, "1d"), "2d": (2, 4, None, "2d")}
-RANKS, RANK_STEPS, RANK_TIMEOUT_S = 8, 3, 600
+# phase 30 takes 2 steps, the first a warm-up: the script's time limit
+# binds
+RANKS, RANK_STEPS, RANK_TIMEOUT_S = 8, 2, 600
 # phases 30 and 33 train tinyllama-1.1b cut to this many of its 22 layers;
 # 33 takes 2 steps (the second is the steady one)
-RANK_TRAIN_LAYERS, BASE_STEPS = 4, 2
+# 2 layers: each world of 8 ranks stages its steps' collectives through
+# the host, and the script's time limit binds
+RANK_TRAIN_LAYERS, BASE_STEPS = 2, 2
 RANK_DEVICE = "cuda"            # "cpu" to rehearse the rank phases
 RANK_SCRIPT = ROOT / "chip_smoke.py"    # each rank runs its --rank-job
 # phase 29: tinyllama cut to 2 layers at full width in f32, 4 x 512
@@ -5071,7 +5100,7 @@ def rank_job(path):
     from repro_torch.launch import ranks
     me = ranks.rank_env()
     res = {"grads": rank_grads, "train": rank_train,
-           "base": rank_base}[job["kind"]](job, me)
+           "base": rank_base, "zero": rank_zero}[job["kind"]](job, me)
     (Path(job["out"]) / f"rank{me.rank}.json").write_text(json.dumps(res))
     return 0
 
@@ -5092,9 +5121,10 @@ def r29_batch(vocab):
 
 
 def rank_grads(job, me):
-    """Phase 29's rank: the f32 two-layer model's loss and gradient
-    shards (the train step's leaf sync included), each leaf held to the
-    one-rank run's block at the rank's coordinates."""
+    """Phase 29's rank, at each layout of ``job["layouts"]`` in turn in
+    one world: the f32 two-layer model's loss and gradient shards (the
+    train step's leaf sync included), each leaf held to the one-rank
+    run's block at the rank's coordinates."""
     import torch
     from repro_torch.core import comm
     from repro_torch.core.params import (init_params, shard, tree_leaves,
@@ -5106,33 +5136,40 @@ def rank_grads(job, me):
     from repro_torch.train.step import leaf_sync_axes
     dev = ranks.device_for(me, job["device"])
     ranks.init_world(me, "gloo", dev)
-    n_dp, n_model, cube = RANK_LAYOUTS[job["layout"]]
-    lay = comm.init(ParallelPlan(n_dp=n_dp, n_model=n_model,
-                                 cube=tuple(cube)).validate().build(me.rank),
-                    "gloo")
     cfg = r29_cfg()
-    abstract = transformer.abstract_params(cfg, lay)
-    params = init_params(abstract, torch.Generator(device=dev).manual_seed(
-        R29_SEED), dev, torch.float32, layout=lay)
-    batch = to_device(shard_batch(r29_batch(cfg.vocab), lay), dev)
-    reset_launches()
-    live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, _ = transformer.forward(cfg, lay, live, batch, mode="train")
-    grads = torch.autograd.grad(loss, tree_leaves(live))
-    grads = [comm.psum(lay, g, leaf_sync_axes(p, lay))
-             for g, p in zip(grads, tree_leaves(abstract))]
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    launches = dict(read_launches(), **read_split_launches())
     # mapped, not read: each rank reads only its blocks of the leaves
     ref = torch.load(job["ref"], mmap=True)
-    names = ["/".join(p) for p in _paths(params)]
-    errs = {n: leaf_err(g, shard(ref["grads"][n], p.spec, lay).to(dev))
-            for n, g, p in zip(names, grads, tree_leaves(abstract))}
+    out = {}
+    for lname in job["layouts"]:
+        t = time.perf_counter()
+        n_dp, n_model, cube = RANK_LAYOUTS[lname]
+        lay = comm.init(ParallelPlan(
+            n_dp=n_dp, n_model=n_model,
+            cube=tuple(cube)).validate().build(me.rank), "gloo")
+        abstract = transformer.abstract_params(cfg, lay)
+        params = init_params(abstract, torch.Generator(
+            device=dev).manual_seed(R29_SEED), dev, torch.float32,
+            layout=lay)
+        batch = to_device(shard_batch(r29_batch(cfg.vocab), lay), dev)
+        reset_launches()
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = transformer.forward(cfg, lay, live, batch, mode="train")
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        grads = [comm.psum(lay, g, leaf_sync_axes(p, lay))
+                 for g, p in zip(grads, tree_leaves(abstract))]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(read_launches(), **read_split_launches())
+        names = ["/".join(p) for p in _paths(params)]
+        errs = {n: leaf_err(g, shard(ref["grads"][n], p.spec, lay).to(dev))
+                for n, g, p in zip(names, grads, tree_leaves(abstract))}
+        out[lname] = {"loss": loss.item(), "ref_loss": ref["loss"],
+                      "errs": errs, "launches": launches,
+                      "wall_s": time.perf_counter() - t}
+        del params, live, loss, grads
     import torch.distributed as dist
     dist.destroy_process_group()
-    return {"loss": loss.item(), "ref_loss": ref["loss"], "errs": errs,
-            "launches": launches}
+    return out
 
 
 def phase_ranks_grads(dev):
@@ -5166,11 +5203,16 @@ def phase_ranks_grads(dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = {}
+    # both layouts in one world of 8 ranks
+    t = time.perf_counter()
+    world = run_rank_job({"kind": "grads", "layout": "cube_dp2",
+                          "layouts": list(RANK_LAYOUTS),
+                          "device": RANK_DEVICE, "ref": str(ref)})
+    print(f"[29] one world of {RANKS} ranks for both layouts: "
+          f"{time.perf_counter() - t:.1f} s")
     for lname in RANK_LAYOUTS:
-        t = time.perf_counter()
-        res = run_rank_job({"kind": "grads", "layout": lname,
-                            "device": RANK_DEVICE, "ref": str(ref)})
-        wall = time.perf_counter() - t
+        res = [r[lname] for r in world]
+        wall = res[0]["wall_s"]
         worst = max(max(r["errs"].values()) for r in res)
         dl = max(abs(r["loss"] - r["ref_loss"]) for r in res)
         split = lname == "cube"
@@ -5482,6 +5524,441 @@ def phase_base_grads(dev):
     return out
 
 
+# phases 34-36: the optimizer state over dp (ZeRO 1/2), checkpoints across
+# layouts, Adafactor.  34 trains phase 30's dp2 x (2,2,1) layout at each
+# ZeRO stage in one world of 8 ranks: tinyllama-1.1b at full width cut to
+# RANK_TRAIN_LAYERS, ZERO_B x TRAIN_S, ZERO_MB microbatches, ZERO_STEPS
+# steps; 35 saves its stage-1 state and restores it at ZERO_DP4 (8 ranks)
+# and on one rank; 36 trains under Adafactor on one card
+ZERO_DP4 = (4, 2, (1, 1, 2))
+# the launcher's resume above one device: dp 4 on 4 ranks, the model whole
+ZERO_RESUME = (4, 1, (1, 1, 1))
+# 8 rows: one a rank and microbatch at dp2 x (2,2,1)
+ZERO_B, ZERO_MB, ZERO_STEPS = 8, 2, 2
+ZERO_RATIO = (1.6, 2.2)          # stage 0's moment bytes over stage 1's
+ADA_MIX_LAYERS, ADA_MIX_STEPS = 4, 3
+
+
+def mix_launches(layers):
+    """One mixtral training step's launches at ``layers`` deep, as
+    MIX_LAUNCHES counts them."""
+    return {"K1": 2 * 4 * layers + 2 * 2, "K2": 2 * layers,
+            "K2 bwd": layers, "K3": 2 * 2 * layers + 1,
+            "K3 bwd": 2 * layers + 1, "K5": 0, "K5 bwd": 0}
+
+
+def zero_cfg():
+    from repro_torch.configs.registry import get
+    return dataclasses.replace(get("tinyllama-1.1b"),
+                               n_layers=RANK_TRAIN_LAYERS)
+
+
+def held_to_files(ckpt, step, params, state, abstract, opt_abstract, lay):
+    """Whether every leaf of a rank's ``params`` and optimizer ``state``
+    is bit for bit its block, under its spec in ``lay``, of the global
+    ``.npy`` the checkpoint holds (read through a memory map); the names
+    of the leaves that differ."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.core.params import shard
+    d = Path(ckpt) / f"step_{step:08d}"
+    index = json.loads((d / "index.json").read_text())["leaves"]
+    ints = {2: torch.int16, 4: torch.int32}
+
+    def walk(tree, specs, key):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from walk(tree[k], specs[k], f"{key}/{k}")
+        else:
+            yield key, tree, specs
+    leaves = [*walk(params, abstract, "params"),
+              *walk(state.m or {}, opt_abstract.m or {}, "opt/.m"),
+              *walk(state.v, opt_abstract.v, "opt/.v")]
+    bad = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # a read-only memory map
+        for key, t, p in leaves:
+            entry = index[key]
+            arr = np.load(d / entry["file"], mmap_mode="r")
+            if entry["dtype"] == "bfloat16":
+                g = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                g = torch.from_numpy(arr)
+            want = shard(g, p.spec, lay)
+            got = t.detach().cpu()
+            if got.dtype != want.dtype or not torch.equal(
+                    got.view(ints[got.element_size()]),
+                    want.view(ints[want.element_size()])):
+                bad.append(key)
+    return bad
+
+
+def rank_zero(job, me):
+    """Phases 34 and 35's rank: the ZeRO stages in turn, each from seed 0
+    on the same data (the launch counters reset just before a stage's
+    steps and read just after); the stage-1 state saved (every rank's
+    shards then held to the files) and one more step on the first batch
+    of a fresh stream (what a resumed launcher trains on); then the
+    checkpoint restored at ZERO_DP4 and held to the files."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import store
+    from repro_torch.config import OptimConfig, ShapeConfig
+    from repro_torch.core import comm
+    from repro_torch.core.params import (init_params, sharded_bytes,
+                                         tree_leaves)
+    from repro_torch.core.topology import make_layout
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels import flash_attention as k2
+    from repro_torch.kernels import matmul as k1
+    from repro_torch.launch import ranks
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.optimizers import opt_state_abstract
+    from repro_torch.train.step import make_train_step
+    dev = ranks.device_for(me, job["device"])
+    ranks.init_world(me, "gloo", dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = zero_cfg()
+    opt = OptimConfig(lr=3e-4, warmup=20, total_steps=ZERO_STEPS + 1)
+    shape = ShapeConfig("smoke", TRAIN_S, ZERO_B, "train")
+
+    def layout(n_dp, n_model, cube, stage, mb=1):
+        return comm.init(make_layout(1, n_dp, n_model, "3d", cube,
+                                     rank=me.rank, zero_stage=stage,
+                                     microbatches=mb), "gloo")
+
+    def stream(lay):
+        return TokenStream(cfg, shape, DataConfig(seed=0), dev, layout=lay)
+    out = {}
+    # one set of process groups for the three stages
+    dp2 = layout(*RANK_LAYOUTS["dp2"], 0, ZERO_MB)
+    for stage in (0, 1, 2):
+        lay = dataclasses.replace(dp2, zero_stage=stage)
+        abstract = transformer.abstract_params(cfg, lay)
+        params = init_params(abstract, torch.Generator(
+            device=dev).manual_seed(0), dev, torch.bfloat16, layout=lay)
+        state = adamw_init(params, lay, abstract, opt)
+        step = make_train_step(cfg, lay, opt)
+        data = stream(lay)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        res = {"losses": [], "gnorms": [], "t_step": []}
+        for _ in range(ZERO_STEPS):
+            batch = next(data)
+            sync()
+            t = time.perf_counter()
+            params, state, met = step(params, state, batch)
+            res["losses"].append(float(met["loss"]))
+            res["gnorms"].append(float(met["gnorm"]))
+            sync()
+            res["t_step"].append(time.perf_counter() - t)
+        res.update(
+            launches=dict(read_launches(), **read_split_launches()),
+            k1_routes=dict(k1.launches_by_route),
+            k2_routes=dict(k2.launches_by_route),
+            k2_bwd_routes=dict(k2.launches_bwd_by_route),
+            moment_bytes=sum(t.nbytes for t in tree_leaves(state.m)
+                             + tree_leaves(state.v)),
+            # the f32 accumulation buffer: the moments' blocks at stage
+            # 2, the parameter shards below it
+            acc_bytes=sharded_bytes(opt_state_abstract(
+                abstract, lay if stage >= 2 else
+                dataclasses.replace(lay, zero_stage=0), opt).m, lay),
+            param_bytes=sum(t.nbytes for t in tree_leaves(params)),
+            mem_peak_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                          if cuda else None))
+        if stage == 1:
+            oab = opt_state_abstract(abstract, lay, opt)
+            t = time.perf_counter()
+            store.save(job["ckpt"], ZERO_STEPS, params, state, layout=lay,
+                       abstract=abstract, opt_abstract=oab)
+            res["save_s"] = time.perf_counter() - t
+            res["saved_bad"] = held_to_files(job["ckpt"], ZERO_STEPS, params,
+                                             state, abstract, oab, lay)
+            _, _, met = step(params, state, next(stream(lay)))
+            res["post_loss"] = float(met["loss"])
+        out[f"zero{stage}"] = res
+        del params, state, step, data
+    lay4 = layout(*ZERO_DP4, 1)
+    ab4 = transformer.abstract_params(cfg, lay4)
+    oab4 = opt_state_abstract(ab4, lay4, opt)
+    t = time.perf_counter()
+    p4, o4, _ = store.restore(job["ckpt"], ZERO_STEPS, ab4, oab4, device=dev,
+                              layout=lay4)
+    out["restore_s"] = time.perf_counter() - t
+    out["restored_step"] = o4.step
+    out["restored_bad"] = held_to_files(job["ckpt"], ZERO_STEPS, p4, o4, ab4,
+                                        oab4, lay4)
+    dist.destroy_process_group()
+    return out
+
+
+def phase_zero(card, ckpt):
+    """34: ZeRO 0, 1 and 2 at dp2 x (2,2,1) on 8 ranks sharing the card
+    (``rank_zero``): the stages' losses and gnorms within 1e-2 of one
+    another, every rank's launches exact (RANK_LAYOUTS' dp2 step, once a
+    microbatch), stage 0's moment bytes over stage 1's within ZERO_RATIO
+    on every rank, stage 2's f32 accumulation buffer (counted from its
+    ZeRO specs) within ZERO_RATIO of stage 1's; peak memory and step
+    time.  Then 35's
+    first half: every rank's saved shards and its blocks restored at
+    ZERO_DP4 bit for bit the checkpoint's files."""
+    import shutil
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    res = run_rank_job({"kind": "zero", "layout": "dp2", "ckpt": str(ckpt),
+                        "device": RANK_DEVICE},
+                       torchrun=RANK_DEVICE == "cuda")
+    wall = time.perf_counter() - t
+    want = rank_train_launches("dp2", steps=ZERO_STEPS * ZERO_MB,
+                               layers=RANK_TRAIN_LAYERS)
+    stages = [f"zero{s}" for s in (0, 1, 2)]
+    ref = res[0]["zero0"]
+    for r, rr in enumerate(res):
+        for s in stages:
+            x = rr[s]
+            check(x["launches"] == want, f"34 {s} rank {r}: launches "
+                  f"{x['launches']} != {want}")
+            check(x["k1_routes"]["tc"] == want["K1"]
+                  and x["k2_routes"]["tc"] == want["K2"]
+                  and x["k2_bwd_routes"]["tc"] == want["K2 bwd"],
+                  f"34 {s} rank {r}: routes {x['k1_routes']} "
+                  f"{x['k2_routes']} {x['k2_bwd_routes']}")
+            check(all(map(math.isfinite, x["losses"])), f"34 {s}: "
+                  f"{x['losses']}")
+            check(max(abs(a - b) for a, b in zip(
+                x["losses"] + x["gnorms"], ref["losses"] + ref["gnorms"]))
+                  <= 1e-2, f"34 {s} rank {r}: losses {x['losses']} gnorms "
+                  f"{x['gnorms']} against stage 0's {ref['losses']} "
+                  f"{ref['gnorms']}")
+        ratio = rr["zero0"]["moment_bytes"] / rr["zero1"]["moment_bytes"]
+        check(ZERO_RATIO[0] <= ratio <= ZERO_RATIO[1], f"34 rank {r}: "
+              f"moment bytes ratio {ratio:.3f}")
+        check(rr["zero2"]["moment_bytes"] == rr["zero1"]["moment_bytes"],
+              f"34 rank {r}: stage 2's moments {rr['zero2']['moment_bytes']}")
+        acc = rr["zero1"]["acc_bytes"] / rr["zero2"]["acc_bytes"]
+        check(ZERO_RATIO[0] <= acc <= ZERO_RATIO[1], f"34 rank {r}: "
+              f"accumulation buffer ratio {acc:.3f}")
+        check(not rr["zero1"]["saved_bad"], f"35 rank {r}: saved leaves "
+              f"differ from the files: {rr['zero1']['saved_bad']}")
+        check(not rr["restored_bad"] and rr["restored_step"] == ZERO_STEPS,
+              f"35 rank {r}: restored at dp4, leaves {rr['restored_bad']} "
+              f"differ (step {rr['restored_step']})")
+    numbers = {}
+    for s in stages:
+        x = [rr[s] for rr in res]
+        numbers[s] = {
+            "losses": x[0]["losses"], "gnorms": x[0]["gnorms"],
+            "t_step": x[0]["t_step"],
+            "moment_gb_by_rank": [y["moment_bytes"] / 1e9 for y in x],
+            "acc_gb_by_rank": [y["acc_bytes"] / 1e9 for y in x],
+            "param_gb_by_rank": [y["param_bytes"] / 1e9 for y in x],
+            "mem_peak_gib_by_rank": [y["mem_peak_gib"] for y in x],
+            "launches_per_rank": x[0]["launches"]}
+        print(f"[34] {s}: tinyllama-1.1b full width cut to "
+              f"{RANK_TRAIN_LAYERS} layers, bf16 {ZERO_B}x{TRAIN_S}, "
+              f"{ZERO_MB} microbatches, AdamW at dp2 x (2,2,1) on 8 ranks "
+              f"sharing {card} (gloo): losses "
+              + " ".join(f"{v:.4f}" for v in x[0]["losses"]) + ", gnorms "
+              + " ".join(f"{v:.4f}" for v in x[0]["gnorms"])
+              + "; step times " + " ".join(f"{v:.3f}" for v in
+                                           x[0]["t_step"])
+              + " s (rank 0; first = warm-up); per rank: moments "
+              f"{min(y['moment_bytes'] for y in x) / 1e9:.4f}-"
+              f"{max(y['moment_bytes'] for y in x) / 1e9:.4f} GB, f32 "
+              f"accumulation {min(y['acc_bytes'] for y in x) / 1e9:.4f}-"
+              f"{max(y['acc_bytes'] for y in x) / 1e9:.4f} GB, parameters "
+              f"{x[0]['param_bytes'] / 1e9:.4f} GB, peak memory "
+              + (" ".join(f"{y['mem_peak_gib']:.2f}" for y in x) + " GiB"
+                 if x[0]["mem_peak_gib"] is not None else "not measured"))
+    one = res[0]
+    moments = [rr["zero0"]["moment_bytes"] / rr["zero1"]["moment_bytes"]
+               for rr in res]
+    acc = [rr["zero1"]["acc_bytes"] / rr["zero2"]["acc_bytes"] for rr in res]
+    print("[34] stage 0 / stage 1 moment bytes a rank "
+          + " ".join(f"{x:.3f}" for x in moments) + f" (limits {ZERO_RATIO});"
+          " stage 1 / stage 2 accumulation " + " ".join(f"{x:.3f}" for x in
+                                                        acc)
+          + f"; {wall:.1f} s for the world")
+    print(f"[35] stage 1 saved at step {ZERO_STEPS} in "
+          f"{one['zero1']['save_s']:.1f} s (rank 0), every rank's shards "
+          f"bit for bit the files; restored at dp4 x (1,1,2) in "
+          f"{one['restore_s']:.1f} s, every leaf bit for bit; the next "
+          f"step's loss at dp2 {one['zero1']['post_loss']:.4f}")
+    numbers["save_s"] = one["zero1"]["save_s"]
+    numbers["restore_dp4_s"] = one["restore_s"]
+    numbers["post_loss_dp2"] = one["zero1"]["post_loss"]
+    numbers["wall_s"] = wall
+    return numbers
+
+
+def phase_ckpt_layouts(card, ckpt, post_loss):
+    """35: ``repro_torch.launch.train --ckpt-dir`` resumes phase 34's
+    stage-1 checkpoint at ZERO_RESUME (dp 4, 4 ranks) and on one rank
+    (each trains step ZERO_STEPS + 1 on its stream's first batch): both
+    losses within 1e-2 of the dp2 world's next step; the ranks' launches
+    exact (path train_ckpt_dp4); the one rank's restored leaves bit for
+    bit the files.  The directory is removed afterwards."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import opt_state_abstract
+    n_dp, n_model, cube = ZERO_RESUME
+    nranks = n_dp * n_model
+    argv = ["--arch", "tinyllama-1.1b", "--layers", str(RANK_TRAIN_LAYERS),
+            "--steps", str(ZERO_STEPS + 1), "--batch", str(ZERO_B),
+            "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
+            "--log-every", "1", "--ckpt-dir", str(ckpt)]
+    t = time.perf_counter()
+    res = run_rank_job({"kind": "train", "layout": "ckpt_dp4", "argv": [
+        *argv, "--device", RANK_DEVICE, "--backend", "gloo", "--dp",
+        str(n_dp), "--model", str(n_model), "--cube",
+        ",".join(map(str, cube))]}, torchrun=RANK_DEVICE == "cuda",
+        nranks=nranks)
+    wall = time.perf_counter() - t
+    want = rank_train_launches("dp4", {"dp4": ZERO_RESUME},
+                               layers=RANK_TRAIN_LAYERS, steps=1)
+    for r, rr in enumerate(res):
+        check(rr["launches"] == want, f"35 dp4 rank {r}: launches "
+              f"{rr['launches']} != {want}")
+        check(rr["k1_routes"]["tc"] == want["K1"]
+              and rr["k2_routes"]["tc"] == want["K2"]
+              and rr["k2_bwd_routes"]["tc"] == want["K2 bwd"],
+              f"35 dp4 rank {r}: routes {rr['k1_routes']} "
+              f"{rr['k2_routes']} {rr['k2_bwd_routes']}")
+    dp4_loss = res[0]["losses"]
+    check(len(dp4_loss) == 1 and abs(dp4_loss[0] - post_loss) <= 1e-2,
+          f"35 dp4: resumed loss {dp4_loss} against dp2's {post_loss}")
+    reset_launches()
+    t1 = time.perf_counter()
+    one = train.main([*argv, "--device", RANK_DEVICE])
+    if RANK_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    one_launches = dict(read_launches(), **read_split_launches())
+    want1 = rank_train_launches("one", {"one": (1, 1, (1, 1, 1))},
+                                layers=RANK_TRAIN_LAYERS, steps=1)
+    check(one_launches == want1, f"35 one rank: launches {one_launches} "
+          f"!= {want1}")
+    check_k1_routes(one_launches, "35", "one-rank resume")
+    check_k2_routes(one_launches, "35", "one-rank resume")
+    check(one["start"] == ZERO_STEPS and len(one["losses"]) == 1
+          and abs(one["losses"][0] - post_loss) <= 1e-2,
+          f"35 one rank: resumed {one} against dp2's {post_loss}")
+    cfg = zero_cfg()
+    lay = ParallelPlan().validate().build()
+    ab = transformer.abstract_params(cfg, lay)
+    from repro_torch.config import OptimConfig
+    oab = opt_state_abstract(ab, lay, OptimConfig())
+    params, state, _ = store.restore(str(ckpt), ZERO_STEPS, ab, oab,
+                                     device=RANK_DEVICE, layout=lay)
+    bad = held_to_files(ckpt, ZERO_STEPS, params, state, ab, oab, lay)
+    check(not bad, f"35 one rank: restored leaves {bad} differ")
+    del params, state
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[35] launch.train --ckpt-dir resumed step {ZERO_STEPS} at dp"
+          f"{n_dp} x ({','.join(map(str, cube))}) on {nranks} ranks sharing "
+          f"{card}: loss {dp4_loss[0]:.4f} in "
+          f"{wall:.1f} s; on one rank: loss {one['losses'][0]:.4f} in "
+          f"{one_s:.1f} s, its restored leaves bit for bit; against dp2's "
+          f"{post_loss:.4f} (tol 1e-2)")
+    return ({"dp4_loss": dp4_loss[0], "one_rank_loss": one["losses"][0],
+             "dp4_wall_s": wall, "one_rank_s": one_s},
+            {"train_ckpt_dp4": {k: nranks * n for k, n in
+                                res[0]["launches"].items()},
+             "train_ckpt_one": one_launches})
+
+
+def optimizer_share(dev, name):
+    """One tinyllama-1.1b training step (phase 8's) under ``name``'s
+    optimizer, after one warm-up step, under torch.profiler: the step's
+    wall time, the device span of the train step's "optimizer" range, and
+    the state's bytes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import OptimConfig, ShapeConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.core.params import init_params, tree_leaves
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = get("tinyllama-1.1b")
+    layout = ParallelPlan().validate(mode="train").build()
+    abstract = transformer.abstract_params(cfg, layout)
+    params = init_params(abstract, torch.Generator(device=dev).manual_seed(0),
+                         dev, torch.bfloat16)
+    opt = OptimConfig(name=name, lr=3e-4, warmup=20, total_steps=TRAIN_STEPS)
+    state = adamw_init(params, layout, abstract, opt)
+    step = make_train_step(cfg, layout, opt)
+    data = TokenStream(cfg, ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train"),
+                       DataConfig(seed=0), dev)
+    params, state, _ = step(params, state, next(data))
+    batch = next(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(met["loss"].item()), f"36 {name}: loss")
+    spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.name == "optimizer" and e.device_type == DeviceType.CUDA]
+    leaves = (tree_leaves(state.m) if state.m is not None else []) + \
+        tree_leaves(state.v)
+    return {"wall_ms": wall_ms, "optimizer_ms": sum(spans) if spans else None,
+            "state_gb": sum(t.nbytes for t in leaves) / 1e9}
+
+
+def phase_adafactor(card, dev, adamw_tel):
+    """36: Adafactor on one card through ``repro_torch.launch.train``:
+    phase 8's run (tinyllama-1.1b, full depth, TRAIN_B x TRAIN_S,
+    TRAIN_STEPS steps) beside its AdamW, step time, peak memory, the
+    state's bytes and the optimizer's share of a profiled step; then
+    mixtral-8x7b cut to ADA_MIX_LAYERS (the depth AdamW's moments cannot
+    hold beside its weights), ADA_MIX_STEPS steps; launches exact."""
+    import gc
+    import torch
+    launches, _, _, tel = phase_train(
+        card, tag="36", cut=("--optimizer", "adafactor"))
+    share = {n: optimizer_share(dev, n) for n in ("adamw", "adafactor")}
+    for n, s in share.items():
+        frac = (f"{s['optimizer_ms'] / s['wall_ms'] * 100:.1f}% of the step"
+                if s["optimizer_ms"] is not None else "not measured")
+        print(f"[36] tinyllama-1.1b {n}: one profiled step "
+              f"{s['wall_ms']:.1f} ms, the optimizer range "
+              + (f"{s['optimizer_ms']:.1f} ms on the device ({frac})"
+                 if s["optimizer_ms"] is not None else "not measured")
+              + f"; state {s['state_gb']:.4f} GB on {card}")
+    print(f"[36] tinyllama-1.1b Adafactor against phase 8's AdamW: steady "
+          f"{tel['t_step_s']:.3f} against {adamw_tel['t_step_s']:.3f} s a "
+          f"step, peak {tel['mem_peak_bytes'] / 2 ** 30:.2f} against "
+          f"{adamw_tel['mem_peak_bytes'] / 2 ** 30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mix_l, _, _, mix_tel = phase_train(
+        card, "mixtral-8x7b", ADA_MIX_STEPS, mix_launches(ADA_MIX_LAYERS),
+        tag="36m", layers=ADA_MIX_LAYERS, cut=("--optimizer", "adafactor"))
+    return ({"train_adafactor": train_numbers(tel, optimizer_share=share),
+             "train_mixtral_adafactor": train_numbers(
+                 mix_tel, layers=ADA_MIX_LAYERS)},
+            {"train_adafactor": launches,
+             "train_mixtral_adafactor": mix_l})
+
+
 def train_numbers(tel, **more):
     """The numbers of a training run's telemetry that the JSON lines
     carry."""
@@ -5586,11 +6063,13 @@ def main():
     xlstm_launches, xlstm_routes, xlstm_k2, xlstm_tel = timed(
         phase_train, card, "xlstm-350m", X_STEPS, X_LAUNCHES, tag="17")
     xlstm_numbers = train_numbers(xlstm_tel)
-    # a quarter of the sequence: the sLSTM's per-token loop makes a full
-    # step hundreds of thousands of kernels for the profiler to record
+    # an eighth of the sequence: the sLSTM's per-token loop makes a full
+    # step hundreds of thousands of kernels for the profiler to record,
+    # and the profile's time grows faster than the sequence (4 x 512 took
+    # 81 s on an H100, 4 x 256 31 s)
     xlstm_numbers["breakdown"] = timed(phase_breakdown, dev, card,
                                        "xlstm-350m", tag="18",
-                                       seq=TRAIN_S // 4)
+                                       seq=TRAIN_S // 8)
     xlstm_numbers["block_share"] = timed(phase_xlstm_blocks, dev, card,
                                          xlstm_tel["t_step_s"])
     xlstm_numbers["checkpoint"] = timed(phase_ckpt_roundtrip, card)
@@ -5701,12 +6180,26 @@ def main():
         phase_ranks_train, card, cut_losses, {"2d": BASE_LAYOUTS["2d"]},
         layers=RANK_TRAIN_LAYERS, tag="33", later_tol=None,
         steps=BASE_STEPS))
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_ckpt = ROOT / "build" / "chip_smoke_zero_ckpt"
+    zero_numbers = timed(phase_zero, card, zero_ckpt)
+    zero_numbers["ckpt"], ckpt_paths = timed(
+        phase_ckpt_layouts, card, zero_ckpt, zero_numbers["post_loss_dp2"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ada_numbers, ada_paths = timed(phase_adafactor, card, dev, train_tel)
     # each layout's launches over its 8 ranks: every rank runs the same
     rank_paths = {f"train_ranks_{lname}": {
         k: RANKS * n for k, n in v["launches_per_rank"].items()}
         for lname, v in (*ranks_numbers["train"].items(),
-                         *base_numbers["train"].items())}
+                         *base_numbers["train"].items(),
+                         *((s, zero_numbers[s]) for s in
+                           ("zero0", "zero1", "zero2")))}
     rank_paths["train_cut"] = cut_launches
+    # the checkpoint's resumes and the Adafactor runs: K1 and K2 all tc
+    rank_paths.update(ckpt_paths)
+    rank_paths.update(ada_paths)
 
     paths = (("serve", serve_launches), ("train", train_launches),
              ("train_zamba2", zamba_launches),
@@ -5850,6 +6343,9 @@ def main():
           "host): " + json.dumps(ranks_numbers))
     print("1-D and 2-D baselines across ranks (8 ranks on one card, gloo "
           "through the host) and the comm check: " + json.dumps(base_numbers))
+    print("ZeRO across ranks and checkpoints across layouts (8 ranks on one "
+          "card, gloo through the host): " + json.dumps(zero_numbers))
+    print("Adafactor: " + json.dumps(ada_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

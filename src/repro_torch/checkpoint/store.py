@@ -4,8 +4,8 @@ package and the port in either direction.
 
 A step is a directory ``step_{step:08d}/`` holding one global ``.npy`` per
 leaf and an ``index.json``: ``step``, ``leaves`` (each leaf's ``file``,
-``shape`` and ``dtype``), ``meta`` (the mesh sizes and the ZeRO stage;
-the port runs at one device with ZeRO stage 0) and ``extra``.  bf16 is
+``shape`` and ``dtype``), ``meta`` (the mesh sizes and the ZeRO stage in
+force, ``Layout.effective_zero_stage()``) and ``extra``.  bf16 is
 stored as its uint16 bits and restored by view, which is exact.
 
 A leaf's key is the one ``jax.tree_util.tree_flatten_with_path`` gives it
@@ -20,9 +20,21 @@ by either package gives the same files and the same ``index.json``.
 The optimizer step, a host ``int`` in the port, is written as an int32
 0-d array and read back as an ``int``.
 
+What goes to disk is always each leaf's global value (the reference's
+resharding contract, ``store.py:1-17``).  Above one device ``save`` takes
+the trees of Params that place the values (``abstract``: the model's;
+``opt_abstract``: ``optim.opt_state_abstract``'s, the moments on their
+ZeRO specs) and gathers each leaf from the ranks' shards onto rank 0
+(``core.params.gather``; every rank calls it), which writes the files.
+Adafactor's state (``OptState(step, None, v)``, a factored leaf's ``v`` a
+dict of ``row`` and ``col``) gives the reference's keys,
+``opt/.v/<path>/row``.
+
 ``restore`` fills a template: a tree of tensors, of ``Param``s (then the
-leaves land on ``device`` in the dtype each Param pins, else ``dtype``)
-or of ints.  A restored leaf takes its template's dtype and device, so the
+leaves land on ``device`` in the dtype each Param pins, else ``dtype``,
+and with a ``layout`` each is the rank's block under the Param's spec, so
+that a dp 2 / ZeRO 1 checkpoint restores onto dp 4 or one device) or of
+ints.  A restored leaf takes its template's dtype and device, so the
 f32 Mamba2 leaves stay f32 in a bf16 model.  A missing leaf and a
 global-shape mismatch fail loudly, with the reference's messages.  Every
 family's tree goes through the same walk: whisper's ``encoder`` subtree
@@ -33,12 +45,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import warnings
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.params import Param
+from ..core.params import Param, gather, shard
 from ..core.topology import Layout
 
 
@@ -95,20 +108,37 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 
 def save(ckpt_dir: str, step: int, params, opt_state=None, extra=None,
-         layout: Optional[Layout] = None) -> str:
+         layout: Optional[Layout] = None, abstract=None,
+         opt_abstract=None) -> str:
     """Write ``params`` (and ``opt_state``) as step ``step``; returns the
-    step's directory (reference ``store.py:41-68``)."""
+    step's directory (reference ``store.py:41-68``).  Above one device
+    every rank calls it with its shards and the trees of Params that place
+    them (``abstract``, ``opt_abstract``); rank 0 writes."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    os.makedirs(d, exist_ok=True)
+    multi = layout is not None and layout.n_devices > 1
+    if multi and (abstract is None
+                  or (opt_state is not None and opt_abstract is None)):
+        raise ValueError("save above one device needs the trees of Params "
+                         "(abstract, opt_abstract) that place the shards")
+    writer = not multi or layout.rank == 0
+    if writer:
+        os.makedirs(d, exist_ok=True)
     index: Dict[str, Any] = {"step": step, "leaves": {}}
     if layout is not None:
         index["meta"] = {"mesh": {k: int(v) for k, v in layout.sizes.items()},
-                         "zero_stage": 0}
-    trees = {"params": params}
+                         "zero_stage": layout.effective_zero_stage()}
+    trees = {"params": (params, abstract)}
     if opt_state is not None:
-        trees["opt"] = opt_state
-    for prefix, tree in trees.items():
+        trees["opt"] = (opt_state, opt_abstract)
+    for prefix, (tree, specs) in trees.items():
+        placed = _leaf_paths(specs) if multi else None
         for key, leaf in _leaf_paths(tree):
+            if placed is not None:
+                spec = next(placed)[1]
+                if isinstance(spec, Param):
+                    leaf = gather(leaf, spec.spec, layout)
+            if not writer:
+                continue
             arr, dtype = _to_numpy(leaf)
             fname = f"{prefix}__{key}.npy".replace("/", "__")
             np.save(os.path.join(d, fname), arr)
@@ -116,8 +146,12 @@ def save(ckpt_dir: str, step: int, params, opt_state=None, extra=None,
                 "file": fname, "shape": list(arr.shape), "dtype": dtype}
     if extra:
         index["extra"] = extra
-    with open(os.path.join(d, "index.json"), "w") as f:
-        json.dump(index, f, indent=1)
+    if writer:
+        with open(os.path.join(d, "index.json"), "w") as f:
+            json.dump(index, f, indent=1)
+    if multi:
+        import torch.distributed as dist
+        dist.barrier()      # the files are whole before any rank goes on
     return d
 
 
@@ -131,10 +165,12 @@ def latest_step(ckpt_dir: str) -> int:
 
 
 def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
-            *, device=None, dtype: torch.dtype = torch.bfloat16):
+            *, device=None, dtype: torch.dtype = torch.bfloat16,
+            layout: Optional[Layout] = None):
     """(params, opt_state or None, extra) of step ``step``, in the
-    templates' structure (reference ``store.py:79-124``, whose layout
-    argument places each leaf on its shards; one device needs none)."""
+    templates' structure (reference ``store.py:79-124``): with ``layout``
+    each leaf of a template of Params is the rank's block under its spec
+    in that layout, whatever layout saved it."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "index.json")) as f:
         index = json.load(f)
@@ -144,7 +180,8 @@ def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
             entry = index["leaves"].get(f"{prefix}/{key}")
             if entry is None:
                 raise KeyError(f"checkpoint missing {prefix}/{key}")
-            arr = np.load(os.path.join(d, entry["file"]))
+            # a memory map: a rank reads the pages of its own block
+            arr = np.load(os.path.join(d, entry["file"]), mmap_mode="r")
             want = tuple(getattr(leaf, "shape", arr.shape))
             if tuple(arr.shape) != want:
                 raise ValueError(
@@ -155,13 +192,17 @@ def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
                     "cube changed, not the parallel plan.")
             if isinstance(leaf, int):
                 return int(arr)
-            if entry["dtype"] == "bfloat16":
-                t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-            else:
-                t = torch.from_numpy(arr)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # a read-only map
+                t = torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16) if entry["dtype"] == "bfloat16" \
+                    else torch.from_numpy(arr)
+            block = shard(t, leaf.spec, layout) if (
+                isinstance(leaf, Param) and layout is not None) else t
+            block = block.clone() if block is t else block   # off the map
             if isinstance(leaf, Param):
-                return t.to(device=device, dtype=leaf.dtype or dtype)
-            return t.to(device=leaf.device, dtype=leaf.dtype)
+                return block.to(device=device, dtype=leaf.dtype or dtype)
+            return block.to(device=leaf.device, dtype=leaf.dtype)
         return _rebuild(template, one)
 
     params = load_tree("params", params_template)

@@ -254,6 +254,23 @@ def pmax(layout: Layout, x: torch.Tensor, axis) -> torch.Tensor:
     return _all_reduce(layout, x, axis, "MAX")
 
 
+def gather_to(layout: Layout, x: torch.Tensor, dst: int = 0):
+    """Every rank's ``x`` (one shape on all ranks), in rank order, on rank
+    ``dst``; None on the others.  Over the whole world, one send a rank:
+    for a checkpoint's save, which needs each leaf's global value on one
+    rank only.  Not counted in ``bytes_moved``."""
+    import torch.distributed as dist
+    if layout.n_devices == 1:
+        return [x]
+    staged = layout.groups is not None and layout.groups.staged and x.is_cuda
+    src = x.detach().contiguous()
+    src = src.cpu() if staged else src
+    bufs = [torch.empty_like(src) for _ in range(layout.n_devices)] \
+        if layout.rank == dst else None
+    dist.gather(src, bufs, dst=dst)
+    return bufs
+
+
 def axis_index(layout: Layout, axis) -> int:
     """This rank's index on ``axis`` (mixed radix over a tuple, the first
     axis major); no communication."""

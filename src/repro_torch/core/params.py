@@ -6,7 +6,8 @@ reference pins one its dtype, and its ``spec``, the reference's
 (first axis major) or None.  The model's tree of Params is
 ``models.transformer.abstract_params(cfg, layout)``; ``init_params`` turns
 such a tree into tensors, each rank's local shard of every leaf
-(``shard``).  It follows the reference's init rules
+(``shard``); ``gather`` is its inverse, a leaf's global value from the
+rank's shard.  It follows the reference's init rules
 (``repro/core/params.py:44-66``) in distribution only: its random numbers
 come from a ``torch.Generator``, not from ``jax.random``.
 """
@@ -70,11 +71,78 @@ def shard(t: torch.Tensor, spec, layout: Layout) -> torch.Tensor:
     return out if out is t else out.clone()
 
 
+def local_shape(shape, spec, layout: Layout) -> Tuple[int, ...]:
+    """The shape of a rank's block of a global ``shape`` under ``spec``
+    (what ``shard`` returns, without the global tensor)."""
+    out = list(shape)
+    for dim, e in enumerate(spec or ()):
+        out[dim] //= layout.size(layout.live(
+            (e,) if isinstance(e, str) else (e or ())))
+    return tuple(out)
+
+
+def gather(t: torch.Tensor, spec, layout: Layout, dst: int = 0):
+    """The global tensor whose block under ``spec`` is this rank's ``t``
+    (the inverse of ``shard``), on rank ``dst`` only: every rank sends its
+    block there (``comm.gather_to``), which places each at its rank's
+    mixed-radix index over each dim's axes; None on the other ranks.
+    Every rank of the world calls it."""
+    from . import comm
+    split = [layout.live((e,) if isinstance(e, str) else (e or ()))
+             for e in spec or ()]
+    split += [()] * (t.dim() - len(split))
+    if not any(split):
+        return t if layout.rank == dst else None
+    blocks = comm.gather_to(layout, t, dst)
+    if blocks is None:
+        return None
+    out = torch.empty([n * layout.size(axes) for n, axes in
+                       zip(t.shape, split)], dtype=t.dtype,
+                      device=blocks[0].device)
+    for r, b in enumerate(blocks):
+        c = layout.coords_of(r)
+        at = []
+        for n, axes in zip(t.shape, split):
+            i = 0
+            for a in axes:
+                i = i * layout.sizes[a] + c[a]
+            at.append(slice(i * n, (i + 1) * n))
+        out[tuple(at)] = b
+    return out
+
+
+def sharded_bytes(tree, layout: Layout,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Per-rank bytes of a tree of Params under their specs: each leaf's
+    global bytes over the product of the sizes of the axes its spec names,
+    rounded up (reference ``core/params.py:sharded_bytes``); a leaf that
+    pins no dtype counts in ``dtype``."""
+    total = 0
+    for p in tree_leaves(tree):
+        if not isinstance(p, Param):
+            continue
+        n = -(-math.prod(p.shape) // layout.size(spec_axes(p.spec)))
+        total += n * (p.dtype or dtype).itemsize
+    return total
+
+
 def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every leaf of a tree of nested dicts."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_zip(tree, *others):
+    """(leaf, *the others' entries at its path) for every leaf of ``tree``
+    (nested dicts), in ``tree_leaves`` order; each other tree is indexed
+    by the same keys, so that its own key order does not matter, and may
+    hold anything at a leaf's path (a dict of Adafactor's stats)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_zip(v, *(o[k] for o in others))
+    else:
+        yield (tree, *others)
 
 
 def tree_leaves(tree):

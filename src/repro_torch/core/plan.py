@@ -9,9 +9,12 @@ the layout's process groups, one for every set of its axes of size > 1
 each strategy (3d, 2d, 1d) at pp = 1, and ``validate`` refuses serving
 (decode's psum-combined residuals, ROADMAP.md Queue 1 item 3);
 ``multi_rank_refusal``
-names what else the port refuses above one device.  Optimizer-state
-partitioning (``zero_stage``) and async-TP overlap are not carried yet;
-the train launcher refuses their flags.
+names what else the port refuses above one device.  ``zero_stage`` is
+the ZeRO stage of the optimizer state over the data axes (pod, dp): 0
+replicates it, 1 shards AdamW's moments 1/(pod*dp), 2 also keeps the f32
+gradient accumulation on those shards; None resolves to 1 when the data
+degree is above 1, else 0 (``resolved_zero_stage``).  Async-TP overlap
+is not carried yet; the train launcher refuses its flag.
 """
 from __future__ import annotations
 
@@ -73,10 +76,23 @@ class ParallelPlan:
     cube: Optional[Tuple[int, int, int]] = None
     batch_axes: Tuple[str, ...] = ("pod", "dp", "x")
     seq_axes: Tuple[str, ...] = ()
+    # ZeRO over (pod, dp); None = auto: 1 when the data degree > 1, else 0
+    zero_stage: Optional[int] = None
 
     @property
     def n_devices(self) -> int:
         return self.n_pod * self.n_dp * self.n_stages * self.n_model
+
+    @property
+    def n_data(self) -> int:
+        return self.n_pod * self.n_dp
+
+    @property
+    def resolved_zero_stage(self) -> int:
+        """The ZeRO stage the plan runs (auto -> 1 iff pod*dp > 1)."""
+        if self.zero_stage is None:
+            return 1 if self.n_data > 1 else 0
+        return self.zero_stage
 
     @property
     def cube_dims(self) -> Tuple[int, int, int]:
@@ -122,6 +138,17 @@ class ParallelPlan:
         px, py, pz = self.cube_dims
         if px * py * pz != self.n_model:
             raise ValueError(f"cube {self.cube_dims} != n_model {self.n_model}")
+        if self.zero_stage is not None:
+            if self.zero_stage not in (0, 1, 2):
+                raise ValueError(
+                    f"zero_stage={self.zero_stage} not in (0, 1, 2): 0 = "
+                    "replicated opt state, 1 = sharded m/v, 2 = + sharded "
+                    "grad accumulation (ZeRO-3 param sharding not supported)")
+            if self.zero_stage > 0 and self.n_data == 1:
+                raise ValueError(
+                    f"zero_stage={self.zero_stage} requires a data-parallel "
+                    f"degree > 1 to shard over, got pod*dp={self.n_data}; "
+                    "grow --dp or drop --zero")
         if mode != "train" and self.n_devices > 1:
             raise NotImplementedError(multi_rank_refusal(self.n_devices,
                                                          mode=mode))
@@ -139,7 +166,8 @@ class ParallelPlan:
                            batch_axes=self.batch_axes,
                            seq_axes=self.seq_axes, rank=rank,
                            n_pp=self.n_stages,
-                           microbatches=self.microbatches)
+                           microbatches=self.microbatches,
+                           zero_stage=self.resolved_zero_stage)
 
     def describe(self) -> dict:
         px, py, pz = self.cube_dims
@@ -152,4 +180,5 @@ class ParallelPlan:
             "bubble_fraction": round(self.bubble_fraction(), 4),
             "pipeline_efficiency": round(self.pipeline_efficiency(), 4),
             "strategy": self.strategy,
+            "zero_stage": self.resolved_zero_stage,
         }

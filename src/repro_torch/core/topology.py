@@ -52,6 +52,9 @@ class Layout:
     gradient-accumulation count, read by the train step.  ``batch_axes``
     and ``seq_axes`` name the axes that split the batch and (beside in_ax)
     the sequence of the activations, as the reference's fields do.
+    ``zero_stage`` is the ZeRO stage of the optimizer state over the data
+    axes (``optim/optimizers.py``; default 1, the reference's), in force
+    only above a data degree of 1 (``effective_zero_stage``).
     ``rank`` is this process's rank in the world of ``n_devices`` ranks;
     ``groups`` is the ``comm.Groups`` that ``comm.init`` attached, None
     until then (and at one device, where no collective is issued).
@@ -62,6 +65,7 @@ class Layout:
     microbatches: int = 1
     batch_axes: Tuple[str, ...] = ("pod", "dp", "x")
     seq_axes: Tuple[str, ...] = ()
+    zero_stage: int = 1
     rank: int = 0
     groups: Optional[Any] = dataclasses.field(default=None, compare=False,
                                               repr=False)
@@ -76,6 +80,15 @@ class Layout:
     @property
     def cube(self) -> Tuple[int, int, int]:
         return (self.sizes["x"], self.sizes["y"], self.sizes["z"])
+
+    @property
+    def n_data(self) -> int:
+        return self.size(("pod", "dp"))
+
+    def effective_zero_stage(self) -> int:
+        """The ZeRO stage in force: ``zero_stage``, or 0 when there is no
+        data degree to shard over (pod*dp == 1)."""
+        return self.zero_stage if self.n_data > 1 else 0
 
     @property
     def n_devices(self) -> int:
@@ -167,7 +180,8 @@ def make_layout(n_pod: int = 1, n_dp: int = 1, n_model: int = 1,
                 strategy: str = "3d",
                 cube: Optional[Tuple[int, int, int]] = None,
                 batch_axes=("pod", "dp", "x"), seq_axes=(), rank: int = 0,
-                n_pp: int = 1, microbatches: int = 1) -> Layout:
+                n_pp: int = 1, microbatches: int = 1,
+                zero_stage: int = 1) -> Layout:
     """The layout of rank ``rank`` on the mesh (n_pod, n_dp, n_pp, cube)
     (reference ``topology.py:make_layout``, with the rank in place of the
     device list)."""
@@ -180,7 +194,7 @@ def make_layout(n_pod: int = 1, n_dp: int = 1, n_model: int = 1,
         raise ValueError(f"rank {rank} outside a mesh of {n} devices")
     return Layout(sizes=sizes, strategy=strategy, microbatches=microbatches,
                   batch_axes=tuple(batch_axes), seq_axes=tuple(seq_axes),
-                  rank=rank)
+                  zero_stage=zero_stage, rank=rank)
 
 
 def single_device_layout(strategy: str = "3d") -> Layout:

@@ -25,8 +25,12 @@ The backend defaults to gloo for CPU ranks and NCCL for CUDA ranks, and is
 never switched: NCCL with more ranks than cards raises, and ranks that
 share a card take ``--backend gloo``, whose collectives go through the
 host.  Only rank 0 prints; MFU divides by the peak of the world's cards.
-The flags of what the port does not carry (pp > 1, overlap, ZeRO,
-Adafactor, the other families and checkpoints above one device) raise
+``--optimizer adafactor`` trains every family (reference
+``optim/optimizers.py``: anything else is AdamW), and ``--zero 0|1|2``
+places the optimizer state over the data axes; the default resolves as
+the reference's plan does, to 1 when ``--dp`` > 1, else 0, and ``--zero
+1`` at one device raises its ValueError.  The flags of what the port does
+not carry (pp > 1, overlap, the other families above one device) raise
 with a pointer to ROADMAP.md.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
 and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
@@ -38,12 +42,14 @@ lr=... gnorm=... s/step``, ``done: first loss ...``) and returns
 
 ``--ckpt-dir`` follows the reference (``repro/launch/train.py:128-180``):
 the latest step found there is restored (``restoring step N from DIR``),
-parameters and AdamW state, and the loop runs from it to ``--steps``;
-every ``--ckpt-every`` steps the state is saved (``saved DIR``) in the
-format both packages read (``checkpoint/store.py``); a restored step at
-or past ``--steps`` prints ``nothing to do: restored step N >= --steps
-M``.  As in the reference, a resumed run restarts the token stream from
-its first batch rather than skipping the batches already trained on.
+parameters and optimizer state, and the loop runs from it to
+``--steps``; every ``--ckpt-every`` steps the state is saved (``saved
+DIR``) in the format both packages read (``checkpoint/store.py``): each
+leaf's global value, whatever the layout, so that a run resumes on
+another dp size or ZeRO stage; a restored step at or past ``--steps``
+prints ``nothing to do: restored step N >= --steps M``.  As in the
+reference, a resumed run restarts the token stream from its first batch
+rather than skipping the batches already trained on.
 """
 from __future__ import annotations
 
@@ -69,15 +75,8 @@ def _refuse(args, cfg):
         err = multi_rank_refusal(n, cfg=cfg)
         if err:
             bad.append(err)
-        if args.ckpt_dir:
-            bad.append("--ckpt-dir above one device (each leaf's global "
-                       "value from a sharded run, item 6)")
     if args.overlap:
         bad.append("--overlap (async-TP overlap, item 9)")
-    if args.zero >= 1:
-        bad.append(f"--zero {args.zero} (ZeRO over dp, item 5)")
-    if args.optimizer != "adamw":
-        bad.append(f"--optimizer {args.optimizer} (Adafactor, item 5)")
     if bad:
         raise NotImplementedError(f"{'; '.join(bad)}: {TODO}")
 
@@ -103,7 +102,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--microbatch", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--zero", type=int, default=-1,
-                    help="ZeRO stage over dp (only 0 / auto at one device)")
+                    help="ZeRO stage of the optimizer state over dp: 0 = "
+                         "replicated, 1 = AdamW's moments sharded 1/dp, 2 = "
+                         "also the f32 gradient accumulation; default: "
+                         "auto (1 when --dp > 1, else 0)")
     ap.add_argument("--overlap", action="store_true")
     ap.add_argument("--overlap-chunks", type=int, default=4)
     ap.add_argument("--reduced", action="store_true",
@@ -143,6 +145,7 @@ def main(argv=None) -> dict:
     from repro_torch.launch import ranks
     cfg = _config(args)
     _refuse(args, cfg)
+    plan = _plan(args, cfg)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("--device cuda: no CUDA device is available (pass "
                  "--device cpu to run the plain versions on the CPU)")
@@ -163,7 +166,20 @@ def main(argv=None) -> dict:
     if world == 1 and args.host_devices > 1:
         raise ValueError(f"--host-devices {args.host_devices} for a plan of "
                          "one device: add --dp/--model")
-    return _train(args, cfg, me, backend)
+    return _train(args, cfg, plan, me, backend)
+
+
+def _plan(args, cfg):
+    """The validated ParallelPlan of the flags (before any rank starts)."""
+    from repro_torch.core.plan import ParallelPlan
+    cube = tuple(int(c) for c in args.cube.split(",")) if args.cube \
+        else None
+    plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
+                        strategy=args.strategy, n_stages=args.pp,
+                        microbatches=args.microbatch, cube=cube,
+                        zero_stage=None if args.zero < 0 else args.zero)
+    return plan.validate(n_layers=cfg.n_layers, global_batch=args.batch,
+                         model=cfg, mode="train")
 
 
 def _config(args):
@@ -206,7 +222,7 @@ def _spawn(argv, world: int, device: str) -> dict:
             return json.load(f)
 
 
-def _train(args, cfg, me, backend: str) -> dict:
+def _train(args, cfg, plan, me, backend: str) -> dict:
     """The run of one rank (``me``; None at one device)."""
     import torch
 
@@ -214,13 +230,13 @@ def _train(args, cfg, me, backend: str) -> dict:
     from repro_torch.config import OptimConfig, ShapeConfig
     from repro_torch.core import comm
     from repro_torch.core.params import init_params, tree_leaves
-    from repro_torch.core.plan import ParallelPlan
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.launch import ranks
     from repro_torch.models import transformer
     from repro_torch.obs import make_tracer
     from repro_torch.obs.telemetry import TrainTelemetry, peak_flops_for
     from repro_torch.optim import adamw_init
+    from repro_torch.optim.optimizers import opt_state_abstract
     from repro_torch.train.step import make_train_step
 
     device = torch.device(args.device)
@@ -236,13 +252,6 @@ def _train(args, cfg, me, backend: str) -> dict:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
 
-    cube = tuple(int(c) for c in args.cube.split(",")) if args.cube \
-        else None
-    plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
-                        strategy=args.strategy, n_stages=args.pp,
-                        microbatches=args.microbatch, cube=cube)
-    plan.validate(n_layers=cfg.n_layers, global_batch=args.batch, model=cfg,
-                  mode="train")
     layout = comm.init(plan.build(rank), backend)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     opt_cfg = OptimConfig(name=args.optimizer, lr=args.lr,
@@ -259,15 +268,17 @@ def _train(args, cfg, me, backend: str) -> dict:
                          layout=layout)
     n_params = sum(math.prod(p.shape) for p in tree_leaves(abstract))
     say(f"params: {n_params / 1e6:.1f}M")
-    opt_state = adamw_init(params)
+    opt_abstract = opt_state_abstract(abstract, layout, opt_cfg)
+    opt_state = adamw_init(params, layout, abstract, opt_cfg)
     step_fn = make_train_step(cfg, layout, opt_cfg)
     start = 0
     if args.ckpt_dir:
         last = store.latest_step(args.ckpt_dir)
         if last >= 0:
             say(f"restoring step {last} from {args.ckpt_dir}")
-            params, opt_state, _ = store.restore(args.ckpt_dir, last, params,
-                                                 opt_state)
+            params, opt_state, _ = store.restore(
+                args.ckpt_dir, last, abstract, opt_abstract, device=device,
+                dtype=getattr(torch, cfg.dtype), layout=layout)
             start = last
     data = TokenStream(cfg, shape, DataConfig(kind=args.data,
                                               path=args.data_path), device,
@@ -310,7 +321,8 @@ def _train(args, cfg, me, backend: str) -> dict:
         if args.ckpt_dir and args.ckpt_every and \
                 (step + 1) % args.ckpt_every == 0:
             d = store.save(args.ckpt_dir, step + 1, params, opt_state,
-                           layout=layout)
+                           layout=layout, abstract=abstract,
+                           opt_abstract=opt_abstract)
             say(f"saved {d}")
     if losses:
         say(f"done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")

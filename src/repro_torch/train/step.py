@@ -24,6 +24,13 @@ does not split and its activations do not replicate (``leaf_sync_axes``),
 as GSPMD sums it in the reference.  The microbatch weights are summed
 over the axes that split the labels, so that each is the microbatch's
 global token count.
+
+At ZeRO stage 2 (``Layout.effective_zero_stage()``) each microbatch's
+summed gradient is narrowed onto the rank's ZeRO block (``optim.
+zero_block``) before it is accumulated, so that the f32 buffer holds
+1/(pod*dp) of the leaf, and the optimizer takes the gradients on those
+blocks (reference ``step.py:46-66``, ``:94-97``).  The gradient is still
+summed over the data axes whole, as the reference's islands sum it.
 """
 from __future__ import annotations
 
@@ -31,12 +38,13 @@ import torch
 
 from ..config import ModelConfig, OptimConfig
 from ..core import comm
-from ..core.params import spec_axes, tree_leaves, tree_map
+from ..core.params import spec_axes, tree_leaves, tree_map, tree_zip
 from ..core.plan import multi_rank_refusal
 from ..core.topology import AXES, Layout
 from ..models import transformer
 from ..models.registry import get_stack
 from ..optim import make_optimizer
+from ..optim.optimizers import zero_block, zero_dim
 
 
 def _unflatten(tree, leaves):
@@ -96,13 +104,20 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
     m = max(layout.microbatches, 1)
     sync = [leaf_sync_axes(p, layout) for p in tree_leaves(abstract)]
     label_axes = transformer.loss_axes(layout, transformer.entry_dirs())
+    zero2 = layout.effective_zero_stage() >= 2
+    zdim_tree = tree_map(lambda p: zero_dim(p, layout) if zero2 else None,
+                         abstract)
 
     def value_and_grad(params, batch):
         return loss_and_grads(cfg, layout, params, batch, sync)
 
     def train_step(params, opt_state, batch):
+        # each leaf's ZeRO dim at stage 2 (else None), in params' order
+        zdims = [zd for _, zd in tree_zip(params, zdim_tree)]
         if m == 1:
             loss, metrics, grads = value_and_grad(params, batch)
+            grads = [g if zd is None else zero_block(g, zd, layout).clone()
+                     for g, zd in zip(grads, zdims)]
         else:
             gacc = lacc = wacc = None
             macc = {}
@@ -110,7 +125,8 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
                 w = comm.psum(layout, get_stack(cfg.family).mb_weight(
                     cfg, mb), label_axes)
                 loss_i, met, g = value_and_grad(params, mb)
-                g = [w * gi.float() for gi in g]
+                g = [w * zero_block(gi, zd, layout).float()
+                     for gi, zd in zip(g, zdims)]
                 gacc = g if gacc is None else [a + b for a, b in zip(gacc, g)]
                 lacc = w * loss_i if lacc is None else lacc + w * loss_i
                 wacc = w if wacc is None else wacc + w

@@ -11,6 +11,10 @@ same ``index.json`` and the same bytes.  Then the reference's refusals
 (a missing leaf, a global-shape mismatch) with its messages,
 ``latest_step``, and the launchers' ``--ckpt-dir``: the train launcher's
 resume and its ``nothing to do`` line, the serve launcher's restore.
+Last, Adafactor's state (a factored leaf's ``v`` a dict of ``row`` and
+``col``) round trips with the reference's keys and files.  Checkpoints
+across layouts (dp 2 / ZeRO 1 to dp 4) are in ``test_torch_zero.py``,
+whose 8-rank world they share.
 """
 import json
 import os
@@ -39,6 +43,8 @@ from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.models import transformer
 from repro_torch.optim import OptState, adamw_init
+from repro_torch.optim.optimizers import \
+    opt_state_abstract as port_opt_abstract
 from repro_torch.train.step import make_train_step
 
 OPT = dict(lr=3e-3, warmup=2, total_steps=6)
@@ -111,8 +117,9 @@ def test_port_restores_jax_checkpoint_and_trains_on(tmp_path, arch):
     tmpl = init_params(transformer.abstract_params(tcfg),
                        torch.Generator().manual_seed(5), "cpu",
                        torch.float32)
-    tp, tstate, extra = store.restore(str(tmp_path), 2, tmpl,
-                                      adamw_init(tmpl))
+    tp, tstate, extra = store.restore(
+        str(tmp_path), 2, tmpl,
+        adamw_init(tmpl, lay, transformer.abstract_params(tcfg)))
     assert extra == {} and isinstance(tstate, OptState)
     assert tstate.step == 2 and isinstance(tstate.step, int)
     _same_bits(tp, jp)
@@ -276,3 +283,50 @@ def test_launchers_resume_and_restore(tmp_path, capsys):
                                "--max-new", "3", "--ckpt-dir", ck])
     text = capsys.readouterr().out
     assert "restored checkpoint step 2" in text and stats["tokens"] == 6
+
+
+def test_adafactor_checkpoint_round_trips_with_reference_keys(tmp_path):
+    """A port save of tinyllama's bf16 parameters and an Adafactor state
+    of drawn stats: the reference's keys (``opt/.v/<path>/row``), no
+    ``opt/.m``; the JAX store restores it bit for bit with its own
+    template, writes the same files and bytes, and the port restores
+    those bit for bit."""
+    tcfg = config.reduced(get("tinyllama-1.1b"))
+    jcfg = jconfig.reduced(jget("tinyllama-1.1b"))
+    lay, jlay = ParallelPlan().validate().build(), single_device_layout()
+    ada = dict(name="adafactor")
+    gen = torch.Generator().manual_seed(3)
+    ab = transformer.abstract_params(tcfg, lay)
+    params = init_params(ab, gen, "cpu", torch.bfloat16)
+    stats = port_opt_abstract(ab, lay, config.OptimConfig(**ada)).v
+    opt = OptState(5, None, tree_map(
+        lambda p: torch.rand(p.shape, generator=gen), stats))
+    assert sorted(opt.v["stack"]["dense"]["mlp"]["w_up"]) == ["col", "row"]
+    assert isinstance(opt.v["ln_f"]["g"], torch.Tensor)    # 1-D: whole
+    store.save(str(tmp_path / "port"), 5, params, opt, layout=lay)
+    d = tmp_path / "port" / "step_00000005"
+    names = sorted(os.listdir(d))
+    assert "opt__.v__stack__dense__mlp__w_up__row.npy" in names
+    assert "opt__.v__ln_f__g.npy" in names
+    assert not any(n.startswith("opt__.m") for n in names)
+
+    jtmpl = jtransformer.abstract_params(jcfg, jlay)
+    jp, jopt, _ = jstore.restore(
+        str(tmp_path / "port"), 5, jtmpl, jlay,
+        opt_state_abstract(jtmpl, jlay, jconfig.OptimConfig(**ada)))
+    assert int(jopt.step) == 5 and jopt.m is None
+    _same_bits(params, jp)
+    _same_bits(opt.v, jopt.v)
+
+    jstore.save(str(tmp_path / "jax"), 5, jp, jopt, layout=jlay)
+    e = tmp_path / "jax" / "step_00000005"
+    assert sorted(os.listdir(e)) == names
+    for n in names:
+        assert (d / n).read_bytes() == (e / n).read_bytes(), n
+    tp, topt, _ = store.restore(
+        str(tmp_path / "jax"), 5, ab,
+        port_opt_abstract(ab, lay, config.OptimConfig(**ada)),
+        device="cpu", layout=lay)
+    assert topt.step == 5 and topt.m is None
+    _same_bits(tp, jp)
+    _same_bits(topt.v, jopt.v)

@@ -148,8 +148,9 @@ def test_mla_and_mtp_leaves_round_trip_between_packages(tmp_path):
     tmpl = init_params(transformer.abstract_params(tcfg),
                        torch.Generator().manual_seed(4), "cpu",
                        torch.bfloat16)
-    back, tstate, _ = store.restore(str(tmp_path / "jax"), 6, tmpl,
-                                    adamw_init(tmpl))
+    back, tstate, _ = store.restore(
+        str(tmp_path / "jax"), 6, tmpl,
+        adamw_init(tmpl, lay, transformer.abstract_params(tcfg)))
     assert tstate.step == 5
     _same_bits(back, jparams)
     _same_bits(tstate.v, jopt.v)

@@ -144,8 +144,10 @@ def test_whisper_checkpoint_round_trips_between_packages(tmp_path):
     tmpl = init_params(transformer.abstract_params(tcfg),
                        torch.Generator().manual_seed(4), "cpu",
                        torch.bfloat16)
-    back, tstate, _ = store.restore(str(tmp_path / "jax"), 6, tmpl,
-                                    adamw_init(tmpl))
+    back, tstate, _ = store.restore(
+        str(tmp_path / "jax"), 6, tmpl,
+        adamw_init(tmpl, ParallelPlan().validate().build(),
+                   transformer.abstract_params(tcfg)))
     assert tstate.step == 4
     _same_bits(back, jparams)
     _same_bits(tstate.v, jopt.v)

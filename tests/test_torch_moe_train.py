@@ -144,8 +144,9 @@ def test_moe_checkpoint_round_trips_between_packages(tmp_path):
     tmpl = init_params(transformer.abstract_params(tcfg),
                        torch.Generator().manual_seed(5), "cpu",
                        torch.bfloat16)
-    tp, tstate, _ = store.restore(str(tmp_path / "jax"), 9, tmpl,
-                                  adamw_init(tmpl))
+    tp, tstate, _ = store.restore(
+        str(tmp_path / "jax"), 9, tmpl,
+        adamw_init(tmpl, lay, transformer.abstract_params(tcfg)))
     assert tstate.step == 7
     _same_bits(tp, jp)
     _same_bits(tstate.m, jopt.m)

@@ -11,8 +11,10 @@ port's seeded init, handed to JAX as arrays; each rank keeps its shards
 (``data.pipeline.shard_batch``).  Held: the loss, and every gradient
 leaf's shard on every rank within 1e-4 of the leaf's largest value
 against JAX's at the rank's coordinates; then three AdamW steps at two
-microbatches (the train step, its leaf sync and the sharded global norm):
-each step's loss and gnorm, and every parameter shard, within 1e-2.
+microbatches (the train step, its leaf sync and the sharded global norm;
+at dp 2 the moments on their ZeRO-1 shards, the default):
+each step's loss and gnorm, and every parameter shard, within 1e-2
+(each side also saves its optimizer's ``v`` tree under ``state/``).
 ``run_train``, ``check_grads`` and ``check_steps`` serve
 ``test_torch_multirank_more.py`` too.
 """
@@ -137,6 +139,7 @@ for arch, change in ARCHS.items():
             for key in ("loss", "gnorm", "lr"):
                 out[f"step{s}/{key}"] = np.asarray(met[key], np.float32)
         out.update({"param/" + k: v for k, v in flat(params).items()})
+        out.update({"state/" + k: v for k, v in flat(state.v).items()})
         np.savez(os.path.join(d, f"jax_{arch}_{lname}.npz"), **out)
 print("JAX-OK")
 """
@@ -209,37 +212,41 @@ for arch, change in ARCHS.items():
         out = {"loss": loss.detach().numpy()}
         out.update({"grad/" + k: v for k, v in flat(tree_map(
             lambda _: next(it), params)).items()})
-        step = make_train_step(cfg, dataclasses.replace(lay, microbatches=MB),
-                               OPT)
-        state = adamw_init(params)
+        lay_mb = dataclasses.replace(lay, microbatches=MB)
+        step = make_train_step(cfg, lay_mb, OPT)
+        state = adamw_init(params, lay_mb,
+                           transformer.abstract_params(cfg, lay_mb), OPT)
         for s in range(STEPS[arch]):
             params, state, met = step(params, state, shard(s + 1))
             for key in ("loss", "gnorm", "lr"):
                 out[f"step{s}/{key}"] = np.asarray(float(met[key]),
                                                    np.float32)
         out.update({"param/" + k: v for k, v in flat(params).items()})
+        out.update({"state/" + k: v for k, v in flat(state.v).items()})
         np.savez(os.path.join(d, f"rank{me.rank}_{arch}_{lname}.npz"), **out)
 print("RANK-OK")
 """
 
 
-def fill(script, archs, mb, layouts=LAYOUTS, steps=None):
+def fill(script, archs, mb, layouts=LAYOUTS, steps=None, opt=None):
     layouts = {k: dict(v, cube=list(v["cube"])) if "cube" in v else v
                for k, v in layouts.items()}
     steps = {a: STEPS if steps is None or a in steps else 0 for a in archs}
     return script % {"archs": archs, "layouts": layouts, "steps": steps,
-                     "mb": mb, "opt": OPT}
+                     "mb": mb, "opt": opt or OPT}
 
 
-def run_train(tmp, archs, mb, layouts=LAYOUTS, steps=None):
+def run_train(tmp, archs, mb, layouts=LAYOUTS, steps=None, opt=None):
     """Run both sides, a JAX subprocess for each arch beside the ranks, at
-    each of ``layouts``, with the AdamW steps for the archs of ``steps``
-    (None: every arch); {(arch, layout): (jax outputs, [rank outputs])}."""
+    each of ``layouts``, with the optimizer steps (AdamW, or ``opt``'s
+    OptimConfig fields) for the archs of ``steps`` (None: every arch);
+    {(arch, layout): (jax outputs, [rank outputs])}.  The port's ranks
+    run at the layouts' default ZeRO stage, the JAX side at stage 0."""
     write_inputs(tmp, archs)
-    runs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb, layouts, steps), tmp,
-                    f"jax_{a}") for a in archs]
+    runs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb, layouts, steps, opt),
+                    tmp, f"jax_{a}") for a in archs]
     try:
-        run_ranks(fill(RANK_SCRIPT, archs, mb, layouts, steps), tmp,
+        run_ranks(fill(RANK_SCRIPT, archs, mb, layouts, steps, opt), tmp,
                   timeout=600)
     finally:
         for run in runs:

@@ -248,7 +248,7 @@ def test_topology_and_plan_match_reference():
         assert str(got.value) == str(want.value)
     assert ParallelPlan(n_model=8).describe() == {
         k: v for k, v in jplan.ParallelPlan(n_model=8).describe().items()
-        if k not in ("zero_stage", "overlap", "overlap_chunks")}
+        if k not in ("overlap", "overlap_chunks")}
 
 
 def test_block_allocator_invariants():

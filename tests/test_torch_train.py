@@ -17,6 +17,8 @@ Inputs come from numpy with a seed; weights cross by
 ``convert.params_from_jax``.
 """
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -323,15 +325,16 @@ def test_train_loss_and_grads_match_reference(model):
 
 
 def three_adamw_steps(model, mb, seq=None, metrics=("loss", "gnorm"),
-                      stubs=None):
+                      stubs=None, optimizer="adamw"):
     """Three AdamW steps of ``model`` (``build_model``'s tuple) at ``mb``
     microbatches against the JAX package's: each step's ``metrics`` and lr,
     then every parameter, within 1e-2.  The AdamW trajectory test of each
     family calls it; ``seq`` defaults to the arch's AdamW length in
     ``SEQ``; ``stubs(b, seed)`` adds a modality family's float arrays to
-    each batch."""
+    each batch; ``optimizer="adafactor"`` takes Adafactor's steps
+    instead, its state from ``opt_state_abstract``."""
     jcfg, tcfg, jlay, jp, tp = model
-    opt = dict(lr=3e-3, warmup=2, total_steps=3)
+    opt = dict(name=optimizer, lr=3e-3, warmup=2, total_steps=3)
     jlay_mb = JPlan(microbatches=mb).build()
     jstate = jinit_params(opt_state_abstract(
         jtransformer.abstract_params(jcfg, jlay_mb), jlay_mb,
@@ -341,7 +344,8 @@ def three_adamw_steps(model, mb, seq=None, metrics=("loss", "gnorm"),
     lay = ParallelPlan(microbatches=mb).validate(global_batch=4).build()
     step = make_train_step(tcfg, lay, config.OptimConfig(**opt))
     tparams = tree_map(lambda t: t.clone(), tp)
-    tstate = adamw_init(tparams)
+    tstate = adamw_init(tparams, lay, transformer.abstract_params(tcfg, lay),
+                        config.OptimConfig(**opt))
     jparams = jp
     for s in range(3):
         batch = _batch(tcfg.vocab, b=4, s=seq or SEQ[tcfg.arch][1],
@@ -386,26 +390,70 @@ def _launch_on_cpu(capsys, arch, seq=64):
     assert all(np.isfinite(out["losses"]))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--dp", "2", "--zero", "1"], ["--model", "8", "--pp", "2"],
-    ["--model", "4", "--strategy", "2d", "--pp", "2"], ["--pp", "2"],
-    ["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4"],
-    ["--overlap"], ["--zero", "1"],
-    ["--optimizer", "adafactor"],
-    ["--model", "8", "--ckpt-dir", "unused"],
-    ["--arch", "mixtral-8x7b", "--model", "8"],
-    ["--arch", "zamba2-1.2b", "--dp", "2"],
-    ["--arch", "deepseek-v3-671b", "--model", "8"],
-    ["--arch", "deepseek-v3-671b", "--optimizer", "adafactor"],
-    ["--arch", "mixtral-8x7b", "--pp", "2"],
-    ["--arch", "moonshot-v1-16b-a3b", "--optimizer", "adafactor"],
-    ["--arch", "internvl2-2b", "--pp", "2"],
-    ["--arch", "whisper-medium", "--zero", "1"]])
-def test_train_launcher_refusals(flags):
+# the launcher's flags, each refused (NotImplementedError pointing at
+# ROADMAP.md, or the reference's ValueError) or run; the cases that now
+# run keep their places, so that each keeps its name
+LAUNCHER_CASES = [
+    (["--dp", "2", "--zero", "1", "--host-devices", "2"], "runs"),
+    (["--model", "8", "--pp", "2"], NotImplementedError),
+    (["--model", "4", "--strategy", "2d", "--pp", "2"], NotImplementedError),
+    (["--pp", "2"], NotImplementedError),
+    (["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4"],
+     NotImplementedError),
+    (["--overlap"], NotImplementedError), (["--zero", "1"], ValueError),
+    (["--optimizer", "adafactor"], "runs"),
+    (["--dp", "2", "--model", "4", "--cube", "2,2,1", "--host-devices", "8"],
+     "resumes"),
+    (["--arch", "mixtral-8x7b", "--model", "8"], NotImplementedError),
+    (["--arch", "zamba2-1.2b", "--dp", "2"], NotImplementedError),
+    (["--arch", "deepseek-v3-671b", "--model", "8"], NotImplementedError),
+    (["--arch", "deepseek-v3-671b", "--optimizer", "adafactor"], "runs"),
+    (["--arch", "mixtral-8x7b", "--pp", "2"], NotImplementedError),
+    (["--arch", "moonshot-v1-16b-a3b", "--optimizer", "adafactor"], "runs"),
+    (["--arch", "internvl2-2b", "--pp", "2"], NotImplementedError),
+    (["--arch", "whisper-medium", "--zero", "1"], ValueError)]
+
+
+@pytest.mark.parametrize("flags,outcome", [
+    pytest.param(f, o, id=f"flags{i}") for i, (f, o) in
+    enumerate(LAUNCHER_CASES)])
+def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
+    """What the port does not carry raises NotImplementedError pointing at
+    ROADMAP.md; ``--zero 1`` at one device the reference's ValueError.
+    ZeRO above one device and Adafactor (every family) run a step; at dp
+    2 x (2, 2, 1) ``--ckpt-dir`` saves across the ranks and a second run
+    resumes from it."""
     argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
-            "--steps", "1"] + flags
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_launch.main(argv)
+            "--steps", "1", "--batch", "8", "--seq", "32"] + flags
+    if outcome is NotImplementedError:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            train_launch.main(argv)
+    elif outcome is ValueError:
+        with pytest.raises(ValueError, match="requires a data-parallel "
+                           "degree > 1"):
+            train_launch.main(argv)
+    elif outcome == "runs":
+        out = train_launch.main(argv)
+        text = capsys.readouterr().out
+        assert "done: first loss" in text and np.isfinite(out["losses"][0])
+        if "--zero" in flags:
+            assert "'zero_stage': 1" in text
+    else:
+        ck = str(tmp_path / "ck")
+        ckpt = ["--ckpt-dir", ck, "--ckpt-every", "1"]
+        out = train_launch.main(argv + ckpt)
+        assert f"saved {os.path.join(ck, 'step_00000001')}" in \
+            capsys.readouterr().out
+        index = json.loads((tmp_path / "ck" / "step_00000001" /
+                            "index.json").read_text())
+        assert index["meta"]["zero_stage"] == 1
+        assert index["meta"]["mesh"]["dp"] == 2
+        out = train_launch.main(argv[:argv.index("--steps") + 1] + ["2"]
+                                + argv[argv.index("--steps") + 2:] + ckpt)
+        text = capsys.readouterr().out
+        assert f"restoring step 1 from {ck}" in text
+        assert out["start"] == 1 and len(out["losses"]) == 1
+        assert np.isfinite(out["losses"][0])
 
 
 def test_train_launcher_refuses_nccl_sharing_a_card(monkeypatch):

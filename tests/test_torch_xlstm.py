@@ -419,7 +419,7 @@ def test_three_adamw_steps_match_reference(model):
     lay = ParallelPlan().validate(global_batch=4).build()
     step = make_train_step(tcfg, lay, config.OptimConfig(**opt))
     tparams = tree_map(lambda t: t.clone(), tp)
-    tstate = adamw_init(tparams)
+    tstate = adamw_init(tparams, lay, transformer.abstract_params(tcfg, lay))
     jparams = jp
     for s in range(3):
         batch = _batch(tcfg.vocab, b=4, s=16, seed=10 + s)
