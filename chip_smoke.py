@@ -309,9 +309,12 @@ Phases, in order (any failure raises and exits nonzero):
      ranks on a device; the times are no measure of the paper's
      communication claim): tinyllama-1.1b cut to 2 layers at full width
      in f32, 4 x 512, one forward and backward on 8 ranks at (2,2,2) and
-     at dp2 x (2,2,1) (``RANK_LAYOUTS``) against one rank on the card:
+     at dp2 x (2,2,1) (``RANK_LAYOUTS``), and in the same world at pp2 x
+     (1,2,2) with 4 microbatches (``PP_LAYOUTS``: one layer a stage, the
+     activations crossing by send/recv), against one rank on the card:
      the loss and every rank's gradient shard within 1e-4 of each leaf's
-     largest value;
+     largest value (a stage's slab against the one-rank leaf re-cut by
+     ``repartition_stack``);
  30r. phase 8's run cut to ``RANK_TRAIN_LAYERS`` (2 of 22) layers,
      ``RANK_STEPS`` (2) steps: the losses that 30 and 33 are held to;
  30. ``repro_torch.launch.train`` under torchrun, 8 ranks at each layout:
@@ -355,7 +358,14 @@ Phases, in order (any failure raises and exits nonzero):
      adafactor`` beside its AdamW (step time, peak memory, the state's
      bytes, the optimizer range's device time in one profiled step of
      each), then mixtral-8x7b cut to ``ADA_MIX_LAYERS`` (4) layers, 3
-     steps, the depth whose AdamW moments alone would take 48.6 GB.
+     steps, the depth whose AdamW moments alone would take 48.6 GB;
+ 37. pipeline stages: phase 30 at pp2 x (1,2,2) (``PP_LAYOUTS``,
+     ``--pp 2 --microbatch 4``), one of the 2 layers a stage, 2 steps:
+     each loss within 3e-2 of 30r's, each rank's K1/K2/K3 launches exact
+     for its stage (``rank_train_launches``: the head and ``ln_f`` on the
+     last stage, 4 microbatches a step), every K1 and K2 launch on tc;
+     each rank's step time, peak memory and bytes a step by kind, the
+     stage boundary's ``collective-permute`` among them.
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
@@ -404,11 +414,13 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 5    # the training run (phase 8)
 # K3 the 2 norms of each layer twice and ln_f once, backward once each
 
 
-def step_launches(layers):
-    """One tinyllama-1.1b training step's launches at ``layers`` deep."""
-    return {"K1": 2 * 7 * layers + 2 * 2, "K2": 2 * layers,
-            "K2 bwd": layers, "K3": 2 * 2 * layers + 1,
-            "K3 bwd": 2 * layers + 1, "K5": 0, "K5 bwd": 0}
+def step_launches(layers, head=True):
+    """One tinyllama-1.1b training step's launches at ``layers`` deep
+    (``head=False``: a pipeline stage's without ``ln_f`` and the head)."""
+    h = int(head)
+    return {"K1": 2 * 7 * layers + 2 * 2 * h, "K2": 2 * layers,
+            "K2 bwd": layers, "K3": 2 * 2 * layers + h,
+            "K3 bwd": 2 * layers + h, "K5": 0, "K5 bwd": 0}
 
 
 TRAIN_LAUNCHES = step_launches(LAYERS)
@@ -4721,6 +4733,9 @@ def phase_serve_state(card, arch, tag, per_step, step_bytes):
 # the layouts (tests/test_multidev.py:66-67): name -> (dp, model, cube[,
 # strategy]); the 3-D strategy where none is named
 RANK_LAYOUTS = {"cube": (1, 8, (2, 2, 2)), "dp2": (2, 4, (2, 2, 1))}
+# pipeline stages (tests/test_pipeline.py:66-67): -> (dp, model, cube,
+# strategy, pp, microbatches)
+PP_LAYOUTS = {"pp2": (1, 4, (1, 2, 2), "3d", 2, 4)}
 # the paper's baselines (tests/test_multidev.py:68-69): 1d(4) and 2d(q2)
 BASE_LAYOUTS = {"1d": (2, 4, None, "1d"), "2d": (2, 4, None, "2d")}
 # phase 30 takes 2 steps, the first a warm-up: the script's time limit
@@ -4738,17 +4753,22 @@ R29_SEED, R29_B, R29_S = 29, 4, 512
 
 
 def rank_layout(lname, rank=0, layouts=None):
+    """Rank ``rank``'s Layout of ``layouts[lname]``: (dp, model, cube[,
+    strategy[, pp, microbatches]])."""
     from repro_torch.core.topology import make_layout
-    n_dp, n_model, cube, *strategy = (layouts or RANK_LAYOUTS)[lname]
-    return make_layout(1, n_dp, n_model, (strategy or ["3d"])[0], cube,
-                       rank=rank)
+    n_dp, n_model, cube, *more = (layouts or RANK_LAYOUTS)[lname]
+    strategy, n_pp, mb = more + ["3d", 1, 1][len(more):]
+    return make_layout(1, n_dp, n_model, strategy, cube, rank=rank,
+                       n_pp=n_pp, microbatches=mb)
 
 
 def rank_flags(lname, layouts=None):
-    n_dp, n_model, cube, *strategy = (layouts or RANK_LAYOUTS)[lname]
+    n_dp, n_model, cube, *more = (layouts or RANK_LAYOUTS)[lname]
     return (["--dp", str(n_dp), "--model", str(n_model)]
             + (["--cube", ",".join(map(str, cube))] if cube else [])
-            + (["--strategy", strategy[0]] if strategy else []))
+            + (["--strategy", more[0]] if more else [])
+            + (["--pp", str(more[1]), "--microbatch", str(more[2])]
+               if len(more) > 1 else []))
 
 
 def rank_gemms(lname, layouts=None):
@@ -5127,13 +5147,13 @@ def rank_grads(job, me):
     run's block at the rank's coordinates."""
     import torch
     from repro_torch.core import comm
-    from repro_torch.core.params import (init_params, shard, tree_leaves,
-                                         tree_map)
+    from repro_torch.core.params import init_params, shard, tree_leaves
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.data.pipeline import shard_batch, to_device
     from repro_torch.launch import ranks
     from repro_torch.models import transformer
-    from repro_torch.train.step import leaf_sync_axes
+    from repro_torch.models.registry import repartition_stack
+    from repro_torch.train.step import loss_and_grads
     dev = ranks.device_for(me, job["device"])
     ranks.init_world(me, "gloo", dev)
     cfg = r29_cfg()
@@ -5142,31 +5162,39 @@ def rank_grads(job, me):
     out = {}
     for lname in job["layouts"]:
         t = time.perf_counter()
-        n_dp, n_model, cube = RANK_LAYOUTS[lname]
+        n_dp, n_model, cube, *more = {**RANK_LAYOUTS, **PP_LAYOUTS}[lname]
+        _, n_pp, mb = more + ["3d", 1, 1][len(more):]
         lay = comm.init(ParallelPlan(
-            n_dp=n_dp, n_model=n_model,
-            cube=tuple(cube)).validate().build(me.rank), "gloo")
+            n_dp=n_dp, n_model=n_model, cube=tuple(cube), n_stages=n_pp,
+            microbatches=mb).validate().build(me.rank), "gloo")
         abstract = transformer.abstract_params(cfg, lay)
+        # at pp 2 the stage slabs of the same draws (the one-rank leaves
+        # re-cut: the plan is homogeneous)
         params = init_params(abstract, torch.Generator(
             device=dev).manual_seed(R29_SEED), dev, torch.float32,
             layout=lay)
         batch = to_device(shard_batch(r29_batch(cfg.vocab), lay), dev)
         reset_launches()
-        live = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, _ = transformer.forward(cfg, lay, live, batch, mode="train")
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-        grads = [comm.psum(lay, g, leaf_sync_axes(p, lay))
-                 for g, p in zip(grads, tree_leaves(abstract))]
+        comm.reset_bytes()
+        loss, _, grads = loss_and_grads(cfg, lay, params, batch)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launches = dict(read_launches(), **read_split_launches())
         names = ["/".join(p) for p in _paths(params)]
-        errs = {n: leaf_err(g, shard(ref["grads"][n], p.spec, lay).to(dev))
+
+        def want(n):
+            g = ref["grads"][n]
+            if n_pp > 1 and n.startswith("stack/"):
+                kind = n.split("/")[1]
+                g = repartition_stack(cfg, {kind: g}, 1, n_pp)[kind]
+            return g
+        errs = {n: leaf_err(g, shard(want(n), p.spec, lay).to(dev))
                 for n, g, p in zip(names, grads, tree_leaves(abstract))}
         out[lname] = {"loss": loss.item(), "ref_loss": ref["loss"],
                       "errs": errs, "launches": launches,
+                      "bytes": comm.bytes_moved(),
                       "wall_s": time.perf_counter() - t}
-        del params, live, loss, grads
+        del params, loss, grads
     import torch.distributed as dist
     dist.destroy_process_group()
     return out
@@ -5203,26 +5231,29 @@ def phase_ranks_grads(dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = {}
-    # both layouts in one world of 8 ranks
+    # the three layouts in one world of 8 ranks
+    layouts = {**RANK_LAYOUTS, **PP_LAYOUTS}
     t = time.perf_counter()
-    world = run_rank_job({"kind": "grads", "layout": "cube_dp2",
-                          "layouts": list(RANK_LAYOUTS),
+    world = run_rank_job({"kind": "grads", "layout": "_".join(layouts),
+                          "layouts": list(layouts),
                           "device": RANK_DEVICE, "ref": str(ref)})
-    print(f"[29] one world of {RANKS} ranks for both layouts: "
-          f"{time.perf_counter() - t:.1f} s")
-    for lname in RANK_LAYOUTS:
+    print(f"[29] one world of {RANKS} ranks for the {len(layouts)} "
+          f"layouts: {time.perf_counter() - t:.1f} s")
+    for lname, spec in layouts.items():
         res = [r[lname] for r in world]
         wall = res[0]["wall_s"]
         worst = max(max(r["errs"].values()) for r in res)
         dl = max(abs(r["loss"] - r["ref_loss"]) for r in res)
-        split = lname == "cube"
+        split = spec[2][2] > 1      # 'z' splits the hidden dim
         print(f"[29] {lname} ({RANKS} ranks on one card, gloo through the "
               f"host) f32 2-layer tinyllama {R29_B}x{R29_S}: loss "
               f"{res[0]['loss']:.6f} against one rank's {one:.6f} (worst "
               f"rank {dl:.2e}, tol 1e-4); worst gradient shard error "
               f"{worst:.2e} of its leaf's max over {len(res[0]['errs'])} "
               f"leaves x {RANKS} ranks (tol 1e-4); rank 0's launches "
-              f"{res[0]['launches']}; {wall:.1f} s")
+              f"{res[0]['launches']}; bytes by kind, rank 0 "
+              f"{res[0]['bytes']['by_kind']}, rank {RANKS - 1} "
+              f"{res[-1]['bytes']['by_kind']}; {wall:.1f} s")
         check(dl <= 1e-4, f"29 {lname}: loss {dl}")
         check(worst <= 1e-4, f"29 {lname}: gradient shards {worst}")
         for r, rr in enumerate(res):
@@ -5230,7 +5261,8 @@ def phase_ranks_grads(dev):
             norms = (la["K3 moments"] if split else la["K3"])
             check(la["K1"] > 0 and la["K2"] > 0 and la["K2 bwd"] > 0
                   and norms > 0, f"29 {lname} rank {r}: launches {la}")
-        out[lname] = {"loss_err": dl, "grad_err": worst, "wall_s": wall}
+        out[lname] = {"loss_err": dl, "grad_err": worst, "wall_s": wall,
+                      "bytes_by_kind_rank0": res[0]["bytes"]["by_kind"]}
     return out
 
 
@@ -5257,16 +5289,23 @@ def rank_train(job, me):
 
 
 def rank_train_launches(lname, layouts=None, layers=LAYERS,
-                        steps=RANK_STEPS):
-    """One rank's launches in phase 30's (33's) run: tinyllama's step at
-    ``layers`` deep as one rank runs it (``step_launches``), its norms in
-    K3's two phases where the hidden dim is split (over out_ax, 'z', at
-    3d; 'z' at 2d; never at 1d)."""
+                        steps=RANK_STEPS, rank=0):
+    """Rank ``rank``'s launches in phase 30's (33's, 37's) run:
+    tinyllama's step at ``layers`` deep as one rank runs it
+    (``step_launches``), at pp > 1 its stage's layers (the head and
+    ``ln_f`` on the last stage) once a microbatch; its norms in K3's two
+    phases where the hidden dim is split (over out_ax, 'z', at 3d; 'z' at
+    2d; never at 1d)."""
     from repro_torch.core.linear3d import act_axes
     from repro_torch.core.topology import entry_dirs
+    lay = rank_layout(lname, rank, layouts)
     per = step_launches(layers)
+    pp = lay.size("pp")
+    if pp > 1:
+        lo, hi = lay.stage_bounds(layers)[lay.index("pp")]
+        per = {k: n * lay.microbatches for k, n in step_launches(
+            hi - lo, head=lay.index("pp") == pp - 1).items()}
     fwd, bwd = per["K3"], per["K3 bwd"]
-    lay = rank_layout(lname, layouts=layouts)
     split = lay.size(act_axes(lay, entry_dirs())[1]) > 1
     per.update({"K3": 0 if split else fwd, "K3 bwd": 0 if split else bwd,
                 "K3 moments": fwd if split else 0,
@@ -5310,11 +5349,12 @@ def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
         res = run_rank_job({"kind": "train", "layout": lname, "argv": argv},
                            torchrun=RANK_DEVICE == "cuda", nranks=nranks)
         wall = time.perf_counter() - t
-        want = rank_train_launches(lname, layouts, layers or LAYERS, steps)
         losses = res[0]["losses"]
         ref = one_rank_losses[:steps]
         diffs = [abs(a - b) for a, b in zip(losses, ref)]
         for r, rr in enumerate(res):
+            want = rank_train_launches(lname, layouts, layers or LAYERS,
+                                       steps, rank=r)
             check(rr["losses"] == losses, f"{tag} {lname}: rank {r} losses "
                   f"{rr['losses']} != rank 0's {losses}")
             check(rr["launches"] == want, f"{tag} {lname} rank {r}: "
@@ -5328,6 +5368,14 @@ def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
         mem = [tl["mem_peak_bytes"] / 2 ** 30 for tl in tels]
         step_bytes = [rr["bytes"]["bytes_per_device"] / steps
                       for rr in res]
+        by_kind = [{k: v / steps for k, v in rr["bytes"]["by_kind"].items()
+                    if v} for rr in res]
+        print(f"[{tag}] {lname}: per rank, steady s/step "
+              + " ".join(f"{tl['t_step_s']:.3f}" for tl in tels)
+              + "; bytes a step by kind "
+              + "; ".join(f"rank {r} " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in bk.items())
+                  for r, bk in enumerate(by_kind)))
         depth = f"cut to {layers} layers" if layers else "full depth"
         print(f"[{tag}] {lname}: tinyllama-1.1b full width, {depth}, bf16 "
               f"{TRAIN_B}x{TRAIN_S}, remat, AdamW on {where}: losses "
@@ -5359,7 +5407,12 @@ def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
                       "tokens_per_s": tels[0]["tokens_per_s"],
                       "mem_peak_gib_by_rank": mem, "wall_s": wall,
                       "bytes_per_rank_step": max(step_bytes),
-                      "launches_per_rank": res[0]["launches"]}
+                      "bytes_by_kind_per_rank_step": by_kind,
+                      "t_step_s_by_rank": [tl["t_step_s"] for tl in tels],
+                      "launches_per_rank": res[0]["launches"],
+                      "launches_world": {k: sum(rr["launches"][k]
+                                                for rr in res)
+                                         for k in res[0]["launches"]}}
     return out
 
 
@@ -6171,6 +6224,9 @@ def main():
     cut_losses = cut_tel["series"]["loss"]
     ranks_numbers["train"] = timed(phase_ranks_train, card, cut_losses,
                                    layers=RANK_TRAIN_LAYERS)
+    ranks_numbers["train_pp"] = timed(
+        phase_ranks_train, card, cut_losses, PP_LAYOUTS,
+        layers=RANK_TRAIN_LAYERS, tag="37")
     base_numbers = {"grads_f32": timed(phase_base_grads, dev)}
     base_numbers["train"] = timed(
         phase_ranks_train, card, cut_losses, {"1d": BASE_LAYOUTS["1d"]},
@@ -6189,13 +6245,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ada_numbers, ada_paths = timed(phase_adafactor, card, dev, train_tel)
-    # each layout's launches over its 8 ranks: every rank runs the same
-    rank_paths = {f"train_ranks_{lname}": {
-        k: RANKS * n for k, n in v["launches_per_rank"].items()}
-        for lname, v in (*ranks_numbers["train"].items(),
-                         *base_numbers["train"].items(),
-                         *((s, zero_numbers[s]) for s in
-                           ("zero0", "zero1", "zero2")))}
+    # each layout's launches over its 8 ranks (ZeRO's: every rank runs
+    # the same; pp's: each stage its own)
+    rank_paths = {f"train_ranks_{lname}": v["launches_world"]
+                  for lname, v in (*ranks_numbers["train"].items(),
+                                   *ranks_numbers["train_pp"].items(),
+                                   *base_numbers["train"].items())}
+    rank_paths.update({f"train_ranks_{s}": {
+        k: RANKS * n for k, n in zero_numbers[s][
+            "launches_per_rank"].items()} for s in ("zero0", "zero1",
+                                                    "zero2")})
     rank_paths["train_cut"] = cut_launches
     # the checkpoint's resumes and the Adafactor runs: K1 and K2 all tc
     rank_paths.update(ckpt_paths)

@@ -34,7 +34,13 @@ dict of ``row`` and ``col``) gives the reference's keys,
 leaves land on ``device`` in the dtype each Param pins, else ``dtype``,
 and with a ``layout`` each is the rank's block under the Param's spec, so
 that a dp 2 / ZeRO 1 checkpoint restores onto dp 4 or one device) or of
-ints.  A restored leaf takes its template's dtype and device, so the
+ints.  At pp > 1 the ``stack`` leaves are the global ``(pp, slots, ...)``
+stage slabs, as in the reference; a checkpoint saved at another pp (its
+``meta``, none for a one-device save) restores when ``cfg`` is given:
+each ``stack`` leaf, of the parameters and of the optimizer's moments,
+is re-cut by ``models.registry.repartition_stack`` before it is cut to
+the rank's block (the reference leaves that re-cut to its caller,
+``registry.py:840-848``).  A restored leaf takes its template's dtype and device, so the
 f32 Mamba2 leaves stay f32 in a bf16 model.  A missing leaf and a
 global-shape mismatch fail loudly, with the reference's messages.  Every
 family's tree goes through the same walk: whisper's ``encoder`` subtree
@@ -164,16 +170,31 @@ def latest_step(ckpt_dir: str) -> int:
     return max(steps) if steps else -1
 
 
+def _recut(cfg, key: str, arr: np.ndarray, src: int, dst: int):
+    """``arr`` re-cut from pp ``src`` to ``dst`` when ``key`` is a leaf of
+    the ``stack`` subtree (of the parameters, ``stack/<kind>/...``, or of
+    the optimizer's state, ``.m/stack/<kind>/...``); else ``arr``."""
+    parts = key.split("/")
+    if src == dst or "stack" not in parts[:2]:
+        return arr
+    from ..models.registry import repartition_stack
+    kind = parts[parts.index("stack") + 1]
+    return repartition_stack(cfg, {kind: arr}, src, dst)[kind]
+
+
 def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
             *, device=None, dtype: torch.dtype = torch.bfloat16,
-            layout: Optional[Layout] = None):
+            layout: Optional[Layout] = None, cfg=None):
     """(params, opt_state or None, extra) of step ``step``, in the
     templates' structure (reference ``store.py:79-124``): with ``layout``
     each leaf of a template of Params is the rank's block under its spec
-    in that layout, whatever layout saved it."""
+    in that layout, whatever layout saved it; with ``cfg`` too, whatever
+    pp saved it (the module docstring)."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "index.json")) as f:
         index = json.load(f)
+    src_pp = index.get("meta", {}).get("mesh", {}).get("pp", 1)
+    dst_pp = src_pp if layout is None or cfg is None else layout.size("pp")
 
     def load_tree(prefix, template):
         def one(key, leaf):
@@ -182,6 +203,7 @@ def restore(ckpt_dir: str, step: int, params_template, opt_template=None,
                 raise KeyError(f"checkpoint missing {prefix}/{key}")
             # a memory map: a rank reads the pages of its own block
             arr = np.load(os.path.join(d, entry["file"]), mmap_mode="r")
+            arr = _recut(cfg, key, arr, src_pp, dst_pp)
             want = tuple(getattr(leaf, "shape", arr.shape))
             if tuple(arr.shape) != want:
                 raise ValueError(

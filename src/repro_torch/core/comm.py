@@ -33,11 +33,19 @@ identity, since each rank already seeds the gradient of the whole; and a
 replicated tensor that each rank reads in its own way (the kv heads that
 the attention island slices) sums its gradient.
 
+Point to point, ``send`` and ``recv`` move a tensor between neighbouring
+pipeline stages over the pp group (the ``("pp",)`` key of ``Groups``),
+staged through the host like the collectives; ``send_ad`` is the
+differentiable boundary of a stage, whose forward sends the activation
+to the next stage and whose backward receives its gradient from there.
+A failed send or receive raises.
+
 Every collective issued adds the bytes that the ring model says it moves
 per device, by kind, to a counter (the reference's
 ``launch/hlo_cost.py:230-239``, n the group's size): an all-gather
 out·(n−1)/n, an all-reduce 2·bytes·(n−1)/n, a reduce-scatter out·(n−1)
-with out the scattered shard, all in the tensor's dtype.  The host
+with out the scattered shard, a collective-permute (``send``) the bytes
+sent, all in the tensor's dtype.  The host
 staging of a shared card is not counted; a collective over axes of size
 1 issues nothing and counts nothing.  ``bytes_moved`` reads the counter
 and ``reset_bytes`` zeroes it (``obs/commcheck.py``).
@@ -53,7 +61,7 @@ import torch
 from .topology import AXES, Layout
 
 
-KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "collective-permute")
 # ring-model bytes per device and collectives issued since the last reset
 _moved = dict.fromkeys(KINDS, 0.0)
 _counts = dict.fromkeys(KINDS, 0)
@@ -269,6 +277,63 @@ def gather_to(layout: Layout, x: torch.Tensor, dst: int = 0):
         if layout.rank == dst else None
     dist.gather(src, bufs, dst=dst)
     return bufs
+
+
+def _pp_peer(layout: Layout, back: bool):
+    """(groups, the pp group, the global rank of the next stage, or of
+    the previous one when ``back``)."""
+    axes, g = _prep(layout, "pp")
+    s = layout.index("pp") + (-1 if back else 1)
+    if not axes or not 0 <= s < layout.size("pp"):
+        raise ValueError(f"no pipeline stage {s} from stage "
+                         f"{layout.index('pp')} of pp={layout.size('pp')}")
+    key = frozenset(("pp",))
+    return g, g.group[key], g.members[key][s]
+
+
+def send(layout: Layout, x: torch.Tensor, back: bool = False) -> None:
+    """Send ``x`` to the next stage along pp (same coordinates on every
+    other axis), or to the previous one when ``back``; blocks until it is
+    received."""
+    import torch.distributed as dist
+    g, group, dst = _pp_peer(layout, back)
+    buf = _to_host(g, x.detach().contiguous())
+    dist.send(buf, dst, group=group)
+    _count("collective-permute", buf.nbytes)
+
+
+def recv(layout: Layout, shape, dtype: torch.dtype, device,
+         back: bool = False) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on ``device`` from the previous
+    stage along pp, or from the next one when ``back`` (its ``send``)."""
+    import torch.distributed as dist
+    g, group, src = _pp_peer(layout, not back)
+    device = torch.device(device)
+    staged = g.staged and device.type == "cuda"
+    buf = torch.empty(tuple(shape), dtype=dtype,
+                      device="cpu" if staged else device)
+    dist.recv(buf, src, group=group)
+    return buf.to(device)
+
+
+class _SendAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout):
+        send(layout, x)
+        ctx.cfg = (layout, x.shape, x.dtype, x.device)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        layout, shape, dtype, device = ctx.cfg
+        return recv(layout, shape, dtype, device, back=True), None
+
+
+def send_ad(layout: Layout, x):
+    """Send ``x`` to the next stage; returns a 0-d anchor whose backward
+    (seed it with 1) receives x's gradient from that stage.  Without grad
+    it only sends."""
+    return _SendAD.apply(x, layout)
 
 
 def axis_index(layout: Layout, axis) -> int:

@@ -151,13 +151,17 @@ def tree_leaves(tree):
     return [tree]
 
 
-def stack_tree(tree, n: int):
+def stack_tree(tree, n: int, shard: Optional[str] = None):
     """A tree of Params with a leading dim of ``n`` on every leaf: ``n``
     layers' stacked slab (reference ``core/params.py:stack_tree``), the
-    layer dim unsplit."""
-    return tree_map(lambda p: dataclasses.replace(
-        p, shape=(n, *p.shape),
-        spec=None if p.spec is None else (None, *p.spec)), tree)
+    new dim split over the axis ``shard`` (``"pp"``: the pipeline's
+    stages), or unsplit."""
+    def one(p):
+        spec = p.spec
+        if shard is not None or spec is not None:
+            spec = (shard, *(spec or ()))
+        return dataclasses.replace(p, shape=(n, *p.shape), spec=spec)
+    return tree_map(one, tree)
 
 
 def unstack(tree, n: int):

@@ -5,11 +5,12 @@
 ``Layout``, which everything downstream reads; ``comm.init`` then attaches
 the layout's process groups, one for every set of its axes of size > 1
 (``comm.Groups``).  Plans validate as the reference's do, for
-``mode="train"`` and ``mode="serve"``.  Above one device ``build`` takes
-each strategy (3d, 2d, 1d) at pp = 1, and ``validate`` refuses serving
-(decode's psum-combined residuals, ROADMAP.md Queue 1 item 3);
-``multi_rank_refusal``
-names what else the port refuses above one device.  ``zero_stage`` is
+``mode="train"`` and ``mode="serve"``, with the family-aware pipeline
+checks and a speculative ``draft``'s pairing.  Above one device ``build``
+takes each strategy (3d, 2d, 1d) and pp stages for the dense family, and
+``validate`` refuses serving (decode's psum-combined residuals, ROADMAP.md
+Queue 1 item 3); ``multi_rank_refusal`` names what else the port refuses
+above one device.  ``zero_stage`` is
 the ZeRO stage of the optimizer state over the data axes (pod, dp): 0
 replicates it, 1 shards AdamW's moments 1/(pod*dp), 2 also keeps the f32
 gradient accumulation on those shards; None resolves to 1 when the data
@@ -31,17 +32,13 @@ MULTI_RANK_TODO = ("above one rank the port trains the dense family only; "
                    "item 3)")
 
 
-def multi_rank_refusal(n_devices: int, *, n_stages: int = 1, cfg=None,
-                       mode: str = "train"):
+def multi_rank_refusal(n_devices: int, *, cfg=None, mode: str = "train"):
     """What the port refuses of a plan of ``n_devices`` devices, or None:
-    pp > 1 (item 7), serving and every family but the dense one above one
-    device (item 3).  The dense family trains on every strategy: the 3-D
-    cube and the 1-D and 2-D baselines."""
+    serving and every family but the dense one above one device (item 3).
+    The dense family trains on every strategy, the 3-D cube and the 1-D
+    and 2-D baselines, and in pipeline stages."""
     if n_devices == 1:
         return None
-    if n_stages > 1:
-        return (f"pp={n_stages}: pipeline stages are not ported yet "
-                "(ROADMAP.md, Queue 1 item 7)")
     if mode != "train":
         return ("multi-rank serving (decode's psum-combined residuals) is "
                 "not ported yet: serve on one device (ROADMAP.md, Queue 1 "
@@ -108,18 +105,35 @@ class ParallelPlan:
                  global_batch: Optional[int] = None, model=None,
                  mode: str = "train", draft=None) -> "ParallelPlan":
         """Raise ValueError on illegal compositions, naming the offending
-        fields, as the reference does; a ``draft`` raises ValueError until
-        speculative decoding is ported, and a serving plan above one
-        device NotImplementedError."""
+        fields, as the reference does (``plan.py:112-201``): ``model`` (a
+        ModelConfig) enables the family-aware pipeline checks, which accept
+        every family; ``draft`` (a ModelConfig, ``mode="serve"`` only)
+        validates a speculative pairing by
+        ``serve/speculate.draft_unsupported_reason``.  A serving plan above
+        one device raises NotImplementedError."""
         if self.n_stages < 1 or self.microbatches < 1:
             raise ValueError("n_stages and microbatches must be >= 1")
         err = pipeline_mode_error(self.n_stages, mode)
         if err:
             raise ValueError(err)
         if draft is not None:
-            raise ValueError(
-                "draft model given: speculative decoding arrives with a "
-                "later serving slice of the port")
+            if mode != "serve":
+                raise ValueError(
+                    f"draft model given with mode={mode!r}: speculative "
+                    "decoding is a serving composition (mode='serve')")
+            if model is None:
+                raise ValueError("draft model given without the target "
+                                 "model config")
+            # lazy: speculate imports the models
+            from ..serve.speculate import draft_unsupported_reason
+            reason = draft_unsupported_reason(model, draft)
+            if reason:
+                raise ValueError(reason)
+        if model is not None and self.n_stages > 1:
+            from ..models.registry import pipeline_unsupported_reason
+            reason = pipeline_unsupported_reason(model, self.n_stages)
+            if reason:
+                raise ValueError(reason)
         if self.n_stages > 1 and self.microbatches < self.n_stages:
             import warnings
             warnings.warn(
@@ -131,6 +145,14 @@ class ParallelPlan:
                 raise ValueError(
                     f"n_layers={n_layers} < n_stages={self.n_stages}: every "
                     "pipeline stage needs at least one layer")
+            if n_layers % self.n_stages:
+                import warnings
+                r = n_layers % self.n_stages
+                warnings.warn(
+                    f"n_layers={n_layers} not divisible by "
+                    f"pp={self.n_stages}: the first {r} stage(s) take one "
+                    "extra layer (non-uniform stages; padding slots idle on "
+                    "the shorter stages)")
         if global_batch is not None and global_batch % self.microbatches:
             raise ValueError(
                 f"global_batch={global_batch} not divisible by "
@@ -156,11 +178,7 @@ class ParallelPlan:
 
     def build(self, rank: int = 0) -> Layout:
         """Rank ``rank``'s Layout (reference ``ParallelPlan.build``, with
-        the rank in place of the device list).  Above one device: pp = 1
-        only."""
-        err = multi_rank_refusal(self.n_devices, n_stages=self.n_stages)
-        if err:
-            raise NotImplementedError(err)
+        the rank in place of the device list)."""
         return make_layout(self.n_pod, self.n_dp, self.n_model,
                            self.strategy, self.cube,
                            batch_axes=self.batch_axes,

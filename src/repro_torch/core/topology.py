@@ -42,6 +42,25 @@ def pipeline_efficiency(n_stages: int, microbatches: int) -> float:
     return m / (m + n_stages - 1)
 
 
+def stage_assignment(n_items: int,
+                     n_stages: int) -> Tuple[Tuple[int, int], ...]:
+    """Contiguous [start, end) ranges assigning ``n_items`` layer slots to
+    ``n_stages`` pipeline stages; the first ``n_items % n_stages`` stages
+    take one extra slot (the head lives on the last stage) (reference
+    ``topology.py:63-79``)."""
+    if n_items < n_stages:
+        raise ValueError(
+            f"cannot split {n_items} blocks over pp={n_stages} stages: "
+            "every stage needs at least one block")
+    base, rem = divmod(n_items, n_stages)
+    bounds, start = [], 0
+    for s in range(n_stages):
+        end = start + base + (1 if s < rem else 0)
+        bounds.append((start, end))
+        start = end
+    return tuple(bounds)
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Axis sizes plus the paper's direction bookkeeping.
@@ -93,6 +112,11 @@ class Layout:
     @property
     def n_devices(self) -> int:
         return math.prod(self.sizes.values())
+
+    def stage_bounds(self, n_layers: int) -> Tuple[Tuple[int, int], ...]:
+        """[start, end) layer ranges of the pp stages (``stage_assignment``;
+        reference ``Layout.stage_bounds``)."""
+        return stage_assignment(n_layers, self.size("pp"))
 
     def coords_of(self, rank: int) -> Dict[str, int]:
         """The coordinates of ``rank`` on every axis (row-major over

@@ -109,9 +109,16 @@ def main(argv=None) -> dict:
         cfg = reduced(cfg)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    dcfg = None
+    if args.draft:
+        dcfg = get(args.draft)
+        if args.reduced:
+            dcfg = reduced(dcfg)
     plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
                         strategy=args.strategy)
-    plan.validate(n_layers=cfg.n_layers, model=cfg, mode="serve")
+    # an illegal pairing fails here, before any weights are built
+    plan.validate(n_layers=cfg.n_layers, model=cfg, mode="serve",
+                  draft=dcfg)
     layout = plan.build()
     if args.inference_opt:
         layout = dataclasses.replace(layout, inference_opt=True)
@@ -132,10 +139,7 @@ def main(argv=None) -> dict:
                 device=device, dtype=getattr(torch, cfg.dtype))
             print(f"restored checkpoint step {last}")
     draft = None
-    if args.draft:
-        dcfg = get(args.draft)
-        if args.reduced:
-            dcfg = reduced(dcfg)
+    if dcfg is not None:
         dgen = torch.Generator(device=device).manual_seed(args.seed)
         dparams = init_params(transformer.abstract_params(dcfg), dgen,
                               device, getattr(torch, dcfg.dtype))

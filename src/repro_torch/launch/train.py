@@ -12,7 +12,10 @@ device, the cube (1, 1, 1) at pp = 1 and dp = 1, with AdamW: dense, MoE
 and audio (whisper: ``--seq`` text tokens beside the encoder's frames).
 The dense family also trains above one device, on the 3-D cube or the
 paper's 1-D (Megatron) and 2-D (SUMMA) baselines (``--strategy``) with data
-parallelism (``--dp``, ``--model``, ``--cube``), one rank a device:
+parallelism (``--dp``, ``--model``, ``--cube``) and pipeline stages
+(``--pp N --microbatch M``: each rank holds its stage's layers, the
+activations crossing a stage by send/recv; ``plan=`` prints the bubble
+(pp - 1) / m), one rank a device:
 
   * ``--host-devices N`` spawns N local ranks (the JAX launcher's flag,
     which gives JAX N host devices): CPU ranks with ``--device cpu``, or
@@ -30,8 +33,8 @@ host.  Only rank 0 prints; MFU divides by the peak of the world's cards.
 places the optimizer state over the data axes; the default resolves as
 the reference's plan does, to 1 when ``--dp`` > 1, else 0, and ``--zero
 1`` at one device raises its ValueError.  The flags of what the port does
-not carry (pp > 1, overlap, the other families above one device) raise
-with a pointer to ROADMAP.md.
+not carry (overlap, the other families above one device, pp included)
+raise with a pointer to ROADMAP.md.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
 and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
 many leading layers are dense and ``--experts`` cuts the routed experts, so
@@ -46,7 +49,8 @@ parameters and optimizer state, and the loop runs from it to
 ``--steps``; every ``--ckpt-every`` steps the state is saved (``saved
 DIR``) in the format both packages read (``checkpoint/store.py``): each
 leaf's global value, whatever the layout, so that a run resumes on
-another dp size or ZeRO stage; a restored step at or past ``--steps``
+another dp size, ZeRO stage or pp (the stage slabs re-cut by
+``models.registry.repartition_stack``); a restored step at or past ``--steps``
 prints ``nothing to do: restored step N >= --steps M``.  As in the
 reference, a resumed run restarts the token stream from its first batch
 rather than skipping the batches already trained on.
@@ -68,13 +72,9 @@ def _refuse(args, cfg):
     """NotImplementedError for every flag the port does not carry yet."""
     from repro_torch.core.plan import multi_rank_refusal
     bad = []
-    if args.pp > 1:
-        bad.append(f"--pp {args.pp} (pipeline stages, item 7)")
-    n = args.dp * args.model
-    if n > 1 and args.pp == 1:
-        err = multi_rank_refusal(n, cfg=cfg)
-        if err:
-            bad.append(err)
+    err = multi_rank_refusal(args.dp * args.model * args.pp, cfg=cfg)
+    if err:
+        bad.append(err)
     if args.overlap:
         bad.append("--overlap (async-TP overlap, item 9)")
     if bad:
@@ -98,9 +98,11 @@ def main(argv=None) -> dict:
                          "(default: gloo for --device cpu, nccl for cuda)")
     ap.add_argument("--strategy", default="3d", choices=["3d", "2d", "1d"])
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline-parallel stages (n_layers must divide)")
+                    help="pipeline-parallel stages (a depth that does not "
+                         "divide gives the first stages one layer more)")
     ap.add_argument("--microbatch", type=int, default=1,
-                    help="gradient-accumulation microbatches per step")
+                    help="gradient-accumulation microbatches per step (the "
+                         "pipeline's m when --pp > 1)")
     ap.add_argument("--zero", type=int, default=-1,
                     help="ZeRO stage of the optimizer state over dp: 0 = "
                          "replicated, 1 = AdamW's moments sharded 1/dp, 2 = "
@@ -278,7 +280,7 @@ def _train(args, cfg, plan, me, backend: str) -> dict:
             say(f"restoring step {last} from {args.ckpt_dir}")
             params, opt_state, _ = store.restore(
                 args.ckpt_dir, last, abstract, opt_abstract, device=device,
-                dtype=getattr(torch, cfg.dtype), layout=layout)
+                dtype=getattr(torch, cfg.dtype), layout=layout, cfg=cfg)
             start = last
     data = TokenStream(cfg, shape, DataConfig(kind=args.data,
                                               path=args.data_path), device,

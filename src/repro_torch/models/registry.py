@@ -4,7 +4,9 @@ and its segments, the decode-cache tree (``stack_cache``), and one table,
 ``STACKS``, of each family's frontend, loss labels and mask, microbatch
 weight, label length, data stubs, serving cache and train-FLOPs estimate
 (the MFU numerator, ``obs/telemetry.py``), as the reference's
-``get_stack`` keeps them.  The reference
+``get_stack`` keeps them; and at pp > 1 the stage tables
+(``pipeline_info``), the stage slabs (``pipeline_stack_params``,
+``repartition_stack``) and a stage's compute (``make_stage_fn``).  The reference
 module imports jax, so the port keeps its own copies;
 ``tests/test_torch_train.py``, ``tests/test_torch_ssm.py``,
 ``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py`` and
@@ -19,14 +21,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Family, ModelConfig
 from ..core.linear3d import embed_lookup
-from ..core.params import stack_tree
-from ..core.topology import Dirs, Layout
+from ..core.params import stack_tree, tree_map, unstack
+from ..core.topology import Dirs, Layout, stage_assignment
 from . import encdec
 from .blocks import kv_cache_init
 from .frontend import audio_frames, vision_patches
@@ -315,3 +319,168 @@ def train_flops_per_token(cfg: ModelConfig, s: int) -> float:
     out the encoder's 24 layers over 1,504 frames and reads low.  All
     copied as they are."""
     return float(get_stack(cfg.family).step_flops(cfg, s))
+
+
+# ---------------------------------------------------------------------------
+# pp > 1: the stage tables, the stage slabs, a stage's compute (reference
+# registry.py:720-895)
+# ---------------------------------------------------------------------------
+NOOP = -1                      # selector value of a padding slot (identity)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineInfo:
+    plan: Tuple[str, ...]
+    bounds: Tuple[Tuple[int, int], ...]     # per-stage [start, end) into plan
+    kind_order: Tuple[str, ...]             # selector index -> kind name
+    slots: int                              # parameter slots per stage
+    homogeneous: bool                       # single kind, equal stage sizes
+    selectors: Tuple[Tuple[int, ...], ...]  # (pp, slots), NOOP pads
+
+
+def pipeline_info(stack: Stack, cfg: ModelConfig,
+                  n_stages: int) -> PipelineInfo:
+    """The plan cut into ``n_stages`` contiguous stages
+    (``stage_assignment``): one selector per slot, NOOP on the padding
+    slots of the shorter stages (reference ``registry.py:732-745``)."""
+    plan = stack.layer_plan(cfg)
+    bounds = stage_assignment(len(plan), n_stages)
+    kind_order = tuple(dict.fromkeys(plan))
+    sizes = [e - s for s, e in bounds]
+    homogeneous = len(kind_order) == 1 and len(set(sizes)) == 1
+    slots = max(sizes)
+    selectors = tuple(
+        tuple([kind_order.index(plan[i]) for i in range(s, e)]
+              + [NOOP] * (slots - (e - s)))
+        for s, e in bounds)
+    return PipelineInfo(plan, bounds, kind_order, slots, homogeneous,
+                        selectors)
+
+
+def pipeline_unsupported_reason(cfg: ModelConfig,
+                                n_stages: int) -> Optional[str]:
+    """None when the config pipelines at ``n_stages``, else the plan-time
+    message (reference ``registry.py:748-764``, word for word)."""
+    if n_stages <= 1:
+        return None
+    if cfg.mtp:
+        return (f"{cfg.arch}: mtp=True is incompatible with "
+                f"n_stages={n_stages} — the multi-token-prediction head "
+                "needs the embedding table and the final hidden states on "
+                "the same stage; train with n_stages=1 or disable mtp")
+    plan = get_stack(cfg.family).layer_plan(cfg)
+    if len(plan) < n_stages:
+        return (f"{cfg.arch}: only {len(plan)} stackable blocks for "
+                f"n_stages={n_stages} — every pipeline stage needs at least "
+                "one block; lower n_stages or deepen the model")
+    return None
+
+
+def stage_slots(info: PipelineInfo, n_stages: int) -> int:
+    """The slots of each stage's slab: ``len(plan) / pp`` when the plan is
+    homogeneous, else ``info.slots`` (union slots)."""
+    return (len(info.plan) // n_stages if info.homogeneous
+            else info.slots)
+
+
+def pipeline_stack_params(cfg: ModelConfig, n_stages: int, kind_params):
+    """The ``stack`` subtree at pp = ``n_stages`` (reference
+    ``registry.py:767-784``): per kind with stacked parameters (the trees
+    of one layer's Params in ``kind_params``) a ``(pp, slots, ...)`` slab,
+    the stage dim split over 'pp', so that each rank holds its stage's
+    slots only."""
+    info = pipeline_info(get_stack(cfg.family), cfg, n_stages)
+    per = stage_slots(info, n_stages)
+    return {k: stack_tree(stack_tree(kind_params[k], per), n_stages,
+                          shard="pp")
+            for k in info.kind_order if k in kind_params}
+
+
+def make_stage_fn(info: PipelineInfo, stage: int, apply: Callable,
+                  remat: bool = False) -> Callable:
+    """``stage_fn(x, slab) -> x``: stage ``stage``'s slots in order, slot
+    j applying ``apply(kind, x, p)`` with its kind's parameters, slot j of
+    the rank's ``slab`` ({kind: leaves (1, slots, ...)}), recomputed in
+    the backward under ``remat``.  A NOOP slot (a shorter stage's padding)
+    is skipped: it computes nothing, and its parameters' gradient is 0, as
+    the reference's ``jnp.where`` over a padding slot gives (reference
+    ``make_stage_fn``, ``registry.py:787-837``)."""
+    sels = info.selectors[stage]
+
+    def stage_fn(x, slab):
+        layers = {k: unstack(tree_map(lambda t: t.squeeze(0), t), len(sels))
+                  for k, t in slab.items()}
+        for j, sel in enumerate(sels):
+            if sel == NOOP:
+                continue
+            kind = info.kind_order[sel]
+            if remat:
+                x = checkpoint(apply, kind, x, layers[kind][j],
+                               use_reentrant=False)
+            else:
+                x = apply(kind, x, layers[kind][j])
+        return x
+
+    return stage_fn
+
+
+def _n_stages(layout) -> int:
+    return layout if isinstance(layout, int) else layout.size("pp")
+
+
+def _stack(xs):
+    return torch.stack(xs) if isinstance(xs[0], torch.Tensor) \
+        else np.stack(xs)
+
+
+def _zeros(a):
+    return torch.zeros_like(a) if isinstance(a, torch.Tensor) \
+        else np.zeros_like(a)
+
+
+def repartition_stack(cfg: ModelConfig, stack_tree_in, src_layout,
+                      dst_layout):
+    """Re-cut a ``stack`` subtree from one pipeline depth to another
+    (reference ``registry.py:840-895``): pp = 1's ``(count, ...)`` layer
+    stacks to the ``(pp, slots, ...)`` stage slabs, or back, or between two
+    pp.  Union slots the destination never selects are zero-filled.  The
+    leaves are global tensors or numpy arrays; the layouts are Layouts or
+    stage counts.  ``checkpoint/store.restore(cfg=...)`` applies it to a
+    checkpoint saved at another pp."""
+    stack = get_stack(cfg.family)
+    plan = stack.layer_plan(cfg)
+    n_src, n_dst = _n_stages(src_layout), _n_stages(dst_layout)
+
+    def to_flat(tree):
+        if n_src == 1:
+            return tree
+        info = pipeline_info(stack, cfg, n_src)
+        out = {}
+        for kname, slab in tree.items():
+            idx = [(s, j) for s, (lo, hi) in enumerate(info.bounds)
+                   for j, i in enumerate(range(lo, hi)) if plan[i] == kname]
+            out[kname] = tree_map(
+                lambda a, idx=idx: _stack([a[s, j] for s, j in idx]), slab)
+        return out
+
+    flat = to_flat(stack_tree_in)
+    if n_dst == 1:
+        return flat
+    info = pipeline_info(stack, cfg, n_dst)
+    per = stage_slots(info, n_dst)
+    out = {}
+    for kname, fl in flat.items():
+        occ = 0
+        place = [[None] * per for _ in range(n_dst)]
+        for s, (lo, hi) in enumerate(info.bounds):
+            for j, i in enumerate(range(lo, hi)):
+                if plan[i] == kname:
+                    place[s][j] = occ
+                    occ += 1
+
+        def build(a, place=place):
+            return _stack([_stack([a[k] if k is not None else _zeros(a[0])
+                                   for k in row]) for row in place])
+
+        out[kname] = tree_map(build, fl)
+    return out

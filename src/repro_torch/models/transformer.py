@@ -3,8 +3,10 @@ drivers of ``repro/models/registry.py``).
 
 ``abstract_params(cfg, layout)`` is the parameter tree, with the same
 nested names, global shapes, dtypes and (for the dense family's leaves)
-specs as the reference's ``transformer.abstract_params`` at pp = 1.  The
-dense family's:
+specs as the reference's ``transformer.abstract_params``; at pp > 1 each
+``stack`` leaf is the ``(pp, slots, ...)`` stage slab, 'pp' on dim 0
+(``registry.pipeline_stack_params``), and ``forward(mode="train")`` runs
+``forward_pipelined``.  The dense family's:
 
     embed                                                   (vocab, d)
     stack.dense.{ln1.g, attn.{wq, wk, wv, wo}, ln2.g,
@@ -66,11 +68,14 @@ from ..core.linear3d import (act_axes, cross_entropy_sums, embed_lookup,
                              embed_param, out_axes, plinear, weight_param)
 from ..core.params import Param, stack_tree, tree_map, unstack
 from ..core.topology import Dirs, Layout, entry_dirs
-from ..core import comm, ops3d
+from ..core import comm, ops3d, pipeline
+from ..core.plan import pipeline_mode_error
 from . import blocks as B
 from . import encdec, mamba2, mla, moe, xlstm
 from .registry import (KV_KINDS, SHARED_KINDS, embed, get_stack,
-                       layer_plan, segments, serve_cache_mode, stack_cache)
+                       layer_plan, make_stage_fn, pipeline_info,
+                       pipeline_stack_params, pipeline_unsupported_reason,
+                       segments, serve_cache_mode, stack_cache)
 
 
 def _attn_block_params(cfg: ModelConfig, d_ff: int = 0, layout=None):
@@ -112,14 +117,21 @@ def abstract_params(cfg: ModelConfig, layout: Layout = None):
     d = cfg.d_model
     dirs = entry_dirs()
     st = "3d" if layout is None else layout.strategy
+    pp = 1 if layout is None else layout.size("pp")
     tree = {"embed": embed_param(dirs, cfg.vocab, d, strategy=st)}
     tree.update(get_stack(cfg.family).frontend_params(cfg))
     if "attn" in plan:
         tree["shared"] = {"attn": B.dense_block_params(cfg)}
-    tree["stack"] = {
-        kind: stack_tree(fn(cfg, layout) if kind == "dense" else fn(cfg),
-                         plan.count(kind))
-        for kind, fn in STACKED_KINDS.items() if kind in plan}
+    layers = {kind: fn(cfg, layout) if kind == "dense" else fn(cfg)
+              for kind, fn in STACKED_KINDS.items() if kind in plan}
+    if pp > 1:
+        reason = pipeline_unsupported_reason(cfg, pp)
+        if reason:
+            raise ValueError(reason)
+        tree["stack"] = pipeline_stack_params(cfg, pp, layers)
+    else:
+        tree["stack"] = {kind: stack_tree(t, plan.count(kind))
+                         for kind, t in layers.items()}
     tree["ln_f"] = B.norm_params(cfg, d, st)
     tree["head"] = weight_param(dirs, d, cfg.vocab, strategy=st)
     if cfg.mtp:
@@ -167,6 +179,24 @@ def _attn_block_apply(layout, cfg, dirs, x, p, positions, **kw):
     return fn(layout, cfg, dirs, x, p, positions, **kw)
 
 
+def _train_block(layout: Layout, cfg: ModelConfig, dirs: Dirs, positions,
+                 kind: str, x, p, enc=None):
+    """(x, aux) of one block of ``kind`` outside serving: ``aux`` the MoE
+    block's router losses, else None; ``enc`` the encoder's states that
+    whisper's ``xdec`` blocks attend."""
+    if kind == "xdec":
+        return encdec.decoder_block_apply(layout, cfg, dirs, x, p,
+                                          positions, enc)[0], None
+    if kind == "mamba":
+        return mamba2.mamba_apply(layout, cfg, dirs, x, p), None
+    if kind == "mlstm":
+        return xlstm.mlstm_apply(layout, cfg, dirs, x, p)[0], None
+    if kind == "slstm":
+        return xlstm.slstm_apply(layout, cfg, dirs, x, p)[0], None
+    x, _, a = _kv_block(kind, layout, cfg, dirs, x, p, positions)
+    return x, a
+
+
 def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
               positions, *, mode: str, cache=None, page=None,
               collect_kv: bool = False, remat: bool = False, ctx=None):
@@ -205,17 +235,7 @@ def run_stack(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, params,
     enc = (ctx or {}).get("enc")
 
     def block(kind, xx, p, enc=None):
-        if kind == "xdec":
-            return encdec.decoder_block_apply(layout, cfg, dirs, xx, p,
-                                              positions, enc)[0], None
-        if kind == "mamba":
-            return mamba2.mamba_apply(layout, cfg, dirs, xx, p), None
-        if kind == "mlstm":
-            return xlstm.mlstm_apply(layout, cfg, dirs, xx, p)[0], None
-        if kind == "slstm":
-            return xlstm.slstm_apply(layout, cfg, dirs, xx, p)[0], None
-        xx, _, a = _kv_block(kind, layout, cfg, dirs, xx, p, positions)
-        return xx, a
+        return _train_block(layout, cfg, dirs, positions, kind, xx, p, enc)
 
     outs, offs, auxes = {}, {}, []
     for kind, n in segments(plan):
@@ -341,7 +361,12 @@ def forward(cfg: ModelConfig, layout: Layout, params, batch, *, mode: str,
     contiguous tree of ``abstract_cache``'s shape, written in place and
     returned."""
     if mode == "train":
+        if layout.size("pp") > 1:
+            return forward_pipelined(cfg, layout, params, batch)
         return _forward_train(cfg, layout, params, batch)
+    err = pipeline_mode_error(layout.size("pp"), mode)
+    if err:
+        raise ValueError(err)
     if mode != "decode":
         raise NotImplementedError(
             f"forward(mode={mode!r}): prompts go through prefill()")
@@ -385,6 +410,83 @@ def _forward_train(cfg: ModelConfig, layout: Layout, params, batch):
     return loss, metrics
 
 
+def forward_pipelined(cfg: ModelConfig, layout: Layout, params, batch,
+                      leaves=None):
+    """The train loss at pp > 1 (reference ``transformer.py:109-170``),
+    this rank running its stage of the synchronous schedule
+    (``core/pipeline.py``) over ``layout.microbatches`` equal microbatches
+    of its shard of the batch: stage 0 embeds the batch, each stage runs
+    its slots (``registry.make_stage_fn``) and sends the activation on,
+    the last stage applies ``ln_f``, the head and the chunked loss to each
+    microbatch.  Each microbatch's mean is weighted by its valid-token
+    count ``w_i`` (summed over the label axes), so that the total, the
+    loss of every pp rank, is the pp = 1 path's global token mean.
+
+    With ``leaves`` (the tensors of ``params`` in ``tree_leaves`` order,
+    requiring grad) the schedule runs the backward too, each microbatch's
+    seeded with w_i / W (W = sum w_i, known from the labels before any
+    forward), and returns (loss, metrics, the f32 gradient of each leaf:
+    this stage's part; the train step sums the leaves replicated over pp).
+    Without, (loss, metrics), no gradient crossing a stage."""
+    pp = layout.size("pp")
+    dirs = entry_dirs()
+    stage, m = layout.index("pp"), max(layout.microbatches, 1)
+    last = stage == pp - 1
+    labels, mask = get_stack(cfg.family).labels(cfg, batch)
+    b, s_loc = batch["tokens"].shape
+    if b % m:
+        raise ValueError(f"batch dim {b} not divisible by microbatches {m}")
+    bm = b // m
+    dev = labels.device
+    # the microbatches' global token counts, from the labels alone
+    w = comm.psum(layout, mask.reshape(m, -1).sum(1),
+                  loss_axes(layout, dirs))
+    wsum = w.sum().clamp_min(1.0)
+    seq_ax, hid_ax = act_axes(layout, dirs)
+    S = s_loc * layout.size((*layout.seq_axes, seq_ax))
+    positions = torch.arange(S, device=dev).expand(bm, S)
+    like = ((bm, s_loc, cfg.d_model // layout.size(hid_ax)),
+            params["embed"].dtype, dev)
+
+    def apply(kind, x, p):
+        return _train_block(layout, cfg, dirs, positions, kind, x, p)[0]
+
+    stage_fn = make_stage_fn(pipeline_info(get_stack(cfg.family), cfg, pp),
+                             stage, apply, remat=cfg.remat)
+    feed = x_all = None
+    if stage == 0:
+        x_all, _ = frontend(layout, cfg, dirs, params, batch, mode="train")
+        feed = [c.detach().requires_grad_(leaves is not None)
+                for c in x_all.split(bm)]
+
+    def collect(i, y):
+        h = B.apply_norm(cfg, y, params["ln_f"], layout, dirs)
+        sl = slice(i * bm, (i + 1) * bm)
+        return chunked_head_loss(cfg, layout, dirs, h,
+                                 labels[sl].clamp_min(0).long(), mask[sl],
+                                 params["head"])
+
+    outs, grads, dfeed = pipeline.pipeline_schedule(
+        layout, m=m, feed=feed, stage_fn=lambda x: stage_fn(x, params[
+            "stack"]), collect_fn=collect, like=like, leaves=leaves,
+        seeds=list(w / wsum))
+    xent = (sum(wi * o for wi, o in zip(w, outs)) / wsum if last
+            else torch.zeros((), dtype=torch.float32, device=dev))
+    # the loss is known on the last stage only: to every pp rank
+    xent = comm.psum(layout, xent.detach().float(), "pp")
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    metrics = {"xent": xent, "aux": aux}
+    if leaves is None:
+        return xent + aux, metrics
+    if stage == 0:          # the embedding's backward, the whole batch once
+        g_emb = torch.autograd.grad(x_all, leaves,
+                                    grad_outputs=torch.cat(dfeed),
+                                    allow_unused=True)
+        grads = [g if e is None else g + e.float()
+                 for g, e in zip(grads, g_emb)]
+    return xent + aux, metrics, grads
+
+
 def _mtp_loss(cfg: ModelConfig, layout: Layout, dirs: Dirs, params, h,
               batch, positions):
     """DeepSeek's multi-token prediction (reference
@@ -414,6 +516,9 @@ def prefill(cfg: ModelConfig, layout: Layout, params, batch):
     prompt lengths (0 marks an inactive row)}.  Returns ``(logits, kv)``:
     per-row logits at the last *valid* position (B, V), and the collected
     rope'd (k, v) per layer for ``pack_prefill_cache``."""
+    err = pipeline_mode_error(layout.size("pp"), "prefill")
+    if err:
+        raise ValueError(err)
     dirs = entry_dirs()
     tokens = batch["tokens"]
     x = embed(layout, cfg, dirs, params, tokens)
@@ -447,6 +552,9 @@ def extend(cfg: ModelConfig, layout: Layout, params, batch, view):
         raise NotImplementedError(
             "extend: MLA latent caches have no gathered-view continuation "
             "path yet; serve MLA models without --prefix-cache/--draft")
+    err = pipeline_mode_error(layout.size("pp"), "extend")
+    if err:
+        raise ValueError(err)
     dirs = entry_dirs()
     tokens = batch["tokens"]
     x = embed(layout, cfg, dirs, params, tokens)

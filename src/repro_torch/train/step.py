@@ -1,6 +1,10 @@
-"""The train step (port of ``repro/train/step.py:make_train_step`` at
-pp = 1): one optimizer step per call,
+"""The train step (port of ``repro/train/step.py:make_train_step``): one
+optimizer step per call,
 
+  * pp > 1: one call of the pipelined forward and backward
+    (``transformer.forward_pipelined``), which microbatches inside the
+    schedule; no outer accumulation loop (reference ``step.py:42-43``,
+    ``:77-80``);
   * microbatches == 1: one forward and backward over the whole batch;
   * microbatches  > 1: f32 gradient accumulation over equal microbatches,
     each weighted by the sum of its loss mask (the family's
@@ -15,13 +19,17 @@ the parameters are updated in place.  The gradient of every leaf comes from
 ``torch.autograd.grad`` over a detached view of it, so the caller's
 parameters never carry autograd state.
 
-Above one device (the dense family at pp = 1, on a 3-D layout or a 1-D or
-2-D baseline's) ``params``, the optimizer state and ``batch`` are the
-rank's shards.  The linears sum their weights' gradients themselves
-(``Param.synced``); every other leaf (the norms' gains and biases,
-qk-norm) has its gradient summed over every axis but pp that its spec
-does not split and its activations do not replicate (``leaf_sync_axes``),
-as GSPMD sums it in the reference.  The microbatch weights are summed
+Above one device (the dense family, on a 3-D layout or a 1-D or 2-D
+baseline's, in pp stages or not) ``params``, the optimizer state and
+``batch`` are the rank's shards.  The linears sum their weights'
+gradients themselves (``Param.synced``); every other leaf (the norms'
+gains and biases, qk-norm) has its gradient summed over every axis but
+pp that its spec does not split and its activations do not replicate
+(``leaf_sync_axes``), as GSPMD sums it in the reference.  A leaf
+replicated over the pp stages (the embedding, the head, ``ln_f``), whose
+gradient each stage holds a part of (stage 0 the embedding's, the last
+stage the head's), is summed over pp too; the stage slabs, split over
+pp, are not.  The microbatch weights are summed
 over the axes that split the labels, so that each is the microbatch's
 global token count.
 
@@ -64,16 +72,20 @@ def _split_microbatches(batch, m: int):
 
 
 def leaf_sync_axes(p, layout: Layout):
-    """The axes a leaf's gradient is summed over after the backward: none
-    for a leaf whose op syncs it (``Param.synced``), else every axis but
-    pp of size > 1 that its spec does not split and over which its
-    activations are not replicated (``Param.act_rep``: at 1d the norms'
-    gains and the row linear's bias, whose gradient every rank of 'z'
-    already holds whole)."""
+    """The axes a leaf's gradient is summed over after the backward: pp
+    for a leaf its spec does not split over pp (each stage holds a part of
+    its gradient); besides, none for a leaf whose op syncs it
+    (``Param.synced``), else every other axis of size > 1 that its spec
+    does not split and over which its activations are not replicated
+    (``Param.act_rep``: at 1d the norms' gains and the row linear's bias,
+    whose gradient every rank of 'z' already holds whole)."""
+    axes = spec_axes(p.spec)
+    pp = () if "pp" in axes else ("pp",)
     if p.synced:
-        return ()
-    skip = {"pp", *spec_axes(p.spec), *p.act_rep}
-    return layout.live(tuple(a for a in AXES if a not in skip))
+        return layout.live(pp)
+    skip = {"pp", *axes, *p.act_rep}
+    return layout.live(tuple(a for a in AXES if a not in skip
+                             or a in pp))
 
 
 def loss_and_grads(cfg: ModelConfig, layout: Layout, params, batch,
@@ -86,17 +98,22 @@ def loss_and_grads(cfg: ModelConfig, layout: Layout, params, batch,
         sync = [leaf_sync_axes(p, layout) for p in
                 tree_leaves(transformer.abstract_params(cfg, layout))]
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, metrics = transformer.forward(cfg, layout, live, batch,
-                                        mode="train")
-    grads = torch.autograd.grad(loss, tree_leaves(live))
+    leaves = tree_leaves(live)
+    if layout.size("pp") > 1:
+        loss, metrics, grads = transformer.forward_pipelined(
+            cfg, layout, live, batch, leaves=leaves)
+        grads = [g.to(t.dtype) for g, t in zip(grads, leaves)]
+    else:
+        loss, metrics = transformer.forward(cfg, layout, live, batch,
+                                            mode="train")
+        grads = torch.autograd.grad(loss, leaves)
     grads = [comm.psum(layout, g, ax) if ax else g
              for g, ax in zip(grads, sync)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
-    err = multi_rank_refusal(layout.n_devices, n_stages=layout.size("pp"),
-                             cfg=cfg)
+    err = multi_rank_refusal(layout.n_devices, cfg=cfg)
     if err:
         raise NotImplementedError(err)
     abstract = transformer.abstract_params(cfg, layout)
@@ -111,10 +128,12 @@ def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
     def value_and_grad(params, batch):
         return loss_and_grads(cfg, layout, params, batch, sync)
 
+    pipelined = layout.size("pp") > 1
+
     def train_step(params, opt_state, batch):
         # each leaf's ZeRO dim at stage 2 (else None), in params' order
         zdims = [zd for _, zd in tree_zip(params, zdim_tree)]
-        if m == 1:
+        if m == 1 or pipelined:     # the pipeline microbatches inside
             loss, metrics, grads = value_and_grad(params, batch)
             grads = [g if zd is None else zero_block(g, zd, layout).clone()
                      for g, zd in zip(grads, zdims)]

@@ -395,9 +395,11 @@ def _launch_on_cpu(capsys, arch, seq=64):
 # run keep their places, so that each keeps its name
 LAUNCHER_CASES = [
     (["--dp", "2", "--zero", "1", "--host-devices", "2"], "runs"),
-    (["--model", "8", "--pp", "2"], NotImplementedError),
-    (["--model", "4", "--strategy", "2d", "--pp", "2"], NotImplementedError),
-    (["--pp", "2"], NotImplementedError),
+    (["--model", "2", "--pp", "2", "--microbatch", "2", "--host-devices",
+      "4"], "runs"),
+    (["--arch", "zamba2-1.2b", "--pp", "2", "--microbatch", "2"],
+     NotImplementedError),
+    (["--pp", "2", "--layers", "1"], "too shallow"),
     (["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4"],
      NotImplementedError),
     (["--overlap"], NotImplementedError), (["--zero", "1"], ValueError),
@@ -419,10 +421,12 @@ LAUNCHER_CASES = [
     enumerate(LAUNCHER_CASES)])
 def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
     """What the port does not carry raises NotImplementedError pointing at
-    ROADMAP.md; ``--zero 1`` at one device the reference's ValueError.
-    ZeRO above one device and Adafactor (every family) run a step; at dp
-    2 x (2, 2, 1) ``--ckpt-dir`` saves across the ranks and a second run
-    resumes from it."""
+    ROADMAP.md (pp above one device for a family but the dense one among
+    it); ``--zero 1`` at one device the reference's ValueError, a stage
+    with no layer the reference's.  ZeRO above one device, pp 2 over a
+    cube of 2 and Adafactor (every family) run a step; at dp 2 x (2, 2, 1)
+    ``--ckpt-dir`` saves across the ranks and a second run resumes from
+    it."""
     argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
             "--steps", "1", "--batch", "8", "--seq", "32"] + flags
     if outcome is NotImplementedError:
@@ -432,12 +436,18 @@ def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
         with pytest.raises(ValueError, match="requires a data-parallel "
                            "degree > 1"):
             train_launch.main(argv)
+    elif outcome == "too shallow":
+        with pytest.raises(ValueError, match="every pipeline stage needs "
+                           "at least one block"):
+            train_launch.main(argv)
     elif outcome == "runs":
         out = train_launch.main(argv)
         text = capsys.readouterr().out
         assert "done: first loss" in text and np.isfinite(out["losses"][0])
         if "--zero" in flags:
             assert "'zero_stage': 1" in text
+        if "--pp" in flags:
+            assert "'pp': 2" in text and "ranks=4" in text
     else:
         ck = str(tmp_path / "ck")
         ckpt = ["--ckpt-dir", ck, "--ckpt-every", "1"]
@@ -562,9 +572,11 @@ def test_train_plan_validation_matches_reference():
         with pytest.raises(ValueError) as got:
             ParallelPlan(**kw).validate(**vkw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ParallelPlan(n_stages=2, microbatches=2).validate(
-            n_layers=2).build()
+    lay = ParallelPlan(n_stages=2, microbatches=2).validate(
+        n_layers=2).build(1)
+    jlay = JPlan(n_stages=2, microbatches=2).validate(n_layers=2)
+    assert lay.sizes["pp"] == jlay.n_stages == 2 and lay.microbatches == 2
+    assert lay.index("pp") == 1 and lay.stage_bounds(2) == ((0, 1), (1, 2))
 
 
 def test_nonfinite_sentinel_names_the_leaf():
