@@ -311,9 +311,11 @@ Phases, in order (any failure raises and exits nonzero):
      in f32, 4 x 512, one forward and backward on 8 ranks at (2,2,2) and
      at dp2 x (2,2,1) (``RANK_LAYOUTS``), and in the same world at pp2 x
      (1,2,2) with 4 microbatches (``PP_LAYOUTS``: one layer a stage, the
-     activations crossing by send/recv), against one rank on the card:
-     the loss and every rank's gradient shard within 1e-4 of each leaf's
-     largest value (a stage's slab against the one-rank leaf re-cut by
+     activations crossing by send/recv), and again at (2,2,2) and pp2
+     with each 3-D island in ``OVERLAP_CHUNKS`` chunks (async-TP,
+     ``OVERLAP_LAYOUTS``), against one rank on the card: the loss and
+     every rank's gradient shard within 1e-4 of each leaf's largest
+     value (a stage's slab against the one-rank leaf re-cut by
      ``repartition_stack``);
  30r. phase 8's run cut to ``RANK_TRAIN_LAYERS`` (2 of 22) layers,
      ``RANK_STEPS`` (2) steps: the losses that 30 and 33 are held to;
@@ -325,7 +327,11 @@ Phases, in order (any failure raises and exits nonzero):
      K1/K2/K3 launches exact (``rank_train_launches``: K3 in its two
      phases where 'z' splits the hidden dim), every K1 and K2 launch on
      tc; each rank's step time, tokens/s, peak memory and collective
-     bytes a step (``core/comm.py``'s counter);
+     bytes a step (``core/comm.py``'s counter); at (2,2,2) the launcher
+     runs again with ``--overlap --overlap-chunks 4`` ("overlap": K1 once
+     a chunk, ``chunked_k1``).  The runs of 30, 37 and 33 are one
+     torchrun world of 8 ranks, the launcher called once a run
+     (``phase_ranks_train``);
  31. the paper's 1-D and 2-D baselines at 1d(4) and 2d(q2)
      (``BASE_LAYOUTS``, ``tests/test_multidev.py:68-69``), 8 ranks
      sharing the card over gloo: phase 29's f32 two-layer model, the loss
@@ -3133,6 +3139,59 @@ def phase_breakdown(dev, card, arch="tinyllama-1.1b", tag="9",
 RANGES = ("optimizer",)
 
 
+def union_ms(spans):
+    """The length of the union of (start, end) intervals in us, in ms."""
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+NCCL_KINDS = ("AllGather", "ReduceScatter", "AllReduce", "SendRecv")
+
+
+def step_split(prof, span="train_step"):
+    """Where the last ``span`` of a profiled launcher run went on the card
+    (the launcher's tracer range under ``--trace``; its telemetry syncs
+    the card before the span ends, so each kernel of the step starts
+    inside it): device time by kernel group (``kernel_group``; NCCL's
+    kernels by collective, whose time includes the wait for the other
+    ranks), the span's wall, the union of the other kernels (busy), the
+    collectives' time outside that union (exposed) and the largest
+    kernels of "other"."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    last = [e for e in events if e.name == span
+            and e.device_type == DeviceType.CPU][-1]
+    a, b = last.time_range.start, last.time_range.end
+    groups = collections.defaultdict(lambda: [0, 0.0])
+    others, comp, coll = collections.Counter(), [], []
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation \
+                or e.name in (*RANGES, span, "data_next") \
+                or not a <= e.time_range.start < b:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        nccl = "nccl" in e.name.lower()
+        g = ("NCCL " + next((k for k in NCCL_KINDS if k in e.name), "other")
+             if nccl else kernel_group(e.name))
+        groups[g][0] += 1
+        groups[g][1] += ms
+        (coll if nccl else comp).append((e.time_range.start,
+                                         e.time_range.end))
+        if g.startswith("other"):
+            others[e.name[:90]] += ms
+    busy = union_ms(comp)
+    return {"wall_ms": (b - a) / 1e3, "busy_ms": busy,
+            "exposed_comm_ms": union_ms(comp + coll) - busy,
+            "groups": {g: {"kernels": n, "ms": ms}
+                       for g, (n, ms) in sorted(groups.items(),
+                                                key=lambda kv: -kv[1][1])},
+            "other_top": dict(others.most_common(6))}
+
+
 def report_breakdown(prof, wall_ms, tag, what, card, op_group=None):
     """Device time of a profiled window by kernel group (``kernel_group``
     of the kernel's name; with ``op_group``, the kernels of each CPU op it
@@ -3177,12 +3236,7 @@ def report_breakdown(prof, wall_ms, tag, what, card, op_group=None):
     if op_group:
         print(f"[{tag}] {moved} kernels regrouped by the op that launched "
               "them")
-    busy, end = 0.0, -math.inf                  # union of kernel intervals
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / 1e3
+    busy_ms = union_ms(spans)
     print(f"[{tag}] {what} under torch.profiler on {card}: wall "
           f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
@@ -4738,6 +4792,12 @@ RANK_LAYOUTS = {"cube": (1, 8, (2, 2, 2)), "dp2": (2, 4, (2, 2, 1))}
 PP_LAYOUTS = {"pp2": (1, 4, (1, 2, 2), "3d", 2, 4)}
 # the paper's baselines (tests/test_multidev.py:68-69): 1d(4) and 2d(q2)
 BASE_LAYOUTS = {"1d": (2, 4, None, "1d"), "2d": (2, 4, None, "2d")}
+# async-TP: phase 29 runs these layouts again with each 3-D island in
+# OVERLAP_CHUNKS chunks (--overlap), in its one world; phase 30 its
+# (2,2,2) run, in the same torchrun world as the plain one
+OVERLAP_LAYOUTS = {"cube_overlap": "cube", "pp2_overlap": "pp2"}
+OVERLAP_CHUNKS = 4
+OVERLAP_ARGV = ["--overlap", "--overlap-chunks", str(OVERLAP_CHUNKS)]
 # phase 30 takes 2 steps, the first a warm-up: the script's time limit
 # binds
 RANKS, RANK_STEPS, RANK_TIMEOUT_S = 8, 2, 600
@@ -5162,11 +5222,14 @@ def rank_grads(job, me):
     out = {}
     for lname in job["layouts"]:
         t = time.perf_counter()
-        n_dp, n_model, cube, *more = {**RANK_LAYOUTS, **PP_LAYOUTS}[lname]
+        base = OVERLAP_LAYOUTS.get(lname, lname)
+        n_dp, n_model, cube, *more = {**RANK_LAYOUTS, **PP_LAYOUTS}[base]
         _, n_pp, mb = more + ["3d", 1, 1][len(more):]
         lay = comm.init(ParallelPlan(
             n_dp=n_dp, n_model=n_model, cube=tuple(cube), n_stages=n_pp,
-            microbatches=mb).validate().build(me.rank), "gloo")
+            microbatches=mb, overlap=base != lname,
+            overlap_chunks=OVERLAP_CHUNKS).validate().build(me.rank),
+            "gloo")
         abstract = transformer.abstract_params(cfg, lay)
         # at pp 2 the stage slabs of the same draws (the one-rank leaves
         # re-cut: the plan is homogeneous)
@@ -5202,11 +5265,12 @@ def rank_grads(job, me):
 
 def phase_ranks_grads(dev):
     """29: tinyllama-1.1b cut to 2 layers at full width, f32, 4 x 512, one
-    forward and backward on 8 ranks at each layout against the one-rank
-    run on the same card: the loss within 1e-4, and every rank's shard of
-    every gradient leaf within 1e-4 of the leaf's largest value (after
-    the train step's leaf sync); K1, K2 and K3 (two phases at (2,2,2))
-    must have run on every rank."""
+    forward and backward on 8 ranks at each layout (and at (2,2,2) and
+    pp2 with the islands in ``OVERLAP_CHUNKS`` chunks) against the
+    one-rank run on the same card: the loss within 1e-4, and every rank's
+    shard of every gradient leaf within 1e-4 of the leaf's largest value
+    (after the train step's leaf sync); K1, K2 and K3 (two phases at
+    (2,2,2)) must have run on every rank."""
     import torch
     from repro_torch.core.params import init_params, tree_leaves, tree_map
     from repro_torch.core.plan import ParallelPlan
@@ -5231,8 +5295,10 @@ def phase_ranks_grads(dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = {}
-    # the three layouts in one world of 8 ranks
+    # the layouts, and (2,2,2) and pp2 again with the islands chunked, in
+    # one world of 8 ranks
     layouts = {**RANK_LAYOUTS, **PP_LAYOUTS}
+    layouts.update({o: layouts[b] for o, b in OVERLAP_LAYOUTS.items()})
     t = time.perf_counter()
     world = run_rank_job({"kind": "grads", "layout": "_".join(layouts),
                           "layouts": list(layouts),
@@ -5268,43 +5334,82 @@ def phase_ranks_grads(dev):
 
 def rank_train(job, me):
     """Phase 30's rank: ``repro_torch.launch.train`` as this rank (its
-    environment names it), the launch counters reset just before and read
-    just after."""
+    environment names it) once for each argv of ``job["argvs"]``, in the
+    one world this job joins (the launcher keeps a world it did not
+    join), the launch counters reset just before each run and read just
+    after; a run flagged in ``job["profile"]`` runs under torch.profiler
+    and adds its last step's ``step_split``.  A list of the runs'
+    results."""
     import torch
+    import torch.distributed as dist
     from repro_torch.core import comm
     from repro_torch.kernels import flash_attention as k2
     from repro_torch.kernels import matmul as k1
-    from repro_torch.launch import train
-    reset_launches()
-    comm.reset_bytes()
-    res = train.main(job["argv"])
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return {"launches": dict(read_launches(), **read_split_launches()),
-            "k1_routes": dict(k1.launches_by_route),
-            "k2_routes": dict(k2.launches_by_route),
-            "k2_bwd_routes": dict(k2.launches_bwd_by_route),
-            "bytes": comm.bytes_moved(),
-            "losses": res["losses"], "telemetry": res["telemetry"]}
+    from repro_torch.launch import ranks, train
+    ranks.init_world(me, job["backend"], ranks.device_for(me, job["device"]))
+    from torch.profiler import ProfilerActivity, profile
+    out = []
+    flags = job.get("profile") or [False] * len(job["argvs"])
+    for argv, prof_on in zip(job["argvs"], flags):
+        reset_launches()
+        comm.reset_bytes()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if prof_on
+              else contextlib.nullcontext()) as prof:
+            res = train.main(argv)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        split = {"profile": step_split(prof)} if prof_on else {}
+        out.append({**split,
+                    "launches": dict(read_launches(), **read_split_launches()),
+                    "k1_routes": dict(k1.launches_by_route),
+                    "k2_routes": dict(k2.launches_by_route),
+                    "k2_bwd_routes": dict(k2.launches_bwd_by_route),
+                    "bytes": comm.bytes_moved(),
+                    "losses": res["losses"], "telemetry": res["telemetry"]})
+    dist.destroy_process_group()
+    return out
+
+
+def largest_divisor(n, most):
+    """The largest divisor of ``n`` that is at most ``most`` (the chunks
+    of an island whose local contraction dim is ``n``)."""
+    return max(k for k in range(1, min(n, most) + 1) if n % k == 0)
+
+
+def chunked_k1(lay, layers, head, chunks):
+    """K1 launches of one tinyllama step (forward and its remat
+    recompute) at ``layers`` deep on a 3-D layout whose islands each run
+    K1 once a chunk of their local contraction dim: wq, wk, wv, w_up and
+    w_gate contract the hidden dim split over 'z', wo the heads' and
+    w_down the MLP's split over 'y', the head's 2 loss chunks the hidden
+    dim."""
+    y, z = lay.size("y"), lay.size("z")
+    ks = [D // z] * 5 + [NQ * DH // y, FF // y]
+    return (2 * layers * sum(largest_divisor(k, chunks) for k in ks)
+            + 2 * 2 * int(head) * largest_divisor(D // z, chunks))
 
 
 def rank_train_launches(lname, layouts=None, layers=LAYERS,
-                        steps=RANK_STEPS, rank=0):
+                        steps=RANK_STEPS, rank=0, chunks=1):
     """Rank ``rank``'s launches in phase 30's (33's, 37's) run:
     tinyllama's step at ``layers`` deep as one rank runs it
     (``step_launches``), at pp > 1 its stage's layers (the head and
     ``ln_f`` on the last stage) once a microbatch; its norms in K3's two
     phases where the hidden dim is split (over out_ax, 'z', at 3d; 'z' at
-    2d; never at 1d)."""
+    2d; never at 1d); with the islands in ``chunks`` chunks
+    (``--overlap``) K1 once a chunk (``chunked_k1``)."""
     from repro_torch.core.linear3d import act_axes
     from repro_torch.core.topology import entry_dirs
     lay = rank_layout(lname, rank, layouts)
-    per = step_launches(layers)
     pp = lay.size("pp")
+    n, head, mb = layers, True, 1
     if pp > 1:
         lo, hi = lay.stage_bounds(layers)[lay.index("pp")]
-        per = {k: n * lay.microbatches for k, n in step_launches(
-            hi - lo, head=lay.index("pp") == pp - 1).items()}
+        n, head, mb = hi - lo, lay.index("pp") == pp - 1, lay.microbatches
+    per = {k: v * mb for k, v in step_launches(n, head).items()}
+    if chunks > 1:
+        per["K1"] = mb * chunked_k1(lay, n, head, chunks)
     fwd, bwd = per["K3"], per["K3 bwd"]
     split = lay.size(act_axes(lay, entry_dirs())[1]) > 1
     per.update({"K3": 0 if split else fwd, "K3 bwd": 0 if split else bwd,
@@ -5316,104 +5421,158 @@ def rank_train_launches(lname, layouts=None, layers=LAYERS,
     return {k: steps * n for k, n in per.items()}
 
 
-def phase_ranks_train(card, one_rank_losses, layouts=None, nranks=RANKS,
-                      backend="gloo", layers=0, tag="30", later_tol=3e-2,
-                      steps=RANK_STEPS):
-    """30: tinyllama-1.1b at full width in bf16 (cut to ``layers`` deep,
-    0: full depth), 4 x 2048, remat, AdamW, ``steps`` steps, through
-    ``repro_torch.launch.train`` under torchrun on 8 ranks at (2,2,2) and
-    at dp2 x (2,2,1) (or ``nranks`` at ``layouts`` over ``backend``;
-    33: at 1d(4) and 2d(q2)), against the one-rank run of the same depth
-    (the same seed, data and lr at these steps): the first loss within
-    3e-2 (tests/test_multidev.py:92), the later ones within ``later_tol``
-    (None: finite only, as the 2-D baseline's gradients carry ROADMAP
-    Queue 3 fault 6), each rank's K1/K2/K3 launches exact, every K1 and
-    K2 launch on the tc route; each rank's step time, tokens/s, peak
-    memory and collective bytes a step (``comm.bytes_moved``)."""
-    layouts = layouts or RANK_LAYOUTS
+# one launcher run of the rank phases 30, 33 and 37: its name in the
+# results, its layout (a key of ``layouts``), the phase's tag, the limit
+# of its later losses (None: finite only), its steps and its islands'
+# chunks (1: plain; else ``OVERLAP_ARGV``), and whether it runs under
+# torch.profiler (``step_split``)
+RankRun = collections.namedtuple(
+    "RankRun", "name lname layouts tag later_tol steps chunks profile",
+    defaults=(False,))
+
+
+def rank_runs(layouts, tag="30", later_tol=3e-2, steps=RANK_STEPS,
+              overlap=()):
+    """The ``RankRun``s of ``layouts``, each layout named in ``overlap``
+    followed by its run with the islands in ``OVERLAP_CHUNKS`` chunks,
+    named "overlap"."""
+    runs = []
+    for lname in layouts:
+        runs.append(RankRun(lname, lname, layouts, tag, later_tol, steps, 1))
+        if lname in overlap:
+            runs.append(RankRun("overlap", lname, layouts, tag, later_tol,
+                                steps, OVERLAP_CHUNKS))
+    return runs
+
+
+def phase_ranks_train(card, one_rank_losses, runs, nranks=RANKS,
+                      backend="gloo", layers=0):
+    """30, 33, 37: tinyllama-1.1b at full width in bf16 (cut to ``layers``
+    deep, 0: full depth), 4 x 2048, remat, AdamW, through
+    ``repro_torch.launch.train`` under torchrun, each of ``runs`` in turn
+    in one world of ``nranks`` ranks over ``backend`` (30: (2,2,2), again
+    with the islands chunked, and dp2 x (2,2,1); 37: pp2 x (1,2,2); 33:
+    1d(4) and 2d(q2)), against the one-rank run of the same depth (the
+    same seed, data and lr at these steps): the first loss within 3e-2
+    (tests/test_multidev.py:92), the later ones within the run's
+    ``later_tol`` (None: finite only, as the 2-D baseline's gradients
+    carry ROADMAP Queue 3 fault 6), each rank's K1/K2/K3 launches exact
+    (K1 once a chunk in a chunked run), every K1 and K2 launch on the tc
+    route; each rank's step time, tokens/s, peak memory and collective
+    bytes a step (``comm.bytes_moved``).  The results by run name."""
     where = (f"{nranks} ranks sharing {card} (gloo, collectives staged "
              "through the host: no measure of the paper's communication)"
              if backend == "gloo" else
              f"{nranks} ranks, one a card, over {backend}")
-    out = {}
-    for lname in layouts:
-        tel = ROOT / "build" / f"chip_smoke_ranks_{lname}_telemetry.json"
-        argv = ["--arch", "tinyllama-1.1b", "--device", RANK_DEVICE,
-                "--backend", backend, *rank_flags(lname, layouts),
-                "--steps",
-                str(steps), "--batch", str(TRAIN_B), "--seq",
-                str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
-                "--log-every", "1", "--telemetry", str(tel)] + (
-                    ["--layers", str(layers)] if layers else [])
-        t = time.perf_counter()
-        res = run_rank_job({"kind": "train", "layout": lname, "argv": argv},
-                           torchrun=RANK_DEVICE == "cuda", nranks=nranks)
-        wall = time.perf_counter() - t
-        losses = res[0]["losses"]
-        ref = one_rank_losses[:steps]
-        diffs = [abs(a - b) for a, b in zip(losses, ref)]
-        for r, rr in enumerate(res):
-            want = rank_train_launches(lname, layouts, layers or LAYERS,
-                                       steps, rank=r)
-            check(rr["losses"] == losses, f"{tag} {lname}: rank {r} losses "
-                  f"{rr['losses']} != rank 0's {losses}")
-            check(rr["launches"] == want, f"{tag} {lname} rank {r}: "
-                  f"launches {rr['launches']} != {want}")
-            check(rr["k1_routes"]["tc"] == want["K1"]
-                  and rr["k2_routes"]["tc"] == want["K2"]
-                  and rr["k2_bwd_routes"]["tc"] == want["K2 bwd"],
-                  f"{tag} {lname} rank {r}: routes {rr['k1_routes']} "
-                  f"{rr['k2_routes']} {rr['k2_bwd_routes']}")
-        tels = [rr["telemetry"] for rr in res]
-        mem = [tl["mem_peak_bytes"] / 2 ** 30 for tl in tels]
-        step_bytes = [rr["bytes"]["bytes_per_device"] / steps
-                      for rr in res]
-        by_kind = [{k: v / steps for k, v in rr["bytes"]["by_kind"].items()
-                    if v} for rr in res]
-        print(f"[{tag}] {lname}: per rank, steady s/step "
-              + " ".join(f"{tl['t_step_s']:.3f}" for tl in tels)
-              + "; bytes a step by kind "
-              + "; ".join(f"rank {r} " + ", ".join(
-                  f"{k} {v:.4g}" for k, v in bk.items())
-                  for r, bk in enumerate(by_kind)))
-        depth = f"cut to {layers} layers" if layers else "full depth"
-        print(f"[{tag}] {lname}: tinyllama-1.1b full width, {depth}, bf16 "
-              f"{TRAIN_B}x{TRAIN_S}, remat, AdamW on {where}: losses "
-              + " ".join(f"{x:.4f}" for x in losses) + " against one "
-              "rank's " + " ".join(f"{x:.4f}" for x in ref)
-              + f" (first {diffs[0]:.2e}, tol 3e-2; later "
-              + (" ".join(f"{x:.2e}" for x in diffs[1:]) + f", tol "
-                 f"{later_tol:.0e}" if later_tol else "finite only")
-              + "); rank 0's step times "
-              + " ".join(f"{x:.3f}" for x in tels[0]["series"]["t_step"])
-              + f" s (first = warm-up), steady {tels[0]['t_step_s']:.3f} "
-              f"s/step, {tels[0]['tokens_per_s']:.0f} tok/s; peak memory "
-              f"per rank " + " ".join(f"{x:.2f}" for x in mem)
-              + " GiB; collective bytes a rank a step (ring model, "
-              f"comm.bytes_moved) {min(step_bytes):.4g}-{max(step_bytes):.4g}"
-              f" ({res[0]['bytes']['counts']} issued by rank 0 in "
-              f"{steps} steps); launches per rank {res[0]['launches']};"
-              f" {wall:.1f} s")
-        check(all(map(math.isfinite, losses)), f"{tag} {lname}: {losses}")
-        check(diffs[0] <= 3e-2, f"{tag} {lname}: first loss {losses} vs "
-              f"{ref}")
-        if later_tol:
-            check(max(diffs) <= later_tol, f"{tag} {lname}: losses {losses}"
-                  f" vs {ref}")
-        out[lname] = {"losses": losses, "one_rank_losses": ref,
-                      "layers": layers or LAYERS,
-                      "t_step_s": tels[0]["t_step_s"],
-                      "t_step": tels[0]["series"]["t_step"],
-                      "tokens_per_s": tels[0]["tokens_per_s"],
-                      "mem_peak_gib_by_rank": mem, "wall_s": wall,
-                      "bytes_per_rank_step": max(step_bytes),
-                      "bytes_by_kind_per_rank_step": by_kind,
-                      "t_step_s_by_rank": [tl["t_step_s"] for tl in tels],
-                      "launches_per_rank": res[0]["launches"],
-                      "launches_world": {k: sum(rr["launches"][k]
-                                                for rr in res)
-                                         for k in res[0]["launches"]}}
-    return out
+
+    def argv(run):
+        tel = ROOT / "build" / f"chip_smoke_ranks_{run.name}_telemetry.json"
+        return (["--arch", "tinyllama-1.1b", "--device", RANK_DEVICE,
+                 "--backend", backend, *rank_flags(run.lname, run.layouts),
+                 "--steps", str(run.steps), "--batch", str(TRAIN_B),
+                 "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
+                 "--log-every", "1", "--telemetry", str(tel)]
+                + (["--layers", str(layers)] if layers else [])
+                + (OVERLAP_ARGV if run.chunks > 1 else [])
+                + (["--trace", str(tel.with_suffix(".trace.json"))]
+                   if run.profile else []))
+    t = time.perf_counter()
+    world = run_rank_job({"kind": "train",
+                          "layout": "_".join(r.name for r in runs),
+                          "argvs": [argv(r) for r in runs],
+                          "profile": [r.profile for r in runs],
+                          "backend": backend, "device": RANK_DEVICE},
+                         torchrun=RANK_DEVICE == "cuda", nranks=nranks)
+    wall = time.perf_counter() - t
+    print(f"[30] one world of {nranks} ranks for the launcher's "
+          f"{len(runs)} runs: {wall:.1f} s")
+    return {run.name: ranks_train_run([w[i] for w in world], run, layers,
+                                      one_rank_losses, where)
+            for i, run in enumerate(runs)}
+
+
+def ranks_train_run(res, run, layers, one_rank_losses, where):
+    """Phase 30's (33's, 37's) checks and numbers of one launcher run
+    (``run``, a ``RankRun``) on the ranks (``res``: each rank's
+    result)."""
+    lname, layouts, steps, chunks = run.lname, run.layouts, run.steps, \
+        run.chunks
+    later_tol, tag = run.later_tol, f"{run.tag} {run.name}"
+    losses = res[0]["losses"]
+    ref = one_rank_losses[:steps]
+    diffs = [abs(a - b) for a, b in zip(losses, ref)]
+    for r, rr in enumerate(res):
+        want = rank_train_launches(lname, layouts, layers or LAYERS, steps,
+                                   rank=r, chunks=chunks)
+        check(rr["losses"] == losses, f"{tag}: rank {r} losses "
+              f"{rr['losses']} != rank 0's {losses}")
+        check(rr["launches"] == want, f"{tag} rank {r}: "
+              f"launches {rr['launches']} != {want}")
+        check(rr["k1_routes"]["tc"] == want["K1"]
+              and rr["k2_routes"]["tc"] == want["K2"]
+              and rr["k2_bwd_routes"]["tc"] == want["K2 bwd"],
+              f"{tag} rank {r}: routes {rr['k1_routes']} "
+              f"{rr['k2_routes']} {rr['k2_bwd_routes']}")
+    tels = [rr["telemetry"] for rr in res]
+    mem = [tl["mem_peak_bytes"] / 2 ** 30 for tl in tels]
+    step_bytes = [rr["bytes"]["bytes_per_device"] / steps for rr in res]
+    by_kind = [{k: v / steps for k, v in rr["bytes"]["by_kind"].items()
+                if v} for rr in res]
+    print(f"[{tag}]: per rank, steady s/step "
+          + " ".join(f"{tl['t_step_s']:.3f}" for tl in tels)
+          + "; bytes a step by kind "
+          + "; ".join(f"rank {r} " + ", ".join(
+              f"{k} {v:.4g}" for k, v in bk.items())
+              for r, bk in enumerate(by_kind)))
+    depth = f"cut to {layers} layers" if layers else "full depth"
+    chunked = (f", each 3-D island in {chunks} chunks (--overlap)"
+               if chunks > 1 else "")
+    print(f"[{tag}]: tinyllama-1.1b full width, {depth}, bf16 "
+          f"{TRAIN_B}x{TRAIN_S}, remat, AdamW{chunked} on {where}: losses "
+          + " ".join(f"{x:.4f}" for x in losses) + " against one "
+          "rank's " + " ".join(f"{x:.4f}" for x in ref)
+          + f" (first {diffs[0]:.2e}, tol 3e-2; later "
+          + (" ".join(f"{x:.2e}" for x in diffs[1:]) + f", tol "
+             f"{later_tol:.0e}" if later_tol else "finite only")
+          + "); rank 0's step times "
+          + " ".join(f"{x:.3f}" for x in tels[0]["series"]["t_step"])
+          + f" s (first = warm-up), steady {tels[0]['t_step_s']:.3f} "
+          f"s/step, {tels[0]['tokens_per_s']:.0f} tok/s; peak memory "
+          f"per rank " + " ".join(f"{x:.2f}" for x in mem)
+          + " GiB; collective bytes a rank a step (ring model, "
+          f"comm.bytes_moved) {min(step_bytes):.4g}-{max(step_bytes):.4g}"
+          f" ({res[0]['bytes']['counts']} started by rank 0 in "
+          f"{steps} steps); launches per rank {res[0]['launches']}")
+    prof = [rr["profile"] for rr in res if "profile" in rr]
+    if prof:
+        print(f"[{tag}]: the last step under torch.profiler, per rank: wall "
+              + " ".join(f"{p['wall_ms']:.1f}" for p in prof)
+              + " ms, compute kernels' union "
+              + " ".join(f"{p['busy_ms']:.1f}" for p in prof)
+              + " ms, collectives outside it "
+              + " ".join(f"{p['exposed_comm_ms']:.1f}" for p in prof)
+              + " ms; rank 0 by group (ms, kernels) " + ", ".join(
+                  f"{g} {v['ms']:.1f} ({v['kernels']})"
+                  for g, v in prof[0]["groups"].items())
+              + "; largest in other " + ", ".join(
+                  f"{n} {ms:.1f}" for n, ms in prof[0]["other_top"].items()))
+    check(all(map(math.isfinite, losses)), f"{tag}: {losses}")
+    check(diffs[0] <= 3e-2, f"{tag}: first loss {losses} vs {ref}")
+    if later_tol:
+        check(max(diffs) <= later_tol, f"{tag}: losses {losses} vs {ref}")
+    return {"losses": losses, "one_rank_losses": ref,
+            "layers": layers or LAYERS, "chunks": chunks,
+            "t_step_s": tels[0]["t_step_s"],
+            "t_step": tels[0]["series"]["t_step"],
+            "tokens_per_s": tels[0]["tokens_per_s"],
+            "mem_peak_gib_by_rank": mem,
+            "bytes_per_rank_step": max(step_bytes),
+            "bytes_by_kind_per_rank_step": by_kind,
+            "t_step_s_by_rank": [tl["t_step_s"] for tl in tels],
+            "launches_per_rank": res[0]["launches"],
+            "profile_by_rank": prof or None,
+            "launches_world": {k: sum(rr["launches"][k] for rr in res)
+                               for k in res[0]["launches"]}}
 
 
 # K2 at a 1d(4) rank's attention (phase 5b): 2 x 2048 rows of 8 of the 32
@@ -5873,11 +6032,13 @@ def phase_ckpt_layouts(card, ckpt, post_loss):
             "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
             "--log-every", "1", "--ckpt-dir", str(ckpt)]
     t = time.perf_counter()
-    res = run_rank_job({"kind": "train", "layout": "ckpt_dp4", "argv": [
+    res = run_rank_job({"kind": "train", "layout": "ckpt_dp4", "argvs": [[
         *argv, "--device", RANK_DEVICE, "--backend", "gloo", "--dp",
         str(n_dp), "--model", str(n_model), "--cube",
-        ",".join(map(str, cube))]}, torchrun=RANK_DEVICE == "cuda",
+        ",".join(map(str, cube))]], "backend": "gloo",
+        "device": RANK_DEVICE}, torchrun=RANK_DEVICE == "cuda",
         nranks=nranks)
+    res = [r[0] for r in res]
     wall = time.perf_counter() - t
     want = rank_train_launches("dp4", {"dp4": ZERO_RESUME},
                                layers=RANK_TRAIN_LAYERS, steps=1)
@@ -6222,20 +6383,20 @@ def main():
         per_step=step_launches(RANK_TRAIN_LAYERS), tag="30r",
         layers=RANK_TRAIN_LAYERS)
     cut_losses = cut_tel["series"]["loss"]
-    ranks_numbers["train"] = timed(phase_ranks_train, card, cut_losses,
-                                   layers=RANK_TRAIN_LAYERS)
-    ranks_numbers["train_pp"] = timed(
-        phase_ranks_train, card, cut_losses, PP_LAYOUTS,
-        layers=RANK_TRAIN_LAYERS, tag="37")
-    base_numbers = {"grads_f32": timed(phase_base_grads, dev)}
-    base_numbers["train"] = timed(
-        phase_ranks_train, card, cut_losses, {"1d": BASE_LAYOUTS["1d"]},
-        layers=RANK_TRAIN_LAYERS, tag="33", later_tol=1e-2,
-        steps=BASE_STEPS)
-    base_numbers["train"].update(timed(
-        phase_ranks_train, card, cut_losses, {"2d": BASE_LAYOUTS["2d"]},
-        layers=RANK_TRAIN_LAYERS, tag="33", later_tol=None,
-        steps=BASE_STEPS))
+    # 30, 37 and 33: the launcher's runs in one torchrun world
+    train_runs = timed(
+        phase_ranks_train, card, cut_losses,
+        rank_runs(RANK_LAYOUTS, overlap=("cube",))
+        + rank_runs(PP_LAYOUTS, tag="37")
+        + rank_runs({"1d": BASE_LAYOUTS["1d"]}, tag="33", later_tol=1e-2,
+                    steps=BASE_STEPS)
+        + rank_runs({"2d": BASE_LAYOUTS["2d"]}, tag="33", later_tol=None,
+                    steps=BASE_STEPS), layers=RANK_TRAIN_LAYERS)
+    ranks_numbers["train"] = {k: train_runs[k]
+                              for k in ("cube", "overlap", "dp2")}
+    ranks_numbers["train_pp"] = {"pp2": train_runs["pp2"]}
+    base_numbers = {"grads_f32": timed(phase_base_grads, dev),
+                    "train": {k: train_runs[k] for k in ("1d", "2d")}}
     gc.collect()
     torch.cuda.empty_cache()
     zero_ckpt = ROOT / "build" / "chip_smoke_zero_ckpt"

@@ -23,6 +23,13 @@ which case each CUDA tensor is copied to the host for the collective and
 back (``Groups.staged``).  The backend is the caller's choice and is never
 switched on failure.
 
+``all_gather_start`` and ``psum_scatter_start`` start the two island
+collectives and return a ``Pending`` whose ``wait()`` gives their result
+(``async_op=True``; over NCCL ``wait`` orders the consumer's stream
+after the collective's), so that the async-TP chunks of ``ops3d`` keep a
+collective in flight while a product runs; their bytes are counted when
+they start.
+
 The plain functions carry no autograd.  ``all_gather_ad``, ``psum_ad``,
 ``psum_id`` and ``grad_psum`` are differentiable, with the transposes the
 islands need: a gather's is a reduce-scatter; a sum whose result each
@@ -189,32 +196,57 @@ def _to_host(g: Groups, x: torch.Tensor) -> torch.Tensor:
 
 
 
-def all_gather(layout: Layout, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
-    """Tiled all-gather of ``x`` along tensor dim ``dim`` over ``axis``."""
+class Pending:
+    """A collective started now and read later (``all_gather_start``,
+    ``psum_scatter_start``): ``wait()`` gives what the synchronous form
+    gives.  It holds the send and receive buffers until then; over gloo
+    its host copy was made before it started."""
+
+    def __init__(self, work, finish, *keep):
+        self._work, self._finish, self._keep = work, finish, keep
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+        out = self._finish()
+        self._work = self._finish = self._keep = None
+        return out
+
+
+def ready(x: torch.Tensor) -> Pending:
+    """A ``Pending`` whose result is ``x`` itself (no collective)."""
+    return Pending(None, lambda: x)
+
+
+def _gather_post(layout: Layout, x: torch.Tensor, axis, dim: int,
+                 async_op: bool) -> Pending:
     axes, g = _prep(layout, axis)
     if not axes:
-        return x
+        return ready(x)
     import torch.distributed as dist
     group, perm = g.order(axes)
     n = layout.size(axes)
     src = _to_host(g, x.movedim(dim, 0).contiguous())
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.all_gather_into_tensor(out, src, group=group)
+    work = dist.all_gather_into_tensor(out, src, group=group,
+                                       async_op=async_op)
     _count("all-gather", out.nbytes * (n - 1) / n)
-    if perm is not None:
-        blocks = out.chunk(n)
-        out = torch.cat([blocks[p] for p in perm])
-    return out.to(x.device).movedim(0, dim)
+
+    def finish():
+        o = out
+        if perm is not None:
+            blocks = o.chunk(n)
+            o = torch.cat([blocks[p] for p in perm])
+        return o.to(x.device).movedim(0, dim)
+    return Pending(work, finish, src)
 
 
-def psum_scatter(layout: Layout, x: torch.Tensor, axis,
-                 dim: int) -> torch.Tensor:
-    """Tiled reduce-scatter of ``x`` along tensor dim ``dim`` over ``axis``:
-    the sum over the axis of block ``index(axis)`` of dim ``dim``."""
+def _scatter_post(layout: Layout, x: torch.Tensor, axis, dim: int,
+                  async_op: bool) -> Pending:
     axes, g = _prep(layout, axis)
     if not axes:
-        return x
+        return ready(x)
     import torch.distributed as dist
     group, perm = g.order(axes)
     n = layout.size(axes)
@@ -232,9 +264,38 @@ def psum_scatter(layout: Layout, x: torch.Tensor, axis,
     src = _to_host(g, src.contiguous())
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
+    work = dist.reduce_scatter_tensor(out, src, group=group,
+                                      async_op=async_op)
     _count("reduce-scatter", out.nbytes * (n - 1))
-    return out.to(x.device).movedim(0, dim)
+    return Pending(work, lambda: out.to(x.device).movedim(0, dim), src)
+
+
+def all_gather(layout: Layout, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+    """Tiled all-gather of ``x`` along tensor dim ``dim`` over ``axis``."""
+    return _gather_post(layout, x, axis, dim, False).wait()
+
+
+def psum_scatter(layout: Layout, x: torch.Tensor, axis,
+                 dim: int) -> torch.Tensor:
+    """Tiled reduce-scatter of ``x`` along tensor dim ``dim`` over ``axis``:
+    the sum over the axis of block ``index(axis)`` of dim ``dim``."""
+    return _scatter_post(layout, x, axis, dim, False).wait()
+
+
+def all_gather_start(layout: Layout, x: torch.Tensor, axis,
+                     dim: int) -> Pending:
+    """``all_gather`` started now (``async_op=True``) and read by the
+    returned ``Pending``'s ``wait()``: the async-TP chunks of
+    ``core/ops3d.py``.  Every rank of the group starts it in the same
+    order."""
+    return _gather_post(layout, x, axis, dim, True)
+
+
+def psum_scatter_start(layout: Layout, x: torch.Tensor, axis,
+                       dim: int) -> Pending:
+    """``psum_scatter`` started now, read by ``wait()`` (see
+    ``all_gather_start``)."""
+    return _scatter_post(layout, x, axis, dim, True)
 
 
 def _all_reduce(layout: Layout, x: torch.Tensor, axis, op) -> torch.Tensor:

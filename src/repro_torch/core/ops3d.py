@@ -21,6 +21,17 @@ outside any Pallas kernel in the reference and ``torch.matmul`` here, which
 accumulates bf16 products in f32 (the train launcher turns off cuBLAS's
 reduced-precision reductions).  Only
 the balanced blocks (x, w) are saved for the backward, as in the paper.
+
+Async-TP (``Layout.overlap``, reference ``ops3d.py:84-172``): each
+``matmul3d`` island splits its local contraction dim into k chunks
+(``_overlap_k``), so that chunk t+1's all-gathers are in flight
+(``comm.all_gather_start``) while chunk t's product runs, and chunk t's
+reduce-scatter while chunk t+1's does.  The forward's and dx's partials
+are reduce-scattered in f32 and summed in f32 (k scatters of f32 where
+the plain island scatters one sum in the activations' dtype), dw's row
+chunks are concatenated.  The gathered sequence order is the plain one,
+so the result equals the plain island's up to the f32 summation order.
+Nothing else chunks: not ``noswap``, ``repc``, decode or the embedding.
 """
 from __future__ import annotations
 
@@ -36,16 +47,136 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return k1.matmul(a.contiguous(), b.contiguous())
 
 
+def _overlap_k(layout: Layout, n: int) -> int:
+    """The chunk count of an island whose local contraction dim is ``n``:
+    the largest divisor of ``n`` that is <= ``layout.overlap_chunks``; 1
+    when overlap is off (reference ``ops3d.py:94-102``)."""
+    if not layout.overlap:
+        return 1
+    k = max(1, min(layout.overlap_chunks, n))
+    while n % k:
+        k -= 1
+    return k
+
+
+def _pipelined(k: int, start, compute):
+    """Run ``compute(t, *gathered_t)`` for t < k, chunk t+1's gathers
+    (``start(t + 1)``, a tuple of ``comm.Pending``) in flight meanwhile;
+    ``compute`` returns a ``Pending`` reduction, waited on after the next
+    chunk's product is launched.  Yields the waited results in chunk
+    order, each as soon as it is waited on."""
+    nxt, red = start(0), None
+    for t in range(k):
+        got = [h.wait() for h in nxt]
+        if t + 1 < k:
+            nxt = start(t + 1)
+        cur = compute(t, *got)
+        if red is not None:
+            yield red.wait()
+        red = cur
+    yield red.wait()
+
+
+def _summed(parts):
+    """The f32 partials summed into one buffer as each arrives, in chunk
+    order (the reference's ``acc = acc + p``); a partial is a fresh tensor
+    of its reduction, so the first is the buffer."""
+    acc = None
+    for p in parts:
+        acc = p if acc is None else acc.add_(p)
+    return acc
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated and returned in f32 (the reference's
+    ``preferred_element_type=f32``): on the card one GEMM of the operands'
+    own type with an f32 output; the CPU has no such GEMM, so there the
+    operands are widened first (bf16 products are exact in f32)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _fwd_chunked(layout, in_ax, out_ax, shard_f, x, w, k):
+    """Algorithm 1 in k chunks of the contraction dim (reference
+    ``ops3d.py:105-118``): per chunk x's slice gathered over in_ax, w's
+    rows over 'x', K1, the partial in f32 reduce-scattered over out_ax;
+    the partials summed in f32, cast to x's dtype once."""
+    ck = x.shape[-1] // k
+
+    def start(t):
+        xk = x[..., t * ck:(t + 1) * ck]
+        wk = w[t * ck:(t + 1) * ck]
+        return (comm.all_gather_start(layout, xk, in_ax, dim=1),
+                comm.all_gather_start(layout, wk, "x", dim=1) if shard_f
+                else comm.ready(wk))
+
+    def compute(t, xg, wg):
+        return comm.psum_scatter_start(layout, _mm(xg, wg).float(), out_ax,
+                                       dim=1)
+    return _summed(_pipelined(k, start, compute)).to(x.dtype)
+
+
+def _dx_chunked(layout, in_ax, dcg, w, k):
+    """dx = dc w^T in k chunks of the contraction dim f (reference
+    ``ops3d.py:121-142``; ``shard_f`` only): ``dcg`` is the shared gather
+    of dc over out_ax; w's column chunks are gathered over 'x', x-major
+    blocks of the local width, so dc's matching features come from its
+    (sx, f_loc) reshape.  The f32 partials reduce-scattered over in_ax and
+    summed in f32."""
+    f_loc = w.shape[1]
+    ck = f_loc // k
+    sx = layout.size("x")
+    b, s, _ = dcg.shape
+    dcr = dcg.reshape(b, s, sx, f_loc)
+
+    def start(t):
+        return (comm.all_gather_start(layout, w[:, t * ck:(t + 1) * ck],
+                                      "x", dim=1),)    # (h/so, sx * ck)
+
+    def compute(t, wg):
+        dck = dcr[..., t * ck:(t + 1) * ck].reshape(b * s, sx * ck)
+        dxp = _mm_f32(dck, wg.t()).reshape(b, s, -1)
+        return comm.psum_scatter_start(layout, dxp, in_ax, dim=1)
+    return _summed(_pipelined(k, start, compute))
+
+
+def _dw_chunked(layout, in_ax, shard_f, x, dc2, k):
+    """dw = x^T dc in k chunks of its rows (reference ``ops3d.py:145-166``):
+    per chunk x's slice gathered over in_ax, the row block cast to x's
+    dtype and reduce-scattered over 'x' (summed over it without
+    ``shard_f``); the disjoint blocks concatenated.  At k = 1 this is the
+    plain island's dw: one gather, one product, one reduction."""
+    ck = x.shape[-1] // k
+
+    def start(t):
+        return (comm.all_gather_start(layout, x[..., t * ck:(t + 1) * ck],
+                                      in_ax, dim=1),)  # (b, S', ck)
+
+    def compute(t, xg):
+        dwp = torch.matmul(xg.reshape(-1, ck).t(), dc2).to(x.dtype)
+        if shard_f:
+            return comm.psum_scatter_start(layout, dwp, "x", dim=1)
+        return comm.ready(comm.psum(layout, dwp, "x"))
+    rows = list(_pipelined(k, start, compute))
+    return torch.cat(rows, dim=0) if k > 1 else rows[0]
+
+
 class _MatMul3D(torch.autograd.Function):
-    """Algorithm 1 forward, the fused Algorithm-2 backward island."""
+    """Algorithm 1 forward, the fused Algorithm-2 backward island; both
+    chunked under ``layout.overlap`` as the reference's islands are
+    (``ops3d.py:195-208``, ``:276-336``)."""
 
     @staticmethod
     def forward(ctx, x, w, layout, in_ax, out_ax, shard_f):
+        ctx.save_for_backward(x, w)                         # balanced blocks
+        ctx.cfg = (layout, in_ax, out_ax, shard_f)
+        k = _overlap_k(layout, x.shape[-1])
+        if k > 1:
+            return _fwd_chunked(layout, in_ax, out_ax, shard_f, x, w, k)
         xg = comm.all_gather(layout, x, in_ax, dim=1)       # (b, S', h/so)
         wg = comm.all_gather(layout, w, "x", dim=1) if shard_f else w
         c = _mm(xg, wg)                                     # partial over out_ax
-        ctx.save_for_backward(x, w)                         # balanced blocks
-        ctx.cfg = (layout, in_ax, out_ax, shard_f)
         return comm.psum_scatter(layout, c, out_ax, dim=1)
 
     @staticmethod
@@ -55,24 +186,24 @@ class _MatMul3D(torch.autograd.Function):
         dcg = comm.all_gather(layout, dc, out_ax, dim=1)    # shared gather
         b, s, f = dcg.shape
         dc2 = dcg.reshape(b * s, f)
-        wg = comm.all_gather(layout, w, "x", dim=1) if shard_f else w
-        dxp = torch.matmul(dc2, wg.t()).reshape(b, s, -1)
-        if shard_f:
-            # contraction dim f is split over in_ax: the reduce-scatter sums
-            dx = comm.psum_scatter(layout, dxp, in_ax, dim=1)
+        k = _overlap_k(layout, x.shape[-1])
+        kf = _overlap_k(layout, w.shape[1]) if k > 1 and shard_f else 1
+        if kf > 1:
+            dx = _dx_chunked(layout, in_ax, dcg, w, kf).to(dc.dtype)
         else:
-            # f unsplit: dxp is the full value on every in_ax rank; take this
-            # rank's sequence slice, no communication
-            s_loc = s // layout.size(in_ax)
-            i0 = comm.axis_index(layout, in_ax) * s_loc
-            dx = dxp[:, i0:i0 + s_loc]
-        xg = comm.all_gather(layout, x, in_ax, dim=1)
-        # dw cast to x's dtype before its reduce-scatter (ops3d.py:253-255)
-        dwp = torch.matmul(xg.reshape(b * s, -1).t(), dc2).to(x.dtype)
-        if shard_f:
-            dw = comm.psum_scatter(layout, dwp, "x", dim=1)
-        else:
-            dw = comm.psum(layout, dwp, "x")
+            wg = comm.all_gather(layout, w, "x", dim=1) if shard_f else w
+            dxp = torch.matmul(dc2, wg.t()).reshape(b, s, -1)
+            if shard_f:
+                # contraction dim f is split over in_ax: the reduce-scatter
+                # sums
+                dx = comm.psum_scatter(layout, dxp, in_ax, dim=1)
+            else:
+                # f unsplit: dxp is the full value on every in_ax rank; take
+                # this rank's sequence slice, no communication
+                s_loc = s // layout.size(in_ax)
+                i0 = comm.axis_index(layout, in_ax) * s_loc
+                dx = dxp[:, i0:i0 + s_loc]
+        dw = _dw_chunked(layout, in_ax, shard_f, x, dc2, k)
         sync = grad_sync_axes(layout)
         if sync:
             dw = comm.psum(layout, dw, sync)

@@ -14,8 +14,9 @@ above one device.  ``zero_stage`` is
 the ZeRO stage of the optimizer state over the data axes (pod, dp): 0
 replicates it, 1 shards AdamW's moments 1/(pod*dp), 2 also keeps the f32
 gradient accumulation on those shards; None resolves to 1 when the data
-degree is above 1, else 0 (``resolved_zero_stage``).  Async-TP overlap
-is not carried yet; the train launcher refuses its flag.
+degree is above 1, else 0 (``resolved_zero_stage``).  ``overlap`` and
+``overlap_chunks`` carry the async-TP chunking of the 3-D islands into
+the layout (``core/ops3d.py``), at the 3d strategy only.
 """
 from __future__ import annotations
 
@@ -75,6 +76,10 @@ class ParallelPlan:
     seq_axes: Tuple[str, ...] = ()
     # ZeRO over (pod, dp); None = auto: 1 when the data degree > 1, else 0
     zero_stage: Optional[int] = None
+    # async-TP: chunk the 3-D island collectives so communication overlaps
+    # the partial matmuls (3d strategy only; see core/ops3d.py)
+    overlap: bool = False
+    overlap_chunks: int = 4
 
     @property
     def n_devices(self) -> int:
@@ -171,6 +176,16 @@ class ParallelPlan:
                     f"zero_stage={self.zero_stage} requires a data-parallel "
                     f"degree > 1 to shard over, got pod*dp={self.n_data}; "
                     "grow --dp or drop --zero")
+        if self.overlap_chunks < 1:
+            raise ValueError(
+                f"overlap_chunks={self.overlap_chunks} must be >= 1")
+        if self.overlap and self.strategy != "3d":
+            raise ValueError(
+                f"overlap=True is only wired into the 3-D islands, got "
+                f"strategy={self.strategy!r}; drop --overlap or use "
+                "strategy='3d'")
+        # the reference's third check (overlap against gspmd_linears) has
+        # no counterpart: the port has no GSPMD path
         if mode != "train" and self.n_devices > 1:
             raise NotImplementedError(multi_rank_refusal(self.n_devices,
                                                          mode=mode))
@@ -185,7 +200,9 @@ class ParallelPlan:
                            seq_axes=self.seq_axes, rank=rank,
                            n_pp=self.n_stages,
                            microbatches=self.microbatches,
-                           zero_stage=self.resolved_zero_stage)
+                           zero_stage=self.resolved_zero_stage,
+                           overlap=self.overlap,
+                           overlap_chunks=self.overlap_chunks)
 
     def describe(self) -> dict:
         px, py, pz = self.cube_dims
@@ -199,4 +216,6 @@ class ParallelPlan:
             "pipeline_efficiency": round(self.pipeline_efficiency(), 4),
             "strategy": self.strategy,
             "zero_stage": self.resolved_zero_stage,
+            "overlap": self.overlap,
+            "overlap_chunks": self.overlap_chunks if self.overlap else 0,
         }

@@ -74,6 +74,12 @@ class Layout:
     ``zero_stage`` is the ZeRO stage of the optimizer state over the data
     axes (``optim/optimizers.py``; default 1, the reference's), in force
     only above a data degree of 1 (``effective_zero_stage``).
+    ``overlap`` turns on the async-TP chunking of the 3-D islands
+    (``core/ops3d.py``, the reference's ``topology.py:115-122``): each
+    ``matmul3d`` splits its local contraction dim into ``overlap_chunks``
+    chunks (the largest divisor of that dim up to it), so that chunk t+1's
+    all-gathers are in flight while chunk t's product runs; only the 3-D
+    islands read these two fields.
     ``rank`` is this process's rank in the world of ``n_devices`` ranks;
     ``groups`` is the ``comm.Groups`` that ``comm.init`` attached, None
     until then (and at one device, where no collective is issued).
@@ -85,6 +91,8 @@ class Layout:
     batch_axes: Tuple[str, ...] = ("pod", "dp", "x")
     seq_axes: Tuple[str, ...] = ()
     zero_stage: int = 1
+    overlap: bool = False
+    overlap_chunks: int = 4
     rank: int = 0
     groups: Optional[Any] = dataclasses.field(default=None, compare=False,
                                               repr=False)
@@ -205,7 +213,8 @@ def make_layout(n_pod: int = 1, n_dp: int = 1, n_model: int = 1,
                 cube: Optional[Tuple[int, int, int]] = None,
                 batch_axes=("pod", "dp", "x"), seq_axes=(), rank: int = 0,
                 n_pp: int = 1, microbatches: int = 1,
-                zero_stage: int = 1) -> Layout:
+                zero_stage: int = 1, overlap: bool = False,
+                overlap_chunks: int = 4) -> Layout:
     """The layout of rank ``rank`` on the mesh (n_pod, n_dp, n_pp, cube)
     (reference ``topology.py:make_layout``, with the rank in place of the
     device list)."""
@@ -218,7 +227,8 @@ def make_layout(n_pod: int = 1, n_dp: int = 1, n_model: int = 1,
         raise ValueError(f"rank {rank} outside a mesh of {n} devices")
     return Layout(sizes=sizes, strategy=strategy, microbatches=microbatches,
                   batch_axes=tuple(batch_axes), seq_axes=tuple(seq_axes),
-                  zero_stage=zero_stage, rank=rank)
+                  zero_stage=zero_stage, overlap=overlap,
+                  overlap_chunks=overlap_chunks, rank=rank)
 
 
 def single_device_layout(strategy: str = "3d") -> Layout:

@@ -32,9 +32,14 @@ host.  Only rank 0 prints; MFU divides by the peak of the world's cards.
 ``optim/optimizers.py``: anything else is AdamW), and ``--zero 0|1|2``
 places the optimizer state over the data axes; the default resolves as
 the reference's plan does, to 1 when ``--dp`` > 1, else 0, and ``--zero
-1`` at one device raises its ValueError.  The flags of what the port does
-not carry (overlap, the other families above one device, pp included)
-raise with a pointer to ROADMAP.md.
+1`` at one device raises its ValueError.  ``--overlap --overlap-chunks K``
+chunks each 3-D island's collectives so that they run beside its
+products (``core/ops3d.py``; the 3d strategy only, the reference's
+ValueError otherwise).  The flags of what the port does not carry (the
+other families above one device, pp included) raise with a pointer to
+ROADMAP.md.  A rank whose world is already joined when ``main`` runs
+(a job that calls it twice) keeps that world; ``main`` leaves only the
+world it joined.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
 and ``--d-model`` cut them; for the MoE family ``--dense-layers`` sets how
 many leading layers are dense and ``--experts`` cuts the routed experts, so
@@ -69,16 +74,12 @@ TODO = "not ported yet: see ROADMAP.md, Queue 1"
 
 
 def _refuse(args, cfg):
-    """NotImplementedError for every flag the port does not carry yet."""
+    """NotImplementedError for what the port does not carry yet: the
+    families but the dense one above one device."""
     from repro_torch.core.plan import multi_rank_refusal
-    bad = []
     err = multi_rank_refusal(args.dp * args.model * args.pp, cfg=cfg)
     if err:
-        bad.append(err)
-    if args.overlap:
-        bad.append("--overlap (async-TP overlap, item 9)")
-    if bad:
-        raise NotImplementedError(f"{'; '.join(bad)}: {TODO}")
+        raise NotImplementedError(f"{err}: {TODO}")
 
 
 def main(argv=None) -> dict:
@@ -108,8 +109,12 @@ def main(argv=None) -> dict:
                          "replicated, 1 = AdamW's moments sharded 1/dp, 2 = "
                          "also the f32 gradient accumulation; default: "
                          "auto (1 when --dp > 1, else 0)")
-    ap.add_argument("--overlap", action="store_true")
-    ap.add_argument("--overlap-chunks", type=int, default=4)
+    ap.add_argument("--overlap", action="store_true",
+                    help="async-TP: chunk each 3-D island's collectives so "
+                         "that they run beside its products (3d only)")
+    ap.add_argument("--overlap-chunks", type=int, default=4,
+                    help="chunks of an island's contraction dim under "
+                         "--overlap (the largest divisor up to this)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-test reduced variant")
     ap.add_argument("--layers", type=int, default=0)
@@ -179,7 +184,9 @@ def _plan(args, cfg):
     plan = ParallelPlan(n_dp=args.dp, n_model=args.model,
                         strategy=args.strategy, n_stages=args.pp,
                         microbatches=args.microbatch, cube=cube,
-                        zero_stage=None if args.zero < 0 else args.zero)
+                        zero_stage=None if args.zero < 0 else args.zero,
+                        overlap=args.overlap,
+                        overlap_chunks=args.overlap_chunks)
     return plan.validate(n_layers=cfg.n_layers, global_batch=args.batch,
                          model=cfg, mode="train")
 
@@ -241,10 +248,21 @@ def _train(args, cfg, plan, me, backend: str) -> dict:
     from repro_torch.optim.optimizers import opt_state_abstract
     from repro_torch.train.step import make_train_step
 
+    import torch.distributed as dist
     device = torch.device(args.device)
+    joined = False
     if me is not None:
         device = ranks.device_for(me, args.device)
-        ranks.init_world(me, backend, device)
+        if not dist.is_initialized():
+            ranks.init_world(me, backend, device)
+            joined = True
+        elif (dist.get_backend(), dist.get_rank(), dist.get_world_size()) \
+                != (backend, me.rank, me.world):
+            raise ValueError(
+                f"the world this process joined runs {dist.get_backend()} "
+                f"with rank {dist.get_rank()} of {dist.get_world_size()}, "
+                f"not --backend {backend} with rank {me.rank} of "
+                f"{me.world}")
     rank = 0 if me is None else me.rank
     say = print if rank == 0 else (lambda *a, **k: None)
     if device.type == "cuda":
@@ -347,8 +365,8 @@ def _train(args, cfg, plan, me, backend: str) -> dict:
         if rank == 0 and os.environ.get("REPRO_TORCH_RESULT"):
             with open(os.environ["REPRO_TORCH_RESULT"], "w") as f:
                 json.dump(out, f)
-        import torch.distributed as dist
-        dist.destroy_process_group()
+        if joined:
+            dist.destroy_process_group()
     return out
 
 

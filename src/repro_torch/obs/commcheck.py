@@ -18,15 +18,19 @@ O(1/sqrt(p)) and the 3-D cube as O(1/p^(2/3)).
 ``check()`` reports the plans and the ordering ``3d < 2d < 1d`` of the
 measured bytes; ``main`` exits non-zero when it is violated.
 
-    PYTHONPATH=src python -m repro_torch.obs.commcheck --host-devices 8
-    python -m repro_torch.obs.commcheck --device cuda
+    PYTHONPATH=src python -m repro_torch.obs.commcheck
+    PYTHONPATH=src python -m repro_torch.obs.commcheck --device cpu \
+        --host-devices 8
 
-``--host-devices N`` runs each plan's p ranks as local CPU processes over
-gloo (``launch/ranks.spawn_local``; every plan needs p <= N).  With
-``--device cuda`` each plan runs under ``torch.distributed.run
---standalone --nproc-per-node p``, its ranks on the cards
-(``LOCAL_RANK % device_count()``; gloo where ranks share a card, which
-stages the collectives through the host and leaves the count unchanged).
+The card is the default, as for every entry point of the port: with no
+CUDA device ``main`` exits with a message and never falls back to the
+CPU.  ``--device cpu --host-devices N`` runs each plan's p ranks as local
+CPU processes over gloo (``launch/ranks.spawn_local``; every plan needs
+p <= N).  With ``--device cuda`` each plan runs under
+``torch.distributed.run --standalone --nproc-per-node p``, its ranks on
+the cards (``LOCAL_RANK % device_count()``; gloo where ranks share a
+card, which stages the collectives through the host and leaves the
+count unchanged).
 ``--rank-of STRATEGY`` is the entry of one such rank; started under
 ``torch.distributed.run`` by hand it measures that plan over the whole
 world and rank 0 prints the plan's line.
@@ -242,7 +246,7 @@ def report(cfg, batch: int, seq: int, device: str, plans: dict) -> dict:
 
 def check(arch: str = "paper-transformer", batch: int = 12, seq: int = 512,
           n_layers: int = 4, d_ff: int = 0, vocab: int = 4096,
-          plans: Optional[Dict[str, int]] = None, *, device: str = "cpu",
+          plans: Optional[Dict[str, int]] = None, *, device: str = "cuda",
           host_devices: int = 0, reduced: bool = False,
           changes: Optional[dict] = None) -> dict:
     """The measured and analytic report across the plans (the reference's
@@ -299,7 +303,7 @@ def main(argv=None):
                     help="override vocab (0 = the arch's own)")
     ap.add_argument("--out", default="",
                     help="also write the report as JSON here")
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--host-devices", type=int, default=0,
                     help="run each plan's ranks as this many local CPU "
                          "processes at most (the default plans need 8)")
@@ -314,6 +318,11 @@ def main(argv=None):
                          "heads split over 8 ranks")
     ap.add_argument("--result", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        sys.exit("--device cuda: no CUDA device is available (pass "
+                 "--device cpu --host-devices 8 to run the plans' ranks on "
+                 "the CPU)")
     if args.rank_of:
         from ..launch import ranks
         me = ranks.rank_env()

@@ -236,8 +236,8 @@ def battery(tmp_path_factory):
         try:
             cc2d["report"] = commcheck.check(
                 CC["arch"], CC_BATCH, CC_SEQ, CC["n_layers"], CC["d_ff"],
-                CC["vocab"], {"2d": 4}, host_devices=4, reduced=True,
-                changes=CC["changes"])
+                CC["vocab"], {"2d": 4}, device="cpu", host_devices=4,
+                reduced=True, changes=CC["changes"])
         except Exception as e:          # reported by the assert below
             cc2d["error"] = repr(e)
 
@@ -483,3 +483,18 @@ def test_one_device_serving_same_tokens_every_strategy(capsys):
     capsys.readouterr()
     assert outs["1d"] == outs["3d"] and outs["2d"] == outs["3d"]
     assert all(len(o) == 4 for o in outs["3d"])
+
+
+def test_commcheck_defaults_to_the_card(monkeypatch):
+    """The card is the comm check's default, as it is every entry point's:
+    with no CUDA device ``main`` exits with a message naming the CPU's
+    flags and never falls back to the CPU; ``check`` defaults to it too."""
+    import inspect
+
+    import torch
+    assert inspect.signature(commcheck.check).parameters[
+        "device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match=r"--device cuda: no CUDA device is "
+                       r"available \(pass --device cpu --host-devices 8"):
+        commcheck.main([])

@@ -246,9 +246,9 @@ def test_topology_and_plan_match_reference():
         with pytest.raises(ValueError) as got:
             ParallelPlan(**kw).validate(mode="serve")
         assert str(got.value) == str(want.value)
-    assert ParallelPlan(n_model=8).describe() == {
-        k: v for k, v in jplan.ParallelPlan(n_model=8).describe().items()
-        if k not in ("overlap", "overlap_chunks")}
+    for kw in ({}, {"overlap": True, "overlap_chunks": 2}):
+        assert ParallelPlan(n_model=8, **kw).describe() == \
+            jplan.ParallelPlan(n_model=8, **kw).describe()
 
 
 def test_block_allocator_invariants():

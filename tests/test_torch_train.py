@@ -57,6 +57,21 @@ from repro_torch.optim import adamw_init, make_schedule
 from repro_torch.train.step import make_train_step
 
 F32 = jnp.float32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's torch ops on one intra-op thread while this module runs,
+    the worker's count restored after: the suite runs six workers on the
+    machine's cores, and these small shapes slow down several-fold when
+    every worker spreads each op over all of them.  The files that import
+    it run the same way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # variant -> (arch, config change); the reduced zamba2 has the plan
 # [mamba, mamba, attn], SSD chunk 64 and attention window 64.  The paper's
 # model and gemma-2b keep their published head dims, 48 and 256 (which
@@ -402,7 +417,7 @@ LAUNCHER_CASES = [
     (["--pp", "2", "--layers", "1"], "too shallow"),
     (["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4"],
      NotImplementedError),
-    (["--overlap"], NotImplementedError), (["--zero", "1"], ValueError),
+    (["--overlap"], "runs"), (["--zero", "1"], ValueError),
     (["--optimizer", "adafactor"], "runs"),
     (["--dp", "2", "--model", "4", "--cube", "2,2,1", "--host-devices", "8"],
      "resumes"),
@@ -413,7 +428,8 @@ LAUNCHER_CASES = [
     (["--arch", "mixtral-8x7b", "--pp", "2"], NotImplementedError),
     (["--arch", "moonshot-v1-16b-a3b", "--optimizer", "adafactor"], "runs"),
     (["--arch", "internvl2-2b", "--pp", "2"], NotImplementedError),
-    (["--arch", "whisper-medium", "--zero", "1"], ValueError)]
+    (["--arch", "whisper-medium", "--zero", "1"], ValueError),
+    (["--overlap", "--strategy", "1d", "--model", "4"], "overlap 3d only")]
 
 
 @pytest.mark.parametrize("flags,outcome", [
@@ -423,8 +439,10 @@ def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
     """What the port does not carry raises NotImplementedError pointing at
     ROADMAP.md (pp above one device for a family but the dense one among
     it); ``--zero 1`` at one device the reference's ValueError, a stage
-    with no layer the reference's.  ZeRO above one device, pp 2 over a
-    cube of 2 and Adafactor (every family) run a step; at dp 2 x (2, 2, 1)
+    with no layer the reference's, ``--overlap`` beside a strategy other
+    than 3d the reference's.  ZeRO above one device, pp 2 over a cube of
+    2, ``--overlap`` (the chunked islands) and Adafactor (every family)
+    run a step; at dp 2 x (2, 2, 1)
     ``--ckpt-dir`` saves across the ranks and a second run resumes from
     it."""
     argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
@@ -440,6 +458,10 @@ def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
         with pytest.raises(ValueError, match="every pipeline stage needs "
                            "at least one block"):
             train_launch.main(argv)
+    elif outcome == "overlap 3d only":
+        with pytest.raises(ValueError, match="only wired into the 3-D "
+                           "islands, got strategy='1d'"):
+            train_launch.main(argv)
     elif outcome == "runs":
         out = train_launch.main(argv)
         text = capsys.readouterr().out
@@ -448,6 +470,8 @@ def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
             assert "'zero_stage': 1" in text
         if "--pp" in flags:
             assert "'pp': 2" in text and "ranks=4" in text
+        if "--overlap" in flags:
+            assert "'overlap': True, 'overlap_chunks': 4" in text
     else:
         ck = str(tmp_path / "ck")
         ckpt = ["--ckpt-dir", ck, "--ckpt-every", "1"]

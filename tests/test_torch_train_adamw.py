@@ -7,7 +7,7 @@ over its workers.
 """
 import pytest
 
-from test_torch_train import build_model, three_adamw_steps
+from test_torch_train import build_model, one_thread, three_adamw_steps  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=['gqa_remat', 'mha'])

@@ -6,7 +6,7 @@ files of their own so that the test run spreads them over its workers.
 """
 import pytest
 
-from test_torch_train import build_model, three_adamw_steps
+from test_torch_train import build_model, one_thread, three_adamw_steps  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=['gemma_d256', 'paper_d48'])
