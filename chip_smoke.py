@@ -317,13 +317,25 @@ Phases, in order (any failure raises and exits nonzero):
      every rank's gradient shard within 1e-4 of each leaf's largest
      value (a stage's slab against the one-rank leaf re-cut by
      ``repartition_stack``);
+     Then, in the same world, Moonlight cut to [dense, moe] at full
+     width (64 experts of 1408, 2 shared, vocab 163840) in f32, 4 x 512,
+     at (2,2,2) and dp2 x (2,2,1) (``R29M_LAYOUTS``; expert parallelism,
+     ep ('x', 'y') and ('dp', 'x', 'y')) at capacity factor
+     ``R29M_CF``, held the same way to its one-rank run, no choice
+     dropped on one rank or a rank (asserted: a rank's capacity is its
+     own tokens', so a drop would differ by design), its all-to-all
+     bytes a rank printed;
  30r. phase 8's run cut to ``RANK_TRAIN_LAYERS`` (2 of 22) layers,
      ``RANK_STEPS`` (2) steps: the losses that 30 and 33 are held to;
+     and Moonlight cut to [dense, moe] the same way (``moon_launches``),
+     the losses that 30's Moonlight run is held to;
  30. ``repro_torch.launch.train`` under torchrun, 8 ranks at each layout:
      tinyllama-1.1b at full width in bf16, cut to ``RANK_TRAIN_LAYERS``
      layers, 4 x 2048,
-     remat, AdamW (at dp2 on ZeRO-1 shards, the launcher's default), 2
-     steps, each loss within 3e-2 of 30r's, each rank's
+     remat, AdamW (at dp2 on ZeRO-1 shards, the launcher's default),
+     ``RANK_CUT_STEPS`` (1) step, its loss within 3e-2 of 30r's, and
+     Moonlight's [dense, moe] cut at (2,2,2) for 2 steps against 30r's
+     Moonlight run, the choices dropped printed; each rank's
      K1/K2/K3 launches exact (``rank_train_launches``: K3 in its two
      phases where 'z' splits the hidden dim), every K1 and K2 launch on
      tc; each rank's step time, tokens/s, peak memory and collective
@@ -340,16 +352,18 @@ Phases, in order (any failure raises and exits nonzero):
      the machine's CPU ranks at 2d (ROADMAP Queue 3 fault 6: neither
      package's 2-D gradient is one rank's);
  32. the comm check (``repro_torch.obs.commcheck``) at the reference's
-     defaults (paper-transformer, 4 layers, d_ff = d_model, vocab 4096,
-     12 x 512, bf16): the 1d and 3d plans of 8 ranks in 31's world, the
+     defaults (paper-transformer, d_ff = d_model, vocab 4096, 12 x 512,
+     bf16; 2 layers of its 4, to fit the time limit): the 1d and 3d plans of 8 ranks in 31's world, the
      2d plan of 4 under torchrun; measured and analytic bytes per plan,
      the measured ordering 3d < 2d < 1d;
- 33. phase 30 at 1d(4) and 2d(q2), 2 steps: the first loss within 3e-2
-     of 30r's, the second within 1e-2 at 1d and finite at 2d (fault 6);
+ 33. phase 30 at 1d(4) and 2d(q2), ``RANK_CUT_STEPS`` (1) step: the
+     loss within 3e-2 of 30r's (the 2-D one drifts after its first step:
+     fault 6);
  34. ZeRO 0, 1 and 2 across ranks (``rank_zero``): phase 30's dp2 x
      (2,2,1) layout on 8 ranks, tinyllama-1.1b cut to
      ``RANK_TRAIN_LAYERS`` layers, bf16,
-     ``ZERO_B`` x 2048, 2 microbatches, 2 steps a stage from one seed:
+     ``ZERO_B`` x 2048, 2 microbatches, ``ZERO_STEPS`` (1) step a stage
+     from one seed:
      the stages' losses and gnorms within 1e-2 of one another, launches
      exact, every rank's moment bytes at stage 0 over stage 1 within
      ``ZERO_RATIO``, stage 2's f32 accumulation on the ZeRO blocks
@@ -366,8 +380,8 @@ Phases, in order (any failure raises and exits nonzero):
      each), then mixtral-8x7b cut to ``ADA_MIX_LAYERS`` (4) layers, 3
      steps, the depth whose AdamW moments alone would take 48.6 GB;
  37. pipeline stages: phase 30 at pp2 x (1,2,2) (``PP_LAYOUTS``,
-     ``--pp 2 --microbatch 4``), one of the 2 layers a stage, 2 steps:
-     each loss within 3e-2 of 30r's, each rank's K1/K2/K3 launches exact
+     ``--pp 2 --microbatch 4``), one of the 2 layers a stage,
+     ``RANK_CUT_STEPS`` (1) step: its loss within 3e-2 of 30r's, each rank's K1/K2/K3 launches exact
      for its stage (``rank_train_launches``: the head and ``ln_f`` on the
      last stage, 4 microbatches a step), every K1 and K2 launch on tc;
      each rank's step time, peak memory and bytes a step by kind, the
@@ -4798,18 +4812,27 @@ BASE_LAYOUTS = {"1d": (2, 4, None, "1d"), "2d": (2, 4, None, "2d")}
 OVERLAP_LAYOUTS = {"cube_overlap": "cube", "pp2_overlap": "pp2"}
 OVERLAP_CHUNKS = 4
 OVERLAP_ARGV = ["--overlap", "--overlap-chunks", str(OVERLAP_CHUNKS)]
-# phase 30 takes 2 steps, the first a warm-up: the script's time limit
+# 30r and phase 30's Moonlight run take 2 steps, the first a warm-up;
+# the tinyllama runs of 30, 33 and 37 take ``RANK_CUT_STEPS`` (the
+# warm-up alone, beside the MoE rank runs): the script's time limit
 # binds
 RANKS, RANK_STEPS, RANK_TIMEOUT_S = 8, 2, 600
-# phases 30 and 33 train tinyllama-1.1b cut to this many of its 22 layers;
-# 33 takes 2 steps (the second is the steady one)
-# 2 layers: each world of 8 ranks stages its steps' collectives through
-# the host, and the script's time limit binds
-RANK_TRAIN_LAYERS, BASE_STEPS = 2, 2
+# phases 30 and 33 train tinyllama-1.1b cut to this many of its 22 layers:
+# each world of 8 ranks stages its steps' collectives through the host,
+# and the script's time limit binds
+RANK_TRAIN_LAYERS, RANK_CUT_STEPS = 2, 1
 RANK_DEVICE = "cuda"            # "cpu" to rehearse the rank phases
 RANK_SCRIPT = ROOT / "chip_smoke.py"    # each rank runs its --rank-job
 # phase 29: tinyllama cut to 2 layers at full width in f32, 4 x 512
 R29_SEED, R29_B, R29_S = 29, 4, 512
+# phase 29's MoE: moonshot-v1-16b-a3b cut to [dense, moe] (phase 20's cut)
+# at these layouts in the same world, at a capacity factor at which no
+# choice drops on one rank or on a rank (asserted): the capacity is a
+# rank's own (models/moe.py, the reference's moe.py:132), so a drop would
+# make the two runs differ by design
+R29M_LAYOUTS, R29M_CF = ("cube", "dp2"), 4.0
+# phase 30's MoE run: that cut in bf16 through the launcher at (2,2,2)
+MOON = "moonshot-v1-16b-a3b"
 
 
 def rank_layout(lname, rank=0, layouts=None):
@@ -5200,67 +5223,111 @@ def r29_batch(vocab):
     return {"tokens": toks[:, :-1], "labels": labels}
 
 
+def r29m_cfg():
+    """Phase 29's MoE model: phase 20's Moonlight [dense, moe] in f32 at
+    the capacity factor ``R29M_CF``."""
+    cfg = moon_two_layer_cfg()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=R29M_CF))
+
+
 def rank_grads(job, me):
     """Phase 29's rank, at each layout of ``job["layouts"]`` in turn in
     one world: the f32 two-layer model's loss and gradient shards (the
     train step's leaf sync included), each leaf held to the one-rank
-    run's block at the rank's coordinates."""
+    run's block at the rank's coordinates; then the same for Moonlight's
+    [dense, moe] at each of ``job["moe_layouts"]`` (named ``moe_<layout>``
+    in the result), with the choices routed and dropped."""
+    import torch.distributed as dist
+    from repro_torch.launch import ranks
+    dev = ranks.device_for(me, job["device"])
+    ranks.init_world(me, "gloo", dev)
+    out = {}
+    for lname in job["layouts"]:
+        out[lname] = rank_grads_at(dev, me, r29_cfg(), job["ref"], lname)
+    for lname in job.get("moe_layouts", ()):
+        out[f"moe_{lname}"] = rank_grads_at(dev, me, r29m_cfg(),
+                                            job["moe_ref"], lname)
+    dist.destroy_process_group()
+    return out
+
+
+def rank_grads_at(dev, me, cfg, ref_path, lname):
+    """One layout of ``rank_grads``: the loss, each gradient leaf's error
+    against the reference's block, the launches, bytes and (for an MoE
+    model) the (routed, dropped) choices summed over its MoE calls."""
     import torch
     from repro_torch.core import comm
     from repro_torch.core.params import init_params, shard, tree_leaves
     from repro_torch.core.plan import ParallelPlan
     from repro_torch.data.pipeline import shard_batch, to_device
-    from repro_torch.launch import ranks
     from repro_torch.models import transformer
     from repro_torch.models.registry import repartition_stack
     from repro_torch.train.step import loss_and_grads
-    dev = ranks.device_for(me, job["device"])
-    ranks.init_world(me, "gloo", dev)
-    cfg = r29_cfg()
     # mapped, not read: each rank reads only its blocks of the leaves
-    ref = torch.load(job["ref"], mmap=True)
-    out = {}
-    for lname in job["layouts"]:
-        t = time.perf_counter()
-        base = OVERLAP_LAYOUTS.get(lname, lname)
-        n_dp, n_model, cube, *more = {**RANK_LAYOUTS, **PP_LAYOUTS}[base]
-        _, n_pp, mb = more + ["3d", 1, 1][len(more):]
-        lay = comm.init(ParallelPlan(
-            n_dp=n_dp, n_model=n_model, cube=tuple(cube), n_stages=n_pp,
-            microbatches=mb, overlap=base != lname,
-            overlap_chunks=OVERLAP_CHUNKS).validate().build(me.rank),
-            "gloo")
-        abstract = transformer.abstract_params(cfg, lay)
-        # at pp 2 the stage slabs of the same draws (the one-rank leaves
-        # re-cut: the plan is homogeneous)
-        params = init_params(abstract, torch.Generator(
-            device=dev).manual_seed(R29_SEED), dev, torch.float32,
-            layout=lay)
-        batch = to_device(shard_batch(r29_batch(cfg.vocab), lay), dev)
-        reset_launches()
-        comm.reset_bytes()
-        loss, _, grads = loss_and_grads(cfg, lay, params, batch)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        launches = dict(read_launches(), **read_split_launches())
-        names = ["/".join(p) for p in _paths(params)]
+    ref = torch.load(ref_path, mmap=True)
+    t = time.perf_counter()
+    base = OVERLAP_LAYOUTS.get(lname, lname)
+    n_dp, n_model, cube, *more = {**RANK_LAYOUTS, **PP_LAYOUTS}[base]
+    _, n_pp, mb = more + ["3d", 1, 1][len(more):]
+    lay = comm.init(ParallelPlan(
+        n_dp=n_dp, n_model=n_model, cube=tuple(cube), n_stages=n_pp,
+        microbatches=mb, overlap=base != lname,
+        overlap_chunks=OVERLAP_CHUNKS).validate().build(me.rank), "gloo")
+    abstract = transformer.abstract_params(cfg, lay)
+    # at pp 2 the stage slabs of the same draws (the one-rank leaves
+    # re-cut: the plan is homogeneous)
+    params = init_params(abstract, torch.Generator(
+        device=dev).manual_seed(R29_SEED), dev, torch.float32, layout=lay)
+    batch = to_device(shard_batch(r29_batch(cfg.vocab), lay), dev)
+    reset_launches()
+    comm.reset_bytes()
+    (loss, _, grads), drops = routed_and_dropped(
+        lambda: loss_and_grads(cfg, lay, params, batch))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(read_launches(), **read_split_launches())
+    names = ["/".join(p) for p in _paths(params)]
 
-        def want(n):
-            g = ref["grads"][n]
-            if n_pp > 1 and n.startswith("stack/"):
-                kind = n.split("/")[1]
-                g = repartition_stack(cfg, {kind: g}, 1, n_pp)[kind]
-            return g
-        errs = {n: leaf_err(g, shard(want(n), p.spec, lay).to(dev))
-                for n, g, p in zip(names, grads, tree_leaves(abstract))}
-        out[lname] = {"loss": loss.item(), "ref_loss": ref["loss"],
-                      "errs": errs, "launches": launches,
-                      "bytes": comm.bytes_moved(),
-                      "wall_s": time.perf_counter() - t}
-        del params, loss, grads
-    import torch.distributed as dist
-    dist.destroy_process_group()
-    return out
+    def want(n):
+        g = ref["grads"][n]
+        if n_pp > 1 and n.startswith("stack/"):
+            kind = n.split("/")[1]
+            g = repartition_stack(cfg, {kind: g}, 1, n_pp)[kind]
+        return g
+    errs = {n: leaf_err(g, shard(want(n), p.spec, lay).to(dev))
+            for n, g, p in zip(names, grads, tree_leaves(abstract))}
+    return {"loss": loss.item(), "ref_loss": ref["loss"], "errs": errs,
+            "launches": launches, "bytes": comm.bytes_moved(),
+            "drops": [sum(d[0] for d in drops), sum(d[1] for d in drops)],
+            "wall_s": time.perf_counter() - t}
+
+
+def one_rank_grads(dev, cfg, ref):
+    """The one-rank run that phase 29 holds the ranks to: ``cfg``'s f32
+    loss and gradients at ``R29_SEED``'s weights and batch, saved to
+    ``ref``; returns (loss, [(routed, dropped)] of its MoE calls)."""
+    import torch
+    from repro_torch.core.params import init_params, tree_leaves, tree_map
+    from repro_torch.core.plan import ParallelPlan
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import transformer
+    lay = ParallelPlan().validate().build()
+    params = init_params(transformer.abstract_params(cfg),
+                         torch.Generator(device=dev).manual_seed(R29_SEED),
+                         dev, torch.float32)
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    (loss, _), drops = routed_and_dropped(lambda: transformer.forward(
+        cfg, lay, live, to_device(r29_batch(cfg.vocab), dev), mode="train"))
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    ref.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"loss": loss.item(), "grads": {
+        "/".join(p): g.cpu() for p, g in zip(_paths(params), grads)}}, ref)
+    one = loss.item()
+    del params, live, loss, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return one, drops
 
 
 def phase_ranks_grads(dev):
@@ -5270,30 +5337,20 @@ def phase_ranks_grads(dev):
     one-rank run on the same card: the loss within 1e-4, and every rank's
     shard of every gradient leaf within 1e-4 of the leaf's largest value
     (after the train step's leaf sync); K1, K2 and K3 (two phases at
-    (2,2,2)) must have run on every rank."""
-    import torch
-    from repro_torch.core.params import init_params, tree_leaves, tree_map
-    from repro_torch.core.plan import ParallelPlan
-    from repro_torch.data.pipeline import to_device
-    from repro_torch.models import transformer
+    (2,2,2)) must have run on every rank.  Then, in the same world,
+    Moonlight cut to [dense, moe] at full width (``r29m_cfg``: 64 experts
+    of 1408, 2 shared, vocab 163840), f32, 4 x 512, at ``R29M_LAYOUTS``
+    (expert parallelism: ep ('x', 'y') at (2,2,2), ('dp', 'x', 'y') at
+    dp2 x (2,2,1)), held the same way to its one-rank run, no choice
+    dropped on one rank or on any rank; its all-to-all bytes a rank
+    printed."""
     cfg = r29_cfg()
-    lay = ParallelPlan().validate().build()
-    params = init_params(transformer.abstract_params(cfg),
-                         torch.Generator(device=dev).manual_seed(R29_SEED),
-                         dev, torch.float32)
-    live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    loss, _ = transformer.forward(cfg, lay, live,
-                                  to_device(r29_batch(cfg.vocab), dev),
-                                  mode="train")
-    grads = torch.autograd.grad(loss, tree_leaves(live))
     ref = ROOT / "build" / "chip_smoke_ranks" / "ref29.pt"
-    ref.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"loss": loss.item(), "grads": {
-        "/".join(p): g.cpu() for p, g in zip(_paths(params), grads)}}, ref)
-    one = loss.item()
-    del params, live, loss, grads
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    one, _ = one_rank_grads(dev, cfg, ref)
+    moe_ref = ROOT / "build" / "chip_smoke_ranks" / "ref29m.pt"
+    one_moe, one_drops = one_rank_grads(dev, r29m_cfg(), moe_ref)
+    check(one_drops and not any(d for _, d in one_drops),
+          f"29 moe: one rank dropped choices {one_drops}")
     out = {}
     # the layouts, and (2,2,2) and pp2 again with the islands chunked, in
     # one world of 8 ranks
@@ -5302,9 +5359,12 @@ def phase_ranks_grads(dev):
     t = time.perf_counter()
     world = run_rank_job({"kind": "grads", "layout": "_".join(layouts),
                           "layouts": list(layouts),
-                          "device": RANK_DEVICE, "ref": str(ref)})
+                          "moe_layouts": list(R29M_LAYOUTS),
+                          "device": RANK_DEVICE, "ref": str(ref),
+                          "moe_ref": str(moe_ref)})
     print(f"[29] one world of {RANKS} ranks for the {len(layouts)} "
-          f"layouts: {time.perf_counter() - t:.1f} s")
+          f"layouts and Moonlight's {len(R29M_LAYOUTS)}: "
+          f"{time.perf_counter() - t:.1f} s")
     for lname, spec in layouts.items():
         res = [r[lname] for r in world]
         wall = res[0]["wall_s"]
@@ -5329,6 +5389,38 @@ def phase_ranks_grads(dev):
                   and norms > 0, f"29 {lname} rank {r}: launches {la}")
         out[lname] = {"loss_err": dl, "grad_err": worst, "wall_s": wall,
                       "bytes_by_kind_rank0": res[0]["bytes"]["by_kind"]}
+    for lname in R29M_LAYOUTS:
+        res = [r[f"moe_{lname}"] for r in world]
+        worst = max(max(r["errs"].values()) for r in res)
+        dl = max(abs(r["loss"] - r["ref_loss"]) for r in res)
+        a2a = [r["bytes"]["by_kind"]["all-to-all"] for r in res]
+        print(f"[29] moe {lname} f32 Moonlight [dense, moe] (64 experts of "
+              f"1408, capacity factor {R29M_CF}) {R29_B}x{R29_S}: loss "
+              f"{res[0]['loss']:.6f} against one rank's {one_moe:.6f} "
+              f"(worst rank {dl:.2e}, tol 1e-4); worst gradient shard "
+              f"error {worst:.2e} of its leaf's max over "
+              f"{len(res[0]['errs'])} leaves x {RANKS} ranks (tol 1e-4); "
+              f"(routed, dropped) choices per rank "
+              f"{[tuple(r['drops']) for r in res]}, one rank's "
+              f"{one_drops}; all-to-all bytes a rank "
+              f"{min(a2a):.6g}-{max(a2a):.6g}; bytes by kind, rank 0 "
+              f"{res[0]['bytes']['by_kind']}; rank 0's launches "
+              f"{res[0]['launches']}; {res[0]['wall_s']:.1f} s")
+        check(dl <= 1e-4, f"29 moe {lname}: loss {dl}")
+        check(worst <= 1e-4, f"29 moe {lname}: gradient shards {worst}")
+        check(all(r["drops"][0] > 0 and r["drops"][1] == 0 for r in res),
+              f"29 moe {lname}: drops {[r['drops'] for r in res]}")
+        check(min(a2a) > 0, f"29 moe {lname}: all-to-all bytes {a2a}")
+        for r, rr in enumerate(res):
+            la = rr["launches"]
+            check(la["K1"] > 0 and la["K2"] > 0 and la["K2 bwd"] > 0
+                  and la["K3 moments" if lname == "cube" else "K3"] > 0,
+                  f"29 moe {lname} rank {r}: launches {la}")
+        out[f"moe_{lname}"] = {
+            "loss_err": dl, "grad_err": worst, "wall_s": res[0]["wall_s"],
+            "drops_by_rank": [r["drops"] for r in res],
+            "all_to_all_bytes_by_rank": a2a,
+            "bytes_by_kind_rank0": res[0]["bytes"]["by_kind"]}
     return out
 
 
@@ -5337,9 +5429,9 @@ def rank_train(job, me):
     environment names it) once for each argv of ``job["argvs"]``, in the
     one world this job joins (the launcher keeps a world it did not
     join), the launch counters reset just before each run and read just
-    after; a run flagged in ``job["profile"]`` runs under torch.profiler
-    and adds its last step's ``step_split``.  A list of the runs'
-    results."""
+    after, with the MoE choices routed and dropped counted; a run flagged
+    in ``job["profile"]`` runs under torch.profiler and adds its last
+    step's ``step_split``.  A list of the runs' results."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import comm
@@ -5356,11 +5448,13 @@ def rank_train(job, me):
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if prof_on
               else contextlib.nullcontext()) as prof:
-            res = train.main(argv)
+            res, drops = routed_and_dropped(lambda: train.main(argv))
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
         split = {"profile": step_split(prof)} if prof_on else {}
         out.append({**split,
+                    "drops": [sum(d[0] for d in drops),
+                              sum(d[1] for d in drops)],
                     "launches": dict(read_launches(), **read_split_launches()),
                     "k1_routes": dict(k1.launches_by_route),
                     "k2_routes": dict(k2.launches_by_route),
@@ -5391,10 +5485,12 @@ def chunked_k1(lay, layers, head, chunks):
 
 
 def rank_train_launches(lname, layouts=None, layers=LAYERS,
-                        steps=RANK_STEPS, rank=0, chunks=1):
+                        steps=RANK_STEPS, rank=0, chunks=1,
+                        arch="tinyllama-1.1b"):
     """Rank ``rank``'s launches in phase 30's (33's, 37's) run:
     tinyllama's step at ``layers`` deep as one rank runs it
-    (``step_launches``), at pp > 1 its stage's layers (the head and
+    (``step_launches``; Moonlight's [dense, moe] cut, ``moon_launches``,
+    for ``arch`` MOON), at pp > 1 its stage's layers (the head and
     ``ln_f`` on the last stage) once a microbatch; its norms in K3's two
     phases where the hidden dim is split (over out_ax, 'z', at 3d; 'z' at
     2d; never at 1d); with the islands in ``chunks`` chunks
@@ -5407,7 +5503,8 @@ def rank_train_launches(lname, layouts=None, layers=LAYERS,
     if pp > 1:
         lo, hi = lay.stage_bounds(layers)[lay.index("pp")]
         n, head, mb = hi - lo, lay.index("pp") == pp - 1, lay.microbatches
-    per = {k: v * mb for k, v in step_launches(n, head).items()}
+    one = moon_launches if arch == MOON else step_launches
+    per = {k: v * mb for k, v in one(n, head).items()}
     if chunks > 1:
         per["K1"] = mb * chunked_k1(lay, n, head, chunks)
     fwd, bwd = per["K3"], per["K3 bwd"]
@@ -5424,42 +5521,48 @@ def rank_train_launches(lname, layouts=None, layers=LAYERS,
 # one launcher run of the rank phases 30, 33 and 37: its name in the
 # results, its layout (a key of ``layouts``), the phase's tag, the limit
 # of its later losses (None: finite only), its steps and its islands'
-# chunks (1: plain; else ``OVERLAP_ARGV``), and whether it runs under
-# torch.profiler (``step_split``)
+# chunks (1: plain; else ``OVERLAP_ARGV``), whether it runs under
+# torch.profiler (``step_split``), its arch, and the one-rank losses it
+# is held to (None: ``phase_ranks_train``'s)
 RankRun = collections.namedtuple(
-    "RankRun", "name lname layouts tag later_tol steps chunks profile",
-    defaults=(False,))
+    "RankRun",
+    "name lname layouts tag later_tol steps chunks profile arch ref",
+    defaults=(False, "tinyllama-1.1b", None))
 
 
 def rank_runs(layouts, tag="30", later_tol=3e-2, steps=RANK_STEPS,
-              overlap=()):
-    """The ``RankRun``s of ``layouts``, each layout named in ``overlap``
-    followed by its run with the islands in ``OVERLAP_CHUNKS`` chunks,
-    named "overlap"."""
+              overlap=(), arch="tinyllama-1.1b", ref=None, prefix=""):
+    """The ``RankRun``s of ``layouts`` for ``arch`` (named ``prefix`` +
+    the layout), each layout named in ``overlap`` followed by its run with
+    the islands in ``OVERLAP_CHUNKS`` chunks, named "overlap"."""
     runs = []
     for lname in layouts:
-        runs.append(RankRun(lname, lname, layouts, tag, later_tol, steps, 1))
+        runs.append(RankRun(prefix + lname, lname, layouts, tag, later_tol,
+                            steps, 1, False, arch, ref))
         if lname in overlap:
             runs.append(RankRun("overlap", lname, layouts, tag, later_tol,
-                                steps, OVERLAP_CHUNKS))
+                                steps, OVERLAP_CHUNKS, False, arch, ref))
     return runs
 
 
 def phase_ranks_train(card, one_rank_losses, runs, nranks=RANKS,
                       backend="gloo", layers=0):
-    """30, 33, 37: tinyllama-1.1b at full width in bf16 (cut to ``layers``
-    deep, 0: full depth), 4 x 2048, remat, AdamW, through
-    ``repro_torch.launch.train`` under torchrun, each of ``runs`` in turn
-    in one world of ``nranks`` ranks over ``backend`` (30: (2,2,2), again
-    with the islands chunked, and dp2 x (2,2,1); 37: pp2 x (1,2,2); 33:
-    1d(4) and 2d(q2)), against the one-rank run of the same depth (the
-    same seed, data and lr at these steps): the first loss within 3e-2
+    """30, 33, 37: tinyllama-1.1b (or a run's ``arch``: 30's Moonlight
+    [dense, moe] at (2,2,2), expert parallelism) at full width in bf16
+    (cut to ``layers`` deep, 0: full depth), 4 x 2048, remat, AdamW,
+    through ``repro_torch.launch.train`` under torchrun, each of ``runs``
+    in turn in one world of ``nranks`` ranks over ``backend`` (30: (2,2,2),
+    again with the islands chunked, and dp2 x (2,2,1); 37: pp2 x (1,2,2);
+    33: 1d(4) and 2d(q2)), against the one-rank run of the same depth
+    (``one_rank_losses``, or the run's ``ref``; the same seed, data and lr
+    at these steps): the first loss within 3e-2
     (tests/test_multidev.py:92), the later ones within the run's
     ``later_tol`` (None: finite only, as the 2-D baseline's gradients
     carry ROADMAP Queue 3 fault 6), each rank's K1/K2/K3 launches exact
     (K1 once a chunk in a chunked run), every K1 and K2 launch on the tc
     route; each rank's step time, tokens/s, peak memory and collective
-    bytes a step (``comm.bytes_moved``).  The results by run name."""
+    bytes a step (``comm.bytes_moved``) and the MoE choices dropped.  The
+    results by run name."""
     where = (f"{nranks} ranks sharing {card} (gloo, collectives staged "
              "through the host: no measure of the paper's communication)"
              if backend == "gloo" else
@@ -5467,7 +5570,7 @@ def phase_ranks_train(card, one_rank_losses, runs, nranks=RANKS,
 
     def argv(run):
         tel = ROOT / "build" / f"chip_smoke_ranks_{run.name}_telemetry.json"
-        return (["--arch", "tinyllama-1.1b", "--device", RANK_DEVICE,
+        return (["--arch", run.arch, "--device", RANK_DEVICE,
                  "--backend", backend, *rank_flags(run.lname, run.layouts),
                  "--steps", str(run.steps), "--batch", str(TRAIN_B),
                  "--seq", str(TRAIN_S), "--lr", "3e-4", "--warmup", "20",
@@ -5486,15 +5589,16 @@ def phase_ranks_train(card, one_rank_losses, runs, nranks=RANKS,
     wall = time.perf_counter() - t
     print(f"[30] one world of {nranks} ranks for the launcher's "
           f"{len(runs)} runs: {wall:.1f} s")
-    return {run.name: ranks_train_run([w[i] for w in world], run, layers,
-                                      one_rank_losses, where)
-            for i, run in enumerate(runs)}
+    return {run.name: ranks_train_run(
+        [w[i] for w in world], run, layers,
+        one_rank_losses if run.ref is None else run.ref, where)
+        for i, run in enumerate(runs)}
 
 
 def ranks_train_run(res, run, layers, one_rank_losses, where):
     """Phase 30's (33's, 37's) checks and numbers of one launcher run
     (``run``, a ``RankRun``) on the ranks (``res``: each rank's
-    result)."""
+    result); a run of one step reports that step's time, its warm-up."""
     lname, layouts, steps, chunks = run.lname, run.layouts, run.steps, \
         run.chunks
     later_tol, tag = run.later_tol, f"{run.tag} {run.name}"
@@ -5503,7 +5607,7 @@ def ranks_train_run(res, run, layers, one_rank_losses, where):
     diffs = [abs(a - b) for a, b in zip(losses, ref)]
     for r, rr in enumerate(res):
         want = rank_train_launches(lname, layouts, layers or LAYERS, steps,
-                                   rank=r, chunks=chunks)
+                                   rank=r, chunks=chunks, arch=run.arch)
         check(rr["losses"] == losses, f"{tag}: rank {r} losses "
               f"{rr['losses']} != rank 0's {losses}")
         check(rr["launches"] == want, f"{tag} rank {r}: "
@@ -5518,8 +5622,12 @@ def ranks_train_run(res, run, layers, one_rank_losses, where):
     step_bytes = [rr["bytes"]["bytes_per_device"] / steps for rr in res]
     by_kind = [{k: v / steps for k, v in rr["bytes"]["by_kind"].items()
                 if v} for rr in res]
-    print(f"[{tag}]: per rank, steady s/step "
-          + " ".join(f"{tl['t_step_s']:.3f}" for tl in tels)
+    # one step is the warm-up alone: its time stands for the step's
+    t_rank = [tl["t_step_s"] if steps > 1 else tl["series"]["t_step"][0]
+              for tl in tels]
+    print(f"[{tag}]: per rank, "
+          + ("steady s/step " if steps > 1 else "s for the one step ")
+          + " ".join(f"{t:.3f}" for t in t_rank)
           + "; bytes a step by kind "
           + "; ".join(f"rank {r} " + ", ".join(
               f"{k} {v:.4g}" for k, v in bk.items())
@@ -5527,17 +5635,26 @@ def ranks_train_run(res, run, layers, one_rank_losses, where):
     depth = f"cut to {layers} layers" if layers else "full depth"
     chunked = (f", each 3-D island in {chunks} chunks (--overlap)"
                if chunks > 1 else "")
-    print(f"[{tag}]: tinyllama-1.1b full width, {depth}, bf16 "
+    drops = [rr["drops"] for rr in res]
+    if any(routed for routed, _ in drops):
+        print(f"[{tag}]: (routed, dropped) MoE choices per rank over "
+              f"{steps} steps " + " ".join(f"{a}/{b}" for a, b in drops)
+              + " (" + " ".join(f"{b / a:.4f}" for a, b in drops)
+              + " dropped)")
+    print(f"[{tag}]: {run.arch} full width, {depth}, bf16 "
           f"{TRAIN_B}x{TRAIN_S}, remat, AdamW{chunked} on {where}: losses "
           + " ".join(f"{x:.4f}" for x in losses) + " against one "
           "rank's " + " ".join(f"{x:.4f}" for x in ref)
-          + f" (first {diffs[0]:.2e}, tol 3e-2; later "
-          + (" ".join(f"{x:.2e}" for x in diffs[1:]) + f", tol "
-             f"{later_tol:.0e}" if later_tol else "finite only")
+          + f" (first {diffs[0]:.2e}, tol 3e-2; "
+          + ("no later step" if steps == 1 else "later " + (
+              " ".join(f"{x:.2e}" for x in diffs[1:]) + f", tol "
+              f"{later_tol:.0e}" if later_tol else "finite only"))
           + "); rank 0's step times "
           + " ".join(f"{x:.3f}" for x in tels[0]["series"]["t_step"])
-          + f" s (first = warm-up), steady {tels[0]['t_step_s']:.3f} "
-          f"s/step, {tels[0]['tokens_per_s']:.0f} tok/s; peak memory "
+          + " s (first = warm-up)"
+          + (f", steady {tels[0]['t_step_s']:.3f} s/step, "
+             f"{tels[0]['tokens_per_s']:.0f} tok/s" if steps > 1 else "")
+          + "; peak memory "
           f"per rank " + " ".join(f"{x:.2f}" for x in mem)
           + " GiB; collective bytes a rank a step (ring model, "
           f"comm.bytes_moved) {min(step_bytes):.4g}-{max(step_bytes):.4g}"
@@ -5562,14 +5679,15 @@ def ranks_train_run(res, run, layers, one_rank_losses, where):
         check(max(diffs) <= later_tol, f"{tag}: losses {losses} vs {ref}")
     return {"losses": losses, "one_rank_losses": ref,
             "layers": layers or LAYERS, "chunks": chunks,
-            "t_step_s": tels[0]["t_step_s"],
+            "t_step_s": t_rank[0],
             "t_step": tels[0]["series"]["t_step"],
             "tokens_per_s": tels[0]["tokens_per_s"],
             "mem_peak_gib_by_rank": mem,
             "bytes_per_rank_step": max(step_bytes),
             "bytes_by_kind_per_rank_step": by_kind,
-            "t_step_s_by_rank": [tl["t_step_s"] for tl in tels],
+            "t_step_s_by_rank": t_rank,
             "launches_per_rank": res[0]["launches"],
+            "drops_by_rank": drops if any(a for a, _ in drops) else None,
             "profile_by_rank": prof or None,
             "launches_world": {k: sum(rr["launches"][k] for rr in res)
                                for k in res[0]["launches"]}}
@@ -5581,8 +5699,9 @@ def ranks_train_run(res, run, layers, one_rank_losses, where):
 K2_BASE_SHAPES = [("tinyllama 1d rank", TRAIN_B // 2, TRAIN_S, TRAIN_S, 0,
                    NQ // 4, NKV // 4, DH)]
 # the comm check at the reference's defaults (obs/commcheck.py): paper-
-# transformer, 4 layers, d_ff = d_model, vocab 4096, 12 x 512, bf16
-CC_ARGS = dict(arch="paper-transformer", n_layers=4, d_ff=0, vocab=4096,
+# transformer, d_ff = d_model, vocab 4096, 12 x 512, bf16, but 2 layers
+# of the defaults' 4: the script's time limit binds
+CC_ARGS = dict(arch="paper-transformer", n_layers=2, d_ff=0, vocab=4096,
                reduced=False, changes=None)
 CC_BATCH, CC_SEQ = 12, 512
 
@@ -5746,7 +5865,8 @@ ZERO_DP4 = (4, 2, (1, 1, 2))
 # the launcher's resume above one device: dp 4 on 4 ranks, the model whole
 ZERO_RESUME = (4, 1, (1, 1, 1))
 # 8 rows: one a rank and microbatch at dp2 x (2,2,1)
-ZERO_B, ZERO_MB, ZERO_STEPS = 8, 2, 2
+# one step a stage: the script's time limit binds
+ZERO_B, ZERO_MB, ZERO_STEPS = 8, 2, 1
 ZERO_RATIO = (1.6, 2.2)          # stage 0's moment bytes over stage 1's
 ADA_MIX_LAYERS, ADA_MIX_STEPS = 4, 3
 
@@ -5757,6 +5877,20 @@ def mix_launches(layers):
     return {"K1": 2 * 4 * layers + 2 * 2, "K2": 2 * layers,
             "K2 bwd": layers, "K3": 2 * 2 * layers + 1,
             "K3 bwd": 2 * layers + 1, "K5": 0, "K5 bwd": 0}
+
+
+def moon_launches(layers, head=True):
+    """One training step's launches of Moonlight cut to ``layers`` of
+    [dense, moe] at 4 x 2048 (``head=False``: without ``ln_f`` and the
+    head), as phase 20 counts them: 7 K1 linears a layer (the attention's
+    4 and the dense MLP's or the shared experts' 3) and the head's 4 loss
+    chunks (163840 // 32000 = 5 cut to the 4 that divide the sequence)
+    twice, forward and recompute; K2 twice forward and once backward; K3
+    the 2 norms of each layer twice and ln_f once, backward once each."""
+    h = int(head)
+    return {"K1": 2 * 7 * layers + 2 * 4 * h, "K2": 2 * layers,
+            "K2 bwd": layers, "K3": 2 * 2 * layers + h,
+            "K3 bwd": 2 * layers + h, "K5": 0, "K5 bwd": 0}
 
 
 def zero_cfg():
@@ -6383,18 +6517,32 @@ def main():
         per_step=step_launches(RANK_TRAIN_LAYERS), tag="30r",
         layers=RANK_TRAIN_LAYERS)
     cut_losses = cut_tel["series"]["loss"]
+    # and the one that phase 30's Moonlight run is held to: [dense, moe]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moon_cut_launches, _, _, moon_cut_tel = timed(
+        phase_train, card, MOON, steps=RANK_STEPS,
+        per_step=moon_launches(RANK_TRAIN_LAYERS), tag="30r",
+        layers=RANK_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
     # 30, 37 and 33: the launcher's runs in one torchrun world
     train_runs = timed(
         phase_ranks_train, card, cut_losses,
-        rank_runs(RANK_LAYOUTS, overlap=("cube",))
-        + rank_runs(PP_LAYOUTS, tag="37")
+        rank_runs(RANK_LAYOUTS, overlap=("cube",), steps=RANK_CUT_STEPS)
+        + rank_runs(PP_LAYOUTS, tag="37", steps=RANK_CUT_STEPS)
         + rank_runs({"1d": BASE_LAYOUTS["1d"]}, tag="33", later_tol=1e-2,
-                    steps=BASE_STEPS)
+                    steps=RANK_CUT_STEPS)
         + rank_runs({"2d": BASE_LAYOUTS["2d"]}, tag="33", later_tol=None,
-                    steps=BASE_STEPS), layers=RANK_TRAIN_LAYERS)
+                    steps=RANK_CUT_STEPS)
+        + rank_runs({"cube": RANK_LAYOUTS["cube"]}, arch=MOON,
+                    ref=moon_cut_tel["series"]["loss"], prefix="moe_"),
+        layers=RANK_TRAIN_LAYERS)
     ranks_numbers["train"] = {k: train_runs[k]
                               for k in ("cube", "overlap", "dp2")}
     ranks_numbers["train_pp"] = {"pp2": train_runs["pp2"]}
+    ranks_numbers["train_moe"] = {"moe_cube": train_runs["moe_cube"],
+                                  "one_rank": train_numbers(moon_cut_tel)}
     base_numbers = {"grads_f32": timed(phase_base_grads, dev),
                     "train": {k: train_runs[k] for k in ("1d", "2d")}}
     gc.collect()
@@ -6411,12 +6559,14 @@ def main():
     rank_paths = {f"train_ranks_{lname}": v["launches_world"]
                   for lname, v in (*ranks_numbers["train"].items(),
                                    *ranks_numbers["train_pp"].items(),
+                                   ("moe_cube", train_runs["moe_cube"]),
                                    *base_numbers["train"].items())}
     rank_paths.update({f"train_ranks_{s}": {
         k: RANKS * n for k, n in zero_numbers[s][
             "launches_per_rank"].items()} for s in ("zero0", "zero1",
                                                     "zero2")})
     rank_paths["train_cut"] = cut_launches
+    rank_paths["train_cut_moe"] = moon_cut_launches
     # the checkpoint's resumes and the Adafactor runs: K1 and K2 all tc
     rank_paths.update(ckpt_paths)
     rank_paths.update(ada_paths)

@@ -40,6 +40,11 @@ identity, since each rank already seeds the gradient of the whole; and a
 replicated tensor that each rank reads in its own way (the kv heads that
 the attention island slices) sums its gradient.
 
+``all_to_all`` is ``lax.all_to_all(..., tiled=True)``: the expert
+exchange of ``models/moe.py``, over one axis or a tuple (JAX's order,
+permuted as the gather's); ``all_to_all_ad``'s backward is the reverse
+exchange.
+
 Point to point, ``send`` and ``recv`` move a tensor between neighbouring
 pipeline stages over the pp group (the ``("pp",)`` key of ``Groups``),
 staged through the host like the collectives; ``send_ad`` is the
@@ -51,7 +56,8 @@ Every collective issued adds the bytes that the ring model says it moves
 per device, by kind, to a counter (the reference's
 ``launch/hlo_cost.py:230-239``, n the group's size): an all-gather
 out·(n−1)/n, an all-reduce 2·bytes·(n−1)/n, a reduce-scatter out·(n−1)
-with out the scattered shard, a collective-permute (``send``) the bytes
+with out the scattered shard, an all-to-all out·(n−1)/n (the reference's
+``launch/dryrun.py:48-88``), a collective-permute (``send``) the bytes
 sent, all in the tensor's dtype.  The host
 staging of a shared card is not counted; a collective over axes of size
 1 issues nothing and counts nothing.  ``bytes_moved`` reads the counter
@@ -68,7 +74,8 @@ import torch
 from .topology import AXES, Layout
 
 
-KINDS = ("all-gather", "all-reduce", "reduce-scatter", "collective-permute")
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
 # ring-model bytes per device and collectives issued since the last reset
 _moved = dict.fromkeys(KINDS, 0.0)
 _counts = dict.fromkeys(KINDS, 0)
@@ -298,6 +305,38 @@ def psum_scatter_start(layout: Layout, x: torch.Tensor, axis,
     return _scatter_post(layout, x, axis, dim, True)
 
 
+def all_to_all(layout: Layout, x: torch.Tensor, axis, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """Tiled all-to-all over ``axis`` (``lax.all_to_all(..., tiled=True)``):
+    dim ``split_dim`` of ``x`` cut into n blocks, block j sent to the
+    member at index j over ``axis`` (mixed radix, first axis major), and
+    the n blocks received laid side by side along ``concat_dim`` in the
+    order of their senders' indices."""
+    axes, g = _prep(layout, axis)
+    if not axes:
+        return x
+    import torch.distributed as dist
+    group, perm = g.order(axes)
+    n = layout.size(axes)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {axes} of size {n}")
+    blocks = x.movedim(split_dim, 0).chunk(n)
+    if perm is not None:        # group position perm[j] receives block j
+        inv = [0] * n
+        for j, p in enumerate(perm):
+            inv[p] = j
+        blocks = [blocks[inv[p]] for p in range(n)]
+    src = _to_host(g, torch.cat(blocks).contiguous())
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    _count("all-to-all", out.nbytes * (n - 1) / n)
+    got = out.to(x.device).chunk(n)          # by sender's group position
+    if perm is not None:
+        got = [got[p] for p in perm]
+    return torch.cat([b.movedim(0, split_dim) for b in got], dim=concat_dim)
+
+
 def _all_reduce(layout: Layout, x: torch.Tensor, axis, op) -> torch.Tensor:
     axes, g = _prep(layout, axis)
     if not axes:
@@ -418,6 +457,19 @@ class _GatherAD(torch.autograd.Function):
         return psum_scatter(layout, dy, axis, dim), None, None, None
 
 
+class _AllToAllAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, axis, split_dim, concat_dim):
+        ctx.cfg = (layout, axis, split_dim, concat_dim)
+        return all_to_all(layout, x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        layout, axis, split_dim, concat_dim = ctx.cfg
+        return (all_to_all(layout, dy, axis, concat_dim, split_dim), None,
+                None, None, None)
+
+
 class _PsumAD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, layout, axis):
@@ -467,6 +519,15 @@ def all_gather_ad(layout: Layout, x, axis, dim: int):
     if not layout.live(_axes(axis)):
         return x
     return _GatherAD.apply(x, layout, axis, dim)
+
+
+def all_to_all_ad(layout: Layout, x, axis, split_dim: int,
+                  concat_dim: int):
+    """``all_to_all``, whose backward is the reverse exchange (split and
+    concat dims swapped)."""
+    if not layout.live(_axes(axis)):
+        return x
+    return _AllToAllAD.apply(x, layout, axis, split_dim, concat_dim)
 
 
 def psum_ad(layout: Layout, x, axis):

@@ -7,8 +7,8 @@ the layout's process groups, one for every set of its axes of size > 1
 (``comm.Groups``).  Plans validate as the reference's do, for
 ``mode="train"`` and ``mode="serve"``, with the family-aware pipeline
 checks and a speculative ``draft``'s pairing.  Above one device ``build``
-takes each strategy (3d, 2d, 1d) and pp stages for the dense family, and
-``validate`` refuses serving (decode's psum-combined residuals, ROADMAP.md
+takes each strategy (3d, 2d, 1d) and pp stages for the dense family, each
+strategy at pp 1 for the MoE family, and ``validate`` refuses serving (decode's psum-combined residuals, ROADMAP.md
 Queue 1 item 3); ``multi_rank_refusal`` names what else the port refuses
 above one device.  ``zero_stage`` is
 the ZeRO stage of the optimizer state over the data axes (pod, dp): 0
@@ -26,27 +26,36 @@ from typing import Optional, Tuple
 from . import topology
 from .topology import Layout, factor_model_axis, make_layout
 
-# the families whose blocks are not ported above one rank
-MULTI_RANK_TODO = ("above one rank the port trains the dense family only; "
-                   "the MoE (expert parallelism), hybrid, SSM, VLM, audio "
-                   "and MLA families run on one device (ROADMAP.md, Queue 1 "
-                   "item 3)")
+# what the port does not carry above one rank
+MULTI_RANK_TODO = ("above one rank the port trains the dense family and, "
+                   "at pp 1, the MoE family; MoE in pipeline stages, MLA "
+                   "(deepseek-v3) and the hybrid, SSM, VLM and audio "
+                   "families run on one device (ROADMAP.md, Queue 1 item 3)")
 
 
-def multi_rank_refusal(n_devices: int, *, cfg=None, mode: str = "train"):
-    """What the port refuses of a plan of ``n_devices`` devices, or None:
-    serving and every family but the dense one above one device (item 3).
-    The dense family trains on every strategy, the 3-D cube and the 1-D
-    and 2-D baselines, and in pipeline stages."""
+def multi_rank_refusal(n_devices: int, *, cfg=None, mode: str = "train",
+                       n_stages: int = 1):
+    """What the port refuses of a plan of ``n_devices`` devices in
+    ``n_stages`` pipeline stages, or None: serving above one device, and
+    every family but the dense one and the MoE one without MLA, the MoE
+    one in pipeline stages too (item 3).  The dense family trains on
+    every strategy, the 3-D cube and the 1-D and 2-D baselines, and in
+    pipeline stages; the MoE family on every strategy at pp 1."""
     if n_devices == 1:
         return None
     if mode != "train":
         return ("multi-rank serving (decode's psum-combined residuals) is "
                 "not ported yet: serve on one device (ROADMAP.md, Queue 1 "
                 "item 3)")
-    if cfg is not None and (cfg.family.value != "dense" or cfg.moe
-                            or cfg.mla):
+    if cfg is None:
+        return None
+    fam = cfg.family.value
+    if cfg.mla or fam not in ("dense", "moe") or (fam == "dense"
+                                                  and cfg.moe):
         return f"{cfg.arch} on {n_devices} devices: {MULTI_RANK_TODO}"
+    if fam == "moe" and n_stages > 1:
+        return (f"{cfg.arch} at pp={n_stages}: MoE in pipeline stages is "
+                f"not ported yet; {MULTI_RANK_TODO}")
     return None
 
 

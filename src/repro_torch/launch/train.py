@@ -15,7 +15,10 @@ paper's 1-D (Megatron) and 2-D (SUMMA) baselines (``--strategy``) with data
 parallelism (``--dp``, ``--model``, ``--cube``) and pipeline stages
 (``--pp N --microbatch M``: each rank holds its stage's layers, the
 activations crossing a stage by send/recv; ``plan=`` prints the bubble
-(pp - 1) / m), one rank a device:
+(pp - 1) / m), and so does the MoE family without MLA (mixtral,
+Moonlight) at pp 1, its experts split over the expert-parallel axes and
+the tokens exchanged by all-to-all (``models/moe.py``), one rank a
+device:
 
   * ``--host-devices N`` spawns N local ranks (the JAX launcher's flag,
     which gives JAX N host devices): CPU ranks with ``--device cpu``, or
@@ -36,8 +39,8 @@ the reference's plan does, to 1 when ``--dp`` > 1, else 0, and ``--zero
 chunks each 3-D island's collectives so that they run beside its
 products (``core/ops3d.py``; the 3d strategy only, the reference's
 ValueError otherwise).  The flags of what the port does not carry (the
-other families above one device, pp included) raise with a pointer to
-ROADMAP.md.  A rank whose world is already joined when ``main`` runs
+other families above one device, MoE in pp stages) raise with a pointer
+to ROADMAP.md.  A rank whose world is already joined when ``main`` runs
 (a job that calls it twice) keeps that world; ``main`` leaves only the
 world it joined.
 Weights are drawn from seed 0 at the config's published shapes (``--layers``
@@ -74,10 +77,12 @@ TODO = "not ported yet: see ROADMAP.md, Queue 1"
 
 
 def _refuse(args, cfg):
-    """NotImplementedError for what the port does not carry yet: the
-    families but the dense one above one device."""
+    """NotImplementedError for what the port does not carry yet above one
+    device: the families but the dense and the MoE ones, MoE in pipeline
+    stages."""
     from repro_torch.core.plan import multi_rank_refusal
-    err = multi_rank_refusal(args.dp * args.model * args.pp, cfg=cfg)
+    err = multi_rank_refusal(args.dp * args.model * args.pp, cfg=cfg,
+                             n_stages=args.pp)
     if err:
         raise NotImplementedError(f"{err}: {TODO}")
 

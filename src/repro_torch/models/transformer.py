@@ -2,8 +2,8 @@
 drivers of ``repro/models/registry.py``).
 
 ``abstract_params(cfg, layout)`` is the parameter tree, with the same
-nested names, global shapes, dtypes and (for the dense family's leaves)
-specs as the reference's ``transformer.abstract_params``; at pp > 1 each
+nested names, global shapes, dtypes and (for the dense and MoE
+families' leaves) specs as the reference's ``transformer.abstract_params``; at pp > 1 each
 ``stack`` leaf is the ``(pp, slots, ...)`` stage slab, 'pp' on dim 0
 (``registry.pipeline_stack_params``), and ``forward(mode="train")`` runs
 ``forward_pipelined``.  The dense family's:
@@ -111,8 +111,8 @@ RECURRENT_DECODE = {
 def abstract_params(cfg: ModelConfig, layout: Layout = None):
     """Param tree of a model of any family (see the module docstring;
     reference ``transformer.py:47-73``); ``layout`` sets the specs that
-    depend on it (the kv projections', ``blocks.attn_params``), None for
-    one device."""
+    depend on it (the kv projections', ``blocks.attn_params``; the
+    experts', ``moe.moe_params``), None for one device."""
     plan = layer_plan(cfg)
     d = cfg.d_model
     dirs = entry_dirs()
@@ -122,7 +122,7 @@ def abstract_params(cfg: ModelConfig, layout: Layout = None):
     tree.update(get_stack(cfg.family).frontend_params(cfg))
     if "attn" in plan:
         tree["shared"] = {"attn": B.dense_block_params(cfg)}
-    layers = {kind: fn(cfg, layout) if kind == "dense" else fn(cfg)
+    layers = {kind: fn(cfg, layout) if kind in ("dense", "moe") else fn(cfg)
               for kind, fn in STACKED_KINDS.items() if kind in plan}
     if pp > 1:
         reason = pipeline_unsupported_reason(cfg, pp)

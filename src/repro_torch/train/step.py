@@ -20,12 +20,14 @@ the parameters are updated in place.  The gradient of every leaf comes from
 parameters never carry autograd state.
 
 Above one device (the dense family, on a 3-D layout or a 1-D or 2-D
-baseline's, in pp stages or not) ``params``, the optimizer state and
-``batch`` are the rank's shards.  The linears sum their weights'
-gradients themselves (``Param.synced``); every other leaf (the norms'
-gains and biases, qk-norm) has its gradient summed over every axis but
-pp that its spec does not split and its activations do not replicate
-(``leaf_sync_axes``), as GSPMD sums it in the reference.  A leaf
+baseline's, in pp stages or not; the MoE family at pp 1) ``params``, the
+optimizer state and ``batch`` are the rank's shards.  The linears sum
+their weights' gradients themselves (``Param.synced``); every other leaf
+(the norms' gains and biases, qk-norm, the router and the experts) has
+its gradient summed over every axis but pp that its spec does not split
+and its activations do not replicate (``leaf_sync_axes``), as GSPMD sums
+it in the reference (for an expert leaf stored over 'dp', the FFN's
+gather sums it over dp itself, and the spec names dp).  A leaf
 replicated over the pp stages (the embedding, the head, ``ln_f``), whose
 gradient each stage holds a part of (stage 0 the embedding's, the last
 stage the head's), is summed over pp too; the stage slabs, split over
@@ -113,7 +115,8 @@ def loss_and_grads(cfg: ModelConfig, layout: Layout, params, batch,
 
 
 def make_train_step(cfg: ModelConfig, layout: Layout, opt_cfg: OptimConfig):
-    err = multi_rank_refusal(layout.n_devices, cfg=cfg)
+    err = multi_rank_refusal(layout.n_devices, cfg=cfg,
+                             n_stages=layout.size("pp"))
     if err:
         raise NotImplementedError(err)
     abstract = transformer.abstract_params(cfg, layout)

@@ -53,8 +53,15 @@ def batch(vocab: int, seed: int):
 
 
 def port_cfg(arch, change):
+    """The reduced config of ``arch`` (a registry name, or one with an
+    ``@tag`` that tells two configs of one arch apart) with ``change``;
+    its "moe" entry, a dict, changes the MoE config's fields."""
     import dataclasses
-    return dataclasses.replace(reduced(get(arch)), **change)
+    cfg = reduced(get(arch.split("@")[0]))
+    change = dict(change)
+    if "moe" in change:
+        change["moe"] = dataclasses.replace(cfg.moe, **change["moe"])
+    return dataclasses.replace(cfg, **change)
 
 
 def write_inputs(tmp, archs):
@@ -84,7 +91,7 @@ from repro.optim.optimizers import opt_state_abstract
 from repro.train.step import make_train_step
 
 d = os.environ["MR_DIR"]
-ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)r, %(mb)d
+ARCHS, LAYOUTS, RUNS, MB = %(archs)r, %(layouts)r, %(runs)r, %(mb)d
 OPT = config.OptimConfig(**%(opt)r)
 
 
@@ -97,6 +104,14 @@ def unflat(dd):
             node = node.setdefault(k, {})
         node[last] = jnp.asarray(v)
     return out
+
+
+def make_cfg(arch, change):
+    cfg = reduced(get(arch.split("@")[0]))
+    change = dict(change)
+    if "moe" in change:
+        change["moe"] = dataclasses.replace(cfg.moe, **change["moe"])
+    return dataclasses.replace(cfg, **change)
 
 
 def flat(tree, prefix=""):
@@ -113,10 +128,10 @@ def load(name):
 
 
 for arch, change in ARCHS.items():
-    cfg = dataclasses.replace(reduced(get(arch)), **change)
+    cfg = make_cfg(arch, change)
     p0 = unflat(dict(np.load(os.path.join(d, f"{arch}_params.npz"))))
-    for lname, kw in LAYOUTS.items():
-        kw = dict(kw)
+    for lname, nsteps in RUNS[arch].items():
+        kw = dict(LAYOUTS[lname])
         if "cube" in kw:
             kw["cube"] = tuple(kw["cube"])
         kw.setdefault("strategy", "3d")
@@ -133,7 +148,7 @@ for arch, change in ARCHS.items():
             transformer.abstract_params(cfg, lay_mb), lay_mb, OPT),
             jax.random.key(1))
         step = jax.jit(make_train_step(cfg, lay_mb, OPT))
-        for s in range(STEPS[arch]):
+        for s in range(nsteps):
             params, state, met = step(params, state,
                                       load(f"{arch}_batch{s + 1}.npz"))
             for key in ("loss", "gnorm", "lr"):
@@ -165,7 +180,7 @@ torch.set_num_threads(1)
 me = ranks.rank_env()
 ranks.init_world(me, "gloo", torch.device("cpu"))
 d = os.environ["MR_DIR"]
-ARCHS, LAYOUTS, STEPS, MB = %(archs)r, %(layouts)r, %(steps)r, %(mb)d
+ARCHS, LAYOUTS, RUNS, MB = %(archs)r, %(layouts)r, %(runs)r, %(mb)d
 OPT = config.OptimConfig(**%(opt)r)
 
 
@@ -180,6 +195,21 @@ def unflat(dd):
     return out
 
 
+def make_cfg(arch, change):
+    cfg = reduced(get(arch.split("@")[0]))
+    change = dict(change)
+    if "moe" in change:
+        change["moe"] = dataclasses.replace(cfg.moe, **change["moe"])
+    return dataclasses.replace(cfg, **change)
+
+
+def after_layout(arch, lname, lay, cfg, params, state, out):
+    pass
+
+
+%(extra)s
+
+
 def flat(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -190,9 +220,10 @@ def flat(tree, prefix=""):
 
 
 for arch, change in ARCHS.items():
-    cfg = dataclasses.replace(reduced(get(arch)), **change)
+    cfg = make_cfg(arch, change)
     p0 = unflat(dict(np.load(os.path.join(d, f"{arch}_params.npz"))))
-    for lname, kw in LAYOUTS.items():
+    for lname, nsteps in RUNS[arch].items():
+        kw = LAYOUTS[lname]
         lay = comm.init(make_layout(rank=me.rank, **dict(
             {"strategy": "3d"}, **kw)), "gloo")
         params = params_from_jax(p0, "cpu", cfg=cfg, layout=lay)
@@ -216,45 +247,52 @@ for arch, change in ARCHS.items():
         step = make_train_step(cfg, lay_mb, OPT)
         state = adamw_init(params, lay_mb,
                            transformer.abstract_params(cfg, lay_mb), OPT)
-        for s in range(STEPS[arch]):
+        for s in range(nsteps):
             params, state, met = step(params, state, shard(s + 1))
             for key in ("loss", "gnorm", "lr"):
                 out[f"step{s}/{key}"] = np.asarray(float(met[key]),
                                                    np.float32)
         out.update({"param/" + k: v for k, v in flat(params).items()})
         out.update({"state/" + k: v for k, v in flat(state.v).items()})
+        after_layout(arch, lname, lay, cfg, params, state, out)
         np.savez(os.path.join(d, f"rank{me.rank}_{arch}_{lname}.npz"), **out)
 print("RANK-OK")
 """
 
 
-def fill(script, archs, mb, layouts=LAYOUTS, steps=None, opt=None):
+def fill(script, archs, mb, layouts, runs, opt=None, extra=""):
     layouts = {k: dict(v, cube=list(v["cube"])) if "cube" in v else v
                for k, v in layouts.items()}
-    steps = {a: STEPS if steps is None or a in steps else 0 for a in archs}
-    return script % {"archs": archs, "layouts": layouts, "steps": steps,
-                     "mb": mb, "opt": opt or OPT}
+    return script % {"archs": archs, "layouts": layouts, "runs": runs,
+                     "mb": mb, "opt": opt or OPT, "extra": extra}
 
 
-def run_train(tmp, archs, mb, layouts=LAYOUTS, steps=None, opt=None):
+def run_train(tmp, archs, mb, layouts=LAYOUTS, steps=None, opt=None,
+              runs=None, extra=""):
     """Run both sides, a JAX subprocess for each arch beside the ranks, at
     each of ``layouts``, with the optimizer steps (AdamW, or ``opt``'s
     OptimConfig fields) for the archs of ``steps`` (None: every arch);
+    ``runs`` ({arch: {layout: steps}}) names the layouts and steps of each
+    arch instead.  ``extra`` is code for the ranks that may redefine
+    ``after_layout(arch, lname, lay, cfg, params, state, out)``, called
+    after each layout's steps in the world of 8 ranks.  Returns
     {(arch, layout): (jax outputs, [rank outputs])}.  The port's ranks
     run at the layouts' default ZeRO stage, the JAX side at stage 0."""
+    runs = runs or {a: {ln: STEPS if steps is None or a in steps else 0
+                        for ln in layouts} for a in archs}
     write_inputs(tmp, archs)
-    runs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb, layouts, steps, opt),
+    jobs = [run_jax(fill(JAX_SCRIPT, {a: archs[a]}, mb, layouts, runs, opt),
                     tmp, f"jax_{a}") for a in archs]
     try:
-        run_ranks(fill(RANK_SCRIPT, archs, mb, layouts, steps, opt), tmp,
-                  timeout=600)
+        run_ranks(fill(RANK_SCRIPT, archs, mb, layouts, runs, opt, extra),
+                  tmp, timeout=600)
     finally:
-        for run in runs:
-            wait_jax(run, timeout=600)
+        for job in jobs:
+            wait_jax(job, timeout=600)
     return {(a, ln): (dict(np.load(tmp / f"jax_{a}_{ln}.npz")),
                       [dict(np.load(tmp / f"rank{r}_{a}_{ln}.npz"))
                        for r in range(WORLD)])
-            for a in archs for ln in layouts}
+            for a in archs for ln in runs[a]}
 
 
 def check_grads(res, arch, change, lname, layouts=LAYOUTS):

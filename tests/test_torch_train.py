@@ -415,13 +415,14 @@ LAUNCHER_CASES = [
     (["--arch", "zamba2-1.2b", "--pp", "2", "--microbatch", "2"],
      NotImplementedError),
     (["--pp", "2", "--layers", "1"], "too shallow"),
-    (["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4"],
-     NotImplementedError),
+    (["--strategy", "1d", "--arch", "mixtral-8x7b", "--model", "4",
+      "--host-devices", "4"], "runs"),
     (["--overlap"], "runs"), (["--zero", "1"], ValueError),
     (["--optimizer", "adafactor"], "runs"),
     (["--dp", "2", "--model", "4", "--cube", "2,2,1", "--host-devices", "8"],
      "resumes"),
-    (["--arch", "mixtral-8x7b", "--model", "8"], NotImplementedError),
+    (["--arch", "mixtral-8x7b", "--model", "8", "--host-devices", "8"],
+     "runs"),
     (["--arch", "zamba2-1.2b", "--dp", "2"], NotImplementedError),
     (["--arch", "deepseek-v3-671b", "--model", "8"], NotImplementedError),
     (["--arch", "deepseek-v3-671b", "--optimizer", "adafactor"], "runs"),
@@ -438,11 +439,13 @@ LAUNCHER_CASES = [
 def test_train_launcher_refusals(flags, outcome, tmp_path, capsys):
     """What the port does not carry raises NotImplementedError pointing at
     ROADMAP.md (pp above one device for a family but the dense one among
-    it); ``--zero 1`` at one device the reference's ValueError, a stage
-    with no layer the reference's, ``--overlap`` beside a strategy other
-    than 3d the reference's.  ZeRO above one device, pp 2 over a cube of
-    2, ``--overlap`` (the chunked islands) and Adafactor (every family)
-    run a step; at dp 2 x (2, 2, 1)
+    it, deepseek-v3's MLA above one device); ``--zero 1`` at one device
+    the reference's ValueError, a stage with no layer the reference's,
+    ``--overlap`` beside a strategy other than 3d the reference's.  ZeRO
+    above one device, pp 2 over a cube of 2, ``--overlap`` (the chunked
+    islands), Adafactor (every family) and mixtral across ranks (1d(4)
+    and the cube (2, 2, 2): expert parallelism) run a step; at dp 2 x
+    (2, 2, 1)
     ``--ckpt-dir`` saves across the ranks and a second run resumes from
     it."""
     argv = ["--arch", "tinyllama-1.1b", "--reduced", "--device", "cpu",
