@@ -385,7 +385,22 @@ Phases, in order (any failure raises and exits nonzero):
      for its stage (``rank_train_launches``: the head and ``ln_f`` on the
      last stage, 4 microbatches a step), every K1 and K2 launch on tc;
      each rank's step time, peak memory and bytes a step by kind, the
-     stage boundary's ``collective-permute`` among them.
+     stage boundary's ``collective-permute`` among them;
+ 38. the dry run (``repro_torch.launch.dryrun``): ``python -m
+     repro_torch.launch.dryrun --arch all --shape train_4k``, started in
+     a subprocess of its own on the CPU (no card visible, one thread)
+     right after phase 1 and read here, every line printed, exit 0, no
+     FAIL and an OK line (a trace at 256 ranks) for each arch the port
+     trains above one device (``DRY_TRACED``); then, with no new training
+     run, the trace (``dryrun.trace_step``) at the plan, depth, batch and
+     dtype of each launcher run of 30, 33 and 37 predicts its rank's
+     collective bytes and counts a step by kind exactly (at pp 2 each
+     stage's first rank), the memory model's ``opt`` line at phase 34's
+     dp2 x (2,2,1) plans is within ``DRY_TOL`` of the moment bytes each
+     rank measured at each ZeRO stage, and its ``param`` line within
+     ``DRY_TOL`` of what ``torch.cuda.memory_allocated`` grew by while
+     the launcher built the parameters in 30r (each rank of 30's runs
+     likewise).
 
 The lines before the last carry one JSON object of the serving paths'
 numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
@@ -393,7 +408,7 @@ numbers (7p, 7g, 7s, 7z, 7x), one of xlstm's training numbers (17, 18,
 25), one of the modality families' (7w, 27, 7v, 28), one of the cube
 across ranks (29, 30), one of the baselines across ranks (31, 32, 33),
 one of ZeRO and the checkpoints across layouts (34, 35), one of
-Adafactor (36), one of per-kernel numbers and
+Adafactor (36), one of the dry run (38), one of per-kernel numbers and
 the card's name and
 power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -5429,9 +5444,10 @@ def rank_train(job, me):
     environment names it) once for each argv of ``job["argvs"]``, in the
     one world this job joins (the launcher keeps a world it did not
     join), the launch counters reset just before each run and read just
-    after, with the MoE choices routed and dropped counted; a run flagged
-    in ``job["profile"]`` runs under torch.profiler and adds its last
-    step's ``step_split``.  A list of the runs' results."""
+    after, with the MoE choices routed and dropped counted and the bytes
+    its parameters took on the card (``param_alloc``); a run flagged in
+    ``job["profile"]`` runs under torch.profiler and adds its last step's
+    ``step_split``.  A list of the runs' results."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import comm
@@ -5447,7 +5463,8 @@ def rank_train(job, me):
         comm.reset_bytes()
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if prof_on
-              else contextlib.nullcontext()) as prof:
+              else contextlib.nullcontext()) as prof, \
+                param_alloc() as alloc:
             res, drops = routed_and_dropped(lambda: train.main(argv))
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
@@ -5460,6 +5477,7 @@ def rank_train(job, me):
                     "k2_routes": dict(k2.launches_by_route),
                     "k2_bwd_routes": dict(k2.launches_bwd_by_route),
                     "bytes": comm.bytes_moved(),
+                    "param_alloc": alloc[0] if alloc else None,
                     "losses": res["losses"], "telemetry": res["telemetry"]})
     dist.destroy_process_group()
     return out
@@ -5685,6 +5703,10 @@ def ranks_train_run(res, run, layers, one_rank_losses, where):
             "mem_peak_gib_by_rank": mem,
             "bytes_per_rank_step": max(step_bytes),
             "bytes_by_kind_per_rank_step": by_kind,
+            "counts_by_kind_per_rank_step": [
+                {k: v / steps for k, v in rr["bytes"]["counts"].items()
+                 if v} for rr in res],
+            "param_alloc_by_rank": [rr["param_alloc"] for rr in res],
             "t_step_s_by_rank": t_rank,
             "launches_per_rank": res[0]["launches"],
             "drops_by_rank": drops if any(a for a, _ in drops) else None,
@@ -5869,6 +5891,13 @@ ZERO_RESUME = (4, 1, (1, 1, 1))
 ZERO_B, ZERO_MB, ZERO_STEPS = 8, 2, 1
 ZERO_RATIO = (1.6, 2.2)          # stage 0's moment bytes over stage 1's
 ADA_MIX_LAYERS, ADA_MIX_STEPS = 4, 3
+# phase 38: the dry run's flags, its time limit, the archs whose trace at
+# the production layout must be OK, and the memory model's tolerance
+DRY_ARGV = ["--arch", "all", "--shape", "train_4k"]
+DRY_TIMEOUT_S = 900
+DRY_TRACED = ("gemma-2b", "qwen3-4b", "tinyllama-1.1b", "mixtral-8x7b",
+              "moonshot-v1-16b-a3b")
+DRY_TOL = 0.01
 
 
 def mix_launches(layers):
@@ -6316,6 +6345,173 @@ def train_numbers(tel, **more):
                 t_step=tel["series"]["t_step"], loss=tel["series"]["loss"])
 
 
+@contextlib.contextmanager
+def param_alloc():
+    """A list of the bytes ``torch.cuda.memory_allocated`` grew by in each
+    call of ``repro_torch.core.params.init_params`` made inside it on a
+    card (the launcher builds its parameters through it); nothing for the
+    CPU."""
+    import torch
+    from repro_torch.core import params
+    real, got = params.init_params, []
+
+    def wrapped(abstract, generator, device, *a, **k):
+        dev = torch.device(device)
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+        out = real(abstract, generator, device, *a, **k)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            got.append(torch.cuda.memory_allocated(dev) - before)
+        return out
+    params.init_params = wrapped
+    try:
+        yield got
+    finally:
+        params.init_params = real
+
+
+def start_dryrun():
+    """Phase 38's dry run started now in a subprocess on the CPU (no card
+    visible, one thread), its output to ``build/chip_smoke_dryrun.log``;
+    stopped at exit if it still runs.  (process, log file, path, start on
+    the wall clock)."""
+    import atexit
+    import os
+    path = ROOT / "build" / "chip_smoke_dryrun.log"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log = open(path, "w")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRY_ARGV],
+        cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(),
+                                                     proc.wait()))
+    return proc, log, path, time.time()
+
+
+def run_layout(rr, rank=0):
+    """Rank ``rank``'s Layout of a ``RankRun`` as the launcher builds it
+    (``rank_layout``; its islands in ``rr.chunks`` chunks above 1)."""
+    lay = rank_layout(rr.lname, rank, rr.layouts)
+    if rr.chunks > 1:
+        lay = dataclasses.replace(lay, overlap=True,
+                                  overlap_chunks=rr.chunks)
+    return lay
+
+
+def phase_dryrun(run, train_runs, runs, zero_numbers, alloc_30r):
+    """38: the dry run's lines (``start_dryrun``'s subprocess) and its
+    trace and memory model held to what the card measured in 30, 33, 34
+    and 37 (``runs``: their ``RankRun``s, ``train_runs`` their results)
+    and 30r (``alloc_30r``: arch -> the parameters' bytes); see the
+    module docstring.  The numbers, for the JSON line."""
+    import dataclasses as dc
+    from repro_torch.config import OptimConfig, ShapeConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.core.topology import make_layout, single_device_layout
+    from repro_torch.launch import dryrun
+    proc, log, path, t_start = run
+    t = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, DRY_TIMEOUT_S - (time.time()
+                                                        - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure(f"38: the dry run outlived {DRY_TIMEOUT_S} s")
+    finally:
+        log.close()
+    waited = time.perf_counter() - t
+    text = path.read_text()
+    for line in text.splitlines():
+        print("[38] " + line)
+    # from its start to its last line (the log's last write)
+    ran = path.stat().st_mtime - t_start
+    print(f"[38] the dry run ran {ran:.1f} s on the CPU beside phases 2-37 "
+          f"(waited {waited:.1f} s for it here)")
+    check(rc == 0 and " FAIL" not in text, f"38: the dry run exited {rc}")
+    ok = {arch: next((ln for ln in text.splitlines()
+                      if ln.startswith(f"{arch} x train_4k x 1pod")
+                      and " OK flops=" in ln), None) for arch in DRY_TRACED}
+    check(all(ok.values()), f"38: no OK trace for "
+          f"{[a for a, ln in ok.items() if ln is None]}")
+    out = {"dryrun_s": ran, "waited_s": waited, "bytes": {}, "opt": {},
+           "param": {}}
+    # the trace at each launcher run's plan: rank 0's bytes (at pp 2 each
+    # stage's first rank's) against what the card's ranks counted
+    for rr in runs:
+        res = train_runs[rr.name]
+        cfg = dc.replace(get(rr.arch), n_layers=RANK_TRAIN_LAYERS)
+        lay = run_layout(rr)
+        per = lay.n_devices // (lay.n_data * lay.size("pp"))
+        pred = {}
+        for r in range(0, lay.n_devices // lay.n_data, per):
+            got = dryrun.trace_step(cfg, run_layout(rr, r), TRAIN_B, TRAIN_S,
+                                    OptimConfig())["collectives"]
+            by = {k: v for k, v in got["by_kind"].items() if v}
+            counts = {k: v for k, v in got["counts"].items() if v}
+            check(by == res["bytes_by_kind_per_rank_step"][r]
+                  and counts == res["counts_by_kind_per_rank_step"][r],
+                  f"38 {rr.name} rank {r}: the trace's bytes {by} counts "
+                  f"{counts} against the card's "
+                  f"{res['bytes_by_kind_per_rank_step'][r]} "
+                  f"{res['counts_by_kind_per_rank_step'][r]}")
+            pred[r] = by
+        out["bytes"][rr.name] = pred
+        print(f"[38] {rr.name} ({rr.tag}): the trace's bytes a step by kind "
+              + "; ".join(f"rank {r} " + ", ".join(
+                  f"{k} {v:.6g}" for k, v in by.items())
+                  for r, by in pred.items())
+              + " equal the card's ranks' (comm.bytes_moved)")
+    # the opt line at phase 34's plans
+    shape = ShapeConfig("smoke", TRAIN_S, ZERO_B, "train")
+    for stage in (0, 1, 2):
+        n_dp, n_model, cube = RANK_LAYOUTS["dp2"]
+        lay = make_layout(1, n_dp, n_model, "3d", cube, zero_stage=stage,
+                          microbatches=ZERO_MB)
+        mm = dryrun.memory_model(zero_cfg(), lay, shape, OptimConfig())
+        pred = mm["opt_gib"] * 2 ** 30
+        meas = [g * 1e9 for g in zero_numbers[f"zero{stage}"][
+            "moment_gb_by_rank"]]
+        err = max(abs(pred / m - 1) for m in meas)
+        check(err <= DRY_TOL, f"38 zero{stage}: opt {pred:.6g} B against "
+              f"the moments {meas}")
+        out["opt"][f"zero{stage}"] = {"model_bytes": pred,
+                                      "measured_bytes": meas, "err": err}
+    # the param line at 30r's one rank and each rank of 30's runs
+    shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
+    cases = [(f"30r {arch}", dc.replace(get(arch),
+                                        n_layers=RANK_TRAIN_LAYERS),
+              single_device_layout(), [alloc_30r.get(arch)])
+             for arch in ("tinyllama-1.1b", MOON)]
+    cases += [(f"{rr.tag} {rr.name}",
+               dc.replace(get(rr.arch), n_layers=RANK_TRAIN_LAYERS),
+               run_layout(rr),
+               train_runs[rr.name]["param_alloc_by_rank"]) for rr in runs]
+    for label, cfg, lay, meas in cases:
+        if RANK_DEVICE != "cuda":
+            continue
+        pred = dryrun.memory_model(cfg, lay, shape,
+                                   OptimConfig())["param_gib"] * 2 ** 30
+        check(all(m is not None for m in meas), f"38 {label}: {meas}")
+        err = max(abs(pred / m - 1) for m in meas)
+        check(err <= DRY_TOL, f"38 {label}: params {pred:.6g} B against "
+              f"memory_allocated {meas}")
+        out["param"][label] = {"model_bytes": pred, "measured_bytes": meas,
+                               "err": err}
+    print("[38] the memory model against the card (within "
+          f"{DRY_TOL:.0%}): " + "; ".join(
+              f"opt {k} {v['model_bytes'] / 1e9:.4f} GB, err "
+              f"{v['err']:.2e}" for k, v in out["opt"].items()) + "; "
+          + "; ".join(f"params {k} {v['model_bytes'] / 1e9:.4f} GB, err "
+                      f"{v['err']:.2e}" for k, v in out["param"].items()))
+    return out
+
+
 def main():
     import gc
 
@@ -6347,6 +6543,7 @@ def main():
         print(f"    ({fn.__name__} took {time.perf_counter() - t:.1f} s)")
         return out
     timed(phase_build)
+    dry_run = start_dryrun()
     k1_numbers = timed(phase_k1, dev)
     k1_numbers["decode"]["decode_max_m_measured"] = timed(
         phase_k1_threshold, dev)
@@ -6512,32 +6709,36 @@ def main():
     ranks_numbers = {"grads_f32": timed(phase_ranks_grads, dev)}
     # the one-rank run that phases 30 and 33 are held to: phase 8's path
     # cut to their depth
-    cut_launches, _, _, cut_tel = timed(
-        phase_train, card, steps=RANK_STEPS,
-        per_step=step_launches(RANK_TRAIN_LAYERS), tag="30r",
-        layers=RANK_TRAIN_LAYERS)
+    alloc_30r = {}
+    with param_alloc() as alloc:
+        cut_launches, _, _, cut_tel = timed(
+            phase_train, card, steps=RANK_STEPS,
+            per_step=step_launches(RANK_TRAIN_LAYERS), tag="30r",
+            layers=RANK_TRAIN_LAYERS)
+    alloc_30r["tinyllama-1.1b"] = alloc[0] if alloc else None
     cut_losses = cut_tel["series"]["loss"]
     # and the one that phase 30's Moonlight run is held to: [dense, moe]
     gc.collect()
     torch.cuda.empty_cache()
-    moon_cut_launches, _, _, moon_cut_tel = timed(
-        phase_train, card, MOON, steps=RANK_STEPS,
-        per_step=moon_launches(RANK_TRAIN_LAYERS), tag="30r",
-        layers=RANK_TRAIN_LAYERS)
+    with param_alloc() as alloc:
+        moon_cut_launches, _, _, moon_cut_tel = timed(
+            phase_train, card, MOON, steps=RANK_STEPS,
+            per_step=moon_launches(RANK_TRAIN_LAYERS), tag="30r",
+            layers=RANK_TRAIN_LAYERS)
+    alloc_30r[MOON] = alloc[0] if alloc else None
     gc.collect()
     torch.cuda.empty_cache()
     # 30, 37 and 33: the launcher's runs in one torchrun world
-    train_runs = timed(
-        phase_ranks_train, card, cut_losses,
-        rank_runs(RANK_LAYOUTS, overlap=("cube",), steps=RANK_CUT_STEPS)
-        + rank_runs(PP_LAYOUTS, tag="37", steps=RANK_CUT_STEPS)
-        + rank_runs({"1d": BASE_LAYOUTS["1d"]}, tag="33", later_tol=1e-2,
-                    steps=RANK_CUT_STEPS)
-        + rank_runs({"2d": BASE_LAYOUTS["2d"]}, tag="33", later_tol=None,
-                    steps=RANK_CUT_STEPS)
-        + rank_runs({"cube": RANK_LAYOUTS["cube"]}, arch=MOON,
-                    ref=moon_cut_tel["series"]["loss"], prefix="moe_"),
-        layers=RANK_TRAIN_LAYERS)
+    runs = (rank_runs(RANK_LAYOUTS, overlap=("cube",), steps=RANK_CUT_STEPS)
+            + rank_runs(PP_LAYOUTS, tag="37", steps=RANK_CUT_STEPS)
+            + rank_runs({"1d": BASE_LAYOUTS["1d"]}, tag="33",
+                        later_tol=1e-2, steps=RANK_CUT_STEPS)
+            + rank_runs({"2d": BASE_LAYOUTS["2d"]}, tag="33",
+                        later_tol=None, steps=RANK_CUT_STEPS)
+            + rank_runs({"cube": RANK_LAYOUTS["cube"]}, arch=MOON,
+                        ref=moon_cut_tel["series"]["loss"], prefix="moe_"))
+    train_runs = timed(phase_ranks_train, card, cut_losses, runs,
+                       layers=RANK_TRAIN_LAYERS)
     ranks_numbers["train"] = {k: train_runs[k]
                               for k in ("cube", "overlap", "dp2")}
     ranks_numbers["train_pp"] = {"pp2": train_runs["pp2"]}
@@ -6554,6 +6755,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     ada_numbers, ada_paths = timed(phase_adafactor, card, dev, train_tel)
+    dry_numbers = timed(phase_dryrun, dry_run, train_runs, runs,
+                        zero_numbers, alloc_30r)
     # each layout's launches over its 8 ranks (ZeRO's: every rank runs
     # the same; pp's: each stage its own)
     rank_paths = {f"train_ranks_{lname}": v["launches_world"]
@@ -6716,6 +6919,7 @@ def main():
     print("ZeRO across ranks and checkpoints across layouts (8 ranks on one "
           "card, gloo through the host): " + json.dumps(zero_numbers))
     print("Adafactor: " + json.dumps(ada_numbers))
+    print("dry run: " + json.dumps(dry_numbers))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {k: kn[k] for k in keys + extra if k in kn} for kn in kernels]}))

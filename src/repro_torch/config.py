@@ -146,6 +146,15 @@ class ShapeConfig:
     kind: str                       # train | prefill | decode
 
 
+# the assigned input shapes (reference config.py:151-156)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
     name: str = "adamw"

@@ -159,7 +159,11 @@ def init(layout: Layout, backend: str = "gloo") -> Layout:
     calls it with its own layout, after
     ``torch.distributed.init_process_group``.  ``backend`` is the world's:
     with "gloo" CUDA tensors are staged through the host; "nccl" needs a
-    card for each rank.  A one-device layout is returned as it is."""
+    card for each rank; "fake" is the dry run's world of one process
+    (``torch.distributed``'s fake backend, ``launch/dryrun.py``), whose
+    groups are built as gloo's and whose collectives move no data and
+    stage nothing, each counted as any other.  A one-device layout is
+    returned as it is."""
     import dataclasses
 
     import torch.distributed as dist
@@ -172,8 +176,9 @@ def init(layout: Layout, backend: str = "gloo") -> Layout:
         raise ValueError(
             f"comm.init: rank {dist.get_rank()} of {dist.get_world_size()} "
             f"for a layout of rank {layout.rank} of {layout.n_devices}")
-    if backend not in ("gloo", "nccl"):
-        raise ValueError(f"backend {backend!r} not in ('gloo', 'nccl')")
+    if backend not in ("gloo", "nccl", "fake"):
+        raise ValueError(f"backend {backend!r} not in ('gloo', 'nccl', "
+                         "'fake')")
     # all_gather_into_tensor / reduce_scatter_tensor are the calls every
     # supported PyTorch has; newer ones flag them as deprecated
     warnings.filterwarnings("ignore", category=FutureWarning,

@@ -116,9 +116,14 @@ def sharded_bytes(tree, layout: Layout,
     """Per-rank bytes of a tree of Params under their specs: each leaf's
     global bytes over the product of the sizes of the axes its spec names,
     rounded up (reference ``core/params.py:sharded_bytes``); a leaf that
-    pins no dtype counts in ``dtype``."""
+    pins no dtype counts in ``dtype``.  A host int (an ``OptState``'s
+    step, a 0-d int32 Param in the reference and on disk) counts 4 bytes;
+    any other leaf none."""
     total = 0
     for p in tree_leaves(tree):
+        if isinstance(p, int) and not isinstance(p, bool):
+            total += 4
+            continue
         if not isinstance(p, Param):
             continue
         n = -(-math.prod(p.shape) // layout.size(spec_axes(p.spec)))
@@ -146,8 +151,16 @@ def tree_zip(tree, *others):
 
 
 def tree_leaves(tree):
+    """The leaves of a tree as JAX flattens one: dicts, lists, tuples and
+    NamedTuples (an ``OptState``) are nodes, None an empty subtree, and
+    anything else (a Param, a tensor, the optimizer's step) a leaf; in
+    insertion order."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 

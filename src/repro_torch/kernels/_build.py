@@ -94,14 +94,18 @@ def library(name: str) -> ctypes.CDLL:
 def on_cuda(kernel: str, *tensors: Optional[torch.Tensor]) -> bool:
     """Route one call: True when every tensor lies on one CUDA device (the
     kernel runs), False when every tensor lies on the CPU (the plain
-    version runs).  Anything else raises: a kernel never falls back."""
+    version runs) or every one is a meta tensor: the dry run
+    (``launch/dryrun.py``) traces a rank's step on meta tensors, where
+    the plain version computes shapes and dtypes only and no data.
+    Anything else raises (tensors on several devices, any other
+    device): a kernel never falls back."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"{kernel}: tensors on several devices {devs}")
     (dev,) = devs
     if dev.type == "cuda":
         return True
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{kernel}: tensors on {dev}; the kernel takes CUDA "
                      "tensors and its plain version CPU tensors")

@@ -8,9 +8,18 @@ of the port's layout is device r of that mesh.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from ..core.topology import Layout, make_layout
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The prescribed mesh's axes and sizes (reference
+    ``make_production_mesh``): (data 16, model 16) on a pod, (pod 2,
+    data 16, model 16) on two."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return dict(zip(axes, shape))
 
 
 def make_framework_layout(*, multi_pod: bool = False, strategy: str = "3d",
@@ -18,10 +27,11 @@ def make_framework_layout(*, multi_pod: bool = False, strategy: str = "3d",
                           batch_axes=("pod", "dp", "x"), seq_axes=(),
                           n_dp: int = 16, n_model: int = 16,
                           n_pp: int = 1, microbatches: int = 1,
-                          rank: int = 0) -> Layout:
+                          zero_stage: int = 1, rank: int = 0) -> Layout:
     """Rank ``rank``'s layout over the production devices (reference
     ``make_framework_layout``): with n_pp > 1 the pipeline axis is carved
-    out of the data axis (n_dp must divide by it)."""
+    out of the data axis (n_dp must divide by it); ``zero_stage`` is the
+    layout's ZeRO stage (in force above a data degree of 1)."""
     if n_pp > 1:
         if n_dp % n_pp:
             raise ValueError(f"n_dp={n_dp} not divisible by pp={n_pp}")
@@ -29,7 +39,8 @@ def make_framework_layout(*, multi_pod: bool = False, strategy: str = "3d",
     return make_layout(n_pod=2 if multi_pod else 1, n_dp=n_dp,
                        n_model=n_model, strategy=strategy, cube=cube,
                        batch_axes=batch_axes, seq_axes=seq_axes, rank=rank,
-                       n_pp=n_pp, microbatches=microbatches)
+                       n_pp=n_pp, microbatches=microbatches,
+                       zero_stage=zero_stage)
 
 
 def shape_layout_args(shape_name: str, multi_pod: bool):

@@ -373,6 +373,13 @@ def attn_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, positions,
         raise NotImplementedError(
             f"{cfg.arch}: qk-norm with kv heads replicated over the head "
             "axis above one device (ROADMAP.md, Queue 1 item 3)")
+    hx = layout.size(out_axes(layout, dirs)[1])
+    if cfg.n_heads % hx:
+        # a rank would hold part of a head (gemma-2b's 8 heads over the
+        # production 1-D layout's 16)
+        raise NotImplementedError(
+            f"{cfg.arch}: {cfg.n_heads} query heads do not split over a "
+            f"head axis of {hx} devices (ROADMAP.md, Queue 1 item 3)")
 
     q, d2 = plinear(layout, dirs, x, p["wq"], kind="first", decode=decode)
     B, S = q.shape[0], q.shape[1]            # the post-qkv local rows

@@ -37,17 +37,19 @@ def sin_positions(S: int, d: int, dtype=torch.bfloat16, device=None):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def cross_attn_params(cfg: ModelConfig):
+def cross_attn_params(cfg: ModelConfig, layout: Layout = None):
     """The cross attention's q/k/v/o: k and v consume encoder states."""
-    return attn_params(cfg)
+    return attn_params(cfg, layout)
 
 
-def decoder_block_params(cfg: ModelConfig):
+def decoder_block_params(cfg: ModelConfig, layout: Layout = None):
     """A dense block plus ``ln_x`` and ``xattn`` (reference
-    ``encdec.py:38-42``)."""
-    p = dense_block_params(cfg)
-    p["ln_x"] = norm_params(cfg, cfg.d_model)
-    p["xattn"] = cross_attn_params(cfg)
+    ``encdec.py:38-42``), with the specs of ``layout`` (None: one
+    device)."""
+    st = "3d" if layout is None else layout.strategy
+    p = dense_block_params(cfg, layout=layout)
+    p["ln_x"] = norm_params(cfg, cfg.d_model, st)
+    p["xattn"] = cross_attn_params(cfg, layout)
     return p
 
 
@@ -85,12 +87,14 @@ def decoder_block_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
     return x, new_cache
 
 
-def encoder_params(cfg: ModelConfig):
+def encoder_params(cfg: ModelConfig, layout: Layout = None):
     """``blocks``: the encoder's dense blocks stacked (n_layers, ...);
-    ``ln_post`` (reference ``encdec.py:79-85``)."""
-    return {"blocks": stack_tree(dense_block_params(cfg),
+    ``ln_post`` (reference ``encdec.py:79-85``), with the specs of
+    ``layout`` (None: one device)."""
+    st = "3d" if layout is None else layout.strategy
+    return {"blocks": stack_tree(dense_block_params(cfg, layout=layout),
                                  cfg.encoder.n_layers),
-            "ln_post": norm_params(cfg, cfg.d_model)}
+            "ln_post": norm_params(cfg, cfg.d_model, st)}
 
 
 def encoder_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, frames, p,

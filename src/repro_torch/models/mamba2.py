@@ -24,10 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..core.linear3d import plinear, rmsnorm
+from ..core.linear3d import norm_param, plinear, rmsnorm, weight_param
 from ..core.params import Param
 from ..core.plan import MULTI_RANK_TODO
-from ..core.topology import Dirs, Layout
+from ..core.topology import Dirs, Layout, entry_dirs
 from ..kernels.ssd_scan import ssd_scan
 
 F32 = torch.float32
@@ -42,25 +42,41 @@ def mamba_dims(cfg: ModelConfig):
     return d_in, d_in // MAMBA_HEAD_DIM, s.n_groups, s.d_state
 
 
-def mamba_block_params(cfg: ModelConfig):
-    """One Mamba2 block (reference ``mamba2.py:134-153``): ``ln`` and
-    ``gate_ln`` are leaves, not ``{"g": ...}`` dicts, and ``dt_bias``,
-    ``A_log`` and ``D`` are float32 whatever the model's dtype."""
+def feat_ax(strategy: str, dirs: Dirs) -> str:
+    """The axis that splits a projection's output features (reference
+    ``mamba2.py:_feat_ax``): in_ax at 3d, else 'z'."""
+    return dirs.in_ax if strategy == "3d" else "z"
+
+
+def mamba_block_params(cfg: ModelConfig, layout: Layout = None):
+    """One Mamba2 block (reference ``mamba2.py:134-153``) with the specs
+    of ``layout``'s strategy (None: one device): ``ln`` and ``gate_ln``
+    are leaves, not ``{"g": ...}`` dicts, and ``dt_bias``, ``A_log`` and
+    ``D`` are float32 whatever the model's dtype.  The projections are
+    the paper's linears; the conv channels and ``gate_ln`` split like the
+    projections' features (``feat_ax``)."""
     d = cfg.d_model
     d_in, nh, G, N = mamba_dims(cfg)
     K = cfg.ssm.d_conv
+    dirs = entry_dirs()
+    st = "3d" if layout is None else layout.strategy
+    fa = feat_ax(st, dirs)
     return {
-        "ln": Param((d,), init="ones"),
-        "w_x": Param((d, d_in)), "w_z": Param((d, d_in)),
-        "w_bc": Param((d, 2 * G * N)), "w_dt": Param((d, nh)),
-        "dt_bias": Param((nh,), init="zeros", dtype=F32),
-        "A_log": Param((nh,), init="zeros", dtype=F32),
-        "D": Param((nh,), init="ones", dtype=F32),
-        "conv_x": Param((K, d_in)), "conv_x_b": Param((d_in,), init="zeros"),
-        "conv_bc": Param((K, 2 * G * N)),
-        "conv_bc_b": Param((2 * G * N,), init="zeros"),
-        "gate_ln": Param((d_in,), init="ones"),
-        "w_out": Param((d_in, d)),
+        "ln": norm_param(dirs, d, strategy=st),
+        "w_x": weight_param(dirs, d, d_in, strategy=st),
+        "w_z": weight_param(dirs, d, d_in, strategy=st),
+        "w_bc": weight_param(dirs, d, 2 * G * N, shard_f=False, strategy=st),
+        "w_dt": weight_param(dirs, d, nh, shard_f=False, strategy=st),
+        "dt_bias": Param((nh,), init="zeros", dtype=F32, spec=(None,)),
+        "A_log": Param((nh,), init="zeros", dtype=F32, spec=(None,)),
+        "D": Param((nh,), init="ones", dtype=F32, spec=(None,)),
+        "conv_x": Param((K, d_in), spec=(None, fa)),
+        "conv_x_b": Param((d_in,), init="zeros", spec=(fa,)),
+        "conv_bc": Param((K, 2 * G * N), spec=(None, None)),
+        "conv_bc_b": Param((2 * G * N,), init="zeros", spec=(None,)),
+        "gate_ln": Param((d_in,), init="ones", spec=(fa,)),
+        "w_out": weight_param(dirs.swap(), d_in, d, kind="second",
+                              strategy=st),
     }
 
 

@@ -40,9 +40,9 @@ import torch
 
 from ..config import ModelConfig
 from ..core import ops3d
-from ..core.linear3d import plinear, rmsnorm
+from ..core.linear3d import plinear, rmsnorm, weight_param
 from ..core.params import Param
-from ..core.topology import Dirs, Layout
+from ..core.topology import Dirs, Layout, entry_dirs
 from ..kernels.paged_decode import fold_current_token, paged_flash_decode
 from . import blocks as B
 
@@ -54,18 +54,27 @@ def _m(cfg: ModelConfig):
     return m, cfg.n_heads, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
 
 
-def mla_params(cfg: ModelConfig):
-    """One MLA sub-block (reference ``mla.py:40-62``, the 3-D branch)."""
+def mla_params(cfg: ModelConfig, layout: Layout = None):
+    """One MLA sub-block (reference ``mla.py:40-62``) with the specs of
+    ``layout``'s strategy (None: one device): the down projections' rows
+    over out_ax (3d), 'z' (2d) or whole (1d); the up projections' columns
+    over (in_ax, 'x') (3d) or 'z'; ``w_o`` the paper's second linear."""
     m, nh, dn, dr, dv = _m(cfg)
     d = cfg.d_model
+    dirs = entry_dirs()
+    st = "3d" if layout is None else layout.strategy
+    down_ax, up_ax = {"3d": (dirs.out_ax, (dirs.in_ax, "x")),
+                      "2d": ("z", "z"), "1d": (None, "z")}[st]
     return {
-        "w_dq": Param((d, m.q_lora_rank)),
-        "q_ln": Param((m.q_lora_rank,), init="ones"),
-        "w_uq": Param((m.q_lora_rank, nh * (dn + dr))),
-        "w_dkv": Param((d, m.kv_lora_rank + dr)),
-        "kv_ln": Param((m.kv_lora_rank,), init="ones"),
-        "w_ukv": Param((m.kv_lora_rank, nh * (dn + dv))),
-        "w_o": Param((nh * dv, d)),
+        "w_dq": Param((d, m.q_lora_rank), spec=(down_ax, None)),
+        "q_ln": Param((m.q_lora_rank,), init="ones", spec=(None,)),
+        "w_uq": Param((m.q_lora_rank, nh * (dn + dr)), spec=(None, up_ax)),
+        "w_dkv": Param((d, m.kv_lora_rank + dr), spec=(down_ax, None)),
+        "kv_ln": Param((m.kv_lora_rank,), init="ones", spec=(None,)),
+        "w_ukv": Param((m.kv_lora_rank, nh * (dn + dv)),
+                       spec=(None, up_ax)),
+        "w_o": weight_param(dirs.swap(), nh * dv, d, kind="second",
+                            strategy=st),
     }
 
 
@@ -207,13 +216,16 @@ def _mla_decode_paged(cfg: ModelConfig, q_nope, q_rope, ckv_new, kr_new,
                                          "pos": pos}
 
 
-def mla_block_params(cfg: ModelConfig, d_ff: int = 0):
+def mla_block_params(cfg: ModelConfig, d_ff: int = 0,
+                     layout: Layout = None):
     """A dense block with MLA attention (reference ``registry.py:231-237``):
     the MoE family's leading dense layers (``d_ff`` = ``moe.dense_ff``)
-    and the mtp head's block."""
+    and the mtp head's block, with the specs of ``layout``'s strategy
+    (None: one device)."""
     d = cfg.d_model
-    return {"ln1": B.norm_params(cfg, d), "ln2": B.norm_params(cfg, d),
-            "mla": mla_params(cfg), "mlp": B.mlp_params(cfg, d_ff)}
+    st = "3d" if layout is None else layout.strategy
+    return {"ln1": B.norm_params(cfg, d, st), "ln2": B.norm_params(cfg, d, st),
+            "mla": mla_params(cfg, layout), "mlp": B.mlp_params(cfg, d_ff, st)}
 
 
 def mla_block_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,

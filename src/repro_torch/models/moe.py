@@ -314,13 +314,14 @@ def moe_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p,
 def moe_block_params(cfg: ModelConfig, layout: Optional[Layout] = None):
     """One MoE layer (reference ``registry.py:286-294``) with the specs of
     ``layout`` (None: one device): MLA attention where the config has it
-    (deepseek-v3, one device only), else the dense attention."""
+    (deepseek-v3, trained on one device only), else the dense
+    attention."""
     st = "3d" if layout is None else layout.strategy
     p = {"ln1": B.norm_params(cfg, cfg.d_model, st),
          "ln2": B.norm_params(cfg, cfg.d_model, st),
          "moe": moe_params(cfg, layout)}
     if cfg.mla is not None:
-        p["mla"] = mla.mla_params(cfg)
+        p["mla"] = mla.mla_params(cfg, layout)
     else:
         p["attn"] = B.attn_params(cfg, layout)
     return p

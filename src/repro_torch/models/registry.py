@@ -2,9 +2,10 @@
 for every family (dense, MoE, hybrid, SSM, VLM and audio): the layer plan
 and its segments, the decode-cache tree (``stack_cache``), and one table,
 ``STACKS``, of each family's frontend, loss labels and mask, microbatch
-weight, label length, data stubs, serving cache and train-FLOPs estimate
-(the MFU numerator, ``obs/telemetry.py``), as the reference's
-``get_stack`` keeps them; and at pp > 1 the stage tables
+weight, label length, data stubs, serving cache, train-FLOPs estimate
+(the MFU numerator, ``obs/telemetry.py``) and the dry run's activation
+and pipeline-carry bytes (``launch/dryrun.memory_model``), as the
+reference's ``get_stack`` keeps them; and at pp > 1 the stage tables
 (``pipeline_info``), the stage slabs (``pipeline_stack_params``,
 ``repartition_stack``) and a stage's compute (``make_stage_fn``).  The reference
 module imports jax, so the port keeps its own copies;
@@ -34,7 +35,7 @@ from ..core.topology import Dirs, Layout, stage_assignment
 from . import encdec
 from .blocks import kv_cache_init
 from .frontend import audio_frames, vision_patches
-from .mamba2 import mamba_cache_init
+from .mamba2 import MAMBA_HEAD_DIM, mamba_cache_init
 from .mla import mla_cache_init
 from .xlstm import mlstm_cache_init, slstm_cache_init
 
@@ -161,6 +162,68 @@ def ssm_step_flops(cfg: ModelConfig, s: int) -> float:
     return 3.0 * 2.0 * cfg.n_active_params()
 
 
+# ---------------------------------------------------------------------------
+# Per-family activation and carry bytes (the dry run's memory model,
+# reference registry.py:420-471).  b and s are the per-device microbatch
+# batch and sequence; the hidden dim splits over the cube's out_ax ('z' at
+# block entry), a projection's features over 'y'.
+# ---------------------------------------------------------------------------
+def _h_loc(cfg: ModelConfig, layout: Layout) -> float:
+    return cfg.d_model / max(layout.size("z"), 1)
+
+
+def _residual_act_bytes(cfg, layout, b, s) -> int:
+    return int(b * s * _h_loc(cfg, layout) * 2)            # one bf16 residual
+
+
+def _moe_act_bytes(cfg, layout, b, s) -> int:
+    """The residual plus the capacity-padded dispatch and combine buffers,
+    E * cap * h ~ tokens * top_k * capacity_factor * h."""
+    res = _residual_act_bytes(cfg, layout, b, s)
+    disp = int(b * s * cfg.moe.top_k * cfg.moe.capacity_factor
+               * _h_loc(cfg, layout) * 2)
+    return res + disp
+
+
+def _mamba_act_bytes(cfg, layout, b, s) -> int:
+    """The residual, the expanded conv channels (bf16) and the f32 SSD
+    chunk state, the heads split over the projection's features ('y')."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    nh = d_in // MAMBA_HEAD_DIM
+    fsh = max(layout.size("y"), 1)
+    res = _residual_act_bytes(cfg, layout, b, s)
+    conv = int(b * s * (d_in / fsh) * 2)
+    state = int(b * (nh / fsh) * MAMBA_HEAD_DIM * cfg.ssm.d_state * 4)
+    return res + conv + state
+
+
+def _xlstm_act_bytes(cfg, layout, b, s) -> int:
+    """The residual, the q/k/v/z projections (expand 2) and the f32 mLSTM
+    C state."""
+    d_in = 2 * cfg.d_model
+    dh = d_in // cfg.n_heads
+    fsh = max(layout.size("y"), 1)
+    res = _residual_act_bytes(cfg, layout, b, s)
+    proj = int(4 * b * s * (d_in / fsh) * 2)
+    state = int(b * (cfg.n_heads / fsh) * dh * dh * 4)
+    return res + proj + state
+
+
+def _audio_act_bytes(cfg, layout, b, s) -> int:
+    """The self and cross attention residual streams."""
+    return 2 * _residual_act_bytes(cfg, layout, b, s)
+
+
+def _audio_carry_bytes(cfg, layout, b) -> int:
+    """The encoder's states, which ride the pipeline with each
+    microbatch."""
+    return int(b * cfg.encoder.n_frames * _h_loc(cfg, layout) * 2)
+
+
+def _no_carry(cfg, layout, b) -> int:
+    return 0
+
+
 def embed(layout: Layout, cfg: ModelConfig, dirs: Dirs, params, tokens,
           decode: bool = False):
     """The token embedding, scaled by sqrt(d) where the config says
@@ -228,7 +291,7 @@ def _vlm_mb_weight(cfg, batch):
     return torch.tensor(float(labels.numel()), device=labels.device)
 
 
-def _no_params(cfg):
+def _no_params(cfg, layout=None):
     return {}
 
 
@@ -241,13 +304,17 @@ class Stack:
     """One family's hooks (reference ``BlockStack``, ``registry.py:95-131``),
     those the port's one-device paths read: ``layer_plan(cfg)``, the block
     kind of each layer; ``frontend(layout, cfg, dirs, params, batch, *,
-    mode) -> (x, ctx)``; ``frontend_params(cfg)``, its parameter subtrees;
+    mode) -> (x, ctx)``; ``frontend_params(cfg, layout)``, its parameter
+    subtrees on the specs of ``layout`` (None: one device);
     ``labels(cfg, batch) -> (labels, mask)`` of the loss (the caller clamps
     the labels at 0); ``mb_weight(cfg, batch)``, a microbatch's weight,
     the sum of its loss mask; ``label_len(cfg, s)``, the text length of an
     ``s``-position shape; ``stubs(cfg, b, rng)``, the modality stubs of a
     batch, drawn after its tokens (``repro/data/pipeline.py:60-75``);
-    ``step_flops(cfg, s)``, train FLOPs per token; ``serve_cache``,
+    ``step_flops(cfg, s)``, train FLOPs per token; ``act_bytes(cfg,
+    layout, b, s)``, a block's activation and state bytes a device at a
+    per-device microbatch of b x s, and ``carry_bytes(cfg, layout, b)``,
+    the pipeline carry's (the dry run's memory model); ``serve_cache``,
     "paged" (the block-table kv pool) or "state"."""
     layer_plan: Callable
     frontend: Callable = _text_frontend
@@ -257,15 +324,19 @@ class Stack:
     label_len: Callable = lambda cfg, s: s
     stubs: Callable = _no_stubs
     step_flops: Callable = attn_step_flops
+    act_bytes: Callable = _residual_act_bytes
+    carry_bytes: Callable = _no_carry
     serve_cache: str = "state"
 
 
 STACKS = {
     Family.DENSE: Stack(lambda cfg: ("dense",) * cfg.n_layers,
                         serve_cache="paged"),
-    Family.MOE: Stack(_plan_moe, serve_cache="paged"),
-    Family.HYBRID: Stack(_plan_hybrid),
-    Family.SSM: Stack(_plan_xlstm, step_flops=ssm_step_flops),
+    Family.MOE: Stack(_plan_moe, act_bytes=_moe_act_bytes,
+                      serve_cache="paged"),
+    Family.HYBRID: Stack(_plan_hybrid, act_bytes=_mamba_act_bytes),
+    Family.SSM: Stack(_plan_xlstm, step_flops=ssm_step_flops,
+                      act_bytes=_xlstm_act_bytes),
     # the dense stack behind the vision frontend (reference
     # registry.py:544-548)
     Family.VLM: Stack(
@@ -278,9 +349,11 @@ STACKS = {
     # registry.py:415-416, 549-555)
     Family.AUDIO: Stack(
         lambda cfg: ("xdec",) * cfg.n_layers, frontend=_audio_frontend,
-        frontend_params=lambda cfg: {"encoder": encdec.encoder_params(cfg)},
+        frontend_params=lambda cfg, layout=None: {
+            "encoder": encdec.encoder_params(cfg, layout)},
         stubs=lambda cfg, b, rng: {
-            "frames": audio_frames(cfg, b, rng)}),
+            "frames": audio_frames(cfg, b, rng)},
+        act_bytes=_audio_act_bytes, carry_bytes=_audio_carry_bytes),
 }
 
 

@@ -82,7 +82,7 @@ def _attn_block_params(cfg: ModelConfig, d_ff: int = 0, layout=None):
     """A dense block, its attention MLA where the config has it
     (reference ``registry.py:231-237``)."""
     if cfg.mla is not None:
-        return mla.mla_block_params(cfg, d_ff)
+        return mla.mla_block_params(cfg, d_ff, layout)
     return B.dense_block_params(cfg, d_ff, layout)
 
 
@@ -110,19 +110,20 @@ RECURRENT_DECODE = {
 
 def abstract_params(cfg: ModelConfig, layout: Layout = None):
     """Param tree of a model of any family (see the module docstring;
-    reference ``transformer.py:47-73``); ``layout`` sets the specs that
-    depend on it (the kv projections', ``blocks.attn_params``; the
-    experts', ``moe.moe_params``), None for one device."""
+    reference ``transformer.py:47-73``), every leaf on the reference's
+    spec for ``layout`` (its strategy; the kv projections',
+    ``blocks.attn_params``; the experts', ``moe.moe_params``), None for
+    one device."""
     plan = layer_plan(cfg)
     d = cfg.d_model
     dirs = entry_dirs()
     st = "3d" if layout is None else layout.strategy
     pp = 1 if layout is None else layout.size("pp")
     tree = {"embed": embed_param(dirs, cfg.vocab, d, strategy=st)}
-    tree.update(get_stack(cfg.family).frontend_params(cfg))
+    tree.update(get_stack(cfg.family).frontend_params(cfg, layout))
     if "attn" in plan:
-        tree["shared"] = {"attn": B.dense_block_params(cfg)}
-    layers = {kind: fn(cfg, layout) if kind in ("dense", "moe") else fn(cfg)
+        tree["shared"] = {"attn": B.dense_block_params(cfg, layout=layout)}
+    layers = {kind: fn(cfg, layout)
               for kind, fn in STACKED_KINDS.items() if kind in plan}
     if pp > 1:
         reason = pipeline_unsupported_reason(cfg, pp)
@@ -137,10 +138,11 @@ def abstract_params(cfg: ModelConfig, layout: Layout = None):
     if cfg.mtp:
         # reference transformer.py:71-79: the proj is a noswap linear
         tree["mtp"] = {
-            "ln_h": B.norm_params(cfg, d), "ln_e": B.norm_params(cfg, d),
+            "ln_h": B.norm_params(cfg, d, st),
+            "ln_e": B.norm_params(cfg, d, st),
             "proj": Param((2 * d, d), spec=(dirs.out_ax, None), synced=True),
             "block": _attn_block_params(
-                cfg, cfg.moe.dense_ff if cfg.moe else cfg.d_ff)}
+                cfg, cfg.moe.dense_ff if cfg.moe else cfg.d_ff, layout)}
     return tree
 
 

@@ -31,10 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..core.linear3d import plinear, rmsnorm
+from ..core.linear3d import norm_param, plinear, rmsnorm, weight_param
 from ..core.params import Param
 from ..core.plan import MULTI_RANK_TODO
-from ..core.topology import Dirs, Layout
+from ..core.topology import Dirs, Layout, entry_dirs
+from .mamba2 import feat_ax
 
 F32 = torch.float32
 
@@ -203,18 +204,26 @@ def mlstm_dims(cfg: ModelConfig):
     return d_in, cfg.n_heads, d_in // cfg.n_heads
 
 
-def mlstm_params(cfg: ModelConfig):
-    """One mLSTM block (reference ``xlstm.py:203-215``): ``ln`` and
-    ``out_ln`` are leaves; ``w_if`` gives the input and forget gates' (2
-    nh) pre-activations."""
+def mlstm_params(cfg: ModelConfig, layout: Layout = None):
+    """One mLSTM block (reference ``xlstm.py:203-215``) with the specs of
+    ``layout``'s strategy (None: one device): ``ln`` and ``out_ln`` are
+    leaves; ``w_if`` gives the input and forget gates' (2 nh)
+    pre-activations; ``out_ln`` splits like the projections' features."""
     d = cfg.d_model
     d_in, nh, _ = mlstm_dims(cfg)
-    return {"ln": Param((d,), init="ones"),
-            "w_q": Param((d, d_in)), "w_k": Param((d, d_in)),
-            "w_v": Param((d, d_in)), "w_z": Param((d, d_in)),
-            "w_if": Param((d, 2 * nh)),
-            "out_ln": Param((d_in,), init="ones"),
-            "w_out": Param((d_in, d))}
+    dirs = entry_dirs()
+    st = "3d" if layout is None else layout.strategy
+
+    def first(f, shard_f=True):
+        return weight_param(dirs, d, f, shard_f=shard_f, strategy=st)
+    return {"ln": norm_param(dirs, d, strategy=st),
+            "w_q": first(d_in), "w_k": first(d_in),
+            "w_v": first(d_in), "w_z": first(d_in),
+            "w_if": first(2 * nh, shard_f=False),
+            "out_ln": Param((d_in,), init="ones",
+                            spec=(feat_ax(st, dirs),)),
+            "w_out": weight_param(dirs.swap(), d_in, d, kind="second",
+                                  strategy=st)}
 
 
 def mlstm_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, *,
@@ -252,16 +261,22 @@ def mlstm_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, *,
     return x + out, new_cache
 
 
-def slstm_params(cfg: ModelConfig):
-    """One sLSTM block (reference ``xlstm.py:286-297``): ``w_gates`` gives
-    the [z, i, f, o] pre-activations, R the recurrent block-diagonal
-    weights, fan-in over its last axis at scale 0.3."""
+def slstm_params(cfg: ModelConfig, layout: Layout = None):
+    """One sLSTM block (reference ``xlstm.py:286-297``) with the specs of
+    ``layout``'s strategy (None: one device): ``w_gates`` gives the [z,
+    i, f, o] pre-activations, R the recurrent block-diagonal weights,
+    fan-in over its last axis at scale 0.3, replicated."""
     d, nh = cfg.d_model, cfg.n_heads
     dh = d // nh
-    return {"ln": Param((d,), init="ones"),
-            "w_gates": Param((d, 4 * d)),
-            "R": Param((4, nh, dh, dh), fan_axis=-1, scale=0.3),
-            "w_out": Param((d, d))}
+    dirs = entry_dirs()
+    st = "3d" if layout is None else layout.strategy
+    return {"ln": norm_param(dirs, d, strategy=st),
+            "w_gates": weight_param(dirs, d, 4 * d, shard_f=False,
+                                    strategy=st),
+            "R": Param((4, nh, dh, dh), fan_axis=-1, scale=0.3,
+                       spec=(None, None, None, None)),
+            "w_out": weight_param(dirs.swap(), d, d, kind="second",
+                                  strategy=st)}
 
 
 def slstm_apply(layout: Layout, cfg: ModelConfig, dirs: Dirs, x, p, *,

@@ -4,7 +4,8 @@ trains reduced on the CPU, the dense family also on 2 gloo ranks of the
 cube and in 2 pipeline stages.  The pipeline run (``--pp 2
 --host-devices 2``, 2 microbatches) imports ``repro_torch.core.pipeline``
 and its losses are held within 1e-4 of the same run on one device at pp
-1 with the same 2 microbatches.
+1 with the same 2 microbatches.  The dry run (``repro_torch.launch.
+dryrun``) lowers one plan the same way.
 """
 import json
 
@@ -55,3 +56,16 @@ def test_pipeline_launcher_matches_one_device_and_imports_no_jax():
     assert len(pp2) == len(one) == 2, (pp2, one)
     assert max(abs(a - b) for a, b in zip(pp2, one)) <= 1e-4, (pp2, one)
     assert "'pp': 2" in out and "'bubble_fraction': 0.5" in out
+
+
+def test_dryrun_imports_no_jax():
+    """The dry run's module and one ``--lower-only`` plan (deepseek-v3 at
+    the production layout: its memory model) in a fresh interpreter: no
+    jax, no reference."""
+    out = run_isolated([
+        "from repro_torch.launch.dryrun import main as dryrun",
+        "rc = dryrun(['--arch', 'deepseek-v3-671b', '--shape', 'train_4k',"
+        " '--lower-only'])",
+        "assert rc == 0, rc"])
+    assert "deepseek-v3-671b x train_4k x 1pod [3d]" in out
+    assert " LOWERED" in out and "mem/device opt" in out

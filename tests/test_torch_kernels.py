@@ -49,19 +49,25 @@ def test_k1_plain_matches_pallas(x_shape, n, act, bias):
 
 
 def test_kernels_refuse_other_devices():
-    """A wrapper runs its plain version only for CPU tensors; any other
-    device, or a mix of devices, raises instead of falling back."""
+    """A wrapper runs its plain version only for CPU tensors, or for meta
+    tensors (the dry run's shapes, ``_build.on_cuda``); a mix of devices,
+    or any other device, raises instead of falling back."""
+    import types
+
+    from repro_torch.kernels import _build
     x, w = torch.zeros(4, 8), torch.zeros(8, 4)
-    with pytest.raises(ValueError):
-        k1.matmul(x.to("meta"), w.to("meta"))
     with pytest.raises(ValueError):
         k1.matmul(x, w.to("meta"))
     q = torch.zeros(1, 2, 4, device="meta")
     pool = torch.zeros(4, 1, 4, device="meta")
     pos = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        k4.paged_flash_decode(q, pool, pool, pos, pos[None, :1], pos[:1],
-                              block=2)
+        k4.paged_flash_decode(torch.zeros(q.shape), pool, pool, pos,
+                              pos[None, :1], pos[:1], block=2)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="xpu"):
+        _build.on_cuda("K1 matmul", other, other)
+    assert not _build.on_cuda("K1 matmul", x.to("meta"), w.to("meta"))
 
 
 # (M, K, N) of every GEMM on the port's main paths: tinyllama-1.1b's decode
